@@ -1,0 +1,405 @@
+"""UNet epsilon predictor (torch), counterpart of nicediffusion_tpu/models/unet.py.
+
+Architecture as in the original reference's model.py:294-476 and the JAX
+port of it: BigGAN-style ResidualBlocks (GN+SiLU -> optional in-block
+up/down resample -> 3x3 conv -> AdaGN+SiLU or additive embedding + GN+SiLU
+-> zero-init 3x3 conv, plus a skip), pre-norm AttentionBlocks over the
+flattened tokens, a [cos|sin] timestep embedding through a 2-layer MLP plus
+a class embedding, and a decoder that concatenates one encoder skip per
+block.
+
+Layout. Activations are NHWC tensors everywhere, at the boundary (like the
+JAX package, so the tests compare like with like) and inside: GroupNorm (K3)
+and attention (K1) read NHWC directly. A convolution views its NHWC input
+as an NCHW tensor in channels_last memory (a permute, no copy), so cuDNN
+runs its NHWC kernels and the result permutes back for free.
+
+Parameters keep the original torch reference's module tree and names
+(``downsampling.{i}.{j}.in_norm.weight``, ``qkv_nin`` as a Conv1d
+``(O, I, 1)`` weight, ...), so the state dicts of utils/convert.py load with
+``strict=True``. Precision follows the JAX package: parameters are stored
+in f32 and cast to the compute ``dtype`` at each call (flax ``dtype=``);
+the class embedding is never cast; GroupNorm statistics and the softmax are
+f32; ``decode`` returns f32.
+
+``kernels=True`` routes every GroupNorm through K3 and every attention
+through K1; ``kernels=False`` takes the plain torch versions, for comparing
+the two on the card. On CPU tensors the kernels' wrappers take their plain
+versions either way.
+
+The port samples only: dropout is a training op and never applies here,
+and training, remat and int8 are ROADMAP queue A work ("Training",
+"Samplers and serving levers"); Winograd is an ablation the port leaves out.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import qkv_attention
+from ..ops.groupnorm import ada_group_norm_silu, group_norm, group_norm_silu
+from ..ops.math import timestep_embedding
+from ..ops.resize import avg_pool_2x, upsample_nearest_2x
+
+__all__ = ["DiffusionModel"]
+
+
+class Conv2d(nn.Module):
+    """k x k conv with symmetric k//2 padding on NHWC tensors; OIHW weight."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 zero_init: bool = False, dtype=None, device=None):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.dtype = stride, k // 2, dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        if zero_init:
+            nn.init.zeros_(self.weight)
+        else:
+            nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_ch * k * k))
+
+    def forward(self, x):
+        dt = self.dtype or x.dtype
+        y = F.conv2d(
+            x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), self.bias.to(dt),
+            stride=self.stride, padding=self.padding,
+        )
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class Linear(nn.Module):
+    """Dense layer; ``conv1d_weight`` stores the weight as a Conv1d
+    ``(O, I, 1)``, the reference's layout for ``qkv_nin`` and ``proj_out``."""
+
+    def __init__(self, in_features: int, out_features: int, zero_init: bool = False,
+                 conv1d_weight: bool = False, dtype=None, device=None):
+        super().__init__()
+        shape = (out_features, in_features) + ((1,) if conv1d_weight else ())
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        if zero_init:
+            nn.init.zeros_(self.weight)
+        else:
+            nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_features))
+
+    def forward(self, x):
+        dt = self.dtype or x.dtype
+        w = self.weight if self.weight.ndim == 2 else self.weight[:, :, 0]
+        return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
+
+
+class GroupNormOp(nn.Module):
+    """GroupNorm parameters, applied through the fused ops.
+
+    mode: 'plain' -> GN only; 'silu' -> GN+SiLU; 'ada' -> AdaGN+SiLU taking
+    (x, emb_scale, emb_shift).
+    """
+
+    def __init__(self, features: int, mode: str = "plain", num_groups: int = 32,
+                 eps: float = 1e-5, kernels: bool = True, device=None):
+        super().__init__()
+        if mode not in ("plain", "silu", "ada"):
+            raise ValueError(mode)
+        self.mode, self.num_groups, self.eps, self.kernels = mode, num_groups, eps, kernels
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x, emb_scale=None, emb_shift=None):
+        args = (self.num_groups, self.eps, self.kernels)
+        if self.mode == "ada":
+            return ada_group_norm_silu(
+                x, self.weight, self.bias, emb_scale, emb_shift, *args
+            )
+        if self.mode == "silu":
+            return group_norm_silu(x, self.weight, self.bias, *args)
+        return group_norm(x, self.weight, self.bias, *args)
+
+
+class Upsample(nn.Module):
+    """2x nearest upsample, optional 3x3 conv (reference model.py:51-80)."""
+
+    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, dtype=dtype, device=device) if with_conv else None
+
+    def forward(self, x):
+        x = upsample_nearest_2x(x)
+        return x if self.conv is None else self.conv(x)
+
+
+class Downsample(nn.Module):
+    """2x downsample via stride-2 conv or avg-pool (reference model.py:83-112)."""
+
+    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None):
+        super().__init__()
+        self.conv = (
+            Conv2d(channels, channels, 3, stride=2, dtype=dtype, device=device)
+            if with_conv else None
+        )
+
+    def forward(self, x):
+        return avg_pool_2x(x) if self.conv is None else self.conv(x)
+
+
+class ResidualBlock(nn.Module):
+    """BigGAN-style residual block with timestep conditioning
+    (reference model.py:117-211). The skip is the identity when the channel
+    count is kept, else a 1x1 conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, upsample: bool = False,
+                 downsample: bool = False, use_adaptive_gn: bool = False,
+                 dtype=None, kernels: bool = True, device=None):
+        super().__init__()
+        self.upsample, self.downsample = upsample, downsample
+        self.use_adaptive_gn = use_adaptive_gn
+        self.in_norm = GroupNormOp(in_ch, "silu", kernels=kernels, device=device)
+        self.in_conv = Conv2d(in_ch, out_ch, 3, dtype=dtype, device=device)
+        self.step_embedding = Linear(
+            emb_dim, 2 * out_ch if use_adaptive_gn else out_ch, dtype=dtype, device=device
+        )
+        self.out_norm = GroupNormOp(
+            out_ch, "ada" if use_adaptive_gn else "silu", kernels=kernels, device=device
+        )
+        self.out_conv = Conv2d(out_ch, out_ch, 3, zero_init=True, dtype=dtype, device=device)
+        self.skip = (
+            None if out_ch == in_ch
+            else Conv2d(in_ch, out_ch, 1, dtype=dtype, device=device)
+        )
+
+    def forward(self, x, emb):
+        h = self.in_norm(x)
+        if self.upsample:
+            h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
+        elif self.downsample:
+            h, x = avg_pool_2x(h), avg_pool_2x(x)
+        h = self.in_conv(h)
+
+        emb = self.step_embedding(F.silu(emb))
+        if self.use_adaptive_gn:
+            emb_scale, emb_shift = emb.chunk(2, dim=-1)
+            h = self.out_norm(h, emb_scale, emb_shift)
+        else:
+            h = self.out_norm(h + emb[:, None, None, :].to(h.dtype))
+
+        h = self.out_conv(h)
+        return h + (x if self.skip is None else self.skip(x))
+
+
+class AttentionBlock(nn.Module):
+    """Pre-norm multi-head self-attention over flattened HW tokens
+    (reference model.py:214-291); num_head_channels supersedes num_heads
+    when given; zero-init output projection with a residual add."""
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 num_head_channels: int | None = None, split_qkv_first: bool = True,
+                 dtype=None, kernels: bool = True, device=None):
+        super().__init__()
+        if num_head_channels is None:
+            self.heads = num_heads
+        else:
+            if channels % num_head_channels:
+                raise ValueError(
+                    f"channels {channels} not divisible by num_head_channels "
+                    f"{num_head_channels}"
+                )
+            self.heads = channels // num_head_channels
+        self.split_qkv_first, self.kernels = split_qkv_first, kernels
+        self.norm = GroupNormOp(channels, "plain", kernels=kernels, device=device)
+        self.qkv_nin = Linear(channels, 3 * channels, conv1d_weight=True,
+                              dtype=dtype, device=device)
+        self.proj_out = Linear(channels, channels, zero_init=True, conv1d_weight=True,
+                               dtype=dtype, device=device)
+
+    def forward(self, x):
+        b, hh, ww, c = x.shape
+        qkv = self.qkv_nin(self.norm(x).reshape(b, hh * ww, c))
+        h = qkv_attention(qkv, self.heads, self.split_qkv_first, kernels=self.kernels)
+        return x + self.proj_out(h).reshape(b, hh, ww, c)
+
+
+class StepSequential(nn.ModuleList):
+    """Sequential that passes the step embedding to the residual blocks
+    (reference UsesStepsSequential, model.py:40-48)."""
+
+    def forward(self, x, emb):
+        for layer in self:
+            x = layer(x, emb) if isinstance(layer, ResidualBlock) else layer(x)
+        return x
+
+
+class EmbedMLP(nn.Sequential):
+    """Linear -> SiLU -> Linear timestep-embedding MLP (model.py:348-352)."""
+
+    def __init__(self, in_features: int, features: int, dtype=None, device=None):
+        super().__init__(
+            Linear(in_features, features, dtype=dtype, device=device),
+            nn.SiLU(),
+            Linear(features, features, dtype=dtype, device=device),
+        )
+
+
+class OutHead(nn.Sequential):
+    """GN -> SiLU -> zero-init 3x3 conv output head (model.py:445-449). The
+    SiLU, index 1 in the reference, is fused into the GroupNorm."""
+
+    def __init__(self, features: int, out_channels: int, dtype=None,
+                 kernels: bool = True, device=None):
+        super().__init__(
+            GroupNormOp(features, "silu", kernels=kernels, device=device),
+            nn.Identity(),
+            Conv2d(features, out_channels, 3, zero_init=True, dtype=dtype, device=device),
+        )
+
+
+def _not_ported(what: str, where: str):
+    return NotImplementedError(f'{what} is not ported yet (ROADMAP queue A, "{where}")')
+
+
+class DiffusionModel(nn.Module):
+    """UNet epsilon predictor (reference model.py:294-476), NHWC.
+
+    forward: (x[B,H,W,Cin], timestep[B], y[B] or None) -> f32 [B,H,W,Cout].
+    ``timestep`` is the original-chain timestep (the diffusion engine maps
+    rescaled indices through its timestep_map before calling the model).
+    ``dtype`` is the compute dtype (None: the input's); parameters stay f32.
+    """
+
+    def __init__(
+        self,
+        resolution: int,
+        in_channels: int,
+        model_channels: int,
+        out_channels: int,
+        num_res_blocks: int,
+        attention_resolutions: Sequence[int],
+        dropout: float = 0.0,
+        channel_mult: Sequence[int] = (1, 2, 4, 8),
+        conv_resample: bool = True,
+        num_classes: int | None = None,
+        num_heads: int = 1,
+        num_head_channels: int | None = None,
+        resblock_updown: bool = False,
+        use_adaptive_gn: bool = False,
+        split_qkv_first: bool = True,
+        use_remat: bool = False,
+        dtype: torch.dtype | None = None,
+        quantized: bool = False,
+        quantized_attention: bool = False,
+        winograd: bool = False,
+        kernels: bool = True,
+        device: torch.device | str | None = None,
+    ):
+        super().__init__()
+        if use_remat:
+            raise _not_ported("remat (training)", "Training")
+        if quantized or quantized_attention:
+            raise _not_ported("int8 serving", "Samplers and serving levers")
+        if winograd:
+            raise NotImplementedError("Winograd is an ablation the port leaves out (ROADMAP)")
+        del dropout  # training only; see the module docstring
+        self.resolution, self.in_channels = resolution, in_channels
+        self.model_channels, self.num_classes = model_channels, num_classes
+        self.dtype, self.kernels = dtype, kernels
+        emb_dim = 4 * model_channels
+        kw = dict(dtype=dtype, device=device)
+
+        def res(cin, cout, up=False, down=False):
+            return ResidualBlock(cin, cout, emb_dim, upsample=up, downsample=down,
+                                 use_adaptive_gn=use_adaptive_gn, kernels=kernels, **kw)
+
+        def attn(ch):
+            return AttentionBlock(ch, num_heads, num_head_channels, split_qkv_first,
+                                  kernels=kernels, **kw)
+
+        self.step_embed = EmbedMLP(model_channels, emb_dim, **kw)
+        if self.conditional:
+            self.class_embedding = nn.Embedding(num_classes, emb_dim, device=device)
+
+        # ---- encoder (reference model.py:363-402) ----
+        ch = input_ch = int(model_channels * channel_mult[0])
+        curr_res = resolution
+        down = [StepSequential([Conv2d(in_channels, ch, 3, **kw)])]
+        skip_chs = [ch]
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, int(model_channels * mult))]
+                ch = int(model_channels * mult)
+                if curr_res in attention_resolutions:
+                    layers.append(attn(ch))
+                skip_chs.append(ch)
+                down.append(StepSequential(layers))
+            if level != len(channel_mult) - 1:
+                if resblock_updown:
+                    down.append(StepSequential([res(ch, ch, down=True)]))
+                else:
+                    down.append(StepSequential([Downsample(ch, conv_resample, **kw)]))
+                skip_chs.append(ch)
+                curr_res //= 2
+        self.downsampling = nn.ModuleList(down)
+
+        # ---- middle (reference model.py:404-412) ----
+        self.middle_block = StepSequential([res(ch, ch), attn(ch), res(ch, ch)])
+
+        # ---- decoder (reference model.py:414-443) ----
+        up = []
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
+                layers = [res(ch + skip_chs.pop(), int(model_channels * mult))]
+                ch = int(model_channels * mult)
+                if curr_res in attention_resolutions:
+                    layers.append(attn(ch))
+                if level != 0 and i == num_res_blocks:
+                    if resblock_updown:
+                        layers.append(res(ch, ch, up=True))
+                    else:
+                        layers.append(Upsample(ch, conv_resample, **kw))
+                    curr_res *= 2
+                up.append(StepSequential(layers))
+        self.upsampling = nn.ModuleList(up)
+
+        self.out = OutHead(input_ch, out_channels, kernels=kernels, **kw)
+
+    @property
+    def conditional(self) -> bool:
+        return self.num_classes is not None
+
+    # The forward pass keeps the JAX package's embed / encode / decode split,
+    # which the encoder cache (ROADMAP queue A, "Samplers and serving levers") builds on.
+
+    def embed(self, timestep, y=None):
+        """Timestep (+ class) embedding [B, 4*model_channels]."""
+        if (y is not None) != self.conditional:
+            raise ValueError("pass y iff the model is class-conditional")
+        emb = self.step_embed(timestep_embedding(timestep, self.model_channels))
+        if self.conditional:
+            emb = emb + self.class_embedding(y)
+        return emb
+
+    def encode(self, x, emb):
+        """Encoder stack -> (bottom feature, all skip activations)."""
+        x = x.to(self.dtype or x.dtype)
+        xs = []
+        for module in self.downsampling:
+            x = module(x, emb)
+            xs.append(x)
+        return x, xs
+
+    def decode(self, h, xs, emb):
+        """Middle + decoder + head, consuming the encoder skips; f32 out."""
+        xs = list(xs)
+        h = self.middle_block(h, emb)
+        for module in self.upsampling:
+            h = module(torch.cat([h, xs.pop()], dim=-1), emb)
+        return self.out(h).float()
+
+    def forward(self, x, timestep, y=None):
+        emb = self.embed(timestep, y)
+        h, xs = self.encode(x, emb)
+        return self.decode(h, xs, emb)

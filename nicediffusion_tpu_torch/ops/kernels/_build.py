@@ -1,0 +1,97 @@
+"""Builds the package's CUDA C++ kernels at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, loaded with ctypes. The library
+lands in ``nicediffusion_tpu_torch/_build/`` (listed in .gitignore) under a
+name keyed by a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Only the package's own
+sources and the installed toolkit's headers are used. A failed build raises
+with nvcc's stderr; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["BuildError", "build", "load_library", "build_logs"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# name -> (ctypes library, nvcc stderr of the build or "" if it was cached,
+# seconds the build took); filled once per process by load_library
+_LIBS: dict[str, tuple[ctypes.CDLL, str, float]] = {}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise BuildError("nvcc not found on PATH, in $CUDA_HOME or /usr/local/cuda")
+    return str(path)
+
+
+def build(name: str) -> tuple[Path, str, float]:
+    """Compile ``csrc/<name>.cu`` unless a build of the same source and flags
+    exists. Returns (library path, nvcc stderr, seconds spent building)."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, "", 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build to a temporary name and rename, so a concurrent loader never
+    # sees a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise BuildError(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, proc.stderr, time.perf_counter() - t0
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
+    if name not in _LIBS:
+        path, log, seconds = build(name)
+        _LIBS[name] = (ctypes.CDLL(str(path)), log, seconds)
+    return _LIBS[name][0]
+
+
+def build_logs() -> dict[str, tuple[str, float]]:
+    """nvcc stderr (register and shared-memory use from ``-Xptxas -v``) and
+    build seconds of every library this process loaded."""
+    return {name: (log, seconds) for name, (_, log, seconds) in _LIBS.items()}

@@ -1,0 +1,169 @@
+"""Parameter-name and layout conversion between the three weight families.
+
+Numpy-only copy of the conversion half of nicediffusion_tpu/utils/convert.py.
+The port's module tree keeps the original torch reference's parameter names
+(``downsampling.{i}.{j}.in_norm.weight``, ``qkv_nin`` as a Conv1d
+``(O, I, 1)`` weight, ...), so:
+
+  * a raw OpenAI guided-diffusion state dict loads after
+    :func:`rename_guided_diffusion_keys` (reference utils.py:265-292);
+  * the JAX package's flax parameter tree loads after
+    :func:`flax_params_to_torch_state_dict` (HWIO -> OIHW, Dense (I, O) ->
+    Linear (O, I) or Conv1d (O, I, 1), GN ``scale`` -> ``weight``);
+  * :func:`convert_torch_state_dict` goes the other way, torch names ->
+    flax tree, so the port's weights can drive the JAX model.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+
+__all__ = [
+    "rename_guided_diffusion_keys",
+    "convert_torch_state_dict",
+    "flax_params_to_torch_state_dict",
+]
+
+# rename bare `qkv` -> `qkv_nin` but leave `qkv_nin` (idempotence) and the
+# attention pool's `qkv_proj` (classifier checkpoints) untouched
+_QKV_RE = re.compile(r"qkv(?!_nin|_proj)")
+
+# Containers whose integer-indexed torch children become flax ``layers_{j}``
+# children of the *same-named* flax module (nn.Sequential analogues).
+_SEQ_CONTAINERS = {"step_embed", "out", "middle_block"}
+# Containers whose integer-indexed torch children become separate flax
+# modules named ``{container}_{i}`` (nn.ModuleList analogues), each of which
+# is a StepSequential with ``layers_{j}`` children.
+_LIST_CONTAINERS = {"downsampling", "upsampling"}
+
+
+def rename_guided_diffusion_keys(name: str) -> str:
+    """Rename a raw OpenAI guided-diffusion parameter name to the reference's
+    naming (reference utils.py:265-292). A no-op for already-converted names.
+    """
+    for old, new in (
+        ("input_blocks", "downsampling"),
+        ("output_blocks", "upsampling"),
+        ("in_layers.0", "in_norm"),
+        ("in_layers.2", "in_conv"),
+        ("emb_layers.1", "step_embedding"),
+        ("out_layers.0", "out_norm"),
+        ("out_layers.3", "out_conv"),
+        ("skip_connection", "skip"),
+        ("time_embed", "step_embed"),
+        ("label_emb", "class_embedding"),
+    ):
+        name = name.replace(old, new)
+    # qkv -> qkv_nin, made idempotent (already-converted reference
+    # checkpoints use qkv_nin; a naive replace would yield qkv_nin_nin).
+    return _QKV_RE.sub("qkv_nin", name)
+
+
+def _flax_path(torch_name: str) -> tuple[list[str], str]:
+    """Translate a torch parameter path to (flax module path, leaf name).
+
+    e.g. 'downsampling.3.0.in_norm.weight'
+         -> (['downsampling_3', 'layers_0', 'in_norm'], 'weight')
+    """
+    parts = torch_name.split(".")
+    leaf = parts[-1]
+    parts = parts[:-1]
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        if p in _LIST_CONTAINERS:
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+            if i < len(parts) and parts[i].isdigit():
+                out.append(f"layers_{parts[i]}")
+                i += 1
+        elif p in _SEQ_CONTAINERS:
+            out.append(p)
+            i += 1
+            if i < len(parts) and parts[i].isdigit():
+                out.append(f"layers_{parts[i]}")
+                i += 1
+        else:
+            out.append(p)
+            i += 1
+    return out, leaf
+
+
+def _convert_leaf(path: list[str], leaf: str, value: np.ndarray):
+    """Transpose/rename one torch tensor into its flax (name, array) form."""
+    module = path[-1] if path else ""
+    if leaf == "bias":
+        return "bias", value
+    assert leaf == "weight", f"unexpected leaf {leaf} at {'.'.join(path)}"
+    if module == "class_embedding":
+        return "embedding", value
+    if value.ndim == 4:  # Conv2d OIHW -> HWIO
+        return "kernel", value.transpose(2, 3, 1, 0)
+    if value.ndim == 3:  # Conv1d (O, I, 1) -> Dense (I, O)
+        return "kernel", value[:, :, 0].T
+    if value.ndim == 2:  # Linear (O, I) -> Dense (I, O)
+        return "kernel", value.T
+    if value.ndim == 1:  # GroupNorm weight -> scale
+        return "scale", value
+    raise ValueError(f"cannot convert {'.'.join(path)}.{leaf} shape {value.shape}")
+
+
+def convert_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """Convert a torch-named state dict (name -> tensor/ndarray) to a flax
+    params tree matching nicediffusion_tpu.models.DiffusionModel."""
+    params: dict = {}
+    for name, tensor in sd.items():
+        value = np.asarray(
+            tensor.detach().cpu().numpy() if hasattr(tensor, "detach") else tensor
+        )
+        name = rename_guided_diffusion_keys(name)
+        path, leaf = _flax_path(name)
+        leaf, value = _convert_leaf(path, leaf, value)
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return params
+
+
+def flax_params_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """Flax params tree -> torch-named state dict of numpy arrays, loadable
+    into nicediffusion_tpu_torch.DiffusionModel with ``strict=True``."""
+    out: dict[str, np.ndarray] = {}
+
+    def emit(path: list[str], node):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                emit(path + [k], v)
+            return
+        value = np.asarray(node)
+        *mods, leaf = path
+        torch_mods = []
+        for m in mods:
+            stem, _, idx = m.rpartition("_")
+            if stem in _LIST_CONTAINERS and idx.isdigit():
+                torch_mods += [stem, idx]
+            elif stem == "layers" and idx.isdigit():
+                torch_mods.append(idx)
+            else:
+                torch_mods.append(m)
+        if leaf in ("scale", "embedding"):
+            name = "weight"
+        elif leaf == "kernel":
+            name = "weight"
+            if value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)
+            elif mods and mods[-1] in ("qkv_nin", "proj_out"):
+                value = value.T[:, :, None]  # Dense -> Conv1d (O, I, 1)
+            else:
+                value = value.T
+        else:
+            name = leaf
+        out[".".join(torch_mods + [name])] = value
+
+    emit([], params)
+    return out

@@ -1,0 +1,189 @@
+"""The port's UNet against the JAX package's, on the CPU, in f32.
+
+A JAX DiffusionModel is initialised, every parameter is replaced by seeded
+numpy values (none left at zero, so the zero-initialised output convs and
+projections take part), the tree goes through the port's converter and
+loads strict, and the NHWC forwards must agree to the repo's 1e-3 bar.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+from flax import traverse_util  # noqa: E402
+
+from nicediffusion_tpu.models.unet import DiffusionModel as JaxModel  # noqa: E402
+from nicediffusion_tpu.utils.checkpoint import save_params_npz  # noqa: E402
+from nicediffusion_tpu_torch import DiffusionModel  # noqa: E402
+from nicediffusion_tpu_torch.utils.checkpoint import load_state_dict  # noqa: E402
+from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS  # noqa: E402
+from nicediffusion_tpu_torch.utils.convert import (  # noqa: E402
+    convert_torch_state_dict,
+    flax_params_to_torch_state_dict,
+)
+
+# ragged attention N (28x28 input, attention at 7x7 -> N = 49), AdaGN,
+# resblock up/down, [q|k|v] layout, CFG's extra null-class row
+CFG_ADA = dict(
+    resolution=28, in_channels=1, model_channels=32, out_channels=2,
+    num_res_blocks=1, attention_resolutions=(7,), channel_mult=(1, 1, 2),
+    num_heads=2, split_qkv_first=True, resblock_updown=True,
+    use_adaptive_gn=True, num_classes=5 + 1,
+)
+# additive embedding, conv resampling, interleaved qkv layout, attention at
+# two levels, heads from num_head_channels, unconditional
+CFG_PLAIN = dict(
+    resolution=16, in_channels=3, model_channels=32, out_channels=3,
+    num_res_blocks=1, attention_resolutions=(8, 16), channel_mult=(1, 2),
+    num_head_channels=32, split_qkv_first=False, resblock_updown=False,
+    use_adaptive_gn=False, num_classes=None,
+)
+# average-pool downsampling, conv-less upsampling
+CFG_NO_CONV = dict(CFG_PLAIN, conv_resample=False, attention_resolutions=(8,))
+
+
+def random_jax_params(cfg, seed=0):
+    """A JAX model's parameter tree with every leaf replaced by seeded,
+    non-zero, fan-in-scaled numpy values."""
+    model = JaxModel(**cfg)
+    res, cin = cfg["resolution"], cfg["in_channels"]
+    y = jnp.zeros((1,), jnp.int32) if cfg["num_classes"] else None
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, res, res, cin)),
+                           jnp.zeros((1,), jnp.int32), y)
+    )["params"]
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, leaf in traverse_util.flatten_dict(shapes).items():
+        shape = leaf.shape
+        if path[-1] == "kernel":
+            v = rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+        elif path[-1] == "scale":
+            v = 1.0 + 0.2 * rng.normal(size=shape)
+        elif path[-1] == "embedding":
+            v = rng.normal(size=shape)
+        else:
+            v = 0.2 * rng.normal(size=shape)
+        flat[path] = v.astype(np.float32)
+    return model, traverse_util.unflatten_dict(flat)
+
+
+def port_model(cfg, params, **kw):
+    model = DiffusionModel(**cfg, **kw)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in flax_params_to_torch_state_dict(params).items()}
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
+def inputs(cfg, batch=3, seed=1):
+    rng = np.random.default_rng(seed)
+    res, cin = cfg["resolution"], cfg["in_channels"]
+    x = rng.normal(size=(batch, res, res, cin)).astype(np.float32)
+    t = rng.integers(0, 1000, size=(batch,)).astype(np.int32)
+    y = (rng.integers(0, cfg["num_classes"], size=(batch,)).astype(np.int32)
+         if cfg["num_classes"] else None)
+    return x, t, y
+
+
+def forward_both(cfg, jmodel, params, model, seed=1):
+    x, t, y = inputs(cfg, seed=seed)
+    ref = np.asarray(jax.jit(jmodel.apply)({"params": params}, x, t, y))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t).long(),
+                    None if y is None else torch.from_numpy(y).long())
+    return out, ref
+
+
+@pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV],
+                         ids=["ada_updown_ragged", "additive_interleaved", "no_conv_resample"])
+@pytest.mark.parametrize("kernels", [True, False])
+def test_forward_matches_jax(cfg, kernels):
+    jmodel, params = random_jax_params(cfg)
+    model = port_model(cfg, params, kernels=kernels)
+    out, ref = forward_both(cfg, jmodel, params, model)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert np.abs(ref).max() > 1e-2  # the zero-init layers were filled
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-3, rtol=0)
+    assert np.abs(out.numpy() - ref).max() < 1e-4
+
+
+def test_bf16_forward_tracks_jax():
+    """bf16 compute with f32 parameters, as flax ``dtype=bfloat16``; the
+    two frameworks round at different places, so the bar is loose."""
+    jmodel, params = random_jax_params(CFG_ADA)
+    jmodel = JaxModel(**CFG_ADA, dtype=jnp.bfloat16)
+    model = port_model(CFG_ADA, params, dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    out, ref = forward_both(CFG_ADA, jmodel, params, model)
+    assert out.dtype == torch.float32
+    scale = np.abs(ref).max()
+    assert np.abs(out.numpy() - ref).max() < 0.05 * scale
+
+
+def test_state_dict_round_trips_to_flax():
+    """The port's names map back onto the flax tree exactly."""
+    _, params = random_jax_params(CFG_PLAIN)
+    model = port_model(CFG_PLAIN, params)
+    back = convert_torch_state_dict(model.state_dict())
+    flat_a = traverse_util.flatten_dict(back)
+    flat_b = traverse_util.flatten_dict(params)
+    assert flat_a.keys() == flat_b.keys()
+    for k in flat_b:
+        np.testing.assert_array_equal(flat_a[k], flat_b[k])
+
+
+@pytest.mark.parametrize("preset,count", [
+    ("EMNIST", 17_989_442), ("openai_64", 295_904_454),
+    ("openai_128", 421_529_606), ("openai_256", 553_838_086),
+])
+def test_preset_parameter_counts(preset, count):
+    """BASELINE.md's counts, built on the meta device (nothing allocated);
+    the same model with CFG's null class has one embedding row more."""
+    cfg = dict(MODEL_PRESETS[preset])
+    model = DiffusionModel(**cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == count
+    cfg["num_classes"] += 1
+    model = DiffusionModel(**cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == count + 4 * cfg["model_channels"]
+
+
+def test_checkpoints_load(tmp_path):
+    """The JAX package's .npz and a raw-OpenAI-named .pt both load strict
+    into the port and give the JAX forward."""
+    jmodel, params = random_jax_params(CFG_ADA, seed=3)
+    npz = str(tmp_path / "params.npz")
+    save_params_npz(params, npz)
+    model = DiffusionModel(**CFG_ADA).eval()
+    model.load_state_dict(load_state_dict(npz), strict=True)
+    out, ref = forward_both(CFG_ADA, jmodel, params, model)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-3, rtol=0)
+
+    raw_names = (
+        ("downsampling", "input_blocks"), ("upsampling", "output_blocks"),
+        ("in_norm", "in_layers.0"), ("in_conv", "in_layers.2"),
+        ("step_embedding", "emb_layers.1"), ("out_norm", "out_layers.0"),
+        ("out_conv", "out_layers.3"), ("skip", "skip_connection"),
+        ("step_embed", "time_embed"), ("class_embedding", "label_emb"),
+        ("qkv_nin", "qkv"),
+    )
+    raw = {}
+    for k, v in model.state_dict().items():
+        for ours, theirs in raw_names:
+            k = k.replace(ours, theirs)
+        raw[k] = v.clone()
+    assert "input_blocks.1.0.in_layers.0.weight" in raw
+    pt = str(tmp_path / "64x64_raw.pt")
+    torch.save(raw, pt)
+    again = DiffusionModel(**CFG_ADA)
+    again.load_state_dict(load_state_dict(pt), strict=True)
+    for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("option", ["use_remat", "quantized", "quantized_attention", "winograd"])
+def test_unported_model_options_raise(option):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
