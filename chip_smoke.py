@@ -2,25 +2,46 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, class-conditional sampling with classifier-free
-guidance, at the full width of the ``openai_64`` preset with random weights
-made from a seed, and checks every hand-written kernel on the way:
+Drives the port's main paths, class-conditional sampling with classifier-free
+guidance and training, at the full width of the ``openai_64`` preset with
+random weights made from a seed, and checks every hand-written kernel on the
+way:
 
   1. device: the card's name and power limit, torch/CUDA/Triton versions;
-  2. build: K1 (CUDA C++, nvcc for sm_90a) from the sources in this
-     checkout, and K3 (Triton);
+  2. build: K1 and K2 (CUDA C++, one nvcc for sm_90a per source, started
+     together) from the sources in this checkout, and K3 (Triton);
   3. each kernel against its plain torch version at every shape one
-     forward of the main path gives it (found by hooks on a plain-version
-     forward) plus the ragged EMNIST shapes, f32 and bf16, with the JAX
-     package's tolerances; its bf16 time per call (CUDA events around
-     back-to-back calls) per shape and summed over one forward, beside the
-     plain version's;
+     forward of each main path gives it (found by hooks on plain-version
+     forwards of ``openai_64`` and of the train entry point's EMNIST model,
+     whose shapes are ragged, at that recipe's batch of 468), f32 and bf16,
+     with the JAX package's tolerances; its time per call (CUDA events
+     around back-to-back calls) in the path's compute type, per shape and
+     summed over one forward, beside the plain version's;
   4. the full-width f32 model with kernels on against ``kernels=False``
      on one CFG forward (max abs <= 1e-3, the repo's parity bar);
   5. the slice: bf16, CFG w=0.8, DDPM with learned-interpolation variance
      respaced to 25 steps, answering 3 requests of 8 labels; the launch
      counters must show every attention and GroupNorm call went through the
-     kernels; samples/s with kernels on and off.
+     kernels; samples/s with kernels on and off;
+  6. K2 (the attention backward) against its plain version and against
+     autograd through the plain forward, f32 and bf16, both layouts, output
+     pre-filled with NaN, at every attention shape of a training step of
+     both models and at a ragged N with head dim 128; its times beside the
+     plain version's and the library call's; K1 and K3 at the training
+     batch; the cost of K3's backward (a recompute of its plain version);
+  7. loss and every parameter's gradient of the full-width f32 model, and
+     of the EMNIST model at batch 468, kernels on against ``kernels=False``;
+  8. the training slice: (a) ``Trainer.train()`` on ``openai_64`` in bf16
+     with remat and dropout, then ``save()``, ``restore`` into a fresh
+     Trainer and ``sample()``; (b) the train entry point's EMNIST recipe at
+     batch 468. Launch counts of K1, K2 and K3 must equal what the model's
+     structure gives; steps/s with kernels on and off; a torch.profiler
+     breakdown of one training step by kernel group.
+
+Each kernel's time stands beside its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the card's peak for their type
+(989 TFLOP/s for bf16 products, 67 TFLOP/s for f32 work, which the kernels
+do without TF32).
 
 Prints a JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -29,20 +50,35 @@ so does a machine without a CUDA card. Imports nothing of JAX.
 
 import collections
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 F32_TOL = {"attention": dict(atol=2e-5, rtol=0), "groupnorm": dict(atol=1e-5, rtol=0)}
 # bf16 GN outputs reach ~10, where one bf16 ulp is 0.06: the JAX package's
 # bf16 GN gate carries rtol 1e-2 (tests/test_pallas.py:206)
 BF16_TOL = {"attention": dict(atol=3e-2, rtol=0), "groupnorm": dict(atol=3e-2, rtol=1e-2)}
+# K2: the f32 gate is K1's with |g| <= 1; bf16 results are rounded once more
+# than K1's (ds before its products), hence the relative part
+K2_F32_TOL = dict(atol=2e-5, rtol=0)
+K2_BF16_TOL = dict(atol=3e-2, rtol=2e-2)
 MODEL_TOL = 1e-3
+GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
+LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
 SEED = 0
+TRAIN_BATCH = 8
+EMNIST_BATCH = 468  # the train entry point's recipe
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(*args):
@@ -96,8 +132,8 @@ def phase_build():
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     t0 = time.perf_counter()
-    _build.load_library("attention")
-    k1_s = time.perf_counter() - t0
+    _build.build_all()
+    cuda_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     k3._kernel()
     k3_s = time.perf_counter() - t0
@@ -107,14 +143,16 @@ def phase_build():
         # then "Used N registers" for each template instance
         entry = spills = ""
         for line in nvcc_log.splitlines():
-            m = re.search(r"Compiling entry function '\w*?kernelI(\w+?)Li(\d+)E", line)
+            m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)I(\S+?)Li(\d+)E", line)
             if m:
-                entry = f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} hc={m.group(2)}"
+                dt = "bf16" if "bfloat16" in m.group(2) else "f32"
+                entry = f"{m.group(1)} {dt} hc={m.group(3)}"
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
                 log(f"[build]   {entry}: {line.split(':', 1)[1].strip()}; {spills}")
-    log(f"[build] K1 ready in {k1_s:.2f} s, K3 (triton import) in {k3_s:.2f} s")
+    log(f"[build] K1 and K2 ready in {cuda_s:.2f} s (built side by side), "
+        f"K3 (triton import) in {k3_s:.2f} s")
 
 
 def main_path_calls(model, dev):
@@ -145,24 +183,89 @@ def main_path_calls(model, dev):
     return calls
 
 
-def phase_kernels(dev, calls):
-    """Each kernel against its plain version at every shape the main path
-    gives it (model batch 16: 8 requests doubled by CFG), in f32 and bf16,
-    plus the ragged EMNIST shapes; bf16 times per shape and per forward."""
+def attention_bound_ms(b, n, c, tensors, products, dtype=torch.bfloat16):
+    """(bytes ms, operations ms) of an attention kernel: ``tensors``
+    (B, N, C)-sized tensors each moved once, ``products`` N x N x hc matrix
+    products per head, at the tensor cores' peak in bf16 and at the f32 peak
+    outside them in f32 (the f32 gate leaves no room for TF32)."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return (tensors * b * n * c * dtype.itemsize / HBM_BYTES_PER_S * 1e3,
+            products * 2 * b * n * n * c / peak * 1e3)
+
+
+def groupnorm_bound_ms(b, h, w, c, dtype=torch.bfloat16):
+    """(bytes ms, operations ms) of GroupNorm(+AdaGN)(+SiLU): x read and the
+    output written once; about 12 f32 operations an element (statistics,
+    normalise, affine, modulation, sigmoid) on the CUDA cores."""
+    elems = b * h * w * c
+    return (2 * elems * dtype.itemsize / HBM_BYTES_PER_S * 1e3,
+            12 * elems / F32_FLOPS * 1e3)
+
+
+class Tally:
+    """Times summed over the calls of one forward or one step."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.library_ms = 0.0
+        self.bytes_ms = self.ops_ms = self.bound_ms = 0.0
+
+    def add(self, count, ms, plain_ms, library_ms, bound):
+        self.ms += count * ms
+        self.plain_ms += count * plain_ms
+        self.library_ms += count * library_ms
+        self.bytes_ms += count * bound[0]
+        self.ops_ms += count * bound[1]
+        self.bound_ms += count * max(bound)
+
+    @property
+    def bound_by(self):
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+    def __str__(self):
+        return (f"{self.ms:.4f} ms, plain {self.plain_ms:.4f} ms, library "
+                f"{self.library_ms:.4f} ms, bound {self.bound_ms:.4f} ms ({self.bound_by})")
+
+
+def library_group_norm(x, sc, bi, es, esh, mode):
+    """The PyTorch calls that compute K3's function: F.group_norm on the
+    channels-last view, then F.silu (and the AdaGN modulation between)."""
+    y = F.group_norm(x.permute(0, 3, 1, 2), 32, sc, bi, 1e-5)
+    if mode == "ada":
+        y = y * (1.0 + es[:, :, None, None]) + esh[:, :, None, None]
+    return y if mode == "plain" else F.silu(y)
+
+
+# where a kernel call comes from: (batch, the path's compute type, basis of the sums)
+PATHS = {
+    "forward": (16, torch.bfloat16, "one openai_64 sampling forward at model batch 16"),
+    "train": (TRAIN_BATCH, torch.bfloat16,
+              f"one forward of an openai_64 training step at batch {TRAIN_BATCH}"),
+    "emnist": (EMNIST_BATCH, torch.float32,
+               f"one forward of the train entry point's EMNIST recipe at batch {EMNIST_BATCH}"),
+}
+
+
+def phase_kernels(dev, calls, emnist_calls):
+    """K1 and K3 against their plain versions at every shape the main paths
+    give them (sampling at model batch 16: 8 requests doubled by CFG;
+    ``openai_64`` training at batch 8; the entry point's EMNIST recipe at
+    batch 468, whose N = 49 and 196 and 7x7 maps are ragged for the tiles),
+    in f32 and bf16; times in each path's compute type per shape and summed
+    per forward, beside the plain version, the library call and the bound."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     errs = {(k, dt): 0.0 for k in ("attention", "groupnorm")
             for dt in (torch.float32, torch.bfloat16)}
-    per_forward = {k: [0.0, 0.0] for k in ("attention", "groupnorm")}
-    # the main path's calls, then the ragged EMNIST shapes (N = 49 and 196,
-    # 4 heads of 32; 7x7 GroupNorm), which it does not make
-    cases = [(16, key, n) for key, n in sorted(calls.items(), key=str)]
-    cases += [(4, ("attention", n, 128, 4, True), 0) for n in (49, 196)]
-    cases += [(2, ("groupnorm", (7, 7, 96), mode), 0) for mode in ("plain", "silu", "ada")]
-    for b, key, per_call in cases:
+    tallies = {(k, where): Tally() for k in ("attention", "groupnorm") for where in PATHS}
+    cases = [(key, n, where)
+             for where, path_calls in (("forward", calls), ("train", calls),
+                                       ("emnist", emnist_calls))
+             for key, n in sorted(path_calls.items(), key=str)]
+    for key, per_call, where in cases:
         kind = key[0]
+        b, timed_dtype, _ = PATHS[where]
         for dtype in (torch.float32, torch.bfloat16):
             tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)[kind]
             if kind == "attention":
@@ -172,6 +275,9 @@ def phase_kernels(dev, calls):
                 runs = [((lambda sf=sf: k1.fused_qkv_attention(qkv, heads, sf)),
                          (lambda sf=sf: k1.fused_qkv_attention_plain(qkv, heads, sf)))
                         for sf in layouts]
+                q, k, v = k1.split_qkv(qkv, heads, split_first)
+                library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+                bound = attention_bound_ms(b, n, c, tensors=4, products=2, dtype=dtype)
                 name = f"K1 B={b} N={n} C={c} heads={heads}"
             else:
                 _, (h, w, c), mode = key
@@ -179,28 +285,31 @@ def phase_kernels(dev, calls):
                 sc = torch.randn(c, generator=g, device=dev)
                 bi = torch.randn(c, generator=g, device=dev)
                 emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
-                args = (x, sc, bi) + (tuple(emb.chunk(2, dim=-1)) if mode == "ada" else ())
+                es, esh = emb.chunk(2, dim=-1)
+                args = (x, sc, bi) + ((es, esh) if mode == "ada" else ())
                 kw = dict(silu=mode != "plain")
                 runs = [((lambda: k3.group_norm_fused(*args, **kw)),
                          (lambda: k3.group_norm_fused_plain(*args, **kw)))]
+                lib_args = (x, sc.to(dtype), bi.to(dtype), es, esh, mode)
+                library = lambda: library_group_norm(*lib_args)  # noqa: E731
+                bound = groupnorm_bound_ms(b, h, w, c, dtype)
                 name = f"K3 {mode} {(b, h, w, c)}"
             for kernel_fn, plain_fn in runs:
                 out = kernel_fn()
                 torch.cuda.synchronize()
                 err = check(f"{name} {dtype}", out, plain_fn(), tol)
                 errs[kind, dtype] = max(errs[kind, dtype], err)
-            if dtype == torch.bfloat16 and per_call:
-                ms, plain = time_ms(runs[0][0]), time_ms(runs[0][1])
-                per_forward[kind][0] += per_call * ms
-                per_forward[kind][1] += per_call * plain
-                log(f"[kernels] {name} bf16, {per_call} per forward: "
-                    f"{ms:.4f} ms, plain {plain:.4f} ms")
+            if dtype == timed_dtype:
+                ms, plain, lib = time_ms(runs[0][0]), time_ms(runs[0][1]), time_ms(library)
+                tallies[kind, where].add(per_call, ms, plain, lib, bound)
+                log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
     for (kind, dtype), err in errs.items():
         log(f"[kernels] {kind} {dtype}: max abs err {err:.3g} vs plain")
-    for kind, (ms, plain) in per_forward.items():
-        log(f"[kernels] {kind}: {ms:.4f} ms per forward (its bf16 calls at model "
-            f"batch 16, each timed back to back), plain {plain:.4f} ms")
-    return errs, per_forward
+    for (kind, where), tally in tallies.items():
+        _, dtype, basis = PATHS[where]
+        log(f"[kernels] {kind}, {dtype} calls of {basis}, each timed back to back: {tally}")
+    return errs, tallies
 
 
 def randomize(model, seed):
@@ -222,10 +331,10 @@ def randomize(model, seed):
                 raise AssertionError(f"{name} left at zero")
 
 
-def model_config():
+def model_config(preset="openai_64"):
     from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
 
-    cfg = dict(MODEL_PRESETS["openai_64"])
+    cfg = dict(MODEL_PRESETS[preset])
     cfg["num_classes"] += 1  # CFG's null class
     return cfg
 
@@ -259,8 +368,6 @@ def phase_model(dev, off):
 def phase_slice(dev, state):
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
     from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
-    from nicediffusion_tpu_torch.ops.kernels import attention as k1
-    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
     from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
 
     cfg = model_config()
@@ -291,8 +398,7 @@ def phase_slice(dev, state):
                                    y=requests[0], batch_size=8, steps_to_do=2)
     torch.cuda.synchronize()
 
-    k1.fused_qkv_attention.launches = 0
-    k3.group_norm_fused.launches = 0
+    reset_launches()
     seconds = {True: 0.0, False: 0.0}
     diffs = []
     for i in range(len(requests)):
@@ -308,10 +414,9 @@ def phase_slice(dev, state):
         log(f"[slice] request {i}: labels {requests[i].tolist()} -> {tuple(out.shape)}, "
             f"range [{out.min().item():.3f}, {out.max().item():.3f}]; "
             f"{s_on:.4f} s with kernels, {s_off:.4f} s without")
-    launches = {"attention": k1.fused_qkv_attention.launches,
-                "groupnorm": k3.group_norm_fused.launches}
+    launches = read_launches()
     calls = steps * len(requests)
-    expect = {"attention": n_attn * calls, "groupnorm": n_gn * calls}
+    expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -323,6 +428,410 @@ def phase_slice(dev, state):
     log(f"[slice] kernels on vs off, final samples max abs diff per request "
         f"(bf16, 25 stochastic steps): {[round(d, 4) for d in diffs]}")
     return launches
+
+
+def phase_kernels_bwd(dev, calls, emnist_calls):
+    """K2 against its plain version and against autograd through the plain
+    forward, at every attention shape of one ``openai_64`` training step
+    (batch 8) and of one step of the entry point's EMNIST recipe (batch 468,
+    ragged N = 196 and 49), and at N = 100 with head dim 128; both layouts,
+    f32 and bf16, random cotangent with |g| <= 1, output pre-filled with
+    NaN. Times in each path's compute type summed over one step beside the
+    plain version, the library call (the autograd backward of
+    scaled_dot_product_attention) and the bound. Then the cost of K3's
+    backward, which recomputes the plain version, summed over one step."""
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    auto_err = 0.0
+    tallies = {"train": Tally(), "emnist": Tally()}
+    cases = [(key, n, where)
+             for where, path_calls in (("train", calls), ("emnist", emnist_calls))
+             for key, n in sorted(path_calls.items(), key=str) if key[0] == "attention"]
+    # a ragged N at head dim 128, which neither model has
+    cases += [(("attention", 100, 256, 2, True), 0, None)]
+    for (_, n, c, heads, split_first), per_step, where in cases:
+        b, timed_dtype, _ = PATHS[where] if where else (4, None, None)
+        name = f"K2 B={b} N={n} C={c} heads={heads}"
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = K2_F32_TOL if dtype == torch.float32 else K2_BF16_TOL
+            qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(dtype)
+            cot = (2 * torch.rand(b, n, c, generator=g, device=dev) - 1).to(dtype)
+            for sf in (split_first, not split_first):
+                o = k1.fused_qkv_attention_plain(qkv, heads, sf)
+                out = torch.full_like(qkv, float("nan"))
+                res = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, sf, out=out)
+                torch.cuda.synchronize()
+                if res is not out or torch.isnan(out).any():
+                    raise AssertionError(f"{name} {dtype}: output elements left unwritten")
+                ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, sf)
+                errs[dtype] = max(errs[dtype], check(f"{name} {dtype} split_first={sf}",
+                                                     out, ref, tol))
+                if dtype == torch.float32:
+                    leaf = qkv.clone().requires_grad_(True)
+                    auto, = torch.autograd.grad(
+                        k1.fused_qkv_attention_plain(leaf, heads, sf), leaf, cot)
+                    auto_err = max(auto_err, check(f"{name} vs autograd split_first={sf}",
+                                                   out, auto, tol))
+            if dtype == timed_dtype:
+                o = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+                q, k, v = (t.detach().requires_grad_(True)
+                           for t in k1.split_qkv(qkv, heads, split_first))
+                lib_out = F.scaled_dot_product_attention(q, k, v)
+                lib_cot = cot.reshape(b, n, heads, c // heads).transpose(1, 2)
+                ms = time_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first))
+                plain = time_ms(
+                    lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first))
+                lib = time_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_cot,
+                                                          retain_graph=True))
+                bound = attention_bound_ms(b, n, c, tensors=8, products=5, dtype=dtype)
+                tallies[where].add(per_step, ms, plain, lib, bound)
+                log(f"[k2] {name} {dtype}, {per_step} per step: {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+    log(f"[k2] max abs err vs plain: f32 {errs[torch.float32]:.3g}, bf16 "
+        f"{errs[torch.bfloat16]:.3g}; f32 vs autograd of the plain forward {auto_err:.3g}")
+    for where, tally in tallies.items():
+        b, dtype, _ = PATHS[where]
+        log(f"[k2] {dtype} calls of one {'openai_64' if where == 'train' else 'EMNIST'} "
+            f"training step at batch {b}: {tally}")
+
+    # K3's backward: autograd through a recompute of the plain version
+    gn_ms = fwd_ms = 0.0
+    for (kind, *rest), per_step in sorted(calls.items(), key=str):
+        if kind != "groupnorm":
+            continue
+        (h, w, c), mode = rest
+        x = (2 * torch.randn(TRAIN_BATCH, h, w, c, generator=g, device=dev) + 0.5).bfloat16()
+        x.requires_grad_(True)
+        sc = torch.randn(c, generator=g, device=dev).requires_grad_(True)
+        bi = torch.randn(c, generator=g, device=dev).requires_grad_(True)
+        emb = (0.1 * torch.randn(TRAIN_BATCH, 2 * c, generator=g, device=dev)).bfloat16()
+        mod = (tuple(t.clone().requires_grad_(True) for t in emb.chunk(2, dim=-1))
+               if mode == "ada" else ())
+        inputs = (x, sc, bi) + mod
+        out = k3.group_norm_fused(*inputs, silu=mode != "plain")
+        cot = torch.randn(out.shape, generator=g, device=dev).bfloat16()
+        gn_ms += per_step * time_ms(
+            lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True), iters=10, rounds=3)
+        with torch.no_grad():
+            fwd_ms += per_step * time_ms(
+                lambda: k3.group_norm_fused(*inputs, silu=mode != "plain"), iters=10, rounds=3)
+    log(f"[k3-bwd] GroupNorm backward (plain recompute + autograd), bf16, summed over one "
+        f"openai_64 backward at batch {TRAIN_BATCH}: {gn_ms:.4f} ms; K3 forward over the same "
+        f"calls {fwd_ms:.4f} ms")
+    return errs, tallies
+
+
+def phase_grads(dev, off, preset="openai_64", batch=4):
+    """Loss and every parameter's gradient of the f32 model of ``preset`` on
+    one fixed batch (HYBRID loss, injected t and noise; both models in
+    ``eval()`` mode, so no dropout): kernels on against ``off``
+    (kernels=False, the same remat setting)."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = model_config(preset)
+    on = DiffusionModel(**cfg, use_remat=off.use_remat, device=dev).eval()
+    on.load_state_dict(off.state_dict(), strict=True)
+    dcfg = dict(DIFFUSION_PRESETS[preset], rescaled_num_steps=1000,
+                guidance_method="classifier_free")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shape = (batch, cfg["resolution"], cfg["resolution"], cfg["in_channels"])
+    x0 = torch.rand(shape, generator=g, device=dev) * 2 - 1
+    noise = torch.randn(shape, generator=g, device=dev)
+    # t = 0 (the decoder's likelihood term), both ends, and class 0 (the null class)
+    t = torch.tensor([0, 3, 500, 999], device=dev).repeat(batch // 4)
+    y = (torch.tensor([207, 0, 933, 1000], device=dev).repeat(batch // 4)
+         % cfg["num_classes"])
+
+    def loss_and_grads(model):
+        loss = Diffusion(model=model, **dcfg).loss(x0, t, y=y, noise=noise).mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.item(), grads
+
+    loss_off, grads_off = loss_and_grads(off)
+    loss_on, grads_on = loss_and_grads(on)
+    torch.cuda.synchronize()
+    if not abs(loss_on - loss_off) <= LOSS_TOL * max(1.0, abs(loss_off)):
+        raise AssertionError(f"loss with kernels {loss_on} vs without {loss_off}")
+    worst, worst_name = 0.0, ""
+    for (name, _), a, b in zip(on.named_parameters(), grads_on, grads_off):
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / scale if scale else float("inf")
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"gradient of {name}: max abs diff {rel:.3g} of its max |grad|")
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[grads] {preset} f32, HYBRID loss at batch {batch}: loss {loss_on:.6f} with kernels, "
+        f"{loss_off:.6f} without; {len(grads_on)} gradients, worst max |diff| / max |grad| "
+        f"{worst:.3g} ({worst_name}), gate {GRAD_TOL}")
+    del on, grads_on, grads_off
+    torch.cuda.empty_cache()
+
+
+def block_counts(model):
+    """(attention blocks, GroupNorm ops inside rematerialised blocks,
+    GroupNorm ops outside them) of a model."""
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp, ResidualBlock
+
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    n_gn = sum(isinstance(m, GroupNormOp) for m in model.modules())
+    inside = sum(isinstance(m, GroupNormOp)
+                 for block in model.modules()
+                 if isinstance(block, (AttentionBlock, ResidualBlock))
+                 for m in block.modules())
+    return n_attn, inside, n_gn - inside
+
+
+def kernel_counters():
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+
+    return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
+            "groupnorm": k3.group_norm_fused}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def expect_train_launches(model, steps, sample_calls=0):
+    """Launches the structure gives: with remat every block's forward runs
+    twice in a step (forward and recompute) and its backward once."""
+    n_attn, gn_in, gn_out = block_counts(model)
+    twice = 2 if model.use_remat else 1
+    return {"attention": n_attn * (steps * twice + sample_calls),
+            "attention_bwd": n_attn * steps,
+            "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls}
+
+
+def metrics_rows(path):
+    """The rows of a Trainer's JSONL metrics file; raises unless every loss
+    and gradient norm is finite."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"metrics row not finite: {row}")
+    return rows
+
+
+# device time of a training step by kernel name: first match wins
+KERNEL_GROUPS = (
+    ("K2 attention backward", ("attention_bwd",)),
+    ("K1 attention forward", ("fused_qkv_attention_kernel",)),
+    ("K3 GroupNorm forward", ("gn_kernel",)),
+    ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
+    ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
+    ("matrix products (dense layers)", ("gemm", "cutlass", "cublas")),
+    ("reductions", ("reduce",)),
+    ("AdamW and EMA (multi-tensor)", ("multi_tensor", "foreach")),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy", "fill", "cat", "index")),
+)
+
+
+def profile_steps(trainer, unprofiled_ms, steps=2):
+    """torch.profiler over ``steps`` training steps: device time by kernel
+    group, and the device and host time of K3's backward (the autograd node
+    that recomputes the plain GroupNorm). The device idle share is the busy
+    time against ``unprofiled_ms``, the wall time of a step measured in this
+    run with the profiler off; host times read under the profiler are
+    inflated by it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            batch, labels = next(trainer.loader)
+            trainer.train_step(batch, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    groups = collections.Counter()
+    launches = collections.Counter()
+    other = collections.Counter()
+    gn_bwd = None
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):  # a range over kernels counted below
+                continue
+            name = e.key.lower()
+            group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+            groups[group] += e.self_device_time_total / 1e3 / steps
+            launches[group] += e.count / steps
+            if group == "other":
+                other[e.key[:60]] += e.self_device_time_total / 1e3 / steps
+        elif "_GroupNormFusedBackward" in e.key and "evaluate_function" in e.key:
+            gn_bwd = (e.device_time_total / 1e3 / steps, e.cpu_time_total / 1e3 / steps)
+    busy = sum(groups.values())
+    if busy <= 0:
+        log("[profile] torch.profiler recorded no device time: the step's breakdown is "
+            "not measured")
+        return
+    log(f"[profile] one training step (mean of {steps}): device busy {busy:.3f} ms; wall "
+        f"{unprofiled_ms:.3f} ms with the profiler off (the fastest kernels-on reading of "
+        f"this run), device idle share {1 - busy / unprofiled_ms:.3f}; wall {wall_ms:.3f} ms "
+        f"under the profiler, idle share {1 - busy / wall_ms:.3f}")
+    for group, ms in groups.most_common():
+        log(f"[profile]   {group}: {ms:.3f} ms ({ms / busy:.3f} of busy), "
+            f"{launches[group]:.0f} launches")
+    log(f"[profile]   largest of 'other': "
+        f"{[(name, round(ms, 3)) for name, ms in other.most_common(4)]}")
+    if gn_bwd:
+        log(f"[profile]   K3's backward nodes (recompute of the plain version and its "
+            f"autograd; their kernels are counted in the groups above): device "
+            f"{gn_bwd[0]:.3f} ms, host {gn_bwd[1]:.3f} ms per step (host time under the "
+            f"profiler, which inflates it)")
+
+
+def phase_train(dev, state, workdir):
+    """The training slice. (a) openai_64 with the null class, bf16 compute,
+    remat on, dropout 0.05, HYBRID loss, batch 8, synthetic data:
+    Trainer.train() for 4 steps (which saves), restore into a fresh Trainer,
+    then Trainer.sample(4); steps/s with kernels on and off. (b) the train
+    entry point's own EMNIST recipe at batch 468 for 3 steps."""
+    from nicediffusion_tpu_torch import DiffusionModel, Trainer
+    from nicediffusion_tpu_torch.scripts.train import main as train_main
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = model_config()
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free")
+    steps = 4
+
+    def make_trainer(kernels, **kw):
+        model = DiffusionModel(**cfg, dtype=torch.bfloat16, use_remat=True, kernels=kernels,
+                               device=dev)
+        model.load_state_dict(state, strict=True)
+        loader = synthetic_batches(TRAIN_BATCH, cfg["resolution"], cfg["in_channels"],
+                                   cfg["num_classes"], seed=SEED)
+        return Trainer(model, dcfg, loader, iterations=steps, batch_size=TRAIN_BATCH,
+                       lr=1e-4, weight_decay=1e-3, ema_rate=0.99, seed=SEED, print_every=1,
+                       **kw)
+
+    ckpt = os.path.join(workdir, "openai_64")
+    metrics = os.path.join(workdir, "openai_64.jsonl")
+    trainer = make_trainer(True, checkpoint_dir=ckpt, metrics_path=metrics)
+    reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches_a = read_launches()
+    expect = expect_train_launches(trainer.model, steps)
+    log(f"[train] openai_64 bf16 remat batch {TRAIN_BATCH}, {steps} steps: launches "
+        f"{launches_a}, expected {expect}")
+    if launches_a != expect:
+        raise AssertionError(f"launch counts {launches_a} != {expect}")
+    rows = metrics_rows(metrics)
+    log(f"[train] losses {[round(r['loss'], 5) for r in rows]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in rows]}")
+    if len(rows) != steps or trainer.step != steps:
+        raise AssertionError(f"{len(rows)} metric rows and step {trainer.step} after {steps} steps")
+    moved = ema_moved = differ = 0
+    for name, p in trainer.model.named_parameters():
+        e = trainer.ema_model.get_parameter(name)
+        moved += not torch.equal(p, state[name])
+        ema_moved += not torch.equal(e, state[name])
+        differ += not torch.equal(p, e)
+    total = len(state)
+    log(f"[train] of {total} parameters: {moved} moved, {ema_moved} EMA copies moved, "
+        f"{differ} differ from their EMA copy")
+    if not moved == ema_moved == differ == total:
+        raise AssertionError("some parameter or EMA copy did not move")
+
+    # the saved step_4 restores into a fresh Trainer with equal tensors
+    fresh = make_trainer(True, checkpoint_dir=ckpt, resume_step="auto")
+    if fresh.step != steps:
+        raise AssertionError(f"restored step {fresh.step}")
+    pairs = list(zip(trainer.model.state_dict().items(), fresh.model.state_dict().values()))
+    pairs += list(zip(trainer.ema_model.state_dict().items(), fresh.ema_model.state_dict().values()))
+    for (name, a), b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} differs after restore")
+    for i, st in trainer.optimizer.state_dict()["state"].items():
+        for key, a in st.items():
+            if not torch.equal(a, fresh.optimizer.state_dict()["state"][i][key]):
+                raise AssertionError(f"optimizer state {i}.{key} differs after restore")
+    log(f"[train] step_{steps} restored into a fresh Trainer: model, EMA and AdamW state equal")
+    del fresh
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    images = trainer.sample(4)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches_s = read_launches()
+    chain = trainer.sampling_diffusion.rescaled_num_steps
+    expect = expect_train_launches(trainer.model, 0, sample_calls=chain)
+    log(f"[train] Trainer.sample(4): {images.shape} {images.dtype} in {sample_s:.2f} s over the "
+        f"forced {chain}-step chain; launches {launches_s}, expected {expect}")
+    if images.shape != (4, 64, 64, 3) or str(images.dtype) != "uint8" or launches_s != expect:
+        raise AssertionError("in-training sampling gave the wrong shape, type or launch counts")
+
+    # steps/s, kernels on and off, in turns within this run
+    def timed_steps(tr, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            batch, labels = next(tr.loader)
+            tr.train_step(batch, labels)
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    off = make_trainer(False, checkpoint_dir=os.path.join(workdir, "off"))
+    timed_steps(off, 1)  # warm-up
+    rates = {True: [], False: []}
+    for kernels, tr in ((True, trainer), (False, off), (False, off), (True, trainer)):
+        rates[kernels].append(timed_steps(tr))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] steps/s, 3 steps a reading: kernels on {rates[True]}, kernels off "
+        f"{rates[False]} (openai_64, bf16, remat, batch {TRAIN_BATCH}); peak device memory "
+        f"{peak:.2f} GiB")
+    profile_steps(trainer, unprofiled_ms=1e3 / max(rates[True]))
+    del trainer, off
+    torch.cuda.empty_cache()
+
+    # (b) the entry point's own recipe: EMNIST preset + null class, batch 468,
+    # f32. The entry point itself turns TF32 off for f32 compute: hand it
+    # PyTorch's default and see that it did.
+    torch.backends.cudnn.allow_tf32 = True
+    reset_launches()
+    metrics_b = os.path.join(workdir, "emnist.jsonl")
+    t0 = time.perf_counter()
+    emnist = train_main([
+        "--synthetic", "--iterations", "3", "-w", "--print_every", "1",
+        "--checkpoint_dir", os.path.join(workdir, "emnist"), "--metrics_path", metrics_b,
+        "--samples_dir", os.path.join(workdir, "samples"),
+    ])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches_b = read_launches()
+    expect = expect_train_launches(emnist.model, 3)
+    rows = metrics_rows(metrics_b)
+    log(f"[train] entry point, EMNIST recipe at batch {emnist.batch_size} on {emnist.device}, "
+        f"f32 (TF32 in cuDNN {torch.backends.cudnn.allow_tf32}, in cuBLAS "
+        f"{torch.backends.cuda.matmul.allow_tf32}): 3 steps and the save in {seconds:.2f} s, "
+        f"losses {[round(r['loss'], 5) for r in rows]}; launches {launches_b}, expected {expect}")
+    if (launches_b != expect or emnist.device.type != "cuda"
+            or emnist.batch_size != EMNIST_BATCH):
+        raise AssertionError("the entry point's launch counts, device or batch are off")
+    # the zero-initialised output convs left zero in both copies
+    for name, p in emnist.model.named_parameters():
+        e = emnist.ema_model.get_parameter(name)
+        if not p.any() or not e.any() or torch.equal(p, e):
+            raise AssertionError(f"entry point: {name} or its EMA copy did not move")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the entry point left TF32 on for f32 compute")
+    if emnist.latest_checkpoint_step() != 3:
+        raise AssertionError("the entry point left no step_3 checkpoint")
+    return {"train_openai_64": launches_a, "train_sample": launches_s, "train_emnist": launches_b}
 
 
 def main():
@@ -341,31 +850,58 @@ def main():
 
     reference = DiffusionModel(**model_config(), kernels=False, device=dev).eval()
     randomize(reference, SEED)
-    errs, per_forward = phase_kernels(dev, main_path_calls(reference, dev))
+    calls = main_path_calls(reference, dev)
+    # the train entry point's model: EMNIST preset + null class, remat on
+    emnist = DiffusionModel(**model_config("EMNIST"), use_remat=True, kernels=False,
+                            device=dev).eval()
+    randomize(emnist, SEED)
+    emnist_calls = main_path_calls(emnist, dev)
+    errs, tallies = phase_kernels(dev, calls, emnist_calls)
+    k2_errs, k2_tallies = phase_kernels_bwd(dev, calls, emnist_calls)
     phase_model(dev, reference)
+    phase_grads(dev, reference)
+    phase_grads(dev, emnist, "EMNIST", EMNIST_BATCH)
+    del emnist
     state = reference.state_dict()
     del reference
-    launches = phase_slice(dev, state)
+    by_path = {"sampling": phase_slice(dev, state)}
+    with tempfile.TemporaryDirectory() as workdir:
+        by_path.update(phase_train(dev, state, workdir))
 
-    basis = "sum over one openai_64 forward's calls, bf16, model batch 16"
+    def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others):
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": sum(path.get(counter, 0) for path in by_path.values()),
+                "launches_by_path": {k: path.get(counter, 0) for k, path in by_path.items()},
+                "max_abs_err": err, "max_abs_err_bf16": err_bf16,
+                "ms": tally.ms, "plain_ms": tally.plain_ms, "bound_ms": tally.bound_ms,
+                "bound_by": tally.bound_by, "library_ms": tally.library_ms, "ms_basis": basis,
+                # the same sums over the other paths' calls, in their compute types
+                "other_paths": {f"{where}, batch {PATHS[where][0]}, {PATHS[where][1]}": {
+                    "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
+                    "bound_by": t.bound_by, "library_ms": t.library_ms}
+                    for where, t in others.items()}}
+
+    forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
     kernels = [
-        {"name": "fused_qkv_attention", "route": "cuda",
-         "source": "nicediffusion_tpu_torch/csrc/attention.cu",
-         "replaces": "nicediffusion_tpu/ops/pallas/attention.py:177",
-         "launches": launches["attention"],
-         "max_abs_err": errs["attention", torch.float32],
-         "max_abs_err_bf16": errs["attention", torch.bfloat16],
-         "ms": per_forward["attention"][0], "plain_ms": per_forward["attention"][1],
-         "ms_basis": basis},
-        {"name": "group_norm_fused", "route": "triton",
-         "source": "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
-         "replaces": "nicediffusion_tpu/ops/pallas/groupnorm.py:151",
-         "launches": launches["groupnorm"],
-         "max_abs_err": errs["groupnorm", torch.float32],
-         "max_abs_err_bf16": errs["groupnorm", torch.bfloat16],
-         "ms": per_forward["groupnorm"][0], "plain_ms": per_forward["groupnorm"][1],
-         "ms_basis": basis},
+        entry("fused_qkv_attention", "cuda", "nicediffusion_tpu_torch/csrc/attention.cu",
+              "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
+              errs["attention", torch.float32], errs["attention", torch.bfloat16],
+              tallies["attention", "forward"], forward,
+              {w: tallies["attention", w] for w in ("train", "emnist")}),
+        entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
+              "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
+              k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
+              f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}",
+              {"emnist": k2_tallies["emnist"]}),
+        entry("group_norm_fused", "triton", "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
+              "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
+              errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
+              tallies["groupnorm", "forward"], forward,
+              {w: tallies["groupnorm", w] for w in ("train", "emnist")}),
     ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was never launched on the main paths")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,46 +30,11 @@
 // must hold 2e-5 against an f32 reference, which TF32 tensor cores cannot;
 // moving the bf16 path onto mma/wgmma is later work (ROADMAP queue B).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBM = 64;        // query rows per block
-constexpr int kBN = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kTR = kBM / 16;  // score rows per thread
-constexpr int kTC = kBN / 16;  // score columns per thread
-constexpr int kPStride = kBN + 4;
-constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// rounds p to the input type, as the JAX kernel's p.astype(v.dtype)
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace nd;
 
 template <int HC>
 constexpr size_t smem_bytes() {
@@ -97,16 +62,8 @@ fused_qkv_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n
   const int tx = tid % 16;
   const int c3 = 3 * c;
 
-  int qo, ko, vo;
-  if (split_first) {
-    qo = head * HC;
-    ko = c + head * HC;
-    vo = 2 * c + head * HC;
-  } else {
-    qo = head * 3 * HC;
-    ko = qo + HC;
-    vo = qo + 2 * HC;
-  }
+  const QkvOffsets off = qkv_offsets(head, HC, c, split_first);
+  const int qo = off.q, ko = off.k, vo = off.v;
   const T* base = qkv + (size_t)b * n * c3;
 
   for (int i = tid; i < kBM * HC; i += kThreads) {
@@ -140,23 +97,7 @@ fused_qkv_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n
     __syncthreads();
 
     float s[kTR][kTC];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) s[i][j] = 0.f;
-
-#pragma unroll 8
-    for (int d = 0; d < HC; ++d) {
-      float qv[kTR], kv[kTC];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) qv[i] = qs[(ty * kTR + i) * kQK + d];
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) kv[j] = ks[(tx + 16 * j) * kQK + d];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i)
-#pragma unroll
-        for (int j = 0; j < kTC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    tile_dot_nt<HC>(qs, ks, ty, tx, s);
 
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {

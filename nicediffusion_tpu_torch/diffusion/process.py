@@ -1,13 +1,19 @@
-"""Gaussian diffusion process, sampling half (torch).
+"""Gaussian diffusion process: sampling and training losses (torch).
 
-Counterpart of the sampling half of nicediffusion_tpu/diffusion/process.py:
-the coefficient tables, the timestep map, the four variance modes,
-classifier-free guidance (CFG) as one doubled-batch model call with null
-label 0 and the log-variance taken from the conditional half, and the DDPM
-and DDIM steps. ``denoise`` runs the chain t = steps_to_do-1 ... 0 as a
-plain Python loop over the steps, drawing its start noise and every step's
-noise from an explicit ``torch.Generator``. Capturing the step in a CUDA
-graph is later work.
+Counterpart of nicediffusion_tpu/diffusion/process.py: the coefficient
+tables, the timestep map, the four variance modes, classifier-free guidance
+(CFG) as one doubled-batch model call with null label 0 and the
+log-variance taken from the conditional half, and the DDPM and DDIM steps.
+``denoise`` runs the chain t = steps_to_do-1 ... 0 as a plain Python loop
+over the steps, drawing its start noise and every step's noise from an
+explicit ``torch.Generator``. Capturing the step in a CUDA graph is later
+work.
+
+Training: ``q_sample``/``diffuse`` (the forward process), ``loss`` with the
+four loss types (SIMPLE, KL, KL_RESCALED, HYBRID with the VLB's epsilon
+detached), ``variational_lower_bound`` and the full-chain ``bpd``. Noise is
+injectable everywhere, else drawn from the caller's generator, which also
+feeds the model's dropout masks in ``train()`` mode.
 
 Schedule tables are computed in numpy float64 (ops/schedule.py) and held as
 float32 tensors on ``device``, as the JAX package casts them. The model's
@@ -15,10 +21,11 @@ weights live in the model, so "sample with EMA weights" means passing the
 EMA model. The chain state ``x`` is float32 (NHWC); the model casts it to
 its compute dtype.
 
-Not ported yet, and raising NotImplementedError where asked for: losses and
-training (ROADMAP queue A, "Training"); DPM-Solver++, dynamic thresholding,
-v-prediction, the encoder cache and limited-interval guidance
-("Samplers and serving levers"); classifier guidance ("Guidance classifier, SR and ESRGAN").
+Not ported yet, and raising NotImplementedError where asked for:
+DPM-Solver++, dynamic thresholding, v-prediction (sampling and loss target),
+the encoder cache and limited-interval guidance (ROADMAP queue A, "Samplers
+and serving levers"); classifier guidance ("Guidance classifier, SR and
+ESRGAN").
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops.math import discretized_gaussian_log_likelihood, kl_div, mean_flat
 from ..ops.schedule import DiffusionSchedule
+from ..utils.device import resolve_device
 
 __all__ = ["Diffusion", "VarType", "LossType"]
 
@@ -62,8 +71,7 @@ class VarType(enum.Enum):
 
 
 class LossType(enum.Enum):
-    """Training loss modes (reference diffusion.py:575-595). Parsed so the
-    presets construct; the losses themselves are ROADMAP queue A, "Training"."""
+    """Training loss modes (reference diffusion.py:575-595)."""
 
     SIMPLE = enum.auto()
     KL = enum.auto()
@@ -96,11 +104,13 @@ def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 class Diffusion:
-    """Diffusion chain handler for sampling: ``.denoise()`` and its steps.
+    """Diffusion chain handler: ``.denoise()`` and its steps, ``.loss()``
+    and ``.bpd()``.
 
     Takes the JAX package's constructor surface (so the presets apply
-    unchanged) plus the ``device`` the tables live on, by default the
-    model's. ``model`` is a nicediffusion_tpu_torch DiffusionModel.
+    unchanged) plus the ``device`` the tables live on: by default the
+    model's, and with no model the CUDA card (utils/device.py). ``model``
+    is a nicediffusion_tpu_torch DiffusionModel.
     """
 
     def __init__(
@@ -158,9 +168,10 @@ class Diffusion:
         self.sampling_var_type = VarType.parse(sampling_var_type)
         self.loss_type = LossType.parse(loss_type)
         self.original_num_steps = original_num_steps
-        if device is None:
-            device = next(model.parameters()).device if model is not None else "cpu"
-        self.device = torch.device(device)
+        self.prediction_type = prediction_type
+        if device is None and model is not None:
+            device = next(model.parameters()).device
+        self.device = resolve_device(device)
 
         self.schedule = s = DiffusionSchedule.create(
             original_num_steps=original_num_steps,
@@ -178,6 +189,8 @@ class Diffusion:
         def as32(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
+        self._sqrt_acp = as32(s.sqrt_alphas_cumprod)
+        self._sqrt_1macp = as32(s.sqrt_one_minus_alphas_cumprod)
         self._sqrt_recip_acp = as32(s.sqrt_reciprocal_alphas_cumprod)
         self._sqrt_recipm1_acp = as32(s.sqrt_reciprocal_alphas_minus_one_cumprod)
         self._acp = as32(s.alphas_cumprod)
@@ -190,12 +203,38 @@ class Diffusion:
         self._log_var_small = as32(s.log_var_small)
 
     # ------------------------------------------------------------------
+    # Forward (q) process
+    # ------------------------------------------------------------------
+
+    def q_sample(self, x_0, t, noise):
+        """Sample q(x_t | x_0) (DDPM eq. 4; reference diffusion.py:232-240)."""
+        return (
+            _bcast(self._sqrt_acp, t, x_0.ndim) * x_0
+            + _bcast(self._sqrt_1macp, t, x_0.ndim) * noise
+        )
+
+    def diffuse(self, x_0, generator=None, steps_to_do=None, noise=None):
+        """Jump straight to q(x_t | x_0) at rescaled step ``steps_to_do - 1``
+        (reference diffusion.py:132-153)."""
+        if steps_to_do is None or steps_to_do > self.rescaled_num_steps:
+            steps_to_do = self.rescaled_num_steps
+        if noise is None:
+            assert generator is not None, "pass generator or explicit noise"
+            noise = self._noise(x_0, generator).to(x_0.dtype)
+        t = torch.full((x_0.shape[0],), steps_to_do - 1, dtype=torch.long, device=x_0.device)
+        return self.q_sample(x_0, t, noise)
+
+    # ------------------------------------------------------------------
     # Model output handling
     # ------------------------------------------------------------------
 
-    def _apply_model(self, x, t, y):
-        """Run the UNet at the mapped original timestep (diffusion.py:246)."""
-        return self.model(x, self.timestep_map[t], y if self.model.conditional else None)
+    def _apply_model(self, x, t, y, generator=None):
+        """Run the UNet at the mapped original timestep (diffusion.py:246).
+        ``generator`` feeds the dropout masks of a model in ``train()`` mode."""
+        y = y if self.model.conditional else None
+        if generator is None:
+            return self.model(x, self.timestep_map[t], y)
+        return self.model(x, self.timestep_map[t], y, generator=generator)
 
     def _resolve_log_var(self, raw_log_var, t, ndim):
         """Resolve the log-variance per sampling_var_type (reference
@@ -219,6 +258,18 @@ class Diffusion:
             eps, raw = out.chunk(2, dim=-1)
             return eps, raw
         return out, None
+
+    def _to_eps(self, pred, x_t, t):
+        """Convert the model's native prediction to epsilon: the identity for
+        ``prediction_type='eps'``, the only type the constructor lets by
+        (v-prediction is ROADMAP queue A)."""
+        return pred
+
+    def get_eps_and_log_var(self, x_t, t, y=None):
+        """Predicted epsilon and (learned or fixed) log variance
+        (reference diffusion.py:242-264)."""
+        pred, raw = self._split_out(self._apply_model(x_t, t, y))
+        return self._to_eps(pred, x_t, t), self._resolve_log_var(raw, t, x_t.ndim)
 
     def _cfg_combine(self, out2):
         """CFG on a doubled-batch model output: ``(1+w)*eps_c - w*eps_0``;
@@ -360,3 +411,102 @@ class Diffusion:
             t = torch.full((x.shape[0],), ts, dtype=torch.long, device=x.device)
             x, _ = step(x, t, generator, y)
         return x
+
+    # ------------------------------------------------------------------
+    # Training losses
+    # ------------------------------------------------------------------
+
+    def loss(self, x_0, t, generator=None, y=None, noise=None):
+        """Training loss in bits/dim, one value per example (reference
+        diffusion.py:375-410).
+
+        SIMPLE: mean MSE(eps_pred, noise). KL / KL_RESCALED: VLB term
+        (x rescaled_num_steps). HYBRID: L_simple + 0.001 * L_vlb with the VLB
+        epsilon detached so it only trains the variances (IDDPM eq. 16).
+        ``noise`` may be injected; else it is drawn from ``generator``, which
+        then feeds the model's dropout masks (``train()`` mode only).
+        """
+        if noise is None:
+            noise = self._noise(x_0, generator).to(x_0.dtype)
+        x_t = self.q_sample(x_0, t, noise)
+        pred, raw = self._split_out(self._apply_model(x_t, t, y, generator))
+        log_var = self._resolve_log_var(raw, t, x_t.ndim)
+        eps_pred = self._to_eps(pred, x_t, t)
+
+        if self.loss_type == LossType.SIMPLE:
+            return mean_flat((pred - noise) ** 2)
+        if self.loss_type in (LossType.KL, LossType.KL_RESCALED):
+            loss = self.variational_lower_bound(x_0, x_t, t, eps_pred, log_var)
+            if self.loss_type == LossType.KL_RESCALED:
+                loss = loss * self.rescaled_num_steps
+            return loss
+        loss_simple = mean_flat((pred - noise) ** 2)  # HYBRID
+        loss_vlb = (
+            self.variational_lower_bound(x_0, x_t, t, eps_pred.detach(), log_var)
+            * self.rescaled_num_steps
+        )
+        return loss_simple + 0.001 * loss_vlb
+
+    def variational_lower_bound(self, x_0, x_t, t, eps_pred, log_var):
+        """Per-t VLB term in bits/dim (reference diffusion.py:412-438)."""
+        nd = x_0.ndim
+        true_mean = (
+            _bcast(self._post_coef_x0, t, nd) * x_0
+            + _bcast(self._post_coef_xt, t, nd) * x_t
+        )
+        true_log_var = _bcast(self._log_post_var, t, nd).expand(x_0.shape)
+        pred_x0 = (
+            _bcast(self._sqrt_recip_acp, t, nd) * x_t
+            - _bcast(self._sqrt_recipm1_acp, t, nd) * eps_pred
+        )
+        mean = (
+            _bcast(self._post_coef_x0, t, nd) * pred_x0
+            + _bcast(self._post_coef_xt, t, nd) * x_t
+        )
+        log_var = log_var.expand(x_0.shape)
+        kl = mean_flat(kl_div(true_mean, true_log_var, mean, log_var)) / np.log(2.0)
+        nll = -discretized_gaussian_log_likelihood(x_0, mean, log_var)
+        nll = mean_flat(nll) / np.log(2.0)
+        return torch.where(t == 0, nll, kl)
+
+    # ------------------------------------------------------------------
+    # Evaluation: full-chain variational bound (bits/dim)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def bpd(self, x_0, generator=None, y=None, noise=None):
+        """Full-chain NLL upper bound in bits/dim for a batch of images.
+
+        A Python loop over every rescaled timestep computes the per-t VLB
+        term (KL for t > 0, discretized NLL at t == 0) on a fresh q-sample
+        of x_t, plus the prior term KL(q(x_T | x_0) || N(0, I)). ``noise``,
+        shaped (T, *x_0.shape) with row i used at t == i, may be injected;
+        else every step draws from ``generator``.
+
+        Returns a dict: total_bpd [B], prior_bpd [B], vlb_terms [T, B],
+        mse_terms [T, B] (per-t eps MSE), the [T, B] profiles in natural
+        timestep order (row i is t == i). x_0 is NHWC in [-1, 1].
+        """
+        steps = self.rescaled_num_steps
+        vlb_terms, mse_terms = [None] * steps, [None] * steps
+        for ts in range(steps - 1, -1, -1):
+            t = torch.full((x_0.shape[0],), ts, dtype=torch.long, device=x_0.device)
+            eps = noise[ts] if noise is not None else self._noise(x_0, generator).to(x_0.dtype)
+            x_t = self.q_sample(x_0, t, eps)
+            eps_pred, log_var = self.get_eps_and_log_var(x_t, t, y)
+            vlb_terms[ts] = self.variational_lower_bound(x_0, x_t, t, eps_pred, log_var)
+            mse_terms[ts] = mean_flat((eps_pred - eps) ** 2)
+        vlb_terms, mse_terms = torch.stack(vlb_terms), torch.stack(mse_terms)
+
+        # prior: KL( N(sqrt(acp_T) x0, (1 - acp_T) I) || N(0, I) )
+        t_last = torch.full((x_0.shape[0],), steps - 1, dtype=torch.long, device=x_0.device)
+        mean_T = _bcast(self._sqrt_acp, t_last, x_0.ndim) * x_0
+        log_var_T = torch.log1p(-_bcast(self._acp, t_last, x_0.ndim)).expand(x_0.shape)
+        prior = kl_div(mean_T, log_var_T, torch.zeros_like(mean_T), torch.zeros_like(mean_T))
+        prior_bpd = mean_flat(prior) / np.log(2.0)
+        return {
+            "total_bpd": vlb_terms.sum(dim=0) + prior_bpd,
+            "prior_bpd": prior_bpd,
+            "vlb_terms": vlb_terms,
+            "mse_terms": mse_terms,
+        }

@@ -27,24 +27,38 @@ through K1; ``kernels=False`` takes the plain torch versions, for comparing
 the two on the card. On CPU tensors the kernels' wrappers take their plain
 versions either way.
 
-The port samples only: dropout is a training op and never applies here,
-and training, remat and int8 are ROADMAP queue A work ("Training",
-"Samplers and serving levers"); Winograd is an ablation the port leaves out.
+Training. Dropout sits between ``out_norm`` and ``out_conv`` of every
+ResidualBlock and is active only in ``train()`` mode; its mask is drawn from
+the ``torch.Generator`` the caller hands to ``forward`` (no global RNG).
+``use_remat=True`` wraps every ResidualBlock and AttentionBlock in
+``torch.utils.checkpoint`` (non-reentrant) while a gradient is being taken;
+the recompute replays the generator from the state it had when the block
+first ran, so the dropout mask is the same, and puts the generator back
+afterwards. Parameters are f32 and cast per call, so bf16 compute gives f32
+gradients.
+
+int8 is ROADMAP queue A work ("Samplers and serving levers"); Winograd is an
+ablation the port leaves out. ``device=None`` means the CUDA card
+(utils/device.py); the CPU has to be asked for.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import qkv_attention
 from ..ops.groupnorm import ada_group_norm_silu, group_norm, group_norm_silu
 from ..ops.math import timestep_embedding
 from ..ops.resize import avg_pool_2x, upsample_nearest_2x
+from ..utils.device import resolve_device
 
 __all__ = ["DiffusionModel"]
 
@@ -155,10 +169,10 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, upsample: bool = False,
                  downsample: bool = False, use_adaptive_gn: bool = False,
-                 dtype=None, kernels: bool = True, device=None):
+                 dropout: float = 0.0, dtype=None, kernels: bool = True, device=None):
         super().__init__()
         self.upsample, self.downsample = upsample, downsample
-        self.use_adaptive_gn = use_adaptive_gn
+        self.use_adaptive_gn, self.dropout = use_adaptive_gn, dropout
         self.in_norm = GroupNormOp(in_ch, "silu", kernels=kernels, device=device)
         self.in_conv = Conv2d(in_ch, out_ch, 3, dtype=dtype, device=device)
         self.step_embedding = Linear(
@@ -173,7 +187,7 @@ class ResidualBlock(nn.Module):
             else Conv2d(in_ch, out_ch, 1, dtype=dtype, device=device)
         )
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, generator=None):
         h = self.in_norm(x)
         if self.upsample:
             h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
@@ -188,6 +202,11 @@ class ResidualBlock(nn.Module):
         else:
             h = self.out_norm(h + emb[:, None, None, :].to(h.dtype))
 
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout in train() mode needs the caller's torch.Generator")
+            keep = torch.rand(h.shape, generator=generator, device=h.device) >= self.dropout
+            h = h * keep / (1.0 - self.dropout)
         h = self.out_conv(h)
         return h + (x if self.skip is None else self.skip(x))
 
@@ -224,13 +243,49 @@ class AttentionBlock(nn.Module):
         return x + self.proj_out(h).reshape(b, hh, ww, c)
 
 
-class StepSequential(nn.ModuleList):
-    """Sequential that passes the step embedding to the residual blocks
-    (reference UsesStepsSequential, model.py:40-48)."""
+def _replay_generator(generator):
+    """``context_fn`` of a checkpointed block: the recompute starts from the
+    generator state the block's first run started from, so it draws the same
+    dropout mask, and leaves the generator as it found it."""
+    state = generator.get_state()
 
-    def forward(self, x, emb):
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return contextlib.nullcontext(), recompute()
+
+
+class StepSequential(nn.ModuleList):
+    """Sequential that passes the step embedding (and the dropout
+    generator) to the residual blocks (reference UsesStepsSequential,
+    model.py:40-48). With ``use_remat`` every residual and attention block
+    is rematerialised in the backward pass (JAX unet.py:529-535)."""
+
+    def __init__(self, modules, use_remat: bool = False):
+        super().__init__(modules)
+        self.use_remat = use_remat
+
+    def forward(self, x, emb, generator=None):
+        remat = self.use_remat and torch.is_grad_enabled()
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResidualBlock) else layer(x)
+            if isinstance(layer, ResidualBlock):
+                args = (x, emb, generator)
+            else:
+                args = (x,)
+            if remat and isinstance(layer, (ResidualBlock, AttentionBlock)):
+                kw = {}
+                if generator is not None:
+                    kw["context_fn"] = functools.partial(_replay_generator, generator)
+                x = checkpoint(layer, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+            else:
+                x = layer(*args)
         return x
 
 
@@ -297,22 +352,22 @@ class DiffusionModel(nn.Module):
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        if use_remat:
-            raise _not_ported("remat (training)", "Training")
         if quantized or quantized_attention:
             raise _not_ported("int8 serving", "Samplers and serving levers")
         if winograd:
             raise NotImplementedError("Winograd is an ablation the port leaves out (ROADMAP)")
-        del dropout  # training only; see the module docstring
+        device = resolve_device(device)
         self.resolution, self.in_channels = resolution, in_channels
         self.model_channels, self.num_classes = model_channels, num_classes
-        self.dtype, self.kernels = dtype, kernels
+        self.dtype, self.kernels, self.use_remat = dtype, kernels, use_remat
         emb_dim = 4 * model_channels
         kw = dict(dtype=dtype, device=device)
+        seq = functools.partial(StepSequential, use_remat=use_remat)
 
         def res(cin, cout, up=False, down=False):
             return ResidualBlock(cin, cout, emb_dim, upsample=up, downsample=down,
-                                 use_adaptive_gn=use_adaptive_gn, kernels=kernels, **kw)
+                                 use_adaptive_gn=use_adaptive_gn, dropout=dropout,
+                                 kernels=kernels, **kw)
 
         def attn(ch):
             return AttentionBlock(ch, num_heads, num_head_channels, split_qkv_first,
@@ -325,7 +380,7 @@ class DiffusionModel(nn.Module):
         # ---- encoder (reference model.py:363-402) ----
         ch = input_ch = int(model_channels * channel_mult[0])
         curr_res = resolution
-        down = [StepSequential([Conv2d(in_channels, ch, 3, **kw)])]
+        down = [seq([Conv2d(in_channels, ch, 3, **kw)])]
         skip_chs = [ch]
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -334,18 +389,18 @@ class DiffusionModel(nn.Module):
                 if curr_res in attention_resolutions:
                     layers.append(attn(ch))
                 skip_chs.append(ch)
-                down.append(StepSequential(layers))
+                down.append(seq(layers))
             if level != len(channel_mult) - 1:
                 if resblock_updown:
-                    down.append(StepSequential([res(ch, ch, down=True)]))
+                    down.append(seq([res(ch, ch, down=True)]))
                 else:
-                    down.append(StepSequential([Downsample(ch, conv_resample, **kw)]))
+                    down.append(seq([Downsample(ch, conv_resample, **kw)]))
                 skip_chs.append(ch)
                 curr_res //= 2
         self.downsampling = nn.ModuleList(down)
 
         # ---- middle (reference model.py:404-412) ----
-        self.middle_block = StepSequential([res(ch, ch), attn(ch), res(ch, ch)])
+        self.middle_block = seq([res(ch, ch), attn(ch), res(ch, ch)])
 
         # ---- decoder (reference model.py:414-443) ----
         up = []
@@ -361,7 +416,7 @@ class DiffusionModel(nn.Module):
                     else:
                         layers.append(Upsample(ch, conv_resample, **kw))
                     curr_res *= 2
-                up.append(StepSequential(layers))
+                up.append(seq(layers))
         self.upsampling = nn.ModuleList(up)
 
         self.out = OutHead(input_ch, out_channels, kernels=kernels, **kw)
@@ -382,24 +437,26 @@ class DiffusionModel(nn.Module):
             emb = emb + self.class_embedding(y)
         return emb
 
-    def encode(self, x, emb):
+    def encode(self, x, emb, generator=None):
         """Encoder stack -> (bottom feature, all skip activations)."""
         x = x.to(self.dtype or x.dtype)
         xs = []
         for module in self.downsampling:
-            x = module(x, emb)
+            x = module(x, emb, generator)
             xs.append(x)
         return x, xs
 
-    def decode(self, h, xs, emb):
+    def decode(self, h, xs, emb, generator=None):
         """Middle + decoder + head, consuming the encoder skips; f32 out."""
         xs = list(xs)
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, generator)
         for module in self.upsampling:
-            h = module(torch.cat([h, xs.pop()], dim=-1), emb)
+            h = module(torch.cat([h, xs.pop()], dim=-1), emb, generator)
         return self.out(h).float()
 
-    def forward(self, x, timestep, y=None):
+    def forward(self, x, timestep, y=None, generator=None):
+        """``generator`` feeds the dropout masks; it is needed only in
+        ``train()`` mode with ``dropout > 0``."""
         emb = self.embed(timestep, y)
-        h, xs = self.encode(x, emb)
-        return self.decode(h, xs, emb)
+        h, xs = self.encode(x, emb, generator)
+        return self.decode(h, xs, emb, generator)

@@ -8,8 +8,10 @@ and softmax run in f32 for every input dtype.
 
 ``kernels=True`` (the model's default) sends the call to kernel K1
 (ops/kernels/attention.py), which takes its plain version on a CPU tensor
-and the CUDA kernel on a CUDA tensor. ``kernels=False`` is the plain
-version everywhere.
+and the CUDA kernel on a CUDA tensor; when a gradient is wanted the call is
+a ``torch.autograd.Function`` whose backward is kernel K2, the counterpart
+of the JAX package's custom VJP. ``kernels=False`` is the plain version
+everywhere, differentiated by autograd.
 """
 
 from __future__ import annotations

@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ctypes. The library
 lands in ``nicediffusion_tpu_torch/_build/`` (listed in .gitignore) under a
-name keyed by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Only the package's own
+name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is. :func:`build_all` starts one nvcc per source at once. Only the package's own
 sources and the installed toolkit's headers are used. A failed build raises
 with nvcc's stderr; nothing falls back.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -20,7 +22,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "build", "load_library", "build_logs"]
+__all__ = ["BuildError", "build", "build_all", "load_library", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -57,6 +59,8 @@ def build(name: str) -> tuple[Path, str, float]:
     exists. Returns (library path, nvcc stderr, seconds spent building)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, "", 0.0
@@ -83,12 +87,23 @@ def build(name: str) -> tuple[Path, str, float]:
     return lib, proc.stderr, time.perf_counter() - t0
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
+def load_library(name: str, built: tuple[Path, str, float] | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, once per process.
+    ``built`` is the result of a :func:`build` of ``name`` made already."""
     if name not in _LIBS:
-        path, log, seconds = build(name)
+        path, log, seconds = built or build(name)
         _LIBS[name] = (ctypes.CDLL(str(path)), log, seconds)
     return _LIBS[name][0]
+
+
+def build_all(names: tuple[str, ...] = ("attention", "attention_bwd")) -> None:
+    """Build several sources, one nvcc process per source, all started
+    together (nvcc is a subprocess, so threads are enough), and load each
+    through :func:`load_library`."""
+    todo = [n for n in names if n not in _LIBS]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        for name, built in zip(todo, pool.map(build, todo)):
+            load_library(name, built)
 
 
 def build_logs() -> dict[str, tuple[str, float]]:

@@ -19,7 +19,8 @@ to one and masked. The loops walk the group's rows in chunks; Triton
 pipelines the loads.
 
 Dispatch: a CPU tensor goes to :func:`group_norm_fused_plain`; a CUDA tensor
-launches the kernel or raises. ``triton`` is imported inside the launching
+launches the kernel or raises. Under autograd the forward is the same and
+the backward differentiates the plain version on the saved inputs. ``triton`` is imported inside the launching
 function, so this module imports where triton is not installed.
 """
 
@@ -149,25 +150,10 @@ def _check(x, scale, bias, emb_scale, emb_shift, num_groups):
                     f"K3 takes (B, C) = ({b}, {c}) modulation rows with unit "
                     f"channel stride, got {tuple(e.shape)} strides {e.stride()}"
                 )
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (x, scale, bias, emb_scale, emb_shift)
-    ):
-        raise NotImplementedError(
-            'K3 is forward only; its backward comes with ROADMAP queue A, "Training"'
-        )
 
 
-def group_norm_fused(
-    x, scale, bias, emb_scale=None, emb_shift=None, *,
-    num_groups: int = 32, eps: float = 1e-5, silu: bool = True,
-):
-    """Fused GroupNorm over NHWC with optional AdaGN modulation and SiLU.
-
-    x: (B, H, W, C); scale/bias: (C,); emb_scale/emb_shift: (B, C) or None.
-    CPU tensors take the plain version; CUDA tensors launch K3 on the
-    current stream. ``group_norm_fused.launches`` counts the launches.
-    """
+def _forward(x, scale, bias, emb_scale, emb_shift, num_groups, eps, silu):
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return group_norm_fused_plain(
             x, scale, bias, emb_scale, emb_shift,
@@ -193,6 +179,56 @@ def group_norm_fused(
         )
     group_norm_fused.launches += 1
     return out
+
+
+class _GroupNormFused(torch.autograd.Function):
+    """Forward K3; backward differentiates the plain version on the saved
+    inputs. The JAX package has no backward kernel either: its custom VJP
+    recomputes the plain jnp op (nicediffusion_tpu/ops/groupnorm.py:100-133),
+    cotangent cast to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, emb_scale, emb_shift, num_groups, eps, silu):
+        ctx.save_for_backward(x, scale, bias, emb_scale, emb_shift)
+        ctx.config = (num_groups, eps, silu)
+        return _forward(x, scale, bias, emb_scale, emb_shift, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_groups, eps, silu = ctx.config
+        saved = ctx.saved_tensors  # read once: a checkpointed block unpacks them once
+        wanted = [need and t is not None for need, t in zip(ctx.needs_input_grad, saved)]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(saved, wanted)]
+            out = group_norm_fused_plain(
+                *inputs, num_groups=num_groups, eps=eps, silu=silu
+            )
+            grads = iter(torch.autograd.grad(
+                out, [t for t, need in zip(inputs, wanted) if need], g.to(out.dtype)
+            ))
+        return (*(next(grads) if need else None for need in wanted), None, None, None)
+
+
+def group_norm_fused(
+    x, scale, bias, emb_scale=None, emb_shift=None, *,
+    num_groups: int = 32, eps: float = 1e-5, silu: bool = True,
+):
+    """Fused GroupNorm over NHWC with optional AdaGN modulation and SiLU.
+
+    x: (B, H, W, C); scale/bias: (C,); emb_scale/emb_shift: (B, C) or None.
+    CPU tensors take the plain version; CUDA tensors launch K3 on the
+    current stream. ``group_norm_fused.launches`` counts the launches.
+    When a gradient is wanted the call goes through an autograd Function
+    whose backward recomputes the plain version (plain torch, as in the JAX
+    package).
+    """
+    tensors = (x, scale, bias, emb_scale, emb_shift)
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        return _GroupNormFused.apply(*tensors, num_groups, eps, silu)
+    return _forward(*tensors, num_groups, eps, silu)
 
 
 group_norm_fused.launches = 0

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .convert import flax_params_to_torch_state_dict, rename_guided_diffusion_keys
+from .device import resolve_device
 
 __all__ = ["load_state_dict"]
 
@@ -38,18 +39,21 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
-def load_state_dict(path: str) -> dict[str, torch.Tensor]:
+def load_state_dict(
+    path: str, device: torch.device | str | None = None
+) -> dict[str, torch.Tensor]:
     """Load a ``.pt``-family or ``.npz`` checkpoint as a port state dict of
-    CPU tensors."""
+    tensors on ``device`` (``None`` means the CUDA card, utils/device.py)."""
+    device = resolve_device(device)
     if path.endswith(".npz"):
         with np.load(path) as data:
             tree = _unflatten({k: data[k] for k in data.files})
         return {
-            k: torch.from_numpy(np.ascontiguousarray(v))
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in flax_params_to_torch_state_dict(tree).items()
         }
     if path.endswith((".pt", ".pth", ".ckpt")):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd = torch.load(path, map_location=device, weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
         return {rename_guided_diffusion_keys(k): v for k, v in sd.items()}

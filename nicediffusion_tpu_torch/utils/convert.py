@@ -11,13 +11,18 @@ The port's module tree keeps the original torch reference's parameter names
     :func:`flax_params_to_torch_state_dict` (HWIO -> OIHW, Dense (I, O) ->
     Linear (O, I) or Conv1d (O, I, 1), GN ``scale`` -> ``weight``);
   * :func:`convert_torch_state_dict` goes the other way, torch names ->
-    flax tree, so the port's weights can drive the JAX model.
+    flax tree, so the port's weights can drive the JAX model;
+  * :func:`train_state_to_torch` carries a whole JAX ``TrainState`` across:
+    parameters, EMA parameters and optax AdamW's ``mu``, ``nu`` and ``count``
+    become the port's model and EMA state dicts and the ``state`` half of
+    ``torch.optim.AdamW.state_dict()`` (``exp_avg``, ``exp_avg_sq``,
+    ``step``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 
@@ -25,6 +30,7 @@ __all__ = [
     "rename_guided_diffusion_keys",
     "convert_torch_state_dict",
     "flax_params_to_torch_state_dict",
+    "train_state_to_torch",
 ]
 
 # rename bare `qkv` -> `qkv_nin` but leave `qkv_nin` (idempotence) and the
@@ -167,3 +173,37 @@ def flax_params_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
 
     emit([], params)
     return out
+
+
+def train_state_to_torch(
+    params: Mapping, ema_params: Mapping, mu: Mapping, nu: Mapping, count: int,
+    param_names: Sequence[str],
+) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray], dict[int, dict[str, np.ndarray]]]:
+    """Numpy trees of a JAX ``TrainState`` -> (model state dict, EMA state
+    dict, AdamW per-parameter state).
+
+    ``mu`` and ``nu`` are the first and second moments of optax's
+    ``ScaleByAdamState`` (params-shaped trees) and ``count`` its update
+    count. ``param_names`` is the port model's ``named_parameters()`` order,
+    which is the order ``torch.optim.AdamW`` numbers its state by. The three
+    results are what ``Trainer.load_train_state`` takes. Moments share their
+    parameter's layout, so they go through the same transposes.
+    """
+    exp_avg = flax_params_to_torch_state_dict(mu)
+    exp_avg_sq = flax_params_to_torch_state_dict(nu)
+    adamw_state = {}
+    if count > 0:  # torch keeps no state for a parameter before its first update
+        adamw_state = {
+            i: {
+                "step": np.asarray(count, np.float32),
+                "exp_avg": np.ascontiguousarray(exp_avg[name]),
+                "exp_avg_sq": np.ascontiguousarray(exp_avg_sq[name]),
+            }
+            for i, name in enumerate(param_names)
+        }
+
+    def state_dict(tree):
+        return {k: np.ascontiguousarray(v)
+                for k, v in flax_params_to_torch_state_dict(tree).items()}
+
+    return state_dict(params), state_dict(ema_params), adamw_state

@@ -51,7 +51,7 @@ def pair():
             v = (1.0 if path[-1] == "embedding" else 0.2) * rng.normal(size=leaf.shape)
         flat[path] = v.astype(np.float32)
     params = traverse_util.unflatten_dict(flat)
-    model = DiffusionModel(**CFG)
+    model = DiffusionModel(**CFG, device="cpu")
     model.load_state_dict(
         {k: torch.from_numpy(np.ascontiguousarray(v))
          for k, v in flax_params_to_torch_state_dict(params).items()},

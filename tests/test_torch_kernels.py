@@ -1,4 +1,4 @@
-"""K1 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
+"""K1, K2 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -24,6 +24,9 @@ TOL = {
     (torch.bfloat16, "k1"): dict(atol=3e-2, rtol=0),
     (torch.float32, "k3"): dict(atol=1e-5, rtol=0),
     (torch.bfloat16, "k3"): dict(atol=3e-2, rtol=1e-2),
+    # K2 with |g| <= 1: K1's f32 gate; bf16 rounds ds once more than K1 rounds p
+    (torch.float32, "k2"): dict(atol=2e-5, rtol=0),
+    (torch.bfloat16, "k2"): dict(atol=3e-2, rtol=2e-2),
 }
 
 
@@ -61,6 +64,91 @@ def test_k1_refuses_what_it_does_not_take(cuda):
         k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 128, device=cuda).half(), 2, True)
     with pytest.raises(ValueError, match="contiguous"):
         k1.fused_qkv_attention(torch.zeros(1, 3 * 128, 64, device=cuda).mT, 2, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc,heads", [
+    (1024, 64, 6), (256, 64, 9), (64, 64, 12), (196, 32, 4), (49, 64, 4), (100, 128, 2),
+])
+def test_k2_matches_plain(cuda, dtype, split_first, n, hc, heads):
+    """Every element written (the output is pre-filled with NaN), ragged N
+    included, and equal to the plain version; one count per launch."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).to(dtype)
+    o = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+    out = torch.full_like(qkv, float("nan"))
+    before = k1.fused_qkv_attention_bwd.launches
+    res = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first, out=out)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention_bwd.launches == before + 1
+    assert res is out and not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k2"])
+
+
+def test_k2_refuses_what_it_does_not_take(cuda):
+    def call(qkv, g=None, o=None, heads=2, **kw):
+        b, n, c3 = qkv.shape
+        g = torch.zeros(b, n, c3 // 3, device=cuda, dtype=qkv.dtype) if g is None else g
+        return k1.fused_qkv_attention_bwd(qkv, g, g if o is None else o, heads, True, **kw)
+
+    with pytest.raises(NotImplementedError, match="head dim 192"):
+        call(torch.zeros(1, 64, 3 * 384, device=cuda))
+    with pytest.raises(TypeError):
+        call(torch.zeros(1, 64, 3 * 128, device=cuda).half())
+    qkv = torch.zeros(1, 64, 3 * 128, device=cuda)
+    with pytest.raises(ValueError, match="contiguous g"):
+        call(qkv, g=torch.zeros(1, 128, 64, device=cuda).mT)
+    with pytest.raises(ValueError, match="contiguous o"):
+        call(qkv, o=torch.zeros(1, 64, 128, device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="contiguous out"):
+        call(qkv, out=torch.zeros(1, 64, 128, device=cuda))
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2)])
+def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads):
+    """The autograd Function in f32 (forward K1, backward K2) against
+    autograd through the plain forward, and its counters: one K1 and one K2
+    launch; under no_grad the Function is bypassed and saves nothing."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda, requires_grad=True)
+    cot = 2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1
+    fwd, bwd = k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches
+    out = k1.fused_qkv_attention(qkv, heads, split_first)
+    got, = torch.autograd.grad(out, qkv, cot)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention.launches == fwd + 1
+    assert k1.fused_qkv_attention_bwd.launches == bwd + 1
+    ref, = torch.autograd.grad(k1.fused_qkv_attention_plain(qkv, heads, split_first), qkv, cot)
+    torch.testing.assert_close(got, ref, **TOL[torch.float32, "k2"])
+    with torch.no_grad():
+        assert k1.fused_qkv_attention(qkv, heads, split_first).grad_fn is None
+
+
+@pytest.mark.parametrize("mode", ["plain", "silu", "ada"])
+def test_k3_function_gradient_on_the_card(cuda, mode):
+    """K3 under autograd: the forward launches the kernel, the backward
+    equals autograd through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 8, 8, 96, generator=g, device=cuda, requires_grad=True)
+    sc = torch.randn(96, generator=g, device=cuda, requires_grad=True)
+    bi = torch.randn(96, generator=g, device=cuda, requires_grad=True)
+    emb = [(0.1 * torch.randn(2, 96, generator=g, device=cuda)).requires_grad_(True)
+           for _ in range(2)] if mode == "ada" else []
+    inputs = [x, sc, bi, *emb]
+    cot = torch.randn(2, 8, 8, 96, generator=g, device=cuda)
+    before = k3.group_norm_fused.launches
+    out = k3.group_norm_fused(*inputs, silu=mode != "plain")
+    assert k3.group_norm_fused.launches == before + 1
+    got = torch.autograd.grad(out, inputs, cot)
+    ref = torch.autograd.grad(
+        k3.group_norm_fused_plain(*inputs, silu=mode != "plain"), inputs, cot)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -71,7 +71,7 @@ def random_jax_params(cfg, seed=0):
 
 
 def port_model(cfg, params, **kw):
-    model = DiffusionModel(**cfg, **kw)
+    model = DiffusionModel(**cfg, device="cpu", **kw)
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
           for k, v in flax_params_to_torch_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
@@ -156,8 +156,8 @@ def test_checkpoints_load(tmp_path):
     jmodel, params = random_jax_params(CFG_ADA, seed=3)
     npz = str(tmp_path / "params.npz")
     save_params_npz(params, npz)
-    model = DiffusionModel(**CFG_ADA).eval()
-    model.load_state_dict(load_state_dict(npz), strict=True)
+    model = DiffusionModel(**CFG_ADA, device="cpu").eval()
+    model.load_state_dict(load_state_dict(npz, device="cpu"), strict=True)
     out, ref = forward_both(CFG_ADA, jmodel, params, model)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-3, rtol=0)
 
@@ -177,13 +177,30 @@ def test_checkpoints_load(tmp_path):
     assert "input_blocks.1.0.in_layers.0.weight" in raw
     pt = str(tmp_path / "64x64_raw.pt")
     torch.save(raw, pt)
-    again = DiffusionModel(**CFG_ADA)
-    again.load_state_dict(load_state_dict(pt), strict=True)
+    again = DiffusionModel(**CFG_ADA, device="cpu")
+    again.load_state_dict(load_state_dict(pt, device="cpu"), strict=True)
     for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
         assert torch.equal(a, b), k
 
 
 @pytest.mark.parametrize("option", ["use_remat", "quantized", "quantized_attention", "winograd"])
 def test_unported_model_options_raise(option):
+    if option == "use_remat":  # ported with the training path: it builds now
+        assert DiffusionModel(**CFG_PLAIN, use_remat=True, device="meta").use_remat
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
+
+
+def test_device_none_means_the_card():
+    """No device given: the card, and an error naming the argument where
+    there is none; never a silent CPU model."""
+    if torch.cuda.is_available():
+        model = DiffusionModel(**CFG_PLAIN)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device"):
+            DiffusionModel(**CFG_PLAIN)
+        with pytest.raises(RuntimeError, match="device"):
+            load_state_dict("weights.npz")
+    assert next(DiffusionModel(**CFG_PLAIN, device="cpu").parameters()).device.type == "cpu"
