@@ -2,31 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, class-conditional sampling with classifier-free
-guidance and training, at the full width of the ``openai_64`` preset with
-random weights made from a seed, and checks every hand-written kernel on the
-way:
+Drives the port's main paths at full width with random weights made from a
+seed: class-conditional sampling with classifier-free guidance and training
+at the ``openai_64`` preset, and the sampling entry point with classifier
+guidance at ``openai_128`` with its noisy classifier. It checks every
+hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch/CUDA/Triton versions;
-  2. build: K1 and K2 (CUDA C++, one nvcc for sm_90a per source, started
-     together) from the sources in this checkout, and K3 (Triton);
+  2. build: K1 with K5, and K2 (CUDA C++, one nvcc for sm_90a per source,
+     started together) from the sources in this checkout, and K3 (Triton);
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
-     forwards of ``openai_64`` and of the train entry point's EMNIST model,
-     whose shapes are ragged, at that recipe's batch of 468), f32 and bf16,
-     with the JAX package's tolerances; its time per call (CUDA events
-     around back-to-back calls) in the path's compute type, per shape and
-     summed over one forward, beside the plain version's;
+     forwards of ``openai_64``, of the train entry point's EMNIST model,
+     whose shapes are ragged, at that recipe's batch of 468, and of
+     ``openai_128`` and its classifier at batch 4: head dims 128, 192 and
+     256, the interleaved layout, the pool's N = 65), f32 and bf16, with the
+     JAX package's tolerances; its time per call (CUDA events around
+     back-to-back calls) in the path's compute type, per shape and summed
+     over one forward, beside the plain version's. K5 runs at the
+     ``openai_128`` shapes as strided views of a projection and as separate
+     contiguous tensors, and at D = 16, N = 49; then, with the counts reset,
+     it is called directly at those shapes and held bit for bit against K1
+     (no model calls K5: these are the launches its entry reports);
   4. the full-width f32 model with kernels on against ``kernels=False``
      on one CFG forward (max abs <= 1e-3, the repo's parity bar);
   5. the slice: bf16, CFG w=0.8, DDPM with learned-interpolation variance
      respaced to 25 steps, answering 3 requests of 8 labels; the launch
      counters must show every attention and GroupNorm call went through the
      kernels; samples/s with kernels on and off;
+  5b. the full-width ``openai_128`` f32 forward, its classifier's logits and
+     the guidance gradient, kernels on against ``kernels=False``; then the
+     sampling entry point (``nicediffusion_tpu_torch.scripts.sample.main``)
+     as a user calls it, on ``128x128_diffusion.pt`` and
+     ``128x128_classifier.pt`` written to a temporary directory: bf16, the
+     preset's 25 DDIM steps, classifier guidance, 2 samples of 4 images.
+     The 8 files must be there under the per-class names, and the launch
+     counts must equal what the two models' structure gives (K1 in the UNet
+     and the classifier, K2 and K3 through the classifier's gradient);
+     images/s with kernels on and off through the library on the same seed;
+     a torch.profiler breakdown of one guided step;
   6. K2 (the attention backward) against its plain version and against
      autograd through the plain forward, f32 and bf16, both layouts, output
      pre-filled with NaN, at every attention shape of a training step of
-     both models and at a ragged N with head dim 128; its times beside the
+     both models, of the classifier's gradient and at a ragged N with head
+     dim 128; its times beside the
      plain version's and the library call's; K1 and K3 at the training
      batch; the cost of K3's backward (a recompute of its plain version);
   7. loss and every parameter's gradient of the full-width f32 model, and
@@ -76,6 +95,7 @@ LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
 SEED = 0
 TRAIN_BATCH = 8
 EMNIST_BATCH = 468  # the train entry point's recipe
+GUIDED_BATCH = 4  # the classifier-guided openai_128 slice
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -159,7 +179,8 @@ def main_path_calls(model, dev):
     """Every GroupNorm and attention call of one forward of ``model``, as
     a Counter of call keys -> calls per forward. ``model`` runs with
     ``kernels=False``, so this launches no kernel."""
-    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+    from nicediffusion_tpu_torch.models.classifier import AttentionPool
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, DiffusionModel, GroupNormOp
 
     calls = collections.Counter()
 
@@ -170,14 +191,20 @@ def main_path_calls(model, dev):
         _, h, w, c = args[0].shape
         calls[("attention", h * w, c, mod.heads, mod.split_qkv_first)] += 1
 
+    def pool_hook(mod, args):  # tokens [mean | x], always the [q|k|v] layout
+        _, h, w, c = args[0].shape
+        calls[("attention", h * w + 1, c, mod.heads, True)] += 1
+
     hooks = [m.register_forward_pre_hook(gn_hook) for m in model.modules()
              if isinstance(m, GroupNormOp)]
     hooks += [m.register_forward_pre_hook(attn_hook) for m in model.modules()
               if isinstance(m, AttentionBlock)]
+    hooks += [m.register_forward_pre_hook(pool_hook) for m in model.modules()
+              if isinstance(m, AttentionPool)]
     x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
     zero = torch.zeros(1, dtype=torch.long, device=dev)
     with torch.inference_mode():
-        model(x, zero, zero)
+        model(x, zero, zero) if isinstance(model, DiffusionModel) else model(x, zero)
     for h in hooks:
         h.remove()
     return calls
@@ -242,26 +269,50 @@ PATHS = {
               f"one forward of an openai_64 training step at batch {TRAIN_BATCH}"),
     "emnist": (EMNIST_BATCH, torch.float32,
                f"one forward of the train entry point's EMNIST recipe at batch {EMNIST_BATCH}"),
+    "unet128": (GUIDED_BATCH, torch.bfloat16,
+                f"one openai_128 sampling forward at batch {GUIDED_BATCH}"),
+    "cls128": (GUIDED_BATCH, torch.bfloat16,
+               f"one forward of the openai_128 classifier at batch {GUIDED_BATCH}"),
 }
+GUIDED_PATHS = ("unet128", "cls128")
 
 
-def phase_kernels(dev, calls, emnist_calls):
-    """K1 and K3 against their plain versions at every shape the main paths
-    give them (sampling at model batch 16: 8 requests doubled by CFG;
-    ``openai_64`` training at batch 8; the entry point's EMNIST recipe at
-    batch 468, whose N = 49 and 196 and 7x7 maps are ragged for the tiles),
-    in f32 and bf16; times in each path's compute type per shape and summed
-    per forward, beside the plain version, the library call and the bound."""
+def check_mha(name, qkv, heads, split_first, dtype, tol):
+    """K5 on strided views of ``qkv`` and on contiguous copies of them,
+    against its plain version; the output pre-filled with NaN. Returns
+    (max abs err, the views)."""
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
+    views = k1.split_qkv(qkv, heads, split_first)
+    err = 0.0
+    for q, k, v in (views, tuple(t.contiguous() for t in views)):
+        out = torch.full(q.shape, float("nan"), dtype=dtype, device=q.device)
+        k1.mha_attention(q, k, v, out=out)
+        torch.cuda.synchronize()
+        if torch.isnan(out).any():
+            raise AssertionError(f"{name} {dtype}: output elements left unwritten")
+        err = max(err, check(f"{name} {dtype}", out, k1.mha_attention_plain(q, k, v), tol))
+    return err, views
+
+
+def phase_kernels(dev, paths):
+    """K1, K3 and K5 against their plain versions at every shape the main
+    paths give them (``paths``: name in PATHS -> calls of one forward;
+    sampling at model batch 16: 8 requests doubled by CFG; ``openai_64``
+    training at batch 8; the entry point's EMNIST recipe at batch 468, whose
+    N = 49 and 196 and 7x7 maps are ragged for the tiles; ``openai_128`` and
+    its classifier at batch 4), in f32 and bf16; times in each path's compute
+    type per shape and summed per forward, beside the plain version, the
+    library call and the bound. K5 runs at the attention shapes of the
+    ``openai_128`` paths and at D = 16, N = 49."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {(k, dt): 0.0 for k in ("attention", "groupnorm")
-            for dt in (torch.float32, torch.bfloat16)}
-    tallies = {(k, where): Tally() for k in ("attention", "groupnorm") for where in PATHS}
-    cases = [(key, n, where)
-             for where, path_calls in (("forward", calls), ("train", calls),
-                                       ("emnist", emnist_calls))
+    kinds = ("attention", "groupnorm", "mha")
+    errs = {(k, dt): 0.0 for k in kinds for dt in (torch.float32, torch.bfloat16)}
+    tallies = {(k, where): Tally() for k in kinds for where in PATHS}
+    cases = [(key, n, where) for where, path_calls in paths.items()
              for key, n in sorted(path_calls.items(), key=str)]
     for key, per_call, where in cases:
         kind = key[0]
@@ -304,12 +355,70 @@ def phase_kernels(dev, calls, emnist_calls):
                 tallies[kind, where].add(per_call, ms, plain, lib, bound)
                 log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms, plain "
                     f"{plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+            if kind == "attention" and where in GUIDED_PATHS:
+                name = f"K5 B={b} H={heads} N={n} D={c // heads}"
+                err, views = check_mha(name, qkv, heads, split_first, dtype, tol)
+                errs["mha", dtype] = max(errs["mha", dtype], err)
+                if dtype == timed_dtype:
+                    ms = time_ms(lambda: k1.mha_attention(*views))
+                    plain = time_ms(lambda: k1.mha_attention_plain(*views))
+                    tallies["mha", where].add(per_call, ms, plain, lib, bound)
+                    log(f"[kernels] {name} {dtype} as views of the projection: {ms:.4f} ms, "
+                        f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+    # a head dim under the smallest build and a ragged N (tests/test_pallas.py:18)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(2, 49, 3 * 2 * 16, generator=g, device=dev).to(dtype)
+        tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["attention"]
+        err, _ = check_mha("K5 B=2 H=2 N=49 D=16", qkv, 2, True, dtype, tol)
+        errs["mha", dtype] = max(errs["mha", dtype], err)
+    # head dims 128, 192 and 256 at one N and 4 heads, beside the paths' own
+    # shapes: the rate per operation of each build
+    for hc in (128, 192, 256):
+        qkv = torch.randn(GUIDED_BATCH, 1024, 12 * hc, generator=g, device=dev).bfloat16()
+        ms = time_ms(lambda: k1.fused_qkv_attention(qkv, 4, True))
+        tflops = 4 * GUIDED_BATCH * 1024**2 * 4 * hc / ms / 1e9
+        log(f"[kernels] K1 at one N: B={GUIDED_BATCH} N=1024, 4 heads of {hc}, bf16: "
+            f"{ms:.4f} ms, {tflops:.2f} TFLOP/s of its two products")
     for (kind, dtype), err in errs.items():
         log(f"[kernels] {kind} {dtype}: max abs err {err:.3g} vs plain")
     for (kind, where), tally in tallies.items():
+        if kind == "mha" and where not in GUIDED_PATHS:
+            continue
         _, dtype, basis = PATHS[where]
         log(f"[kernels] {kind}, {dtype} calls of {basis}, each timed back to back: {tally}")
     return errs, tallies
+
+
+def phase_mha_direct(dev, paths):
+    """K5 called directly, as no model calls it: with the counts reset, one
+    call for every attention call of one ``openai_128`` forward and one
+    classifier forward at batch 4 in bf16, on views of a projection; each
+    result must equal K1's on the same projection bit for bit (they are one
+    kernel). Returns the launch counts of these calls."""
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    work = []
+    for where in GUIDED_PATHS:
+        for key, per_call in sorted(paths[where].items(), key=str):
+            if key[0] != "attention":
+                continue
+            _, n, c, heads, split_first = key
+            qkv = torch.randn(GUIDED_BATCH, n, 3 * c, generator=g, device=dev).bfloat16()
+            work.append((qkv, heads, split_first, per_call,
+                         k1.fused_qkv_attention(qkv, heads, split_first)))
+    reset_launches()
+    for qkv, heads, split_first, per_call, fused in work:
+        b, n, c = fused.shape
+        for _ in range(per_call):
+            out = k1.mha_attention(*k1.split_qkv(qkv, heads, split_first))
+        if not torch.equal(out.transpose(1, 2).reshape(b, n, c), fused):
+            raise AssertionError(f"K5 differs from K1 at qkv {tuple(qkv.shape)}, {heads} heads")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[k5] {launches['mha']} direct calls at the attention shapes of one openai_128 and "
+        f"one classifier forward, bf16, batch {GUIDED_BATCH}: each equal to K1 bit for bit")
+    return launches
 
 
 def randomize(model, seed):
@@ -416,7 +525,8 @@ def phase_slice(dev, state):
             f"{s_on:.4f} s with kernels, {s_off:.4f} s without")
     launches = read_launches()
     calls = steps * len(requests)
-    expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls}
+    expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
+              "mha": 0}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -430,11 +540,242 @@ def phase_slice(dev, state):
     return launches
 
 
-def phase_kernels_bwd(dev, calls, emnist_calls):
+def classifier_config():
+    from nicediffusion_tpu_torch.utils.config import CLASSIFIER_PRESETS
+
+    return dict(CLASSIFIER_PRESETS["openai_128"])
+
+
+def guided_diffusion_config(classifier):
+    """What the sampling entry point derives for ``128x128_diffusion.pt`` with
+    ``--classifier_path``: the preset's 25 DDIM steps, classifier guidance
+    at the preset's strength."""
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    return dict(DIFFUSION_PRESETS["openai_128"], guidance_method="classifier",
+                classifier=classifier)
+
+
+def phase_model_128(dev, unet_off, cls_off):
+    """Full-width ``openai_128`` f32 forward (head dims 128, 192, 256), its
+    classifier's logits and the guidance gradient (forward K1 and K3,
+    backward K2 and K3's recompute), kernels on against ``kernels=False``."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel, EncoderUNet
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn(2, 128, 128, 3, generator=g, device=dev)
+    y = torch.tensor([207, 933], device=dev)
+
+    on = DiffusionModel(**MODEL_PRESETS["openai_128"], device=dev).eval()
+    on.load_state_dict(unet_off.state_dict(), strict=True)
+    with torch.inference_mode():
+        t = torch.tensor([980, 500], device=dev)
+        a, b = on(x, t, y), unet_off(x, t, y)
+    torch.cuda.synchronize()
+    err = check("openai_128 f32 forward, kernels on vs off", a, b, dict(atol=MODEL_TOL, rtol=0))
+    log(f"[model-128] openai_128 f32, {sum(p.numel() for p in on.parameters())} parameters, "
+        f"forward at batch 2: kernels on vs off max abs {err:.3g} (output max abs "
+        f"{b.abs().max().item():.3g})")
+    del a, b
+
+    cls_on = EncoderUNet(**classifier_config(), device=dev).eval()
+    cls_on.load_state_dict(cls_off.state_dict(), strict=True)
+    t = torch.tensor([24, 3], device=dev)  # the classifier sees the rescaled t
+    with torch.inference_mode():
+        la, lb = cls_on(x, t), cls_off(x, t)
+    grads = [Diffusion(model=on, **guided_diffusion_config(c))._classifier_grad(x, t, y)
+             for c in (cls_on, cls_off)]
+    torch.cuda.synchronize()
+    scale = lb.abs().max().item()
+    lerr = check("classifier logits, kernels on vs off", la, lb,
+                 dict(atol=MODEL_TOL * scale, rtol=0))
+    gscale = grads[1].abs().max().item()
+    gerr = check("classifier gradient, kernels on vs off", grads[0], grads[1],
+                 dict(atol=MODEL_TOL * gscale, rtol=0))
+    if grads[0].dtype != torch.float32 or not gscale > 0:
+        raise AssertionError("the guidance gradient is not a non-zero f32 tensor")
+    log(f"[model-128] classifier f32, {sum(p.numel() for p in cls_on.parameters())} "
+        f"parameters, batch 2: logits on vs off max abs {lerr:.3g} of max {scale:.3g}; "
+        f"grad log p(y|x) on vs off max abs {gerr:.3g} of max {gscale:.3g} "
+        f"(gate {MODEL_TOL} of the largest)")
+    del on, cls_on, grads
+    torch.cuda.empty_cache()
+
+
+def phase_sample_cli(dev, unet_state, cls_state, workdir):
+    """The classifier-guided slice through the sampling entry point, as a
+    user calls it, at full-width ``openai_128``: both state dicts are written
+    to ``workdir`` under the names the preset dispatch reads, then
+    ``main([...])`` samples 2 batches of 4 in bf16 over the preset's 25 DDIM
+    steps. Then the same chains through the library with kernels on and off
+    on the same seed, in turns, for images/s and the on/off difference, and
+    a profile of one guided step."""
+    from PIL import Image
+
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel, EncoderUNet
+    from nicediffusion_tpu_torch.models.classifier import AttentionPool
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+    from nicediffusion_tpu_torch.utils.image import to_uint8
+
+    model_path = os.path.join(workdir, "128x128_diffusion.pt")
+    cls_path = os.path.join(workdir, "128x128_classifier.pt")
+    torch.save(unet_state, model_path)
+    torch.save(cls_state, cls_path)
+    out_dir = os.path.join(workdir, "guided") + os.sep
+    os.makedirs(out_dir)
+    batch, labels_arg = GUIDED_BATCH, (3, 7)
+    images = batch * len(labels_arg)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    samples = sample_main([
+        "--model_path", model_path, "--classifier_path", cls_path,
+        # the shared parser checks guidance against the flags before it reads
+        # the preset, so a preset model is named conditional on the command line
+        "--guidance_method", "classifier", "--num_classes", "1000",
+        "--batch_size", str(batch), "--num_samples", str(len(labels_arg)),
+        "--labels", "/".join(map(str, labels_arg)), "--save_path", out_dir, "--seed", "0", "-w",
+    ])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    expect_files = sorted(f"{lab}_sample{i}.jpg" for lab in labels_arg for i in range(batch))
+    if sorted(os.listdir(out_dir)) != expect_files:
+        raise AssertionError(f"files {sorted(os.listdir(out_dir))} != {expect_files}")
+    for name in expect_files:
+        with Image.open(out_dir + name) as img:
+            if img.size != (128, 128) or img.mode != "RGB":
+                raise AssertionError(f"{name}: {img.size} {img.mode}")
+    for (_, out, labels), lab in zip(samples, labels_arg):
+        if out.shape != (batch, 128, 128, 3) or labels.tolist() != [lab] * batch:
+            raise AssertionError(f"sample of label {lab}: {out.shape}, labels {labels.tolist()}")
+        if any(img.std() == 0 for img in out):
+            raise AssertionError(f"sample of label {lab}: a constant image")
+
+    models = {}
+    for kernels in (True, False):
+        m = DiffusionModel(**MODEL_PRESETS["openai_128"], dtype=torch.bfloat16,
+                           kernels=kernels, device=dev).eval()
+        m.load_state_dict(unet_state, strict=True)
+        c = EncoderUNet(**classifier_config(), dtype=torch.bfloat16, kernels=kernels,
+                        device=dev)
+        c.load_state_dict(cls_state, strict=True)
+        models[kernels] = Diffusion(model=m, **guided_diffusion_config(c))
+    unet, cls = models[True].model, models[True].classifier
+
+    def count(model, *types):
+        return sum(isinstance(m, types) for m in model.modules())
+
+    steps = models[True].rescaled_num_steps
+    calls = steps * len(labels_arg)
+    n_attn = (count(unet, AttentionBlock), count(cls, AttentionBlock, AttentionPool))
+    n_gn = (count(unet, GroupNormOp), count(cls, GroupNormOp))
+    expect = {"attention": sum(n_attn) * calls, "attention_bwd": n_attn[1] * calls,
+              "groupnorm": sum(n_gn) * calls, "mha": 0}
+    log(f"[guided] entry point, openai_128 + classifier, bf16, {steps} DDIM steps, "
+        f"{len(labels_arg)} samples of {batch}: {images} files of 128x128 in {cli_s:.2f} s "
+        f"(models built, checkpoints loaded, Triton's bf16 variants compiled and images "
+        f"saved inside that time); launches {launches}, expected {expect} (per step: "
+        f"{n_attn[0]} K1 in the UNet, {n_attn[1]} K1 and K2 in the classifier, "
+        f"{n_gn[0]} + {n_gn[1]} K3)")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+
+    def chains(kernels):
+        """Both chains as the entry point draws them: start noise, then the
+        chain, from one generator."""
+        diff = models[kernels]
+        g = torch.Generator(device=dev).manual_seed(0)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lab in labels_arg:
+            data = torch.randn((batch, 128, 128, 3), generator=g, device=dev)
+            y = torch.full((batch,), lab, dtype=torch.long, device=dev)
+            outs.append(diff.denoise(g, x=data, y=y))
+        torch.cuda.synchronize()
+        return torch.stack(outs), time.perf_counter() - t0
+
+    chains(False)  # warm-up of the plain path
+    rates = {True: [], False: []}
+    outs = {}
+    for kernels in (True, False, False, True):
+        outs[kernels], seconds = chains(kernels)
+        rates[kernels].append(images / seconds)
+    for kernels, out in outs.items():
+        if not torch.isfinite(out).all() or out.abs().max() > 1.0:
+            raise AssertionError(f"kernels={kernels}: samples not finite in [-1, 1]")
+    cli = torch.stack([torch.from_numpy(s[1]) for s in samples])
+    same = (torch.from_numpy(to_uint8(outs[True].cpu().numpy())) == cli).float().mean().item()
+    diff = (outs[True] - outs[False]).abs()
+    log(f"[guided] images/s through the library, {images} images a reading: kernels on "
+        f"{rates[True]}, kernels off {rates[False]} (bf16, {steps} DDIM steps, classifier "
+        f"guidance, batch {batch})")
+    log(f"[guided] the library chains with kernels on reproduce {same:.4f} of the entry "
+        f"point's uint8 pixels; kernels on vs off, final samples: max abs diff "
+        f"{diff.max().item():.4f}, mean abs diff {diff.mean().item():.5f} (bf16, "
+        f"{steps} guided steps)")
+
+    # one guided step: the UNet forward, the classifier forward and its backward
+    diff_on = models[True]
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((batch, 128, 128, 3), generator=g, device=dev)
+    y = torch.full((batch,), 3, dtype=torch.long, device=dev)
+    t = torch.full((batch,), steps // 2, dtype=torch.long, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            diff_on.ddim_step(x, t, g, y)
+
+    def timed(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def unet_forward():
+        with torch.inference_mode():
+            unet(x, t, y)
+
+    def cls_forward():
+        with torch.inference_mode():
+            cls(x, t)
+
+    def guidance_grad():
+        diff_on._classifier_grad(x, t, y)
+
+    step_ms, unet_ms, fwd_ms = timed(step), timed(unet_forward), timed(cls_forward)
+    grad_ms = timed(guidance_grad)
+    log(f"[guided] one guided DDIM step at batch {batch}, bf16, host clock around "
+        f"synchronised runs: {step_ms:.3f} ms; the UNet forward alone {unet_ms:.3f} ms, the "
+        f"classifier forward alone {fwd_ms:.3f} ms, the guidance gradient (classifier forward "
+        f"and backward) {grad_ms:.3f} ms: the backward is {(grad_ms - fwd_ms) / step_ms:.3f} "
+        f"of the step's wall time")
+    busy = profile_steps(step, "guided DDIM step", unprofiled_ms=step_ms, steps=3)
+    # the backward's kernels run on autograd's thread, outside any range of the
+    # caller's: its device time is the gradient's less the forward's
+    grad_busy = profile_steps(guidance_grad, "guidance gradient", grad_ms, steps=3, detail=False)
+    fwd_busy = profile_steps(cls_forward, "classifier forward", fwd_ms, steps=3, detail=False)
+    if busy and grad_busy and fwd_busy:
+        log(f"[profile] the classifier's backward: device {grad_busy - fwd_busy:.3f} ms, "
+            f"{(grad_busy - fwd_busy) / busy:.3f} of the guided step's busy time")
+    return launches
+
+
+def phase_kernels_bwd(dev, calls, emnist_calls, cls_calls):
     """K2 against its plain version and against autograd through the plain
     forward, at every attention shape of one ``openai_64`` training step
-    (batch 8) and of one step of the entry point's EMNIST recipe (batch 468,
-    ragged N = 196 and 49), and at N = 100 with head dim 128; both layouts,
+    (batch 8), of one step of the entry point's EMNIST recipe (batch 468,
+    ragged N = 196 and 49) and of one guidance gradient through the
+    ``openai_128`` classifier (batch 4, the interleaved layout, the pool's
+    N = 65), and at N = 100 with head dim 128; both layouts,
     f32 and bf16, random cotangent with |g| <= 1, output pre-filled with
     NaN. Times in each path's compute type summed over one step beside the
     plain version, the library call (the autograd backward of
@@ -446,9 +787,10 @@ def phase_kernels_bwd(dev, calls, emnist_calls):
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     auto_err = 0.0
-    tallies = {"train": Tally(), "emnist": Tally()}
+    tallies = {"train": Tally(), "emnist": Tally(), "cls128": Tally()}
     cases = [(key, n, where)
-             for where, path_calls in (("train", calls), ("emnist", emnist_calls))
+             for where, path_calls in (("train", calls), ("emnist", emnist_calls),
+                                       ("cls128", cls_calls))
              for key, n in sorted(path_calls.items(), key=str) if key[0] == "attention"]
     # a ragged N at head dim 128, which neither model has
     cases += [(("attention", 100, 256, 2, True), 0, None)]
@@ -493,9 +835,8 @@ def phase_kernels_bwd(dev, calls, emnist_calls):
     log(f"[k2] max abs err vs plain: f32 {errs[torch.float32]:.3g}, bf16 "
         f"{errs[torch.bfloat16]:.3g}; f32 vs autograd of the plain forward {auto_err:.3g}")
     for where, tally in tallies.items():
-        b, dtype, _ = PATHS[where]
-        log(f"[k2] {dtype} calls of one {'openai_64' if where == 'train' else 'EMNIST'} "
-            f"training step at batch {b}: {tally}")
+        _, dtype, basis = PATHS[where]
+        log(f"[k2] {dtype} calls of the backward of {basis}: {tally}")
 
     # K3's backward: autograd through a recompute of the plain version
     gn_ms = fwd_ms = 0.0
@@ -590,7 +931,7 @@ def kernel_counters():
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
-            "groupnorm": k3.group_norm_fused}
+            "groupnorm": k3.group_norm_fused, "mha": k1.mha_attention}
 
 
 def reset_launches():
@@ -609,7 +950,8 @@ def expect_train_launches(model, steps, sample_calls=0):
     twice = 2 if model.use_remat else 1
     return {"attention": n_attn * (steps * twice + sample_calls),
             "attention_bwd": n_attn * steps,
-            "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls}
+            "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls,
+            "mha": 0}
 
 
 def metrics_rows(path):
@@ -626,7 +968,7 @@ def metrics_rows(path):
 # device time of a training step by kernel name: first match wins
 KERNEL_GROUPS = (
     ("K2 attention backward", ("attention_bwd",)),
-    ("K1 attention forward", ("fused_qkv_attention_kernel",)),
+    ("K1 attention forward", ("attention_fwd_kernel",)),
     ("K3 GroupNorm forward", ("gn_kernel",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
@@ -637,21 +979,22 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_steps(trainer, unprofiled_ms, steps=2):
-    """torch.profiler over ``steps`` training steps: device time by kernel
-    group, and the device and host time of K3's backward (the autograd node
-    that recomputes the plain GroupNorm). The device idle share is the busy
-    time against ``unprofiled_ms``, the wall time of a step measured in this
-    run with the profiler off; host times read under the profiler are
-    inflated by it."""
+def profile_steps(step, what, unprofiled_ms, steps=2, detail=True):
+    """torch.profiler over ``steps`` calls of ``step`` (one ``what``): device
+    time by kernel group, and the device and host time of K3's backward (the
+    autograd node that recomputes the plain GroupNorm). The device idle share
+    is the busy time against ``unprofiled_ms``, the wall time of a step
+    measured in this run with the profiler off; host times read under the
+    profiler are inflated by it. Returns the device's busy ms per step (None
+    if the profiler recorded no device time); ``detail=False`` logs that
+    alone."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            batch, labels = next(trainer.loader)
-            trainer.train_step(batch, labels)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     groups = collections.Counter()
@@ -672,10 +1015,15 @@ def profile_steps(trainer, unprofiled_ms, steps=2):
             gn_bwd = (e.device_time_total / 1e3 / steps, e.cpu_time_total / 1e3 / steps)
     busy = sum(groups.values())
     if busy <= 0:
-        log("[profile] torch.profiler recorded no device time: the step's breakdown is "
-            "not measured")
-        return
-    log(f"[profile] one training step (mean of {steps}): device busy {busy:.3f} ms; wall "
+        log(f"[profile] torch.profiler recorded no device time: the breakdown of one {what} "
+            "is not measured")
+        return None
+    if not detail:
+        log(f"[profile] one {what} (mean of {steps}): device busy {busy:.3f} ms; wall "
+            f"{unprofiled_ms:.3f} ms with the profiler off, device idle share "
+            f"{1 - busy / unprofiled_ms:.3f}")
+        return busy
+    log(f"[profile] one {what} (mean of {steps}): device busy {busy:.3f} ms; wall "
         f"{unprofiled_ms:.3f} ms with the profiler off (the fastest kernels-on reading of "
         f"this run), device idle share {1 - busy / unprofiled_ms:.3f}; wall {wall_ms:.3f} ms "
         f"under the profiler, idle share {1 - busy / wall_ms:.3f}")
@@ -689,6 +1037,7 @@ def profile_steps(trainer, unprofiled_ms, steps=2):
             f"autograd; their kernels are counted in the groups above): device "
             f"{gn_bwd[0]:.3f} ms, host {gn_bwd[1]:.3f} ms per step (host time under the "
             f"profiler, which inflates it)")
+    return busy
 
 
 def phase_train(dev, state, workdir):
@@ -794,7 +1143,8 @@ def phase_train(dev, state, workdir):
     log(f"[train] steps/s, 3 steps a reading: kernels on {rates[True]}, kernels off "
         f"{rates[False]} (openai_64, bf16, remat, batch {TRAIN_BATCH}); peak device memory "
         f"{peak:.2f} GiB")
-    profile_steps(trainer, unprofiled_ms=1e3 / max(rates[True]))
+    profile_steps(lambda: trainer.train_step(*next(trainer.loader)), "training step",
+                  unprofiled_ms=1e3 / max(rates[True]))
     del trainer, off
     torch.cuda.empty_cache()
 
@@ -856,16 +1206,34 @@ def main():
                             device=dev).eval()
     randomize(emnist, SEED)
     emnist_calls = main_path_calls(emnist, dev)
-    errs, tallies = phase_kernels(dev, calls, emnist_calls)
-    k2_errs, k2_tallies = phase_kernels_bwd(dev, calls, emnist_calls)
+    # the classifier-guided slice's models: openai_128 and its noisy classifier
+    from nicediffusion_tpu_torch import EncoderUNet
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    unet128 = DiffusionModel(**MODEL_PRESETS["openai_128"], kernels=False, device=dev).eval()
+    randomize(unet128, SEED + 1)
+    cls128 = EncoderUNet(**classifier_config(), kernels=False, device=dev).eval()
+    randomize(cls128, SEED + 2)
+    paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
+             "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev)}
+    errs, tallies = phase_kernels(dev, paths)
+    k2_errs, k2_tallies = phase_kernels_bwd(dev, calls, emnist_calls, paths["cls128"])
+    mha_launches = phase_mha_direct(dev, paths)
+    phase_model_128(dev, unet128, cls128)
+    unet128_state, cls128_state = unet128.state_dict(), cls128.state_dict()
+    del unet128, cls128
     phase_model(dev, reference)
     phase_grads(dev, reference)
     phase_grads(dev, emnist, "EMNIST", EMNIST_BATCH)
     del emnist
     state = reference.state_dict()
     del reference
-    by_path = {"sampling": phase_slice(dev, state)}
+    by_path = {"sampling": phase_slice(dev, state), "mha_attention_direct": mha_launches}
     with tempfile.TemporaryDirectory() as workdir:
+        by_path["sample_cli_openai_128_guided"] = phase_sample_cli(
+            dev, unet128_state, cls128_state, workdir)
+        del unet128_state, cls128_state
+        torch.cuda.empty_cache()
         by_path.update(phase_train(dev, state, workdir))
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others):
@@ -887,17 +1255,25 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in ("train", "emnist")}),
+              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS)}),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
               f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}",
-              {"emnist": k2_tallies["emnist"]}),
+              {w: k2_tallies[w] for w in ("emnist", "cls128")}),
         entry("group_norm_fused", "triton", "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in ("train", "emnist")}),
+              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS)}),
+        # no model calls K5: its launches are phase_mha_direct's direct calls
+        entry("mha_attention", "cuda", "nicediffusion_tpu_torch/csrc/attention.cu",
+              "nicediffusion_tpu/ops/pallas/attention.py:486", "mha",
+              errs["mha", torch.float32], errs["mha", torch.bfloat16],
+              tallies["mha", "unet128"],
+              f"sum over the attention calls of one openai_128 forward, bf16, batch "
+              f"{GUIDED_BATCH}, q, k and v as views of the projection",
+              {"cls128": tallies["mha", "cls128"]}),
     ]
     for k in kernels:
         if k["launches"] <= 0:

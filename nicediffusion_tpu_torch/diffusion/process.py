@@ -3,7 +3,8 @@
 Counterpart of nicediffusion_tpu/diffusion/process.py: the coefficient
 tables, the timestep map, the four variance modes, classifier-free guidance
 (CFG) as one doubled-batch model call with null label 0 and the
-log-variance taken from the conditional half, and the DDPM and DDIM steps.
+log-variance taken from the conditional half, classifier guidance from the
+gradient of a noisy classifier's log p(y | x_t), and the DDPM and DDIM steps.
 ``denoise`` runs the chain t = steps_to_do-1 ... 0 as a plain Python loop
 over the steps, drawing its start noise and every step's noise from an
 explicit ``torch.Generator``. Capturing the step in a CUDA graph is later
@@ -24,8 +25,7 @@ its compute dtype.
 Not ported yet, and raising NotImplementedError where asked for:
 DPM-Solver++, dynamic thresholding, v-prediction (sampling and loss target),
 the encoder cache and limited-interval guidance (ROADMAP queue A, "Samplers
-and serving levers"); classifier guidance ("Guidance classifier, SR and
-ESRGAN").
+and serving levers").
 """
 
 from __future__ import annotations
@@ -111,6 +111,13 @@ class Diffusion:
     unchanged) plus the ``device`` the tables live on: by default the
     model's, and with no model the CUDA card (utils/device.py). ``model``
     is a nicediffusion_tpu_torch DiffusionModel.
+
+    ``classifier`` is a callable ``(x_nhwc, t_rescaled) -> logits``, such as
+    an EncoderUNet, used for classifier guidance; per the reference quirk it
+    receives the *rescaled* timestep, not the mapped original one
+    (diffusion.py:301). A classifier that is an ``nn.Module`` is put in
+    ``eval()`` mode with its parameters frozen, so that the gradient pass
+    computes input gradients only.
     """
 
     def __init__(
@@ -136,8 +143,8 @@ class Diffusion:
     ):
         if guidance_method not in (None, "classifier", "classifier_free"):
             raise NotImplementedError(guidance_method)
-        if guidance_method == "classifier" or classifier is not None:
-            raise _not_ported("classifier guidance", "Guidance classifier, SR and ESRGAN")
+        if guidance_method == "classifier" and classifier is None:
+            raise ValueError("classifier guidance needs a classifier")
         if model is not None and guidance_method is not None:
             assert model.conditional, "can only use guidance if model is conditional"
         if use_ddim:
@@ -163,6 +170,9 @@ class Diffusion:
         self.model = model
         self.guidance = guidance_method
         self.strength = guidance_strength
+        self.classifier = classifier
+        if isinstance(classifier, torch.nn.Module):
+            classifier.eval().requires_grad_(False)
         self.ddim_eta = ddim_eta
         self.clip_x = clip_x
         self.sampling_var_type = VarType.parse(sampling_var_type)
@@ -301,6 +311,23 @@ class Diffusion:
         """Hard [-1, 1] clamp of pred_x0 (the reference default) or none."""
         return pred_x0.clamp(-1, 1) if self.clip_x else pred_x0
 
+    def _classifier_grad(self, x, t, y):
+        """grad_x log p(y | x, t) -> f32, through torch.autograd (reference
+        diffusion.py:299-304). The classifier sees the rescaled t.
+
+        ``denoise`` runs under ``torch.inference_mode()``, where autograd
+        records nothing and whose tensors cannot be saved for a backward
+        pass: the gradient is taken with inference mode off, on copies of
+        x, t and y made there. The UNet's forward stays outside the graph.
+        """
+        with torch.inference_mode(False), torch.enable_grad():
+            xx = x.detach().clone().requires_grad_(True)
+            t, y = t.clone(), y.clone()
+            log_probs = torch.log_softmax(self.classifier(xx, t).float(), dim=-1)
+            selected = log_probs.gather(1, y.reshape(-1, 1)).sum()
+            grad, = torch.autograd.grad(selected, xx)
+        return grad.float()
+
     def _noise(self, like, generator):
         return torch.randn(
             like.shape, generator=generator, dtype=torch.float32, device=like.device
@@ -327,6 +354,9 @@ class Diffusion:
             _bcast(self._post_coef_x0, t, nd) * pred_x0
             + _bcast(self._post_coef_xt, t, nd) * x_t
         )
+        if self.guidance == "classifier":
+            grad = self._classifier_grad(x_t, t, y)
+            mean = mean + self.strength * grad * torch.exp(log_var)
         if noise is None:
             noise = self._noise(x_t, generator)
         mask = (t != 0).float().reshape((-1,) + (1,) * (nd - 1))
@@ -337,6 +367,11 @@ class Diffusion:
         """One DDIM step, eq. 12 of DDIM (reference diffusion.py:318-369)."""
         eps, _ = self._guided_eps(x_t, t, y, want_log_var=False)
         nd = x_t.ndim
+        if self.guidance == "classifier":
+            # classifier guidance applied to eps before the x0 projection
+            # (OpenAI Alg. 2, reference diffusion.py:330-337)
+            grad = self._classifier_grad(x_t, t, y)
+            eps = eps - self.strength * grad * _bcast(self._sqrt_1macp, t, nd)
         pred_x0 = self._clip_x0(
             _bcast(self._sqrt_recip_acp, t, nd) * x_t
             - _bcast(self._sqrt_recipm1_acp, t, nd) * eps

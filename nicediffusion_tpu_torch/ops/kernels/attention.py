@@ -1,17 +1,25 @@
-"""K1 and K2: fused-qkv multi-head attention, forward and backward, CUDA C++.
+"""K1, K2 and K5: multi-head attention, forward and backward, CUDA C++.
 
 K1 (``csrc/attention.cu``) replaces the TPU kernel
-nicediffusion_tpu/ops/pallas/attention.py :: mha_attention_fused_qkv, and K2
-(``csrc/attention_bwd.cu``) replaces mha_attention_fused_qkv_bwd in the same
-file. The source notes say what bounds each kernel on the card and what the
-designs do about the TPU kernels' whole-(N, N)-in-VMEM, one-program-per-
-batch-element form, which does not fit a Hopper block's shared memory.
+nicediffusion_tpu/ops/pallas/attention.py :: mha_attention_fused_qkv, K2
+(``csrc/attention_bwd.cu``) replaces mha_attention_fused_qkv_bwd and K5
+(``csrc/attention.cu`` again) replaces mha_attention, all in the same file.
+K1 and K5 are one kernel over three strided views: K5 hands it separate
+(B, H, N, D) q, k and v, K1 three offsets into one projection. The source
+notes say what bounds each kernel on the card and what the designs do about
+the TPU kernels' whole-(N, N)-in-VMEM, one-program-per-batch-element form,
+which does not fit a Hopper block's shared memory.
+
+Head dims. K1 takes 32, 64, 128, 192 and 256; K2 takes 32, 64 and 128 (its
+tiling does not fit a block's shared memory at 192 and 256: ROADMAP queue B,
+K2). K5 takes any D up to 256: the kernel built for the next head dim up
+zero-fills the columns past D in shared memory.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
-(:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`).
-A CUDA tensor launches the kernel or raises on what the kernel does not
-take; nothing falls back. The libraries are built from the package's source
-by ``_build`` at the first launch.
+(:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
+:func:`mha_attention_plain`). A CUDA tensor launches the kernel or raises on
+what the kernel does not take; nothing falls back. The libraries are built
+from the package's source by ``_build`` at the first launch.
 
 Under autograd :func:`fused_qkv_attention` is a ``torch.autograd.Function``
 whose forward is K1 and whose backward is K2, with qkv and the forward
@@ -29,6 +37,9 @@ from . import _build
 
 __all__ = [
     "SUPPORTED_HEAD_DIMS",
+    "BWD_HEAD_DIMS",
+    "mha_attention",
+    "mha_attention_plain",
     "split_qkv",
     "fused_qkv_attention",
     "fused_qkv_attention_plain",
@@ -36,7 +47,8 @@ __all__ = [
     "fused_qkv_attention_bwd_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # K1's builds; K5 rounds D up to one
+BWD_HEAD_DIMS = (32, 64, 128)  # K2's builds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -114,6 +126,9 @@ def _set_error_string(lib: ctypes.CDLL) -> None:
     lib.nd_cuda_error_string.restype = ctypes.c_char_p
 
 
+_STRIDES = ctypes.c_longlong * 3
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("attention")
     fn = lib.nd_fused_qkv_attention
@@ -124,6 +139,14 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.nd_mha_attention.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.nd_mha_attention.restype = ctypes.c_int
         _set_error_string(lib)
     return lib
 
@@ -154,24 +177,40 @@ def _check(qkv: torch.Tensor, num_heads: int, kernel: str = "K1") -> None:
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
     hc = c // num_heads
-    if hc not in SUPPORTED_HEAD_DIMS:
+    supported = SUPPORTED_HEAD_DIMS if kernel == "K1" else BWD_HEAD_DIMS
+    if hc not in supported:
         raise NotImplementedError(
             f"{kernel} has no build for head dim {hc} (qkv {tuple(qkv.shape)}, "
-            f"{num_heads} heads); it supports {SUPPORTED_HEAD_DIMS}. Head dims "
-            "192 and 256 (openai_128) are listed in ROADMAP queue B"
+            f"{num_heads} heads); it supports {supported}."
+            + (" Head dims 192 and 256 (training openai_128) need a new tiling of "
+               "the backward: ROADMAP queue B, K2" if kernel == "K2" else "")
         )
 
 
-def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool) -> torch.Tensor:
+def _check_out(kernel: str, out: torch.Tensor, shape, like: torch.Tensor) -> None:
+    if (out.shape != shape or out.dtype != like.dtype or out.device != like.device
+            or not out.is_contiguous()):
+        raise ValueError(
+            f"{kernel} takes a contiguous out of shape {tuple(shape)} and dtype "
+            f"{like.dtype} on {like.device}, got {tuple(out.shape)} {out.dtype} on {out.device}"
+        )
+
+
+def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
     if qkv.device.type == "cpu":
-        return fused_qkv_attention_plain(qkv, num_heads, split_qkv_first)
+        res = fused_qkv_attention_plain(qkv, num_heads, split_qkv_first)
+        return res if out is None else out.copy_(res)
     if qkv.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {qkv.device}")
     _check(qkv, num_heads)
     b, n, c3 = qkv.shape
     c = c3 // 3
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    if out is None:
+        out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    else:
+        _check_out("K1", out, (b, n, c), qkv)
     with torch.cuda.device(qkv.device):
         lib = _library()
         err = lib.nd_fused_qkv_attention(
@@ -243,7 +282,9 @@ fused_qkv_attention_bwd.launches = 0
 
 
 class _FusedQKVAttention(torch.autograd.Function):
-    """Forward K1, backward K2 (their plain versions on CPU tensors)."""
+    """Forward K1, backward K2 (their plain versions on CPU tensors). On the
+    card the backward raises NotImplementedError at head dims 192 and 256,
+    which K1 takes and K2 does not yet (ROADMAP queue B, K2)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, split_qkv_first):
@@ -261,18 +302,95 @@ class _FusedQKVAttention(torch.autograd.Function):
 
 
 def fused_qkv_attention(
-    qkv: torch.Tensor, num_heads: int, split_qkv_first: bool
+    qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T * hc^-0.5) v over a (B, N, 3C) projection -> (B, N, C).
 
     CPU tensors take the plain version; CUDA tensors launch K1 on the
     current stream. ``fused_qkv_attention.launches`` counts the launches.
     When a gradient wrt qkv is wanted the call goes through the autograd
-    Function, whose backward is :func:`fused_qkv_attention_bwd`.
+    Function, whose backward is :func:`fused_qkv_attention_bwd`. ``out``, a
+    contiguous (B, N, C) tensor like qkv, is written in place of a fresh
+    ``torch.empty`` (a check pre-fills it to see that every element is
+    written); it cannot be combined with a gradient.
     """
     if torch.is_grad_enabled() and qkv.requires_grad:
+        if out is not None:
+            raise ValueError("K1 writes no caller's out under autograd")
         return _FusedQKVAttention.apply(qkv, num_heads, split_qkv_first)
-    return _forward(qkv, num_heads, split_qkv_first)
+    return _forward(qkv, num_heads, split_qkv_first, out)
 
 
 fused_qkv_attention.launches = 0
+
+
+def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of K5: f32 logits scaled by D^-0.5 and f32
+    softmax, p cast to v's dtype before the product with v.
+    (B, H, N, D) x 3 -> (B, H, N, D)."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhtc,bhsc->bhts", q.float(), k.float()) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bhsc->bhtc", weights, v).to(q.dtype)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T * D^-0.5) v over separate (B, H, N, D) q, k and v ->
+    a contiguous (B, H, N, D).
+
+    The three may have any batch, head and row strides (views of a fused
+    projection, say) as long as the last axis is contiguous; D is any value
+    up to 256. CPU tensors take the plain version; CUDA tensors launch K5 on
+    the current stream. ``mha_attention.launches`` counts the launches. No
+    autograd: the JAX function it replaces has no VJP either. ``out``, a
+    contiguous tensor like q, is written in place of a fresh ``torch.empty``.
+    """
+    if not (q.shape == k.shape == v.shape and q.ndim == 4):
+        raise ValueError(
+            f"K5 takes three (B, H, N, D) tensors of one shape, got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
+        raise ValueError("K5 takes q, k and v of one dtype on one device")
+    if q.device.type == "cpu":
+        res = mha_attention_plain(q, k, v)
+        return res if out is None else out.copy_(res)
+    if q.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"K5 takes float32 or bfloat16, got {q.dtype}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("K5 has no backward (the JAX function has no VJP)")
+    b, h, n, d = q.shape
+    if d > SUPPORTED_HEAD_DIMS[-1] or 0 in q.shape:
+        raise NotImplementedError(
+            f"K5 takes non-empty tensors with D up to {SUPPORTED_HEAD_DIMS[-1]}, "
+            f"got {tuple(q.shape)}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"K5 takes {name} with a contiguous last axis, got strides {t.stride()}")
+    if out is None:
+        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    else:
+        _check_out("K5", out, (b, h, n, d), q)
+    with torch.cuda.device(q.device):
+        lib = _library()
+        err = lib.nd_mha_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d,
+            _STRIDES(*q.stride()[:3]), _STRIDES(*k.stride()[:3]), _STRIDES(*v.stride()[:3]),
+            _DTYPE_CODES[q.dtype], d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"K5 launch failed: {lib.nd_cuda_error_string(err).decode()} "
+            f"(q {tuple(q.shape)} {q.dtype}, strides {q.stride()})"
+        )
+    mha_attention.launches += 1
+    return out
+
+
+mha_attention.launches = 0

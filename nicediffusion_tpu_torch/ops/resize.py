@@ -3,7 +3,7 @@
 Counterpart of nicediffusion_tpu/ops/resize.py: the 2x nearest upsample and
 the 2x2 average pool of the original reference (model.py:77, 111).
 ``resize_bilinear`` is used only by the super-resolution model and waits
-for it (ROADMAP queue A, "Guidance classifier, SR and ESRGAN").
+for it (ROADMAP queue A, "SR and ESRGAN").
 """
 
 from __future__ import annotations

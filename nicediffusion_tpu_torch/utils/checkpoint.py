@@ -9,7 +9,9 @@ Reads the two weight files a user has for this model family:
     save_params_npz: flax tree paths joined by ``::``), converted from the
     flax layout to the torch one.
 
-The result loads into nicediffusion_tpu_torch.DiffusionModel with
+The result loads into nicediffusion_tpu_torch.DiffusionModel, or for a
+classifier checkpoint (``*_classifier.pt``, or the ``.npz`` of the JAX
+EncoderUNet's tree) into nicediffusion_tpu_torch.EncoderUNet, with
 ``strict=True``.
 """
 

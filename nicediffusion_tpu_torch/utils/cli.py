@@ -66,7 +66,7 @@ def make_argparser(prog: str) -> argparse.ArgumentParser:
         g.add_argument("--encoder_cache", type=int, default=None, metavar=o,
                        help="reuse UNet encoder features for k-1 of every k "
                             "steps ('Faster Diffusion'; opt-in, slightly "
-                            "lossy, ~1.2x faster at k=2)")
+                            "lossy)")
         g.add_argument("--guidance_interval", type=float, nargs=2,
                        default=None, metavar=("LO", "HI"),
                        help="restrict classifier-free guidance to the chain "

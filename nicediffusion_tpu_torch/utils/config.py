@@ -7,9 +7,7 @@ rules (``out_channels = 2*in_channels`` iff learned variances;
 ``num_classes += 1`` iff classifier-free guidance).
 
 Presets are plain dicts (usable as ``DiffusionModel(**cfg)`` /
-``Diffusion(**cfg)`` kwargs). The noisy-classifier presets stay behind with
-the classifier, which this package does not have yet (ROADMAP queue A,
-"Guidance classifier, SR and ESRGAN").
+``Diffusion(**cfg)`` / ``EncoderUNet(**cfg)`` kwargs).
 """
 
 from __future__ import annotations
@@ -19,7 +17,9 @@ from typing import Any
 __all__ = [
     "MODEL_PRESETS",
     "DIFFUSION_PRESETS",
+    "CLASSIFIER_PRESETS",
     "preset_for_path",
+    "classifier_preset_for_path",
     "apply_derivations",
 ]
 
@@ -83,6 +83,52 @@ DIFFUSION_PRESETS: dict[str, dict[str, Any]] = {
     "openai_128": OPENAI_128_DIFFUSION,
     "openai_256": OPENAI_256_DIFFUSION,
 }
+
+
+# --- noisy-classifier presets (the reference raises NotImplementedError for
+# --classifier_path, utils.py:168-172). These match OpenAI guided-diffusion's
+# create_classifier defaults for the released
+# `{64x64,128x128,256x256}_classifier.pt` checkpoints: EncoderUNetModel with
+# classifier_width=128, attention at feature resolutions 32/16/8,
+# num_head_channels=64, scale-shift norm (AdaGN), resblock up/down, attention
+# pool; classifier_depth=4 at 64x64, the default 2 elsewhere. channel_mult
+# follows the image-size rule shared with the UNets. If a checkpoint's depth
+# differs, loading fails loudly on structure (strict=True). ---
+_CLASSIFIER_COMMON = dict(
+    in_channels=3, model_channels=128, out_channels=1000,
+    attention_resolutions=(8, 16, 32), num_head_channels=64, dropout=0.0,
+    resblock_updown=True, use_adaptive_gn=True, split_qkv_first=False,
+    pool="attention",
+)
+CLASSIFIER_PRESETS: dict[str, dict[str, Any]] = {
+    "openai_64": dict(
+        _CLASSIFIER_COMMON, resolution=64, channel_mult=(1, 2, 3, 4),
+        num_res_blocks=4,
+    ),
+    "openai_128": dict(
+        _CLASSIFIER_COMMON, resolution=128, channel_mult=(1, 1, 2, 3, 4),
+        num_res_blocks=2,
+    ),
+    "openai_256": dict(
+        _CLASSIFIER_COMMON, resolution=256, channel_mult=(1, 1, 2, 2, 4, 4),
+        num_res_blocks=2,
+    ),
+}
+
+
+def classifier_preset_for_path(classifier_path: str) -> dict:
+    """Classifier preset dispatch by path substring (same rule as
+    preset_for_path)."""
+    for sub, key in (
+        ("64x64", "openai_64"), ("128x128", "openai_128"),
+        ("256x256", "openai_256"),
+    ):
+        if sub in classifier_path:
+            return dict(CLASSIFIER_PRESETS[key])
+    raise NotImplementedError(
+        f"{classifier_path}: no classifier preset for this path; expected a "
+        "64x64/128x128/256x256 guided-diffusion classifier checkpoint"
+    )
 
 
 def preset_for_path(model_path: str) -> tuple[dict, dict]:

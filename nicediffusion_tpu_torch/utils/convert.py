@@ -104,6 +104,9 @@ def _convert_leaf(path: list[str], leaf: str, value: np.ndarray):
     module = path[-1] if path else ""
     if leaf == "bias":
         return "bias", value
+    if leaf == "positional_embedding":
+        # AttentionPool2d stores (C, N+1); flax uses token-major (N+1, C)
+        return "positional_embedding", value.T
     assert leaf == "weight", f"unexpected leaf {leaf} at {'.'.join(path)}"
     if module == "class_embedding":
         return "embedding", value
@@ -120,7 +123,8 @@ def _convert_leaf(path: list[str], leaf: str, value: np.ndarray):
 
 def convert_torch_state_dict(sd: Mapping[str, Any]) -> dict:
     """Convert a torch-named state dict (name -> tensor/ndarray) to a flax
-    params tree matching nicediffusion_tpu.models.DiffusionModel."""
+    params tree matching nicediffusion_tpu.models.DiffusionModel (or, from an
+    EncoderUNet state dict, nicediffusion_tpu.models.classifier.EncoderUNet)."""
     params: dict = {}
     for name, tensor in sd.items():
         value = np.asarray(
@@ -138,7 +142,10 @@ def convert_torch_state_dict(sd: Mapping[str, Any]) -> dict:
 
 def flax_params_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
     """Flax params tree -> torch-named state dict of numpy arrays, loadable
-    into nicediffusion_tpu_torch.DiffusionModel with ``strict=True``."""
+    into nicediffusion_tpu_torch.DiffusionModel (or EncoderUNet, from the JAX
+    classifier's tree) with ``strict=True``. The attention pool's
+    ``positional_embedding`` goes back to torch's (C, N+1) and its
+    ``qkv_proj`` / ``c_proj`` to Conv1d (O, I, 1) weights."""
     out: dict[str, np.ndarray] = {}
 
     def emit(path: list[str], node):
@@ -159,11 +166,13 @@ def flax_params_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
                 torch_mods.append(m)
         if leaf in ("scale", "embedding"):
             name = "weight"
+        elif leaf == "positional_embedding":
+            name, value = leaf, value.T  # back to (C, N+1)
         elif leaf == "kernel":
             name = "weight"
             if value.ndim == 4:
                 value = value.transpose(3, 2, 0, 1)
-            elif mods and mods[-1] in ("qkv_nin", "proj_out"):
+            elif mods and mods[-1] in ("qkv_nin", "proj_out", "qkv_proj", "c_proj"):
                 value = value.T[:, :, None]  # Dense -> Conv1d (O, I, 1)
             else:
                 value = value.T

@@ -180,10 +180,14 @@ def test_denoise_draws_from_the_generator(pair):
 
 def test_unported_options_name_the_roadmap(pair):
     _, _, model = pair
-    for kw in (dict(sampler="dpm++"), dict(clip_x="dynamic"),
-               dict(prediction_type="v"), dict(guidance_method="classifier")):
+    for kw in (dict(sampler="dpm++"), dict(clip_x="dynamic"), dict(prediction_type="v")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Diffusion(model=model, **dict(DIFF, **kw))
+    # classifier guidance is ported: it builds with a classifier and asks for one without
+    assert Diffusion(model=model, **dict(DIFF, guidance_method="classifier"),
+                     classifier=lambda x, t: x.sum((1, 2))).guidance == "classifier"
+    with pytest.raises(ValueError, match="needs a classifier"):
+        Diffusion(model=model, **dict(DIFF, guidance_method="classifier"))
     d = Diffusion(model=model, **DIFF)
     for kw in (dict(encoder_cache=2), dict(guidance_interval=(0.0, 0.5))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,4 +1,4 @@
-"""K1, K2 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
+"""K1, K2, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -44,22 +44,72 @@ def cuda():
 @pytest.mark.parametrize("split_first", [True, False])
 @pytest.mark.parametrize("n,hc,heads", [
     (1024, 64, 6), (256, 64, 9), (64, 64, 12), (196, 32, 2), (49, 64, 4), (100, 128, 2),
+    # openai_128's head dims 192 and 256, at its N and at ragged N
+    (256, 192, 4), (64, 256, 4), (65, 192, 2), (100, 256, 2), (1024, 256, 1),
 ])
 def test_k1_matches_plain(cuda, dtype, split_first, n, hc, heads):
+    """Every element written (the output is pre-filled with NaN), ragged N
+    included, and equal to the plain version; one count per launch."""
     g = torch.Generator(device=cuda).manual_seed(n)
     qkv = torch.randn(4, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
     before = k1.fused_qkv_attention.launches
-    out = k1.fused_qkv_attention(qkv, heads, split_first)
+    out = torch.full((4, n, heads * hc), float("nan"), dtype=dtype, device=cuda)
+    assert k1.fused_qkv_attention(qkv, heads, split_first, out=out) is out
     torch.cuda.synchronize()
     assert k1.fused_qkv_attention.launches == before + 1
+    assert not torch.isnan(out).any()
     ref = k1.fused_qkv_attention_plain(qkv, heads, split_first)
     assert out.dtype == dtype and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k1"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,heads", [
+    (64, 64, 4), (49, 16, 2), (256, 64, 6), (65, 192, 2), (100, 256, 2), (65, 40, 3),
+])
+def test_k5_matches_plain(cuda, dtype, n, d, heads):
+    """K5 on separate contiguous q, k, v and on strided views of a fused
+    projection in both layouts, D between two builds included (the columns
+    past D are zero-filled in shared memory and never stored: the output is
+    pre-filled with NaN); one count per launch; equal to K1 on the views."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    qkv = torch.randn(3, n, 3 * heads * d, generator=g, device=cuda).to(dtype)
+    for layout in (True, False, None):
+        if layout is None:
+            q, k, v = (t.contiguous() for t in k1.split_qkv(qkv, heads, True))
+        else:
+            q, k, v = k1.split_qkv(qkv, heads, layout)
+            assert not q.is_contiguous()
+        out = torch.full((3, heads, n, d), float("nan"), dtype=dtype, device=cuda)
+        before = k1.mha_attention.launches
+        assert k1.mha_attention(q, k, v, out=out) is out
+        torch.cuda.synchronize()
+        assert k1.mha_attention.launches == before + 1
+        assert not torch.isnan(out).any()
+        ref = k1.mha_attention_plain(q, k, v)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k1"])
+        if layout is not None and d in k1.SUPPORTED_HEAD_DIMS:
+            fused = k1.fused_qkv_attention(qkv, heads, layout)
+            assert torch.equal(out.transpose(1, 2).reshape(3, n, heads * d), fused)
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="up to 256"):
+        k1.mha_attention(*(torch.zeros(1, 1, 8, 320, device=cuda),) * 3)
+    with pytest.raises(TypeError):
+        k1.mha_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        k1.mha_attention(q, q, torch.zeros(1, 2, 64, 64, device=cuda).mT)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        k1.mha_attention(q.clone().requires_grad_(True), q, q)
+    with pytest.raises(ValueError, match="contiguous out"):
+        k1.mha_attention(q, q, q, out=torch.zeros(1, 2, 64, 32, device=cuda))
+
+
 def test_k1_refuses_what_it_does_not_take(cuda):
-    with pytest.raises(NotImplementedError, match="head dim 192"):
-        k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 384, device=cuda), 2, True)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 192, device=cuda), 2, True)
     with pytest.raises(TypeError):
         k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 128, device=cuda).half(), 2, True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -95,7 +145,7 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         g = torch.zeros(b, n, c3 // 3, device=cuda, dtype=qkv.dtype) if g is None else g
         return k1.fused_qkv_attention_bwd(qkv, g, g if o is None else o, heads, True, **kw)
 
-    with pytest.raises(NotImplementedError, match="head dim 192"):
+    with pytest.raises(NotImplementedError, match="head dim 192.*ROADMAP queue B"):
         call(torch.zeros(1, 64, 3 * 384, device=cuda))
     with pytest.raises(TypeError):
         call(torch.zeros(1, 64, 3 * 128, device=cuda).half())
@@ -127,6 +177,17 @@ def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads
     torch.testing.assert_close(got, ref, **TOL[torch.float32, "k2"])
     with torch.no_grad():
         assert k1.fused_qkv_attention(qkv, heads, split_first).grad_fn is None
+
+
+def test_attention_function_backward_at_wide_heads_names_the_roadmap(cuda):
+    """K1 takes head dims 192 and 256, K2 not yet: the forward under
+    autograd runs, the backward raises naming K2's queue entry."""
+    qkv = torch.randn(1, 64, 3 * 384, device=cuda, requires_grad=True)
+    out = k1.fused_qkv_attention(qkv, 2, True)
+    torch.testing.assert_close(out, k1.fused_qkv_attention_plain(qkv, 2, True),
+                               **TOL[torch.float32, "k1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B, K2"):
+        out.sum().backward()
 
 
 @pytest.mark.parametrize("mode", ["plain", "silu", "ada"])

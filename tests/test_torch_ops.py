@@ -22,7 +22,10 @@ from nicediffusion_tpu.ops import groupnorm as jgn  # noqa: E402
 from nicediffusion_tpu.ops import math as jmath  # noqa: E402
 from nicediffusion_tpu.ops import resize as jresize  # noqa: E402
 from nicediffusion_tpu.ops.attention import qkv_attention as jax_attention  # noqa: E402
-from nicediffusion_tpu.ops.pallas.attention import mha_attention_fused_qkv  # noqa: E402
+from nicediffusion_tpu.ops.pallas.attention import (  # noqa: E402
+    mha_attention,
+    mha_attention_fused_qkv,
+)
 from nicediffusion_tpu.ops.pallas.groupnorm import group_norm_fused as pallas_gn  # noqa: E402
 from nicediffusion_tpu_torch.ops import groupnorm as tgn  # noqa: E402
 from nicediffusion_tpu_torch.ops import math as tmath  # noqa: E402
@@ -119,6 +122,63 @@ def test_attention_bf16_matches_jax(rng_np):
     np.testing.assert_allclose(
         out.float().numpy(), np.asarray(ref, np.float32), atol=3e-2
     )
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("hc", [192, 256])
+def test_attention_wide_heads_match_pallas(rng_np, split_first, hc):
+    """K1's plain version at openai_128's head dims 192 and 256 == the
+    Pallas fused-qkv kernel in interpret mode and the JAX einsum op."""
+    heads, n = 2, 65
+    qkv = rng_np.normal(size=(2, n, 3 * heads * hc)).astype(np.float32)
+    ref = np.asarray(jax_attention(qkv, heads, split_first, use_pallas=False))
+    pallas = np.asarray(mha_attention_fused_qkv(qkv, heads, split_first, interpret=True))
+    out = k1.fused_qkv_attention(_t(qkv), heads, split_first).numpy()
+    np.testing.assert_allclose(out, pallas, atol=2e-5)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("n,d,h", [(64, 64, 4), (49, 16, 2), (256, 64, 6), (65, 192, 2)])
+def test_mha_attention_plain_matches_pallas(rng_np, n, d, h):
+    """K5's plain version (and its wrapper, which takes it on CPU tensors)
+    == the Pallas kernel it replaces in interpret mode, at the (n, d, h) of
+    tests/test_pallas.py plus D = 192; strided views of a fused projection
+    give the same as contiguous copies."""
+    q, k, v = (rng_np.normal(size=(2, h, n, d)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(mha_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   interpret=True))
+    k1.mha_attention.launches = 0
+    out = k1.mha_attention(_t(q), _t(k), _t(v))
+    assert torch.equal(out, k1.mha_attention_plain(_t(q), _t(k), _t(v)))
+    assert k1.mha_attention.launches == 0 and out.shape == (2, h, n, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+    qkv = _t(rng_np.normal(size=(2, n, 3 * h * d)).astype(np.float32))
+    views = k1.split_qkv(qkv, h, False)
+    assert not views[0].is_contiguous()
+    fused = k1.fused_qkv_attention_plain(qkv, h, False)
+    np.testing.assert_allclose(
+        k1.mha_attention(*views).transpose(1, 2).reshape(2, n, h * d).numpy(),
+        fused.numpy(), atol=2e-5)
+
+
+def test_mha_attention_bf16_matches_pallas(rng_np):
+    """bf16: f32 logits and softmax, p cast to bf16 before the product."""
+    q, k, v = (jnp.asarray(rng_np.normal(size=(2, 2, 64, 64)).astype(np.float32))
+               .astype(jnp.bfloat16) for _ in range(3))
+    ref = np.asarray(mha_attention(q, k, v, interpret=True), np.float32)
+    out = k1.mha_attention(*(_t(np.asarray(a, np.float32)).bfloat16() for a in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=3e-2)
+
+
+def test_mha_attention_refuses_mismatched_inputs():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="one shape"):
+        k1.mha_attention(q, q, torch.zeros(1, 2, 9, 16))
+    with pytest.raises(ValueError, match="one dtype"):
+        k1.mha_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.mha_attention(*(torch.empty(1, 2, 8, 16, device="meta"),) * 3)
 
 
 def test_timestep_embedding_matches_jax():

@@ -42,6 +42,14 @@ CFG_PLAIN = dict(
 )
 # average-pool downsampling, conv-less upsampling
 CFG_NO_CONV = dict(CFG_PLAIN, conv_resample=False, attention_resolutions=(8,))
+# heads as wide as openai_128's: 2 heads over 256, 384 and 512 channels give
+# head dims 128, 192 and 256, with attention at all three levels
+CFG_WIDE_HEADS = dict(
+    resolution=8, in_channels=3, model_channels=128, out_channels=6,
+    num_res_blocks=1, attention_resolutions=(8, 4, 2), channel_mult=(2, 3, 4),
+    num_heads=2, split_qkv_first=True, resblock_updown=True,
+    use_adaptive_gn=True, num_classes=7,
+)
 
 
 def random_jax_params(cfg, seed=0):
@@ -97,8 +105,9 @@ def forward_both(cfg, jmodel, params, model, seed=1):
     return out, ref
 
 
-@pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV],
-                         ids=["ada_updown_ragged", "additive_interleaved", "no_conv_resample"])
+@pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV, CFG_WIDE_HEADS],
+                         ids=["ada_updown_ragged", "additive_interleaved", "no_conv_resample",
+                              "head_dims_128_192_256"])
 @pytest.mark.parametrize("kernels", [True, False])
 def test_forward_matches_jax(cfg, kernels):
     jmodel, params = random_jax_params(cfg)
