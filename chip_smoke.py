@@ -4,12 +4,14 @@
 
 Drives the port's main paths at full width with random weights made from a
 seed: class-conditional sampling with classifier-free guidance and training
-at the ``openai_64`` preset, and the sampling entry point with classifier
-guidance at ``openai_128`` with its noisy classifier. It checks every
-hand-written kernel on the way:
+at the ``openai_64`` preset, the sampling entry point with classifier
+guidance at ``openai_128`` with its noisy classifier, the entry point's
+fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
+cache, limited-interval guidance, v-prediction) at ``openai_64``, and training
+at ``openai_128``. It checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch/CUDA/Triton versions;
-  2. build: K1 with K5, and K2 (CUDA C++, one nvcc for sm_90a per source,
+  2. build: K1 with K5, K2 and K4 (CUDA C++, one nvcc for sm_90a per source,
      started together) from the sources in this checkout, and K3 (Triton);
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
@@ -57,6 +59,29 @@ hand-written kernel on the way:
      structure gives; steps/s with kernels on and off; a torch.profiler
      breakdown of one training step by kernel group.
 
+  9. K4 (fused GN+SiLU+3x3 conv) against its plain version, f32 and bf16,
+     plain and AdaGN, output pre-filled with NaN, at every (H, C, F) a
+     residual-block half of ``openai_64`` has at model batch 16 and at small
+     ragged shapes; its times in bf16 per shape beside the plain version, the
+     library calls (F.group_norm, F.silu, F.conv2d) and the bound, summed over
+     the halves of one forward it could stand for. No model calls K4 (as in
+     the JAX package): with the counts reset it is then called once in place
+     of each such half of one f32 ``openai_64`` forward, on the block's own
+     input, parameters and modulation rows, and held against what the block
+     computed (these are the launches its entry reports);
+ 10. the fast-sampling slice: the sampling entry point on
+     ``64x64_diffusion.pt``, bf16, CFG, ``--sampler dpm++`` with 20 steps,
+     ``--dynamic_thresholding 0.995 --encoder_cache 3 --guidance_interval 0.0
+     0.6``, 2 samples of 8 labels; the batches its encoder and decoder saw and
+     the K1 and K3 launch counts must equal what the levers' structure gives;
+     one more chain with ``--prediction_type v``; images/s with and without
+     the cache and the interval, in turns; an f32 chain with the levers,
+     kernels on against ``kernels=False``;
+ 11. training ``openai_128`` (head dims 128, 192 and 256: K2's 32-row tiles):
+     every parameter's f32 gradient kernels on against ``kernels=False``, then
+     3 ``Trainer.train_step`` calls in bf16 with remat at batch 4, with the
+     launch counts the structure gives, steps/s and peak memory.
+
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
 (989 TFLOP/s for bf16 products, 67 TFLOP/s for f32 work, which the kernels
@@ -89,13 +114,19 @@ BF16_TOL = {"attention": dict(atol=3e-2, rtol=0), "groupnorm": dict(atol=3e-2, r
 # than K1's (ds before its products), hence the relative part
 K2_F32_TOL = dict(atol=2e-5, rtol=0)
 K2_BF16_TOL = dict(atol=3e-2, rtol=2e-2)
+# K4: the JAX package's f32 gate (tests/test_pallas_resblock.py:49). In bf16 the
+# output is rounded once to bf16, one ulp of which is 0.03 for |out| in [4, 8);
+# beyond that the relative part covers it
+K4_F32_TOL = dict(atol=2e-5, rtol=2e-5)
+K4_BF16_TOL = dict(atol=3e-2, rtol=1e-2)
 MODEL_TOL = 1e-3
 GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
 LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
 SEED = 0
 TRAIN_BATCH = 8
 EMNIST_BATCH = 468  # the train entry point's recipe
-GUIDED_BATCH = 4  # the classifier-guided openai_128 slice
+GUIDED_BATCH = 4  # the classifier-guided openai_128 slice, and openai_128 training
+FAST_BATCH = 8  # labels a chain of the fast-sampling slice
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -103,6 +134,16 @@ F32_FLOPS = 67e12
 
 def log(*args):
     print(*args, flush=True)
+
+
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_done(name):
+    """Log the wall seconds since the previous phase ended."""
+    now = time.perf_counter()
+    log(f"[time] {name}: {now - _PHASE_T0[0]:.1f} s")
+    _PHASE_T0[0] = now
 
 
 def time_ms(fn, iters=20, rounds=5):
@@ -163,15 +204,18 @@ def phase_build():
         # then "Used N registers" for each template instance
         entry = spills = ""
         for line in nvcc_log.splitlines():
-            m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)I(\S+?)Li(\d+)E", line)
+            m = re.search(r"Compiling entry function '\S*?(attention_fwd|attention_bwd_dq|"
+                          r"attention_bwd_dkv|gn_silu_conv3x3|group_stats)_kernelI(\S+)'", line)
             if m:
                 dt = "bf16" if "bfloat16" in m.group(2) else "f32"
-                entry = f"{m.group(1)} {dt} hc={m.group(3)}"
+                dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, own-tile rows
+                entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
+                    f" rows={dims[1]}" if len(dims) > 1 else "")
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
                 log(f"[build]   {entry}: {line.split(':', 1)[1].strip()}; {spills}")
-    log(f"[build] K1 and K2 ready in {cuda_s:.2f} s (built side by side), "
+    log(f"[build] K1, K2 and K4 ready in {cuda_s:.2f} s (built side by side), "
         f"K3 (triton import) in {k3_s:.2f} s")
 
 
@@ -275,6 +319,7 @@ PATHS = {
                f"one forward of the openai_128 classifier at batch {GUIDED_BATCH}"),
 }
 GUIDED_PATHS = ("unet128", "cls128")
+K2_PATHS = ("train", "emnist", "cls128", "unet128")  # unet128: openai_128 training at batch 4
 
 
 def check_mha(name, qkv, heads, split_first, dtype, tol):
@@ -526,7 +571,7 @@ def phase_slice(dev, state):
     launches = read_launches()
     calls = steps * len(requests)
     expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
-              "mha": 0}
+              "mha": 0, "resblock": 0}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -675,7 +720,7 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     n_attn = (count(unet, AttentionBlock), count(cls, AttentionBlock, AttentionPool))
     n_gn = (count(unet, GroupNormOp), count(cls, GroupNormOp))
     expect = {"attention": sum(n_attn) * calls, "attention_bwd": n_attn[1] * calls,
-              "groupnorm": sum(n_gn) * calls, "mha": 0}
+              "groupnorm": sum(n_gn) * calls, "mha": 0, "resblock": 0}
     log(f"[guided] entry point, openai_128 + classifier, bf16, {steps} DDIM steps, "
         f"{len(labels_arg)} samples of {batch}: {images} files of 128x128 in {cli_s:.2f} s "
         f"(models built, checkpoints loaded, Triton's bf16 variants compiled and images "
@@ -685,15 +730,18 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
 
+    timed_labels = labels_arg[:1]
+    images = batch * len(timed_labels)
+
     def chains(kernels):
-        """Both chains as the entry point draws them: start noise, then the
-        chain, from one generator."""
+        """The entry point's first chain as it draws it: start noise, then
+        the chain, from one generator."""
         diff = models[kernels]
         g = torch.Generator(device=dev).manual_seed(0)
         outs = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for lab in labels_arg:
+        for lab in timed_labels:
             data = torch.randn((batch, 128, 128, 3), generator=g, device=dev)
             y = torch.full((batch,), lab, dtype=torch.long, device=dev)
             outs.append(diff.denoise(g, x=data, y=y))
@@ -709,14 +757,14 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     for kernels, out in outs.items():
         if not torch.isfinite(out).all() or out.abs().max() > 1.0:
             raise AssertionError(f"kernels={kernels}: samples not finite in [-1, 1]")
-    cli = torch.stack([torch.from_numpy(s[1]) for s in samples])
+    cli = torch.stack([torch.from_numpy(s[1]) for s in samples[:len(timed_labels)]])
     same = (torch.from_numpy(to_uint8(outs[True].cpu().numpy())) == cli).float().mean().item()
     diff = (outs[True] - outs[False]).abs()
     log(f"[guided] images/s through the library, {images} images a reading: kernels on "
         f"{rates[True]}, kernels off {rates[False]} (bf16, {steps} DDIM steps, classifier "
         f"guidance, batch {batch})")
-    log(f"[guided] the library chains with kernels on reproduce {same:.4f} of the entry "
-        f"point's uint8 pixels; kernels on vs off, final samples: max abs diff "
+    log(f"[guided] the library chain with kernels on reproduces {same:.4f} of the uint8 pixels "
+        f"of the entry point's first sample; kernels on vs off, final samples: max abs diff "
         f"{diff.max().item():.4f}, mean abs diff {diff.mean().item():.5f} (bf16, "
         f"{steps} guided steps)")
 
@@ -769,13 +817,14 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     return launches
 
 
-def phase_kernels_bwd(dev, calls, emnist_calls, cls_calls):
+def phase_kernels_bwd(dev, paths):
     """K2 against its plain version and against autograd through the plain
     forward, at every attention shape of one ``openai_64`` training step
     (batch 8), of one step of the entry point's EMNIST recipe (batch 468,
     ragged N = 196 and 49) and of one guidance gradient through the
     ``openai_128`` classifier (batch 4, the interleaved layout, the pool's
-    N = 65), and at N = 100 with head dim 128; both layouts,
+    N = 65), of one ``openai_128`` training step (batch 4: head dims 128, 192
+    and 256), and at N = 100 with head dims 128 and 192; both layouts,
     f32 and bf16, random cotangent with |g| <= 1, output pre-filled with
     NaN. Times in each path's compute type summed over one step beside the
     plain version, the library call (the autograd backward of
@@ -787,13 +836,13 @@ def phase_kernels_bwd(dev, calls, emnist_calls, cls_calls):
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     auto_err = 0.0
-    tallies = {"train": Tally(), "emnist": Tally(), "cls128": Tally()}
-    cases = [(key, n, where)
-             for where, path_calls in (("train", calls), ("emnist", emnist_calls),
-                                       ("cls128", cls_calls))
-             for key, n in sorted(path_calls.items(), key=str) if key[0] == "attention"]
-    # a ragged N at head dim 128, which neither model has
-    cases += [(("attention", 100, 256, 2, True), 0, None)]
+    calls = paths["train"]
+    tallies = {where: Tally() for where in K2_PATHS}
+    cases = [(key, n, where) for where in K2_PATHS
+             for key, n in sorted(paths[where].items(), key=str) if key[0] == "attention"]
+    # a ragged N at head dims 128 and 192, which no model has
+    cases += [(("attention", 100, 256, 2, True), 0, None),
+              (("attention", 100, 384, 2, True), 0, None)]
     for (_, n, c, heads, split_first), per_step, where in cases:
         b, timed_dtype, _ = PATHS[where] if where else (4, None, None)
         name = f"K2 B={b} N={n} C={c} heads={heads}"
@@ -823,11 +872,14 @@ def phase_kernels_bwd(dev, calls, emnist_calls, cls_calls):
                            for t in k1.split_qkv(qkv, heads, split_first))
                 lib_out = F.scaled_dot_product_attention(q, k, v)
                 lib_cot = cot.reshape(b, n, heads, c // heads).transpose(1, 2)
-                ms = time_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first))
+                depth = dict(iters=10, rounds=3)
+                ms = time_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first),
+                             **depth)
                 plain = time_ms(
-                    lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first))
+                    lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first),
+                    **depth)
                 lib = time_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_cot,
-                                                          retain_graph=True))
+                                                          retain_graph=True), **depth)
                 bound = attention_bound_ms(b, n, c, tensors=8, products=5, dtype=dtype)
                 tallies[where].add(per_step, ms, plain, lib, bound)
                 log(f"[k2] {name} {dtype}, {per_step} per step: {ms:.4f} ms, plain "
@@ -873,7 +925,7 @@ def phase_grads(dev, off, preset="openai_64", batch=4):
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
     from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
 
-    cfg = model_config(preset)
+    cfg = dict(model_config(preset), num_classes=off.num_classes)
     on = DiffusionModel(**cfg, use_remat=off.use_remat, device=dev).eval()
     on.load_state_dict(off.state_dict(), strict=True)
     dcfg = dict(DIFFUSION_PRESETS[preset], rescaled_num_steps=1000,
@@ -929,9 +981,11 @@ def block_counts(model):
 def kernel_counters():
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+    from nicediffusion_tpu_torch.ops.kernels import resblock as k4
 
     return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
-            "groupnorm": k3.group_norm_fused, "mha": k1.mha_attention}
+            "groupnorm": k3.group_norm_fused, "mha": k1.mha_attention,
+            "resblock": k4.gn_silu_conv3x3}
 
 
 def reset_launches():
@@ -951,7 +1005,7 @@ def expect_train_launches(model, steps, sample_calls=0):
     return {"attention": n_attn * (steps * twice + sample_calls),
             "attention_bwd": n_attn * steps,
             "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls,
-            "mha": 0}
+            "mha": 0, "resblock": 0}
 
 
 def metrics_rows(path):
@@ -1125,7 +1179,7 @@ def phase_train(dev, state, workdir):
         raise AssertionError("in-training sampling gave the wrong shape, type or launch counts")
 
     # steps/s, kernels on and off, in turns within this run
-    def timed_steps(tr, n=3):
+    def timed_steps(tr, n=2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
@@ -1140,7 +1194,7 @@ def phase_train(dev, state, workdir):
     for kernels, tr in ((True, trainer), (False, off), (False, off), (True, trainer)):
         rates[kernels].append(timed_steps(tr))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] steps/s, 3 steps a reading: kernels on {rates[True]}, kernels off "
+    log(f"[train] steps/s, 2 steps a reading: kernels on {rates[True]}, kernels off "
         f"{rates[False]} (openai_64, bf16, remat, batch {TRAIN_BATCH}); peak device memory "
         f"{peak:.2f} GiB")
     profile_steps(lambda: trainer.train_step(*next(trainer.loader)), "training step",
@@ -1184,6 +1238,420 @@ def phase_train(dev, state, workdir):
     return {"train_openai_64": launches_a, "train_sample": launches_s, "train_emnist": launches_b}
 
 
+def resblock_halves(model, dev):
+    """The residual-block halves of one forward of ``model`` that K4 could
+    stand for, as a Counter of (H, C, F, ada) -> halves per forward: every
+    ``in_norm -> in_conv`` without an in-block resample between them, and
+    every ``out_norm -> out_conv`` (AdaGN when the model uses it)."""
+    from nicediffusion_tpu_torch.models.unet import ResidualBlock
+
+    halves = collections.Counter()
+
+    def hook(mod, args, out):
+        h_in, h_out = args[0].shape[1], out.shape[1]
+        c_in, c_out = mod.in_conv.weight.shape[1], mod.in_conv.weight.shape[0]
+        if not (mod.upsample or mod.downsample):
+            halves[(h_in, c_in, c_out, False)] += 1
+        halves[(h_out, c_out, c_out, mod.use_adaptive_gn)] += 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, ResidualBlock)]
+    x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        model(x, zero, zero)
+    for h in hooks:
+        h.remove()
+    return halves
+
+
+def resblock_bound_ms(b, h, w, c, f, dtype):
+    """(bytes ms, operations ms) of K4: x read, the output written and the
+    weights read once; 2 * 9 * C * F operations an output pixel at the
+    tensor cores' peak in bf16 and at the f32 peak in f32, plus about 12 f32
+    operations an input element for the normalisation and SiLU."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    pixels = b * h * w
+    bytes_moved = (pixels * (c + f) + 9 * c * f) * dtype.itemsize + 4 * (2 * c + f)
+    return (bytes_moved / HBM_BYTES_PER_S * 1e3,
+            (2 * 9 * c * f * pixels / peak + 12 * pixels * c / F32_FLOPS) * 1e3)
+
+
+def resblock_inputs(g, dev, dtype, b, h, w, c, f, ada):
+    """x, the GN affine, an (F, C, 3, 3) weight scaled by its fan-in, a bias
+    and, for AdaGN, modulation rows as the two halves of one (B, 2C) tensor
+    (the model's ``emb.chunk(2)``)."""
+    x = (2 * torch.randn(b, h, w, c, generator=g, device=dev) + 0.5).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    weight = torch.randn(f, c, 3, 3, generator=g, device=dev) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
+    return (x, gamma, beta, weight, bias) + (tuple(emb.chunk(2, dim=-1)) if ada else ())
+
+
+def library_gn_silu_conv(x, gamma, beta, weight, bias, es=None, eb=None, groups=32):
+    """The PyTorch calls that compute K4's function in x's dtype:
+    F.group_norm on the channels-last view, the AdaGN modulation, F.silu,
+    then F.conv2d (cuDNN)."""
+    y = F.group_norm(x.permute(0, 3, 1, 2), groups, gamma, beta, 1e-5)
+    if es is not None:
+        y = y * (1.0 + es[:, :, None, None]) + eb[:, :, None, None]
+    return F.conv2d(F.silu(y), weight, bias, padding=1).permute(0, 2, 3, 1)
+
+
+def check_resblock(name, args, groups, dtype):
+    """K4 into an output pre-filled with NaN, against its plain version with
+    the reference convolution summed in float64 (cuDNN's f32 conv is itself
+    up to 1.9e-5 off at the 8x8 and 16x16 maps, which would eat the gate)."""
+    from nicediffusion_tpu_torch.ops.kernels import resblock as k4
+
+    x, weight = args[0], args[3]
+    out = torch.full(x.shape[:3] + weight.shape[:1], float("nan"), dtype=dtype, device=x.device)
+    k4.gn_silu_conv3x3(*args, num_groups=groups, out=out)
+    torch.cuda.synchronize()
+    if torch.isnan(out).any():
+        raise AssertionError(f"{name} {dtype}: output elements left unwritten")
+    ref = k4.gn_silu_conv3x3_plain(*args, num_groups=groups, conv_dtype=torch.float64)
+    err = check(f"{name} {dtype}", out, ref,
+                K4_F32_TOL if dtype == torch.float32 else K4_BF16_TOL)
+    return err, out, ref
+
+
+def phase_resblock(dev, halves):
+    """K4 against its plain version at every (H, C, F) of ``halves`` (one
+    ``openai_64`` forward) at model batch 16, plain and AdaGN, f32 and bf16,
+    and at small ragged shapes; bf16 times of each half beside plain, library
+    and bound, summed over the forward's halves. The timed calls reuse one
+    weight tensor, so they hold no repack of it (the first call made it)."""
+    from nicediffusion_tpu_torch.ops.kernels import resblock as k4
+
+    b = PATHS["forward"][0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cudnn_f32 = {"plain": 0.0, "kernel": 0.0}  # against the plain version with cuDNN's f32 conv
+    tally = Tally()
+    for h, c, f in sorted({key[:3] for key in halves}):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ada in (False, True):
+                args = resblock_inputs(g, dev, dtype, b, h, h, c, f, ada)
+                name = f"K4 {'ada' if ada else 'plain'} x {(b, h, h, c)} -> {f}"
+                err, out, ref = check_resblock(name, args, 32, dtype)
+                errs[dtype] = max(errs[dtype], err)
+                if dtype == torch.float32:
+                    plain32 = k4.gn_silu_conv3x3_plain(*args)
+                    for key, other in (("plain", ref), ("kernel", out)):
+                        gap = (plain32 - other).abs().max().item()
+                        cudnn_f32[key] = max(cudnn_f32[key], gap)
+                per_forward = halves.get((h, c, f, ada), 0)
+                if dtype != torch.bfloat16 or not per_forward:
+                    continue
+                lib_args = tuple(t.to(dtype) for t in args)
+                ms = time_ms(lambda: k4.gn_silu_conv3x3(*args), iters=5, rounds=3)
+                plain = time_ms(lambda: k4.gn_silu_conv3x3_plain(*args), iters=5, rounds=3)
+                lib = time_ms(lambda: library_gn_silu_conv(*lib_args), iters=5, rounds=3)
+                bound = resblock_bound_ms(b, h, h, c, f, dtype)
+                tally.add(per_forward, ms, plain, lib, bound)
+                tflops = 2 * 9 * c * f * b * h * h / ms / 1e9
+                log(f"[k4] {name} {dtype}, {per_forward} per forward: {ms:.4f} ms "
+                    f"({tflops:.2f} TFLOP/s), plain {plain:.4f} ms, library {lib:.4f} ms, "
+                    f"bound {max(bound):.4f} ms")
+    # tests/test_pallas_resblock.py:23, and ragged maps, channel and filter counts
+    for shape, f, groups in (((2, 8, 8, 32), 64, 8), ((1, 16, 16, 64), 32, 32),
+                             ((3, 4, 4, 96), 96, 32), ((2, 7, 7, 96), 40, 32),
+                             ((2, 28, 14, 64), 3, 32), ((1, 9, 17, 40), 130, 8)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ada in (False, True):
+                args = resblock_inputs(g, dev, dtype, *shape, f, ada)
+                name = f"K4 {'ada' if ada else 'plain'} x {shape} -> {f}, {groups} groups"
+                errs[dtype] = max(errs[dtype], check_resblock(name, args, groups, dtype)[0])
+    log(f"[k4] max abs err vs plain (its convolution summed in float64): f32 "
+        f"{errs[torch.float32]:.3g} (gate {K4_F32_TOL}), bf16 {errs[torch.bfloat16]:.3g} "
+        f"(gate {K4_BF16_TOL})")
+    log(f"[k4] f32 at the openai_64 shapes, with cuDNN's f32 convolution (no TF32) in the plain "
+        f"version instead: that plain version is {cudnn_f32['plain']:.3g} off the float64-summed "
+        f"one, and K4 is {cudnn_f32['kernel']:.3g} off it (not gated: it measures the library's "
+        f"choice of algorithm)")
+    log(f"[k4] bf16 calls of the {sum(halves.values())} residual-block halves of "
+        f"{PATHS['forward'][2]} that K4 could stand for, each timed back to back: {tally}")
+    return errs, tally
+
+
+def phase_resblock_direct(dev, off):
+    """K4 called directly, as no model calls it: one f32 forward of ``off``
+    (``openai_64``, kernels=False) at batch 2 records each residual block's
+    input, modulation rows and what its ``in_conv`` and ``out_conv`` gave;
+    then, with the counts reset, K4 is called once for every half it could
+    stand for, on the block's own parameters, and held against the block's
+    result. Returns the launch counts of these calls."""
+    from nicediffusion_tpu_torch.models.unet import ResidualBlock
+    from nicediffusion_tpu_torch.ops.kernels import resblock as k4
+
+    seen = {}
+
+    def keep(block, key):
+        def hook(mod, args, out):
+            seen.setdefault(block, {})[key] = (args, out)
+        return hook
+
+    hooks = []
+    for block in (m for m in off.modules() if isinstance(m, ResidualBlock)):
+        for key in ("in_norm", "in_conv", "out_norm", "out_conv"):
+            hooks.append(getattr(block, key).register_forward_hook(keep(block, key)))
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn(2, off.resolution, off.resolution, off.in_channels, generator=g, device=dev)
+    with torch.inference_mode():
+        off(x, torch.tensor([980, 500], device=dev), torch.tensor([207, 0], device=dev))
+    for h in hooks:
+        h.remove()
+
+    reset_launches()
+    worst, halves = 0.0, 0
+    with torch.inference_mode():
+        for block, rec in seen.items():
+            work = []
+            if not (block.upsample or block.downsample):
+                work.append((block.in_norm, block.in_conv, rec["in_norm"][0], rec["in_conv"][1]))
+            work.append((block.out_norm, block.out_conv, rec["out_norm"][0], rec["out_conv"][1]))
+            for norm, conv, norm_args, ref in work:
+                out = k4.gn_silu_conv3x3(norm_args[0], norm.weight, norm.bias, conv.weight,
+                                         conv.bias, *norm_args[1:], num_groups=norm.num_groups,
+                                         eps=norm.eps)
+                worst = max(worst, check(
+                    f"K4 for {tuple(norm_args[0].shape)} -> {conv.weight.shape[0]}", out, ref,
+                    dict(atol=MODEL_TOL, rtol=0)))
+                halves += 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[k4] {launches['resblock']} direct calls in place of the residual-block halves of one "
+        f"f32 openai_64 forward at batch 2 ({len(seen)} blocks), on each block's own input, "
+        f"parameters and modulation rows: max abs {worst:.3g} against what the blocks computed "
+        f"(gate {MODEL_TOL})")
+    if launches["resblock"] != halves or not halves:
+        raise AssertionError(f"{launches['resblock']} K4 launches for {halves} halves")
+    return launches
+
+
+def phase_fast(dev, state, workdir):
+    """The fast-sampling slice through the sampling entry point at
+    full-width ``openai_64``: ``state`` is written to ``workdir`` under the
+    name the preset dispatch reads, then ``main([...])`` samples 2 batches of
+    8 labels in bf16 with CFG, DPM-Solver++ over 20 steps, dynamic
+    thresholding, the encoder cache (k = 3) and guidance limited to the
+    cleaner 0.6 of the chain. The batches the model's encoder and decoder
+    saw and the launch counts must be what that structure gives. Then one
+    chain with ``--prediction_type v``, images/s through the library with
+    and without the two levers in turns, and an f32 chain with the levers,
+    kernels on against ``kernels=False``."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    model_path = os.path.join(workdir, "64x64_diffusion.pt")
+    torch.save(state, model_path)
+    steps, k, interval = 20, 3, (0.0, 0.6)
+    labels_arg = (3, 7)
+    common = [
+        "--model_path", model_path, "--guidance_method", "classifier_free",
+        "--guidance_strength", "0.8", "--num_classes", str(model_config()["num_classes"]),
+        "--batch_size", str(FAST_BATCH), "--sampler", "dpm++", "--rescaled_num_steps", str(steps),
+        "--dynamic_thresholding", "0.995", "--seed", "0", "-w",
+    ]
+
+    # the batches every encode and decode call of the entry point's model sees
+    seen = {"encode": [], "decode": []}
+    originals = {name: getattr(DiffusionModel, name) for name in seen}
+
+    def recording(name):
+        def method(self, first, *args, **kw):
+            seen[name].append(first.shape[0])
+            return originals[name](self, first, *args, **kw)
+        return method
+
+    out_dir = os.path.join(workdir, "fast") + os.sep
+    os.makedirs(out_dir)
+    for name in seen:
+        setattr(DiffusionModel, name, recording(name))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        samples = sample_main(common + [
+            "--num_samples", str(len(labels_arg)), "--labels", "/".join(map(str, labels_arg)),
+            "--save_path", out_dir, "--encoder_cache", str(k),
+            "--guidance_interval", *map(str, interval)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for name, fn in originals.items():
+            setattr(DiffusionModel, name, fn)
+
+    expect_files = sorted(f"{lab}_sample{i}.jpg" for lab in labels_arg for i in range(FAST_BATCH))
+    if sorted(os.listdir(out_dir)) != expect_files:
+        raise AssertionError(f"files {sorted(os.listdir(out_dir))} != {expect_files}")
+    for (_, out, labels), lab in zip(samples, labels_arg):
+        if (out.shape != (FAST_BATCH, 64, 64, 3) or str(out.dtype) != "uint8"
+                or labels.tolist() != [lab] * FAST_BATCH or any(img.std() == 0 for img in out)):
+            raise AssertionError(f"sample of label {lab}: {out.shape} {out.dtype}")
+
+    # what the structure gives: groups of k from t = steps - 1 down, the tail
+    # steps % k uncached; a group is guided iff any of its steps is in [lo, hi)
+    lo, hi = (round(f * steps) for f in interval)
+    chain = list(range(steps - 1, -1, -1))
+    head = steps - steps % k
+    groups = [chain[i:i + k] for i in range(0, head, k)] + [[t] for t in chain[head:]]
+    enc, dec = [], []
+    for group in groups:
+        batch = FAST_BATCH * (2 if any(lo <= t < hi for t in group) else 1)
+        enc.append(batch)
+        dec += [batch] * len(group)
+    model = DiffusionModel(**model_config(), dtype=torch.bfloat16, device=dev).eval()
+    model.load_state_dict(state, strict=True)
+
+    def count(part, kind):
+        return sum(isinstance(m, kind) for m in part.modules())
+
+    decoder = (model.middle_block, model.upsampling, model.out)
+    attn = (count(model.downsampling, AttentionBlock),
+            sum(count(p, AttentionBlock) for p in decoder))
+    gn = (count(model.downsampling, GroupNormOp), sum(count(p, GroupNormOp) for p in decoder))
+    n = len(labels_arg)
+    expect = {"attention": n * (len(enc) * attn[0] + len(dec) * attn[1]), "attention_bwd": 0,
+              "groupnorm": n * (len(enc) * gn[0] + len(dec) * gn[1]), "mha": 0, "resblock": 0}
+    log(f"[fast] entry point, openai_64, bf16, CFG, DPM++ {steps} steps, dynamic thresholding, "
+        f"encoder cache {k}, guidance in {interval}: {len(expect_files)} files of 64x64 in "
+        f"{cli_s:.2f} s (model built, checkpoint loaded, images saved inside that time); per "
+        f"chain {len(enc)} encoder calls at batches {enc} and {len(dec)} decoder calls, "
+        f"{dec.count(FAST_BATCH)} of them unguided at batch {FAST_BATCH}; launches {launches}, "
+        f"expected {expect} (encoder {attn[0]} K1 + {gn[0]} K3, decoder {attn[1]} + {gn[1]})")
+    if seen["encode"] != enc * n or seen["decode"] != dec * n:
+        raise AssertionError(f"encoder batches {seen['encode']}, decoder batches {seen['decode']}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+
+    # the same weights read as a v-model: one chain through the entry point
+    v_dir = os.path.join(workdir, "fast_v") + os.sep
+    os.makedirs(v_dir)
+    v_samples = sample_main(common + [
+        "--num_samples", "1", "--labels", "3", "--save_path", v_dir, "--prediction_type", "v",
+        "--encoder_cache", str(k), "--guidance_interval", *map(str, interval)])
+    if (len(os.listdir(v_dir)) != FAST_BATCH or v_samples[0][1].shape != (FAST_BATCH, 64, 64, 3)
+            or any(img.std() == 0 for img in v_samples[0][1])):
+        raise AssertionError("the v-prediction chain gave the wrong files or a constant image")
+    log(f"[fast] --prediction_type v: {FAST_BATCH} files, pixel range "
+        f"[{v_samples[0][1].min()}, {v_samples[0][1].max()}]")
+
+    # images/s with and without the levers, through the library, in turns
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=steps, sampler="dpm++",
+                clip_x="dynamic", dynamic_threshold=0.995, guidance_method="classifier_free",
+                guidance_strength=0.8)
+    diff = Diffusion(model=model, **dcfg)
+    y = torch.arange(FAST_BATCH, device=dev) * 97 % 1000 + 1
+
+    def chain_rate(levers, n_chains=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_chains):
+            out = diff.denoise(torch.Generator(device=dev).manual_seed(i), y=y,
+                               batch_size=FAST_BATCH, **levers)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or out.abs().max() > 1.0:
+            raise AssertionError(f"chain with {levers}: values not finite in [-1, 1]")
+        return n_chains * FAST_BATCH / (time.perf_counter() - t0), out
+
+    levers = dict(encoder_cache=k, guidance_interval=interval)
+    rates = {"levers": [], "plain": []}
+    outs = {}
+    for which in ("levers", "plain", "plain", "levers"):
+        rate, outs[which] = chain_rate(levers if which == "levers" else {})
+        rates[which].append(rate)
+    gap = (outs["levers"] - outs["plain"]).abs()
+    log(f"[fast] images/s through the library, 2 chains of {FAST_BATCH} a reading: with the "
+        f"cache and the interval {rates['levers']}, without {rates['plain']} (bf16, DPM++ "
+        f"{steps} steps, dynamic thresholding, CFG); the levers are lossy: final samples differ "
+        f"by max {gap.max().item():.4f}, mean {gap.mean().item():.5f} on random weights")
+    del model, diff
+
+    # f32, the levers on: kernels on against kernels=False
+    f32 = {}
+    for kernels in (True, False):
+        m = DiffusionModel(**model_config(), kernels=kernels, device=dev).eval()
+        m.load_state_dict(state, strict=True)
+        d = Diffusion(model=m, **dict(dcfg, rescaled_num_steps=8))
+        f32[kernels] = d.denoise(torch.Generator(device=dev).manual_seed(3), y=y[:2],
+                                 batch_size=2, **levers)
+        del m, d
+    torch.cuda.synchronize()
+    err = check("f32 fast chain, kernels on vs off", f32[True], f32[False],
+                dict(atol=MODEL_TOL, rtol=0))
+    log(f"[fast] f32, DPM++ 8 steps with the cache and the interval, batch 2: kernels on vs off "
+        f"max abs {err:.3g} (gate {MODEL_TOL})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_128(dev, off):
+    """Training at full-width ``openai_128`` (head dims 128, 192 and 256: the
+    path that runs K2's 32-row tiles). ``off`` is the f32 model with
+    kernels=False and remat: first every parameter's gradient, kernels on
+    against off; then a ``Trainer`` in bf16 with remat and dropout at batch
+    4 takes 3 steps on one synthetic batch with fixed t and noise, so the
+    losses can be compared."""
+    from nicediffusion_tpu_torch import DiffusionModel, Trainer
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS, MODEL_PRESETS
+
+    phase_grads(dev, off, "openai_128", GUIDED_BATCH)
+
+    cfg = dict(MODEL_PRESETS["openai_128"])
+    dcfg = dict(DIFFUSION_PRESETS["openai_128"], rescaled_num_steps=1000, guidance_method=None)
+    model = DiffusionModel(**cfg, dtype=torch.bfloat16, use_remat=True, device=dev)
+    model.load_state_dict(off.state_dict(), strict=True)
+    nparams = sum(p.numel() for p in model.parameters())
+    loader = synthetic_batches(GUIDED_BATCH, cfg["resolution"], cfg["in_channels"],
+                               cfg["num_classes"], seed=SEED)
+    # at lr 1e-4 the second step on these random weights overshoots (the loss goes
+    # 1.33, 2.29, 1.02); at 1e-5 it falls at every step
+    trainer = Trainer(model, dcfg, loader, iterations=3, batch_size=GUIDED_BATCH, lr=1e-5,
+                      weight_decay=1e-3, ema_rate=0.99, seed=SEED)
+    batch, labels = next(loader)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    t = torch.tensor([10, 300, 600, 990], device=dev)
+    noise = torch.randn(batch.shape, generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, seconds = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, labels, t=t, noise=noise)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        if not (math.isfinite(losses[-1]) and math.isfinite(metrics["grad_norm"].item())):
+            raise AssertionError(f"step {len(losses)}: loss or gradient norm not finite")
+    launches = read_launches()
+    expect = expect_train_launches(trainer.model, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train-128] openai_128, {nparams} parameters, bf16, remat, batch {GUIDED_BATCH}, 3 "
+        f"steps on one batch with fixed t and noise: losses {[round(v, 5) for v in losses]}, "
+        f"seconds a step {[round(v, 4) for v in seconds]} (the first holds Triton's and cuDNN's "
+        f"warm-up), steps/s over the last two {2 / sum(seconds[1:]):.4f}; peak device memory "
+        f"{peak:.2f} GiB; launches {launches}, expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    # falling or steady (dropout draws a new mask each step, which moves the loss a little)
+    if not losses[-1] <= losses[0]:
+        raise AssertionError(f"the loss rose over 3 steps on one batch: {losses}")
+    step_ms = min(seconds[1:]) * 1e3
+    profile_steps(lambda: trainer.train_step(batch, labels, t=t, noise=noise),
+                  "openai_128 training step", unprofiled_ms=step_ms, steps=2, detail=False)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -1195,6 +1663,7 @@ def main():
 
     smi = phase_device()
     phase_build()
+    phase_done("[device], [build]")
 
     from nicediffusion_tpu_torch import DiffusionModel
 
@@ -1210,31 +1679,51 @@ def main():
     from nicediffusion_tpu_torch import EncoderUNet
     from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
 
-    unet128 = DiffusionModel(**MODEL_PRESETS["openai_128"], kernels=False, device=dev).eval()
+    # remat only acts while a gradient is taken: the sampling phases do not see it
+    unet128 = DiffusionModel(**MODEL_PRESETS["openai_128"], use_remat=True, kernels=False,
+                             device=dev).eval()
     randomize(unet128, SEED + 1)
     cls128 = EncoderUNet(**classifier_config(), kernels=False, device=dev).eval()
     randomize(cls128, SEED + 2)
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev)}
+    halves = resblock_halves(reference, dev)
+    phase_done("models made, their kernel calls found")
     errs, tallies = phase_kernels(dev, paths)
-    k2_errs, k2_tallies = phase_kernels_bwd(dev, calls, emnist_calls, paths["cls128"])
+    phase_done("[kernels]")
+    k2_errs, k2_tallies = phase_kernels_bwd(dev, paths)
+    phase_done("[k2]")
+    k4_errs, k4_tally = phase_resblock(dev, halves)
+    k4_launches = phase_resblock_direct(dev, reference)
+    phase_done("[k4]")
     mha_launches = phase_mha_direct(dev, paths)
     phase_model_128(dev, unet128, cls128)
+    phase_done("[k5], [model-128]")
     unet128_state, cls128_state = unet128.state_dict(), cls128.state_dict()
+    train128_launches = phase_train_128(dev, unet128)
     del unet128, cls128
+    torch.cuda.empty_cache()
+    phase_done("[train-128]")
     phase_model(dev, reference)
     phase_grads(dev, reference)
     phase_grads(dev, emnist, "EMNIST", EMNIST_BATCH)
     del emnist
+    phase_done("[model], [grads]")
     state = reference.state_dict()
     del reference
-    by_path = {"sampling": phase_slice(dev, state), "mha_attention_direct": mha_launches}
+    by_path = {"sampling": phase_slice(dev, state), "mha_attention_direct": mha_launches,
+               "resblock_halves_direct": k4_launches, "train_openai_128": train128_launches}
+    phase_done("[slice]")
     with tempfile.TemporaryDirectory() as workdir:
         by_path["sample_cli_openai_128_guided"] = phase_sample_cli(
             dev, unet128_state, cls128_state, workdir)
         del unet128_state, cls128_state
         torch.cuda.empty_cache()
+        phase_done("[guided]")
+        by_path["sample_cli_openai_64_fast"] = phase_fast(dev, state, workdir)
+        phase_done("[fast]")
         by_path.update(phase_train(dev, state, workdir))
+        phase_done("[train]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1260,7 +1749,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
               f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}",
-              {w: k2_tallies[w] for w in ("emnist", "cls128")}),
+              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128")}),
         entry("group_norm_fused", "triton", "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
@@ -1274,6 +1763,12 @@ def main():
               f"sum over the attention calls of one openai_128 forward, bf16, batch "
               f"{GUIDED_BATCH}, q, k and v as views of the projection",
               {"cls128": tallies["mha", "cls128"]}),
+        # no model calls K4 either: its launches are phase_resblock_direct's calls
+        entry("gn_silu_conv3x3", "cuda", "nicediffusion_tpu_torch/csrc/resblock.cu",
+              "nicediffusion_tpu/ops/pallas/resblock.py:131", "resblock",
+              k4_errs[torch.float32], k4_errs[torch.bfloat16], k4_tally,
+              "sum over the residual-block halves of one openai_64 forward that K4 could "
+              "stand for, bf16, model batch 16", {}),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -3,12 +3,15 @@
 Class-conditional sampling with classifier-free or classifier guidance and
 training on one NVIDIA H100: the UNet and the noisy classifier (EncoderUNet)
 as torch ``nn.Module``s with the original reference's parameter names, the
-DDPM/DDIM sampling chain, the four training losses, the Trainer (AdamW, EMA,
+DDPM, DDIM and DPM-Solver++ sampling chains with v-prediction, dynamic
+thresholding, the encoder cache and limited-interval guidance, the four
+training losses, the Trainer (AdamW, EMA,
 accumulation, checkpoints), the entry points
 ``python -m nicediffusion_tpu_torch.scripts.sample`` and
-``python -m nicediffusion_tpu_torch.scripts.train``, and four kernels
+``python -m nicediffusion_tpu_torch.scripts.train``, and five kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
-CUDA C++; K3, fused GroupNorm in Triton). ``device=None`` means
+CUDA C++; K3, fused GroupNorm in Triton; K4, fused GroupNorm+SiLU+3x3 conv in
+CUDA C++, reached directly as in the JAX package). ``device=None`` means
 the CUDA card everywhere; the CPU has to be asked for. The JAX package
 stays the reference this package is tested against; this package imports
 torch and numpy only.
@@ -19,4 +22,4 @@ from .models.classifier import EncoderUNet  # noqa: F401
 from .models.unet import DiffusionModel  # noqa: F401
 from .training.trainer import Trainer  # noqa: F401
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -19,17 +19,25 @@
 // Hopper blocks run in no order and a block has 227 KB of shared memory, so
 // the work is cut twice, with no atomics (the result is the same from run
 // to run):
-//   * dq kernel, one block per (64-query tile, head, batch element): holds
+//   * dq kernel, one block per (query tile, head, batch element): holds
 //     its q and g tiles, walks the 64-key tiles once for the row max and sum
 //     (online, as K1), takes delta from g and o, then walks them again,
 //     recomputes p from the log-sum-exp and accumulates dq in registers. It
 //     leaves the log-sum-exp and delta of its rows in two small f32 (B, H, N)
 //     scratch tensors.
-//   * dk/dv kernel, one block per (64-key tile, head, batch element): holds
+//   * dk/dv kernel, one block per (key tile, head, batch element): holds
 //     its k and v tiles, walks the 64-query tiles, recomputes p and ds from
 //     the scratch rows and accumulates dk and dv in registers.
-// Tiling, in-kernel offsets and the one-word bank padding are K1's. The
-// ragged N edge is masked in the kernels: keys past N get p = 0, rows past
+// Tiling, in-kernel offsets and the one-word bank padding are K1's. At head
+// dims 192 and 256 four 64-row f32 tiles of HC + 1 words do not fit a
+// block's 232,448 B (the dk/dv kernel needs 232,960 B at 192, the dq kernel
+// 280,576 B at 256), so there the tile a block owns has 32 rows (BM query
+// rows in the dq kernel, BN keys in the dk/dv kernel) while the tiles it walks
+// keep 64: 206,080 and 216,320 B at 256. A thread then owns 2 rows of its
+// accumulators, 2 x HC/16 registers of each at most 32, as many as at head
+// dim 128 with 4 rows, and twice as many blocks fill the card at the short
+// N these head dims come with. Head dims 32, 64 and 128 keep 64-row tiles.
+// The ragged N edge is masked in the kernels: keys past N get p = 0, rows past
 // N load as zero and are never stored, and every element of the output
 // belonging to a row below N is written by exactly one thread.
 // Rounding follows the TPU kernel: p is rounded to the input type before
@@ -49,28 +57,35 @@ namespace {
 
 using namespace nd;
 
+// rows of the tile a block owns: 32 at the head dims whose 64-row tiles do
+// not fit a block's shared memory
 template <int HC>
+constexpr int own_rows() {
+  return HC > 128 ? 32 : 64;
+}
+
+template <int HC, int BM>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kBM * (HC + 1) + kBM * kPStride);
+  return sizeof(float) * (size_t)(2 * (BM + kBN) * (HC + 1) + BM * kPStride);
 }
 
-template <int HC>
+template <int HC, int BN>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kBM * (HC + 1) + 2 * kBM * kPStride + 2 * kBM);
+  return sizeof(float) * (size_t)(2 * (BN + kBM) * (HC + 1) + 2 * kBM * (BN + 4) + 2 * kBM);
 }
 
-// rows [row0, row0 + 64) of one head's hc channels -> a shared tile of row
+// rows [row0, row0 + ROWS) of one head's hc channels -> a shared tile of row
 // stride HC + 1, zero past row n
-template <typename T, int HC>
+template <typename T, int HC, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, size_t row_stride,
                                           int row0, int n, int tid) {
-  for (int i = tid; i < kBM * HC; i += kThreads) {
+  for (int i = tid; i < ROWS * HC; i += kThreads) {
     const int r = i / HC, d = i % HC, row = row0 + r;
     dst[r * (HC + 1) + d] = row < n ? to_f32(src[(size_t)row * row_stride + d]) : 0.f;
   }
 }
 
-template <typename T, int HC>
+template <typename T, int HC, int BM>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                         const T* __restrict__ o, T* __restrict__ dqkv,
@@ -78,14 +93,15 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                         int split_first, float scale) {
   constexpr int kS = HC + 1;
   constexpr int kOC = HC / 16;  // dq columns per thread
+  constexpr int TR = BM / 16;   // query rows per thread: ty * TR + i
   extern __shared__ float smem[];
-  float* qs = smem;             // kBM x kS
-  float* gs = qs + kBM * kS;    // kBM x kS
-  float* ks = gs + kBM * kS;    // kBN x kS
+  float* qs = smem;             // BM x kS
+  float* gs = qs + BM * kS;     // BM x kS
+  float* ks = gs + BM * kS;     // kBN x kS
   float* vs = ks + kBN * kS;    // kBN x kS
-  float* dss = vs + kBN * kS;   // kBM x kPStride
+  float* dss = vs + kBN * kS;   // BM x kPStride
 
-  const int q0 = blockIdx.x * kBM;
+  const int q0 = blockIdx.x * BM;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -97,13 +113,13 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   const T* gbase = g + (size_t)b * n * c + head * HC;
   const T* obase = o + (size_t)b * n * c + head * HC;
 
-  load_tile<T, HC>(qs, base + off.q, c3, q0, n, tid);
-  load_tile<T, HC>(gs, gbase, c, q0, n, tid);
+  load_tile<T, HC, BM>(qs, base + off.q, c3, q0, n, tid);
+  load_tile<T, HC, BM>(gs, gbase, c, q0, n, tid);
 
   // pass 1: running row max and sum over the keys
-  float m[kTR], l[kTR];
+  float m[TR], l[TR];
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
+  for (int i = 0; i < TR; ++i) {
     m[i] = kMasked;
     l[i] = 0.f;
   }
@@ -111,10 +127,10 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     __syncthreads();  // the previous tile's readers are done with ks
     load_tile<T, HC>(ks, base + off.k, c3, k0, n, tid);
     __syncthreads();
-    float s[kTR][kTC];
-    tile_dot_nt<HC>(qs, ks, ty, tx, s);
+    float s[TR][kTC];
+    tile_dot_nt<HC, TR>(qs, ks, ty, tx, s);
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) {
+    for (int i = 0; i < TR; ++i) {
       float mx = kMasked;
 #pragma unroll
       for (int j = 0; j < kTC; ++j) {
@@ -131,11 +147,11 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   }
 
   // log-sum-exp and delta = rowsum(g * o) of this thread's rows
-  float row_lse[kTR], row_delta[kTR];
+  float row_lse[TR], row_delta[TR];
   const size_t stat_base = ((size_t)b * gridDim.y + head) * n;
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int r = ty * kTR + i, row = q0 + r;
+  for (int i = 0; i < TR; ++i) {
+    const int r = ty * TR + i, row = q0 + r;
     row_lse[i] = m[i] + logf(l[i]);
     float acc = 0.f;
     if (row < n) {
@@ -153,9 +169,9 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   }
 
   // pass 2: recompute p, form ds, accumulate dq = ds k
-  float dq[kTR][kOC];
+  float dq[TR][kOC];
 #pragma unroll
-  for (int i = 0; i < kTR; ++i)
+  for (int i = 0; i < TR; ++i)
 #pragma unroll
     for (int j = 0; j < kOC; ++j) dq[i][j] = 0.f;
 
@@ -164,36 +180,36 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     load_tile<T, HC>(ks, base + off.k, c3, k0, n, tid);
     load_tile<T, HC>(vs, base + off.v, c3, k0, n, tid);
     __syncthreads();
-    float s[kTR][kTC], dp[kTR][kTC];
-    tile_dot_nt<HC>(qs, ks, ty, tx, s);
-    tile_dot_nt<HC>(gs, vs, ty, tx, dp);
+    float s[TR][kTC], dp[TR][kTC];
+    tile_dot_nt<HC, TR>(qs, ks, ty, tx, s);
+    tile_dot_nt<HC, TR>(gs, vs, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < kTR; ++i)
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
       for (int j = 0; j < kTC; ++j) {
         const bool valid = k0 + tx + 16 * j < n;
         const float p = valid ? round_to<T>(expf(s[i][j] * scale - row_lse[i])) : 0.f;
-        dss[(ty * kTR + i) * kPStride + tx + 16 * j] =
+        dss[(ty * TR + i) * kPStride + tx + 16 * j] =
             round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
       }
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < kBN; ++k) {
-      float dv_[kTR], kv[kOC];
+      float dv_[TR], kv[kOC];
 #pragma unroll
-      for (int i = 0; i < kTR; ++i) dv_[i] = dss[(ty * kTR + i) * kPStride + k];
+      for (int i = 0; i < TR; ++i) dv_[i] = dss[(ty * TR + i) * kPStride + k];
 #pragma unroll
       for (int j = 0; j < kOC; ++j) kv[j] = ks[k * kS + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < kTR; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int j = 0; j < kOC; ++j) dq[i][j] = fmaf(dv_[i], kv[j], dq[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int row = q0 + ty * kTR + i;
+  for (int i = 0; i < TR; ++i) {
+    const int row = q0 + ty * TR + i;
     if (row >= n) continue;
     T* dst = dqkv + ((size_t)b * n + row) * c3 + off.q;
 #pragma unroll
@@ -201,24 +217,27 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   }
 }
 
-template <typename T, int HC>
+template <typename T, int HC, int BN>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dqkv, int n, int c, int split_first, float scale) {
   constexpr int kS = HC + 1;
   constexpr int kOC = HC / 16;  // dk and dv columns per thread
+  constexpr int TC = BN / 16;   // score columns per thread: tx + 16 * j
+  constexpr int KR = BN / 16;   // keys per thread in dk and dv: ty * KR + i
+  constexpr int PS = BN + 4;    // row stride of the shared score tiles
   extern __shared__ float smem[];
-  float* ks = smem;                    // kBN x kS
-  float* vs = ks + kBN * kS;           // kBN x kS
-  float* qs = vs + kBN * kS;           // kBM x kS
+  float* ks = smem;                    // BN x kS
+  float* vs = ks + BN * kS;            // BN x kS
+  float* qs = vs + BN * kS;            // kBM x kS
   float* gs = qs + kBM * kS;           // kBM x kS
-  float* ps = gs + kBM * kS;           // kBM x kPStride
-  float* dss = ps + kBM * kPStride;    // kBM x kPStride
-  float* lse_s = dss + kBM * kPStride; // kBM
+  float* ps = gs + kBM * kS;           // kBM x PS
+  float* dss = ps + kBM * PS;          // kBM x PS
+  float* lse_s = dss + kBM * PS;       // kBM
   float* delta_s = lse_s + kBM;        // kBM
 
-  const int k0 = blockIdx.x * kBN;
+  const int k0 = blockIdx.x * BN;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -230,13 +249,13 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   const T* gbase = g + (size_t)b * n * c + head * HC;
   const size_t stat_base = ((size_t)b * gridDim.y + head) * n;
 
-  load_tile<T, HC>(ks, base + off.k, c3, k0, n, tid);
-  load_tile<T, HC>(vs, base + off.v, c3, k0, n, tid);
+  load_tile<T, HC, BN>(ks, base + off.k, c3, k0, n, tid);
+  load_tile<T, HC, BN>(vs, base + off.v, c3, k0, n, tid);
 
-  // this thread's keys are ty * kTR + i, its channels tx + 16 * j
-  float dk[kTR][kOC], dv[kTR][kOC];
+  // this thread's keys are ty * KR + i, its channels tx + 16 * j
+  float dk[KR][kOC], dv[KR][kOC];
 #pragma unroll
-  for (int i = 0; i < kTR; ++i)
+  for (int i = 0; i < KR; ++i)
 #pragma unroll
     for (int j = 0; j < kOC; ++j) {
       dk[i][j] = 0.f;
@@ -255,19 +274,19 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     __syncthreads();
 
     // score tile: query rows ty * kTR + i, keys tx + 16 * j
-    float s[kTR][kTC], dp[kTR][kTC];
-    tile_dot_nt<HC>(qs, ks, ty, tx, s);
-    tile_dot_nt<HC>(gs, vs, ty, tx, dp);
+    float s[kTR][TC], dp[kTR][TC];
+    tile_dot_nt<HC, kTR, TC>(qs, ks, ty, tx, s);
+    tile_dot_nt<HC, kTR, TC>(gs, vs, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < kTR; ++i) {
       const int r = ty * kTR + i;
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) {
+      for (int j = 0; j < TC; ++j) {
         const int col = tx + 16 * j;
         const bool valid = (q0 + r < n) && (k0 + col < n);
         const float p = valid ? round_to<T>(expf(s[i][j] * scale - lse_s[r])) : 0.f;
-        ps[r * kPStride + col] = p;
-        dss[r * kPStride + col] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+        ps[r * PS + col] = p;
+        dss[r * PS + col] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
       }
     }
     __syncthreads();
@@ -275,11 +294,11 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     // dv += p^T g and dk += ds^T q over the tile's query rows
 #pragma unroll 4
     for (int r = 0; r < kBM; ++r) {
-      float pk[kTR], dsk[kTR], gv[kOC], qv[kOC];
+      float pk[KR], dsk[KR], gv[kOC], qv[kOC];
 #pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        pk[i] = ps[r * kPStride + ty * kTR + i];
-        dsk[i] = dss[r * kPStride + ty * kTR + i];
+      for (int i = 0; i < KR; ++i) {
+        pk[i] = ps[r * PS + ty * KR + i];
+        dsk[i] = dss[r * PS + ty * KR + i];
       }
 #pragma unroll
       for (int j = 0; j < kOC; ++j) {
@@ -287,7 +306,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
         qv[j] = qs[r * kS + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < kTR; ++i)
+      for (int i = 0; i < KR; ++i)
 #pragma unroll
         for (int j = 0; j < kOC; ++j) {
           dv[i][j] = fmaf(pk[i], gv[j], dv[i][j]);
@@ -297,8 +316,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   }
 
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int key = k0 + ty * kTR + i;
+  for (int i = 0; i < KR; ++i) {
+    const int key = k0 + ty * KR + i;
     if (key >= n) continue;
     T* dst = dqkv + ((size_t)b * n + key) * c3;
 #pragma unroll
@@ -313,17 +332,19 @@ template <typename T, int HC>
 cudaError_t launch(const void* qkv, const void* g, const void* o, void* dqkv, float* lse,
                    float* delta, int batch, int n, int c, int num_heads, int split_first,
                    float scale, cudaStream_t stream) {
-  auto dq_kernel = attention_bwd_dq_kernel<T, HC>;
-  auto dkv_kernel = attention_bwd_dkv_kernel<T, HC>;
-  constexpr size_t dq_smem = dq_smem_bytes<HC>();
-  constexpr size_t dkv_smem = dkv_smem_bytes<HC>();
+  constexpr int kOwn = own_rows<HC>();  // BM of the dq kernel, BN of the dk/dv kernel
+  auto dq_kernel = attention_bwd_dq_kernel<T, HC, kOwn>;
+  auto dkv_kernel = attention_bwd_dkv_kernel<T, HC, kOwn>;
+  constexpr size_t dq_smem = dq_smem_bytes<HC, kOwn>();
+  constexpr size_t dkv_smem = dkv_smem_bytes<HC, kOwn>();
+  static_assert(dq_smem <= 232448 && dkv_smem <= 232448, "over a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + kBM - 1) / kBM, num_heads, batch);
+  dim3 grid((n + kOwn - 1) / kOwn, num_heads, batch);
   dq_kernel<<<grid, kThreads, dq_smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<const T*>(o),
       static_cast<T*>(dqkv), lse, delta, n, c, split_first, scale);
@@ -347,6 +368,8 @@ cudaError_t dispatch_head_dim(const void* qkv, const void* g, const void* o, voi
     case 32: ND_LAUNCH(32);
     case 64: ND_LAUNCH(64);
     case 128: ND_LAUNCH(128);
+    case 192: ND_LAUNCH(192);
+    case 256: ND_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef ND_LAUNCH

@@ -2,6 +2,7 @@
 // 64 x 64 score tile owned by 16 x 16 threads, the type conversions with
 // the JAX kernels' rounding points, the 16-lane row reductions, and the
 // channel offsets of q, k and v inside the fused (B, N, 3C) projection.
+// resblock.cu takes the type conversions from here too.
 
 #pragma once
 
@@ -58,28 +59,29 @@ __device__ __forceinline__ QkvOffsets qkv_offsets(int head, int hc, int c, int s
   return {base, base + hc, base + 2 * hc};
 }
 
-// s[i][j] = sum_d a[ty*kTR + i][d] * b[tx + 16*j][d] over two shared tiles
+// s[i][j] = sum_d a[ty*TR + i][d] * b[tx + 16*j][d] over two shared tiles
 // with row stride HC + 1 (the one word of padding puts the 16 rows that 16
-// lanes read into 16 banks)
-template <int HC>
+// lanes read into 16 banks): a 16*TR x 16*TC score tile, 64 x 64 unless a
+// kernel asks for a smaller one
+template <int HC, int TR = kTR, int TC = kTC>
 __device__ __forceinline__ void tile_dot_nt(const float* a, const float* b, int ty, int tx,
-                                            float (&s)[kTR][kTC]) {
+                                            float (&s)[TR][TC]) {
   constexpr int kS = HC + 1;
 #pragma unroll
-  for (int i = 0; i < kTR; ++i)
+  for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < kTC; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HC; ++d) {
-    float av[kTR], bv[kTC];
+    float av[TR], bv[TC];
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) av[i] = a[(ty * kTR + i) * kS + d];
+    for (int i = 0; i < TR; ++i) av[i] = a[(ty * TR + i) * kS + d];
 #pragma unroll
-    for (int j = 0; j < kTC; ++j) bv[j] = b[(tx + 16 * j) * kS + d];
+    for (int j = 0; j < TC; ++j) bv[j] = b[(tx + 16 * j) * kS + d];
 #pragma unroll
-    for (int i = 0; i < kTR; ++i)
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < TC; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 

@@ -22,10 +22,15 @@ weights live in the model, so "sample with EMA weights" means passing the
 EMA model. The chain state ``x`` is float32 (NHWC); the model casts it to
 its compute dtype.
 
-Not ported yet, and raising NotImplementedError where asked for:
-DPM-Solver++, dynamic thresholding, v-prediction (sampling and loss target),
-the encoder cache and limited-interval guidance (ROADMAP queue A, "Samplers
-and serving levers").
+Fast sampling: the DPM-Solver++(2M) step (``sampler="dpm++"``, its tables
+made on the host in float64 like the others), v-prediction
+(``prediction_type="v"``, converted to epsilon once at the model boundary,
+and the native target of the simple loss), dynamic thresholding
+(``clip_x="dynamic"``), and two levers of ``denoise``: limited-interval
+guidance, where the steps outside the interval run one conditional forward
+and the skipped half of the CFG batch is simply never called, and the
+encoder cache, where only the first step of every group of k runs the
+UNet's encoder.
 """
 
 from __future__ import annotations
@@ -93,8 +98,16 @@ class LossType(enum.Enum):
             raise NotImplementedError(s) from None
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP queue A, "{where}")')
+def _runs(flags: list) -> list[tuple[int, int, bool]]:
+    """Compress a per-position flag list into contiguous (start, length,
+    flag) runs: the guided and unguided segments of a chain under
+    limited-interval guidance."""
+    runs, start = [], 0
+    for i in range(1, len(flags) + 1):
+        if i == len(flags) or flags[i] != flags[start]:
+            runs.append((start, i - start, flags[start]))
+            start = i
+    return runs
 
 
 def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -137,6 +150,7 @@ class Diffusion:
         clip_x: "bool | str" = True,
         sampler: str | None = None,
         respacing: str = "even",
+        dynamic_threshold: float = 0.995,
         timestep_indices=None,
         prediction_type: str = "eps",
         device: torch.device | str | None = None,
@@ -151,19 +165,21 @@ class Diffusion:
             assert ddim_eta is not None, "please supply eta if you want to use ddim"
         if sampler is None:
             sampler = "ddim" if use_ddim else "ddpm"
-        if sampler == "dpm++":
-            raise _not_ported("the dpm++ sampler", "Samplers and serving levers")
-        if sampler not in ("ddpm", "ddim"):
+        # 'ddpm' (ancestral), 'ddim' (eq. 12) or 'dpm++' (DPM-Solver++(2M), a
+        # second-order multistep ODE solver at DDIM's cost per step)
+        if sampler not in ("ddpm", "ddim", "dpm++"):
             raise NotImplementedError(sampler)
         if sampler == "ddim" and ddim_eta is None:
             ddim_eta = 0.0
-        if clip_x == "dynamic":
-            raise _not_ported("dynamic thresholding", "Samplers and serving levers")
-        if clip_x not in (True, False):
+        # clip_x: True (clamp pred_x0 to [-1, 1], the reference default),
+        # False, or 'dynamic' (Imagen's dynamic thresholding, arXiv:2205.11487
+        # section 2.3: clamp to the per-sample `dynamic_threshold` quantile s
+        # of |pred_x0|, s >= 1, and divide by s)
+        if clip_x not in (True, False, "dynamic"):
             raise NotImplementedError(clip_x)
-        if prediction_type == "v":
-            raise _not_ported("v-prediction", "Samplers and serving levers")
-        if prediction_type != "eps":
+        # 'eps' predicts the noise; 'v' predicts v = alpha*eps - sigma*x0
+        # (Salimans & Ho, arXiv:2202.00512 appendix D)
+        if prediction_type not in ("eps", "v"):
             raise NotImplementedError(prediction_type)
 
         self.sampler = sampler
@@ -175,6 +191,7 @@ class Diffusion:
             classifier.eval().requires_grad_(False)
         self.ddim_eta = ddim_eta
         self.clip_x = clip_x
+        self.dynamic_threshold = dynamic_threshold
         self.sampling_var_type = VarType.parse(sampling_var_type)
         self.loss_type = LossType.parse(loss_type)
         self.original_num_steps = original_num_steps
@@ -211,6 +228,35 @@ class Diffusion:
         self._log_betas = as32(s.log_betas)
         self._log_var_large = as32(s.log_var_large)
         self._log_var_small = as32(s.log_var_small)
+
+        # DPM-Solver++(2M) coefficient tables, made on the host in float64 so
+        # that the t == 0 boundary (sigma_prev == 0, h -> inf) is exact. With
+        # the half-log-SNR lambda_t = log(alpha_t / sigma_t), the t -> t-1
+        # transition is
+        #   x <- (sigma_prev / sigma_t) * x + alpha_prev * (1 - e^{-h}) * D
+        #   D  = (1 + m_t) * x0_t - m_t * x0_{t+1},  m_t = h_t / (2 h_{t+1})
+        # (DPM-Solver++ eq. 4.3/4.4 in multistep form). m is 0 at the first
+        # step (no history) and at the last (first order, since h_0 = inf).
+        acp64 = np.asarray(s.alphas_cumprod, dtype=np.float64)
+        acp_prev64 = np.asarray(s.alphas_cumprod_prev, dtype=np.float64)
+        alpha_t = np.sqrt(acp64)
+        sigma_t = np.sqrt(1.0 - acp64)
+        alpha_p = np.sqrt(acp_prev64)
+        sigma_p = np.sqrt(1.0 - acp_prev64)
+        # e^{-h} = (sigma_prev * alpha_t) / (sigma_t * alpha_prev): exactly 0
+        # at t == 0, where sigma_prev == 0
+        exp_mh = (sigma_p * alpha_t) / (sigma_t * alpha_p)
+        n = len(acp64)
+        with np.errstate(divide="ignore"):
+            lam = 0.5 * np.log(acp64 / (1.0 - acp64))
+            lam_p = 0.5 * np.log(acp_prev64 / np.maximum(1.0 - acp_prev64, 1e-300))
+        h = lam_p - lam  # h[0] may be inf (unused: m[0] = 0)
+        m = np.zeros(n, dtype=np.float64)
+        if n > 2:
+            m[1 : n - 1] = h[1 : n - 1] / (2.0 * h[2:n])
+        self._dpmpp_c_xt = as32(sigma_p / sigma_t)
+        self._dpmpp_c_d = as32(alpha_p * (1.0 - exp_mh))
+        self._dpmpp_m = as32(m)
 
     # ------------------------------------------------------------------
     # Forward (q) process
@@ -270,10 +316,14 @@ class Diffusion:
         return out, None
 
     def _to_eps(self, pred, x_t, t):
-        """Convert the model's native prediction to epsilon: the identity for
-        ``prediction_type='eps'``, the only type the constructor lets by
-        (v-prediction is ROADMAP queue A)."""
-        return pred
+        """Convert the model's native prediction to epsilon. For 'v':
+        eps = sigma_t * x_t + alpha_t * v (from v = alpha*eps - sigma*x0 and
+        x_t = alpha*x0 + sigma*eps). The identity for 'eps'."""
+        if self.prediction_type == "eps":
+            return pred
+        a = _bcast(self._sqrt_acp, t, x_t.ndim)
+        s = _bcast(self._sqrt_1macp, t, x_t.ndim)
+        return s * x_t + a * pred
 
     def get_eps_and_log_var(self, x_t, t, y=None):
         """Predicted epsilon and (learned or fixed) log variance
@@ -292,23 +342,75 @@ class Diffusion:
             return torch.cat([eps, raw], dim=-1)
         return (1 + self.strength) * cond - self.strength * uncond
 
-    def _guided_eps(self, x, t, y, *, want_log_var: bool):
-        """Epsilon (+ log_var), with CFG as one doubled-batch model call:
-        the conditional rows, then the same rows with null label 0."""
-        if self.guidance != "classifier_free":
-            out = self._apply_model(x, t, y)
-        else:
-            x2 = torch.cat([x, x], dim=0)
-            t2 = torch.cat([t, t], dim=0)
-            y2 = torch.cat([y, torch.zeros_like(y)], dim=0)
-            out = self._cfg_combine(self._apply_model(x2, t2, y2))
-        eps, raw = self._split_out(out)
+    def _doubled(self, x, t, y):
+        """The CFG batch: the conditional rows, then the same rows with the
+        null label 0."""
+        return (torch.cat([x, x], dim=0), torch.cat([t, t], dim=0),
+                torch.cat([y, torch.zeros_like(y)], dim=0))
+
+    def _eps_log_var(self, out, x, t, want_log_var: bool):
+        """(eps, log_var or None) from a model output of x's batch. The
+        conversion to epsilon comes after the CFG mix and after the split of
+        the learned-variance half (for 'v' models the CFG mix in v-space
+        equals the mix in eps-space: the map is affine in v at fixed x_t)."""
+        pred, raw = self._split_out(out)
+        eps = self._to_eps(pred, x, t)
         if not want_log_var:
             return eps, None
         return eps, self._resolve_log_var(raw, t, x.ndim)
 
+    def _guided_eps(self, x, t, y, *, want_log_var: bool, guided: bool = True):
+        """Epsilon (+ log_var), with CFG as one doubled-batch model call.
+
+        ``guided=False`` makes the plain conditional call (one forward
+        instead of two) even when classifier-free guidance is configured:
+        limited-interval guidance (Kynkaanniemi et al. 2024,
+        arXiv:2404.07724)."""
+        if self.guidance != "classifier_free" or not guided:
+            out = self._apply_model(x, t, y)
+        else:
+            out = self._cfg_combine(self._apply_model(*self._doubled(x, t, y)))
+        return self._eps_log_var(out, x, t, want_log_var)
+
+    # ------------------------------------------------------------------
+    # Encoder-cached model calls ("Faster Diffusion", arXiv:2312.09608)
+    # ------------------------------------------------------------------
+
+    def _apply_model_split(self, x, t, y, cache, refresh: bool):
+        """Model call through the embed / encode / decode split, reusing the
+        cached encoder features when ``refresh`` is False.
+
+        The timestep embedding and the decoder always run at the current t;
+        only the encoder stack (its bottom feature and skip activations) is
+        frozen to the last refresh step. Returns (out, cache)."""
+        model = self.model
+        emb = model.embed(self.timestep_map[t], y if model.conditional else None)
+        if refresh:
+            cache = model.encode(x, emb)
+        h, xs = cache
+        return model.decode(h, xs, emb), cache
+
+    def _guided_eps_cached(self, x, t, y, cache, refresh: bool, *,
+                           want_log_var: bool, guided: bool = True):
+        """:meth:`_guided_eps` through the encoder-cached path; returns
+        ((eps, log_var), cache). Under CFG the cache holds the doubled batch."""
+        if self.guidance != "classifier_free" or not guided:
+            out, cache = self._apply_model_split(x, t, y, cache, refresh)
+        else:
+            out2, cache = self._apply_model_split(*self._doubled(x, t, y), cache, refresh)
+            out = self._cfg_combine(out2)
+        return self._eps_log_var(out, x, t, want_log_var), cache
+
     def _clip_x0(self, pred_x0):
-        """Hard [-1, 1] clamp of pred_x0 (the reference default) or none."""
+        """The configured clamp of pred_x0: hard [-1, 1] (the reference
+        default), none, or dynamic thresholding (per-sample quantile of
+        |pred_x0|, floored at 1: clamp and divide)."""
+        if self.clip_x == "dynamic":
+            s = torch.quantile(
+                pred_x0.abs().reshape(pred_x0.shape[0], -1), self.dynamic_threshold, dim=1
+            )
+            s = s.clamp(min=1.0).reshape((-1,) + (1,) * (pred_x0.ndim - 1))
+            return pred_x0.clamp(-s, s) / s
         return pred_x0.clamp(-1, 1) if self.clip_x else pred_x0
 
     def _classifier_grad(self, x, t, y):
@@ -337,14 +439,17 @@ class Diffusion:
     # Reverse (p) steps
     # ------------------------------------------------------------------
 
-    def ddpm_step(self, x_t, t, generator=None, y=None, noise=None):
+    def ddpm_step(self, x_t, t, generator=None, y=None, noise=None, eps_log_var=None):
         """One DDPM ancestral step (reference diffusion.py:266-316).
 
         Returns (sample, pred_x0). `t` is a (B,) rescaled-index tensor;
         `noise` may be injected (parity tests), else it is drawn from
-        `generator`.
+        `generator`; `eps_log_var` may carry an (eps, log_var) pair made
+        already (the levers of ``denoise``).
         """
-        eps, log_var = self._guided_eps(x_t, t, y, want_log_var=True)
+        if eps_log_var is None:
+            eps_log_var = self._guided_eps(x_t, t, y, want_log_var=True)
+        eps, log_var = eps_log_var
         nd = x_t.ndim
         pred_x0 = self._clip_x0(
             _bcast(self._sqrt_recip_acp, t, nd) * x_t
@@ -363,19 +468,26 @@ class Diffusion:
         sample = mean + mask * torch.exp(0.5 * log_var) * noise
         return sample.float(), pred_x0
 
-    def ddim_step(self, x_t, t, generator=None, y=None, noise=None):
-        """One DDIM step, eq. 12 of DDIM (reference diffusion.py:318-369)."""
-        eps, _ = self._guided_eps(x_t, t, y, want_log_var=False)
+    def _eps_guided_x0(self, x_t, t, y, eps):
+        """The shared tail of DDIM and DPM++: classifier guidance applied to
+        eps (OpenAI Alg. 2, reference diffusion.py:330-337), then the x0
+        projection with the configured clamp. Returns (eps, pred_x0)."""
         nd = x_t.ndim
         if self.guidance == "classifier":
-            # classifier guidance applied to eps before the x0 projection
-            # (OpenAI Alg. 2, reference diffusion.py:330-337)
             grad = self._classifier_grad(x_t, t, y)
             eps = eps - self.strength * grad * _bcast(self._sqrt_1macp, t, nd)
-        pred_x0 = self._clip_x0(
+        pred_x0 = (
             _bcast(self._sqrt_recip_acp, t, nd) * x_t
             - _bcast(self._sqrt_recipm1_acp, t, nd) * eps
         )
+        return eps, self._clip_x0(pred_x0)
+
+    def ddim_step(self, x_t, t, generator=None, y=None, noise=None, eps_log_var=None):
+        """One DDIM step, eq. 12 of DDIM (reference diffusion.py:318-369)."""
+        if eps_log_var is None:
+            eps_log_var = self._guided_eps(x_t, t, y, want_log_var=False)
+        eps, pred_x0 = self._eps_guided_x0(x_t, t, y, eps_log_var[0])
+        nd = x_t.ndim
         alpha_bar = _bcast(self._acp, t, nd)
         alpha_bar_prev = _bcast(self._acp_prev, t, nd)
         var = (
@@ -393,9 +505,41 @@ class Diffusion:
         sample = mean + mask * torch.sqrt(var) * noise
         return sample.float(), pred_x0
 
+    def dpmpp_step(self, x_t, t, x0_prev, y=None, first=False, eps_log_var=None):
+        """One DPM-Solver++(2M) multistep update (deterministic).
+
+        `x0_prev` is the previous step's pred_x0; `first` marks the first
+        executed step, where there is no history and the update is first
+        order (m forced to 0: a partial denoise starts mid-chain at an index
+        whose table m is not 0). Returns (x_next, pred_x0); pred_x0 is the
+        next step's x0_prev. Classifier guidance applies to eps, as in DDIM.
+        """
+        if eps_log_var is None:
+            eps_log_var = self._guided_eps(x_t, t, y, want_log_var=False)
+        _, pred_x0 = self._eps_guided_x0(x_t, t, y, eps_log_var[0])
+        nd = x_t.ndim
+        m = _bcast(self._dpmpp_m, t, nd)
+        if first:
+            m = torch.zeros_like(m)
+        d = (1.0 + m) * pred_x0 - m * x0_prev
+        x_next = _bcast(self._dpmpp_c_xt, t, nd) * x_t + _bcast(self._dpmpp_c_d, t, nd) * d
+        return x_next.float(), pred_x0
+
     # ------------------------------------------------------------------
     # Reverse chain
     # ------------------------------------------------------------------
+
+    def _one_step(self, x, x0_prev, t, first, generator, y, eps_log_var):
+        """One reverse update of the configured sampler from an (eps,
+        log_var) pair made already; ``first`` marks the chain's first step.
+        DDPM and DDIM draw one noise tensor a step from ``generator`` (the
+        draw at t == 0 is masked), whatever levers made the pair, so every
+        variant of a chain sees one stream."""
+        if self.sampler == "dpm++":
+            return self.dpmpp_step(x, t, x0_prev, y, first=first, eps_log_var=eps_log_var)
+        step = self.ddim_step if self.sampler == "ddim" else self.ddpm_step
+        x, _ = step(x, t, generator, y, eps_log_var=eps_log_var)
+        return x, x0_prev
 
     @torch.inference_mode()
     def denoise(
@@ -414,20 +558,58 @@ class Diffusion:
         Starts from N(0, I) drawn from `generator` when `x` is None; every
         step's noise comes from the same generator, which must live on the
         tables' device.
+
+        ``encoder_cache=k`` ("Faster Diffusion", arXiv:2312.09608) runs the
+        chain in groups of k steps: the first step of a group runs the UNet's
+        encoder, the other k-1 reuse its bottom feature and skip activations
+        while the timestep embedding and the decoder run at the current t.
+        Opt-in and lossy; k = 1 is the plain chain. k is clamped to the
+        chain's length; the last ``steps % k`` steps, nearest t = 0, run
+        uncached; the cache never outlives its group.
+
+        ``guidance_interval=(lo, hi)`` restricts classifier-free guidance to
+        the chain fraction [lo, hi): 0.0 is the clean end (t = 0), 1.0 the
+        noise end. Outside it a step makes one conditional model call instead
+        of the doubled CFG batch. Opt-in and lossy against the always-guided
+        chain. With the cache, a group is guided iff any of its steps falls
+        in the interval (the cache's batch must be one within a group), so
+        the guided range is never narrower than asked for.
         """
-        if encoder_cache is not None:
-            raise _not_ported("the encoder cache", "Samplers and serving levers")
-        if guidance_interval is not None:
-            raise _not_ported("limited-interval guidance", "Samplers and serving levers")
         if self.model.conditional:
             assert y is not None, "pass label iff model is class-conditional"
         else:
             assert y is None, "pass label iff model is class-conditional"
 
+        if encoder_cache is not None and encoder_cache < 1:
+            raise ValueError(
+                f"encoder_cache must be >= 1 (got {encoder_cache}); k=1 is "
+                "the exact uncached sampler, k>1 reuses encoder features "
+                "for k-1 of every k steps"
+            )
+
         if start_step is None:
             start_step = self.rescaled_num_steps
         if steps_to_do is None or steps_to_do > start_step:
             steps_to_do = start_step
+
+        gi = None
+        if guidance_interval is not None:
+            if self.guidance != "classifier_free":
+                raise ValueError(
+                    "guidance_interval requires classifier-free guidance "
+                    f"(this Diffusion uses {self.guidance!r})"
+                )
+            lo, hi = guidance_interval
+            if not (0.0 <= lo < hi <= 1.0):
+                raise ValueError(
+                    f"guidance_interval must satisfy 0 <= lo < hi <= 1 "
+                    f"(got {guidance_interval})"
+                )
+            # fractions of the executed chain -> rescaled step bounds;
+            # guided iff lo_step <= t < hi_step
+            gi = (round(lo * steps_to_do), round(hi * steps_to_do))
+            if gi == (0, steps_to_do):  # covers everything: the plain chain
+                gi = None
 
         if x is None:
             assert start_step == self.rescaled_num_steps, (
@@ -441,10 +623,33 @@ class Diffusion:
         if y is not None:
             assert y.shape[0] == x.shape[0], "len(labels) != batch size"
 
-        step = self.ddim_step if self.sampler == "ddim" else self.ddpm_step
-        for ts in range(steps_to_do - 1, -1, -1):
-            t = torch.full((x.shape[0],), ts, dtype=torch.long, device=x.device)
-            x, _ = step(x, t, generator, y)
+        def in_gi(ts):
+            return gi is None or gi[0] <= ts < gi[1]
+
+        def at(ts):
+            return torch.full((x.shape[0],), ts, dtype=torch.long, device=x.device)
+
+        want_lv = self.sampler == "ddpm"
+        x0_prev = torch.zeros_like(x) if self.sampler == "dpm++" else None
+        chain = list(range(steps_to_do - 1, -1, -1))
+        # the cached head of the chain, in groups of k; the rest runs plain
+        k = max(1, min(encoder_cache or 1, steps_to_do))
+        head = steps_to_do - steps_to_do % k if k > 1 else 0
+        groups = [chain[i:i + k] for i in range(0, head, k)]
+        for start, length, guided in _runs([any(map(in_gi, g)) for g in groups]):
+            for group in groups[start:start + length]:
+                cache = None
+                for j, ts in enumerate(group):
+                    t = at(ts)
+                    eps_lv, cache = self._guided_eps_cached(
+                        x, t, y, cache, refresh=j == 0, want_log_var=want_lv, guided=guided)
+                    x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y, eps_lv)
+        plain = chain[head:]
+        for start, length, guided in _runs([in_gi(ts) for ts in plain]):
+            for ts in plain[start:start + length]:
+                t = at(ts)
+                eps_lv = self._guided_eps(x, t, y, want_log_var=want_lv, guided=guided)
+                x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y, eps_lv)
         return x
 
     # ------------------------------------------------------------------
@@ -455,7 +660,7 @@ class Diffusion:
         """Training loss in bits/dim, one value per example (reference
         diffusion.py:375-410).
 
-        SIMPLE: mean MSE(eps_pred, noise). KL / KL_RESCALED: VLB term
+        SIMPLE: mean MSE(prediction, its native target). KL / KL_RESCALED: VLB term
         (x rescaled_num_steps). HYBRID: L_simple + 0.001 * L_vlb with the VLB
         epsilon detached so it only trains the variances (IDDPM eq. 16).
         ``noise`` may be injected; else it is drawn from ``generator``, which
@@ -466,16 +671,25 @@ class Diffusion:
         x_t = self.q_sample(x_0, t, noise)
         pred, raw = self._split_out(self._apply_model(x_t, t, y, generator))
         log_var = self._resolve_log_var(raw, t, x_t.ndim)
+
+        # the simple loss regresses the model's native target ('eps': the
+        # noise; 'v': alpha*noise - sigma*x_0; regressing the converted eps
+        # would re-weight the loss by alpha_t^2); the VLB always takes epsilon
+        if self.prediction_type == "v":
+            target = (_bcast(self._sqrt_acp, t, x_t.ndim) * noise
+                      - _bcast(self._sqrt_1macp, t, x_t.ndim) * x_0)
+        else:
+            target = noise
         eps_pred = self._to_eps(pred, x_t, t)
 
         if self.loss_type == LossType.SIMPLE:
-            return mean_flat((pred - noise) ** 2)
+            return mean_flat((pred - target) ** 2)
         if self.loss_type in (LossType.KL, LossType.KL_RESCALED):
             loss = self.variational_lower_bound(x_0, x_t, t, eps_pred, log_var)
             if self.loss_type == LossType.KL_RESCALED:
                 loss = loss * self.rescaled_num_steps
             return loss
-        loss_simple = mean_flat((pred - noise) ** 2)  # HYBRID
+        loss_simple = mean_flat((pred - target) ** 2)  # HYBRID
         loss_vlb = (
             self.variational_lower_bound(x_0, x_t, t, eps_pred.detach(), log_var)
             * self.rescaled_num_steps

@@ -37,7 +37,7 @@ first ran, so the dropout mask is the same, and puts the generator back
 afterwards. Parameters are f32 and cast per call, so bf16 compute gives f32
 gradients.
 
-int8 is ROADMAP queue A work ("Samplers and serving levers"); Winograd is an
+int8 is ROADMAP queue A work ("Static int8"); Winograd is an
 ablation the port leaves out. ``device=None`` means the CUDA card
 (utils/device.py); the CPU has to be asked for.
 """
@@ -353,7 +353,7 @@ class DiffusionModel(nn.Module):
     ):
         super().__init__()
         if quantized or quantized_attention:
-            raise _not_ported("int8 serving", "Samplers and serving levers")
+            raise _not_ported("int8 serving", "Static int8")
         if winograd:
             raise NotImplementedError("Winograd is an ablation the port leaves out (ROADMAP)")
         device = resolve_device(device)
@@ -426,7 +426,7 @@ class DiffusionModel(nn.Module):
         return self.num_classes is not None
 
     # The forward pass keeps the JAX package's embed / encode / decode split,
-    # which the encoder cache (ROADMAP queue A, "Samplers and serving levers") builds on.
+    # which the encoder cache of Diffusion.denoise builds on.
 
     def embed(self, timestep, y=None):
         """Timestep (+ class) embedding [B, 4*model_channels]."""

@@ -10,10 +10,10 @@ notes say what bounds each kernel on the card and what the designs do about
 the TPU kernels' whole-(N, N)-in-VMEM, one-program-per-batch-element form,
 which does not fit a Hopper block's shared memory.
 
-Head dims. K1 takes 32, 64, 128, 192 and 256; K2 takes 32, 64 and 128 (its
-tiling does not fit a block's shared memory at 192 and 256: ROADMAP queue B,
-K2). K5 takes any D up to 256: the kernel built for the next head dim up
-zero-fills the columns past D in shared memory.
+Head dims. K1 and K2 take 32, 64, 128, 192 and 256 (at 192 and 256 a K2
+block owns a 32-row tile, which fits a block's shared memory). K5 takes any
+D up to 256: the kernel built for the next head dim up zero-fills the
+columns past D in shared memory.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
 (:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
@@ -37,7 +37,6 @@ from . import _build
 
 __all__ = [
     "SUPPORTED_HEAD_DIMS",
-    "BWD_HEAD_DIMS",
     "mha_attention",
     "mha_attention_plain",
     "split_qkv",
@@ -47,8 +46,7 @@ __all__ = [
     "fused_qkv_attention_bwd_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # K1's builds; K5 rounds D up to one
-BWD_HEAD_DIMS = (32, 64, 128)  # K2's builds
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # K1's and K2's builds; K5 rounds D up to one
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -177,13 +175,10 @@ def _check(qkv: torch.Tensor, num_heads: int, kernel: str = "K1") -> None:
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
     hc = c // num_heads
-    supported = SUPPORTED_HEAD_DIMS if kernel == "K1" else BWD_HEAD_DIMS
-    if hc not in supported:
+    if hc not in SUPPORTED_HEAD_DIMS:
         raise NotImplementedError(
             f"{kernel} has no build for head dim {hc} (qkv {tuple(qkv.shape)}, "
-            f"{num_heads} heads); it supports {supported}."
-            + (" Head dims 192 and 256 (training openai_128) need a new tiling of "
-               "the backward: ROADMAP queue B, K2" if kernel == "K2" else "")
+            f"{num_heads} heads); it supports {SUPPORTED_HEAD_DIMS}."
         )
 
 
@@ -282,9 +277,7 @@ fused_qkv_attention_bwd.launches = 0
 
 
 class _FusedQKVAttention(torch.autograd.Function):
-    """Forward K1, backward K2 (their plain versions on CPU tensors). On the
-    card the backward raises NotImplementedError at head dims 192 and 256,
-    which K1 takes and K2 does not yet (ROADMAP queue B, K2)."""
+    """Forward K1, backward K2 (their plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, split_qkv_first):

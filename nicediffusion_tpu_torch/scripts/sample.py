@@ -15,17 +15,22 @@ cuBLAS, as the hand-written kernels' f32 paths use none. One
 ``torch.Generator`` on the device, seeded from ``--seed``, feeds each
 sample's start noise, its random labels and its chain, in that order.
 
+Fast sampling: ``--sampler dpm++`` (with fewer ``--rescaled_num_steps``),
+``--prediction_type v``, ``--dynamic_thresholding [p]``, ``--encoder_cache k``
+and ``--guidance_interval LO HI`` go through to ``Diffusion`` and its
+``denoise``.
+
 Flags whose feature the port does not have yet raise NotImplementedError
 naming their ROADMAP entry, before any model is built: ``--dtype int8``,
-``--int8_calibration``, ``--encoder_cache``, ``--guidance_interval``,
-``--sampler dpm++``, ``--prediction_type v``, ``--dynamic_thresholding``
-(ROADMAP queue A, "Samplers and serving levers"), ``--upsample`` ("SR and
-ESRGAN") and ``--data_parallel`` ("Multi-GPU").
+``--int8_calibration`` (ROADMAP queue A, "Static int8"), ``--upsample`` ("SR
+and ESRGAN") and ``--data_parallel`` ("Multi-GPU").
 
 Usage:
   python -m nicediffusion_tpu_torch.scripts.sample --model_path 64x64_diffusion.pt \\
       --batch_size 8 --num_samples 2 [--labels 3/7] [--save_path out/] [-w] \\
-      [--classifier_path 64x64_classifier.pt --guidance_strength 1.0]
+      [--classifier_path 64x64_classifier.pt --guidance_strength 1.0] \\
+      [--sampler dpm++ --rescaled_num_steps 20 --dynamic_thresholding 0.995 \\
+       --encoder_cache 3 --guidance_interval 0.0 0.6]
 """
 
 from __future__ import annotations
@@ -35,15 +40,9 @@ import sys
 
 def _refuse_unported(args) -> None:
     """Raise for every flag whose feature waits in ROADMAP queue A."""
-    levers = "Samplers and serving levers"
     unported = (
-        (args.dtype == "int8", "--dtype int8", levers),
-        (args.int8_calibration is not None, "--int8_calibration", levers),
-        (args.encoder_cache is not None, "--encoder_cache", levers),
-        (args.guidance_interval is not None, "--guidance_interval", levers),
-        (args.sampler == "dpm++", "--sampler dpm++", levers),
-        (args.prediction_type == "v", "--prediction_type v", levers),
-        (args.dynamic_thresholding is not None, "--dynamic_thresholding", levers),
+        (args.dtype == "int8", "--dtype int8", "Static int8"),
+        (args.int8_calibration is not None, "--int8_calibration", "Static int8"),
         (args.upsample, "--upsample", "SR and ESRGAN"),
         (args.data_parallel, "--data_parallel", "Multi-GPU"),
     )
@@ -192,6 +191,10 @@ def main(argv: list[str] | None = None):
             generator, x=denoise_input, y=labels,
             start_step=steps if start_batch is not None else None,
             steps_to_do=steps,
+            encoder_cache=other_args["encoder_cache"],
+            guidance_interval=(
+                tuple(gi) if (gi := other_args["guidance_interval"]) is not None else None
+            ),
         )
 
         out = to_uint8(out.cpu().numpy())

@@ -16,7 +16,9 @@ The port's module tree keeps the original torch reference's parameter names
     parameters, EMA parameters and optax AdamW's ``mu``, ``nu`` and ``count``
     become the port's model and EMA state dicts and the ``state`` half of
     ``torch.optim.AdamW.state_dict()`` (``exp_avg``, ``exp_avg_sq``,
-    ``step``).
+    ``step``);
+  * :func:`gn_silu_conv3x3_args_to_torch` turns the arrays of a call to the
+    JAX package's fused GN+SiLU+conv kernel into the port's arguments.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "convert_torch_state_dict",
     "flax_params_to_torch_state_dict",
     "train_state_to_torch",
+    "gn_silu_conv3x3_args_to_torch",
 ]
 
 # rename bare `qkv` -> `qkv_nin` but leave `qkv_nin` (idempotence) and the
@@ -216,3 +219,19 @@ def train_state_to_torch(
                 for k, v in flax_params_to_torch_state_dict(tree).items()}
 
     return state_dict(params), state_dict(ema_params), adamw_state
+
+
+def gn_silu_conv3x3_args_to_torch(
+    x, gamma, beta, kernel, bias, es=None, eb=None,
+) -> tuple[np.ndarray, ...]:
+    """Arrays of a call to nicediffusion_tpu's ``gn_silu_conv3x3`` (x NHWC,
+    GN affine (C,), HWIO kernel (3, 3, C, F), bias (F,), AdaGN rows (B, C) or
+    None) -> the positional arguments of the port's
+    ``ops.kernels.resblock.gn_silu_conv3x3`` as numpy arrays. Only the
+    kernel changes layout, to torch's OIHW (F, C, 3, 3); absent rows are
+    left out."""
+    out = [np.asarray(x), np.asarray(gamma), np.asarray(beta),
+           np.ascontiguousarray(np.asarray(kernel).transpose(3, 2, 0, 1)), np.asarray(bias)]
+    if es is not None:
+        out += [np.asarray(es), np.asarray(eb)]
+    return tuple(out)

@@ -179,9 +179,16 @@ def test_denoise_draws_from_the_generator(pair):
 
 
 def test_unported_options_name_the_roadmap(pair):
+    """Every option of the JAX constructor and of its ``denoise`` is ported
+    (tests/test_torch_fast_sampling.py holds them against JAX): they build
+    and run, and only unknown values raise."""
     _, _, model = pair
     for kw in (dict(sampler="dpm++"), dict(clip_x="dynamic"), dict(prediction_type="v")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        d = Diffusion(model=model, **dict(DIFF, **kw))
+        assert (d.sampler, d.clip_x, d.prediction_type) == (
+            kw.get("sampler", "ddpm"), kw.get("clip_x", True), kw.get("prediction_type", "eps"))
+    for kw in (dict(sampler="plms"), dict(clip_x="percentile"), dict(prediction_type="x0")):
+        with pytest.raises(NotImplementedError):
             Diffusion(model=model, **dict(DIFF, **kw))
     # classifier guidance is ported: it builds with a classifier and asks for one without
     assert Diffusion(model=model, **dict(DIFF, guidance_method="classifier"),
@@ -190,5 +197,6 @@ def test_unported_options_name_the_roadmap(pair):
         Diffusion(model=model, **dict(DIFF, guidance_method="classifier"))
     d = Diffusion(model=model, **DIFF)
     for kw in (dict(encoder_cache=2), dict(guidance_interval=(0.0, 0.5))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            d.denoise(y=torch.tensor([1]), **kw)
+        out = d.denoise(torch.Generator().manual_seed(0), y=torch.tensor([1]), steps_to_do=3,
+                        **kw)
+        assert out.shape == (1, 8, 8, 2) and torch.isfinite(out).all()

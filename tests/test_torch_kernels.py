@@ -1,4 +1,4 @@
-"""K1, K2, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
+"""K1, K2, K4, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -14,6 +14,7 @@ import torch
 
 from nicediffusion_tpu_torch.ops.kernels import attention as k1
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+from nicediffusion_tpu_torch.ops.kernels import resblock as k4
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +28,10 @@ TOL = {
     # K2 with |g| <= 1: K1's f32 gate; bf16 rounds ds once more than K1 rounds p
     (torch.float32, "k2"): dict(atol=2e-5, rtol=0),
     (torch.bfloat16, "k2"): dict(atol=3e-2, rtol=2e-2),
+    # K4: the JAX package's gate (tests/test_pallas_resblock.py:49); in bf16 the
+    # output is rounded once to bf16, one ulp of which is 0.03 for |out| in [4, 8)
+    (torch.float32, "k4"): dict(atol=2e-5, rtol=2e-5),
+    (torch.bfloat16, "k4"): dict(atol=3e-2, rtol=1e-2),
 }
 
 
@@ -34,10 +39,11 @@ TOL = {
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    prev = torch.backends.cuda.matmul.allow_tf32
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -120,6 +126,8 @@ def test_k1_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("split_first", [True, False])
 @pytest.mark.parametrize("n,hc,heads", [
     (1024, 64, 6), (256, 64, 9), (64, 64, 12), (196, 32, 4), (49, 64, 4), (100, 128, 2),
+    # openai_128's head dims 192 and 256 (32-row own tiles), at its N and at ragged N
+    (256, 192, 4), (64, 256, 4), (65, 192, 2), (100, 256, 2), (1024, 256, 1), (17, 192, 1),
 ])
 def test_k2_matches_plain(cuda, dtype, split_first, n, hc, heads):
     """Every element written (the output is pre-filled with NaN), ragged N
@@ -145,8 +153,8 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         g = torch.zeros(b, n, c3 // 3, device=cuda, dtype=qkv.dtype) if g is None else g
         return k1.fused_qkv_attention_bwd(qkv, g, g if o is None else o, heads, True, **kw)
 
-    with pytest.raises(NotImplementedError, match="head dim 192.*ROADMAP queue B"):
-        call(torch.zeros(1, 64, 3 * 384, device=cuda))
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        call(torch.zeros(1, 64, 3 * 192, device=cuda))
     with pytest.raises(TypeError):
         call(torch.zeros(1, 64, 3 * 128, device=cuda).half())
     qkv = torch.zeros(1, 64, 3 * 128, device=cuda)
@@ -159,7 +167,8 @@ def test_k2_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("split_first", [True, False])
-@pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2)])
+@pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2),
+                                        (65, 192, 2), (100, 256, 2)])
 def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads):
     """The autograd Function in f32 (forward K1, backward K2) against
     autograd through the plain forward, and its counters: one K1 and one K2
@@ -177,17 +186,6 @@ def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads
     torch.testing.assert_close(got, ref, **TOL[torch.float32, "k2"])
     with torch.no_grad():
         assert k1.fused_qkv_attention(qkv, heads, split_first).grad_fn is None
-
-
-def test_attention_function_backward_at_wide_heads_names_the_roadmap(cuda):
-    """K1 takes head dims 192 and 256, K2 not yet: the forward under
-    autograd runs, the backward raises naming K2's queue entry."""
-    qkv = torch.randn(1, 64, 3 * 384, device=cuda, requires_grad=True)
-    out = k1.fused_qkv_attention(qkv, 2, True)
-    torch.testing.assert_close(out, k1.fused_qkv_attention_plain(qkv, 2, True),
-                               **TOL[torch.float32, "k1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, K2"):
-        out.sum().backward()
 
 
 @pytest.mark.parametrize("mode", ["plain", "silu", "ada"])
@@ -229,3 +227,94 @@ def test_k3_matches_plain(cuda, dtype, mode, shape):
     assert k3.group_norm_fused.launches == before + 1
     ref = k3.group_norm_fused_plain(x, sc, bi, es, esh, silu=mode != "plain")
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k3"])
+
+
+def _k4_inputs(dev, dtype, shape, f, ada, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, _, _, c = shape
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    weight = torch.randn(f, c, 3, 3, generator=g, device=dev) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
+    return (x, gamma, beta, weight, bias) + (tuple(emb.chunk(2, dim=-1)) if ada else ())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ada", [False, True])
+@pytest.mark.parametrize("shape,f,groups", [
+    # tests/test_pallas_resblock.py:23, then ragged maps, channels and filters
+    ((2, 8, 8, 32), 64, 8), ((1, 16, 16, 64), 32, 32), ((3, 4, 4, 96), 96, 32),
+    ((2, 7, 7, 96), 40, 32), ((2, 28, 14, 64), 3, 32), ((1, 9, 17, 40), 130, 8),
+    # openai_64: a level's first block, a decoder block, the widest input
+    ((2, 32, 32, 192), 384, 32), ((2, 64, 64, 384), 192, 32), ((2, 8, 8, 1536), 768, 32),
+])
+def test_k4_matches_plain(cuda, dtype, ada, shape, f, groups):
+    """Every element written (the output is pre-filled with NaN) and equal
+    to the plain version, whose padding is zero after the activation; one
+    count per launch; AdaGN rows as strided halves of one (B, 2C) tensor."""
+    args = _k4_inputs(cuda, dtype, shape, f, ada, seed=shape[-1] + f)
+    out = torch.full(shape[:3] + (f,), float("nan"), dtype=dtype, device=cuda)
+    before = k4.gn_silu_conv3x3.launches
+    assert k4.gn_silu_conv3x3(*args, num_groups=groups, out=out) is out
+    torch.cuda.synchronize()
+    assert k4.gn_silu_conv3x3.launches == before + 1
+    assert not torch.isnan(out).any()
+    # float64 sums in the reference: cuDNN's f32 conv is itself ~1e-5 off at small maps
+    ref = k4.gn_silu_conv3x3_plain(*args, num_groups=groups, conv_dtype=torch.float64)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k4"])
+
+
+def test_k4_takes_f32_rows_beside_bf16_activations_and_repacks_a_changed_weight(cuda):
+    x, gamma, beta, weight, bias, es, eb = _k4_inputs(
+        cuda, torch.bfloat16, (2, 8, 8, 64), 64, True)
+    es, eb = es.float().contiguous(), eb.float().contiguous()
+    out = k4.gn_silu_conv3x3(x, gamma, beta, weight, bias, es, eb)
+    ref = k4.gn_silu_conv3x3_plain(x, gamma, beta, weight, bias, es, eb)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16, "k4"])
+    packed = k4.pack_conv3x3_weight(weight, torch.bfloat16)
+    assert k4.pack_conv3x3_weight(weight, torch.bfloat16) is packed
+    weight.mul_(2.0)  # an in-place update bumps the version: the next call repacks
+    out2 = k4.gn_silu_conv3x3(x, gamma, beta, weight, torch.zeros_like(bias), es, eb)
+    ref2 = k4.gn_silu_conv3x3_plain(x, gamma, beta, weight, torch.zeros_like(bias), es, eb)
+    torch.testing.assert_close(out2.float(), ref2.float(), **TOL[torch.bfloat16, "k4"])
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    x, gamma, beta, weight, bias, es, eb = _k4_inputs(
+        cuda, torch.float32, (2, 8, 8, 64), 32, True)
+    with pytest.raises(TypeError):
+        k4.gn_silu_conv3x3(x.half(), gamma, beta, weight, bias)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        k4.gn_silu_conv3x3(x.permute(0, 2, 1, 3), gamma, beta, weight, bias)
+    with pytest.raises(ValueError, match="3, 3\\) weight"):
+        k4.gn_silu_conv3x3(x, gamma, beta, weight[:, :32], bias)
+    with pytest.raises(ValueError, match="together"):
+        k4.gn_silu_conv3x3(x, gamma, beta, weight, bias, es)
+    with pytest.raises(ValueError, match="modulation rows"):
+        k4.gn_silu_conv3x3(x, gamma, beta, weight, bias, es[:1], eb[:1])
+    with pytest.raises(ValueError, match="not divisible"):
+        k4.gn_silu_conv3x3(x, gamma, beta, weight, bias, num_groups=24)
+    with pytest.raises(ValueError, match="contiguous out"):
+        k4.gn_silu_conv3x3(x, gamma, beta, weight, bias, out=torch.zeros(2, 8, 8, 64, device=cuda))
+
+
+@pytest.mark.parametrize("ada", [False, True])
+def test_k4_function_gradient_on_the_card(cuda, ada):
+    """K4 under autograd: the forward launches the kernel, the backward
+    equals autograd through the plain version, for every input."""
+    inputs = [t.requires_grad_(True)
+              for t in _k4_inputs(cuda, torch.float32, (2, 8, 8, 96), 64, ada)]
+    if ada:  # leaves of their own, not views of one tensor
+        inputs[5:] = [t.detach().contiguous().requires_grad_(True) for t in inputs[5:]]
+    cot = torch.randn(2, 8, 8, 64, generator=torch.Generator(device=cuda).manual_seed(1),
+                      device=cuda)
+    before = k4.gn_silu_conv3x3.launches
+    out = k4.gn_silu_conv3x3(*inputs)
+    assert k4.gn_silu_conv3x3.launches == before + 1
+    got = torch.autograd.grad(out, inputs, cot)
+    ref = torch.autograd.grad(k4.gn_silu_conv3x3_plain(*inputs), inputs, cot)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -105,7 +105,8 @@ def jax_loss_and_grads(jd, fns, params, x0, noise, t, y):
         model=_OutputAsParams(), original_num_steps=jd.original_num_steps,
         rescaled_num_steps=jd.rescaled_num_steps, beta_schedule="cosine",
         sampling_var_type=jd.sampling_var_type, loss_type=jd.loss_type,
-        guidance_method="classifier_free", guidance_strength=0.8)
+        guidance_method="classifier_free", guidance_strength=0.8,
+        prediction_type=jd.prediction_type)
     loss, cot = jax.value_and_grad(
         lambda o: head.loss(o, x0, t, None, y=y, noise=noise).mean())(out)
     grads = vjp(params, x_t, mapped, y, cot)
@@ -243,10 +244,43 @@ def test_loss_draws_noise_from_the_generator(pairs):
 
 
 def test_v_prediction_is_queued(pairs):
+    """v-prediction is ported (no longer queued): it builds, and its simple
+    loss regresses the native target a*noise - s*x_0, which is not the eps
+    model's loss on the same weights. Unknown types raise."""
     _, _, model = pairs[True]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Diffusion(model=model, **dict(DIFF, sampling_var_type="learned", loss_type="hybrid",
-                                      prediction_type="v"))
+    kw = dict(DIFF, sampling_var_type="learned", loss_type="simple")
+    x0, noise, t, y = batch(2)
+    args = dict(y=_t(y).long(), noise=_t(noise))
+    with torch.no_grad():
+        as_v = Diffusion(model=model, **kw, prediction_type="v").loss(_t(x0), _t(t).long(), **args)
+        as_eps = Diffusion(model=model, **kw).loss(_t(x0), _t(t).long(), **args)
+    assert torch.isfinite(as_v).all() and not torch.allclose(as_v, as_eps)
+    with pytest.raises(NotImplementedError):
+        Diffusion(model=model, **kw, prediction_type="x0")
+
+
+@pytest.mark.parametrize("var_type", ["small", "learned", "learned_interpolation"])
+@pytest.mark.parametrize("loss_type", ["simple", "hybrid"])
+def test_v_prediction_loss_and_gradients_match_jax(pairs, jax_model_fns, loss_type, var_type):
+    """``prediction_type="v"``: SIMPLE and the simple half of HYBRID regress
+    the model's native output against a*noise - s*x_0; the VLB takes the
+    converted eps (detached in HYBRID)."""
+    learned = var_type.startswith("learned")
+    jmodel, params, model = pairs[learned]
+    kw = dict(DIFF, sampling_var_type=var_type, loss_type=loss_type, prediction_type="v")
+    jd, td = JaxDiffusion(model=jmodel, **kw), Diffusion(model=model, **kw)
+    x0, noise, t, y = batch(6)
+    ref_loss, ref_grads = jax_loss_and_grads(jd, jax_model_fns[learned], params, x0, noise, t, y)
+    loss = td.loss(_t(x0), _t(t).long(), y=_t(y).long(), noise=_t(noise)).mean()
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    np.testing.assert_allclose(loss.item(), ref_loss, rtol=1e-5, atol=1e-5)
+    top = max(np.abs(g).max() for g in ref_grads.values())
+    assert top > 0
+    for name, g in zip(names, grads):
+        ref = ref_grads[name]
+        got = np.zeros_like(ref) if g is None else g.numpy()
+        assert np.abs(got - ref).max() <= 1e-4 * top, name
 
 
 def test_bpd_matches_jax_with_injected_noise(pairs, jax_model_fns):

@@ -149,10 +149,64 @@ def test_unconditional_model_saves_running_names(tmp_path):
     assert samples[0][2] is None and samples[0][1].shape == (2, 16, 16, 3)
 
 
+CFG_FLAGS = ["--guidance_method", "classifier_free", "--guidance_strength", "0.8"]
+
+
 @pytest.mark.parametrize("flags", [
-    ("--dtype", "int8"), ("--int8_calibration", "calib.npz"), ("--encoder_cache", "2"),
-    ("--guidance_interval", "0.0", "0.6"), ("--data_parallel",), ("--upsample",),
     ("--sampler", "dpm++"), ("--prediction_type", "v"), ("--dynamic_thresholding",),
+    ("--dynamic_thresholding", "0.9"), ("--encoder_cache", "2"),
+    ("--guidance_interval", "0.0", "0.6"),
+    ("--sampler", "dpm++", "--dynamic_thresholding", "0.995", "--encoder_cache", "3",
+     "--guidance_interval", "0.0", "0.6", "--prediction_type", "v"),
+], ids=lambda f: "+".join(a.lstrip("-") for a in f if a.startswith("--")))
+def test_fast_sampling_flags_reach_the_chain(checkpoints, tmp_path, monkeypatch, flags):
+    """Each fast-sampling flag is passed through under ``--cpu``: the
+    Diffusion is built with it and ``denoise`` is called with it."""
+    from nicediffusion_tpu_torch.diffusion.process import Diffusion
+
+    model_path, _ = checkpoints
+    seen = {}
+    inner = Diffusion.denoise
+
+    def spy(self, *args, **kw):
+        seen.update(sampler=self.sampler, clip_x=self.clip_x, q=self.dynamic_threshold,
+                    prediction_type=self.prediction_type,
+                    encoder_cache=kw["encoder_cache"], interval=kw["guidance_interval"])
+        return inner(self, *args, **kw)
+
+    monkeypatch.setattr(Diffusion, "denoise", spy)
+    out_dir = str(tmp_path / "out") + "/"
+    argv = _argv(model_path, out_dir, *CFG_FLAGS, "--labels", "3", *flags)
+    argv[argv.index("--num_classes") + 1] = "9"  # CFG adds the null class: 10 rows
+    samples = main(argv)
+    assert sorted(os.listdir(out_dir)) == ["3_sample0.jpg", "3_sample1.jpg"]
+    assert samples[0][1].shape == (2, 16, 16, 3) and samples[0][1].dtype == np.uint8
+
+    def given(flag, default, parse=str):
+        if flag not in flags:
+            return default
+        nxt = flags[flags.index(flag) + 1:flags.index(flag) + 2]
+        return parse(nxt[0]) if nxt and not nxt[0].startswith("--") else "bare"
+
+    assert seen["sampler"] == given("--sampler", "ddpm")
+    assert seen["prediction_type"] == given("--prediction_type", "eps")
+    assert seen["encoder_cache"] == given("--encoder_cache", None, int)
+    assert seen["interval"] == ((0.0, 0.6) if "--guidance_interval" in flags else None)
+    q = given("--dynamic_thresholding", None, float)
+    assert seen["clip_x"] == (True if q is None else "dynamic")
+    if q is not None:
+        assert seen["q"] == (0.995 if q == "bare" else q)
+
+
+def test_guidance_interval_wants_classifier_free_guidance(checkpoints, tmp_path):
+    model_path, _ = checkpoints
+    with pytest.raises(ValueError, match="requires classifier-free guidance"):
+        main(_argv(model_path, str(tmp_path / "out") + "/", "--guidance_interval", "0.0", "0.6"))
+
+
+@pytest.mark.parametrize("flags", [
+    ("--dtype", "int8"), ("--int8_calibration", "calib.npz"), ("--data_parallel",),
+    ("--upsample",),
 ], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_name_their_roadmap_entry(flags, tmp_path):
     """Raised before any model is built: the checkpoint does not exist."""

@@ -1,6 +1,9 @@
-"""The port's schedule tables are bit-equal to the JAX package's."""
+"""The port's schedule tables are bit-equal to the JAX package's, and the
+port imports nothing of JAX."""
 
+import ast
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -64,3 +67,26 @@ def test_rename_map_matches_jax():
                  "output_blocks.2.0.skip_connection.weight", "out.2.weight",
                  "input_blocks.3.0.emb_layers.1.weight", "input_blocks.3.0.out_layers.3.bias"):
         assert rename_guided_diffusion_keys(name) == jrename(name)
+
+
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+_PORT_SOURCES = sorted(
+    str(p.relative_to(_ROOT)) for p in (_ROOT / "nicediffusion_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("source", _PORT_SOURCES)
+def test_port_source_imports_no_jax_and_nothing_of_the_jax_package(source):
+    """The port and its smoke script import torch and numpy, never jax, flax,
+    optax or the JAX package (not even a module of it that imports no JAX)."""
+    tree = ast.parse((_ROOT / source).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                              "nicediffusion_tpu"), f"{source}: {name}"

@@ -360,6 +360,26 @@ def test_train_entry_point_runs(tmp_path, capsys):
     assert [r["step"] for r in rows] == [0, 1] and all(np.isfinite(r["loss"]) for r in rows)
 
 
+def test_train_entry_point_trains_a_v_prediction_model(tmp_path):
+    """``--prediction_type v`` reaches the training and the in-training
+    sampling Diffusion, and the model trains on the v target."""
+    trainer = train_main([
+        "--synthetic", "--device", "cpu", "--iterations", "2", "--batch_size", "4",
+        "--resolution", "8", "--model_channels", "32", "--channel_mult", "1",
+        "--num_res_blocks", "1", "--attention_resolutions", "", "--prediction_type", "v",
+        "--print_every", "1", "--checkpoint_dir", str(tmp_path / "ckpt"),
+        "--metrics_path", str(tmp_path / "metrics.jsonl"),
+        "--samples_dir", str(tmp_path / "samples"),
+    ])
+    assert trainer.step == 2
+    assert trainer.train_diffusion.prediction_type == "v"
+    assert trainer.sampling_diffusion.prediction_type == "v"
+    rows = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert len(rows) == 2 and all(np.isfinite(r["loss"]) for r in rows)
+    images = trainer.sample(2)
+    assert images.shape == (2, 8, 8, 1) and images.dtype == np.uint8
+
+
 def test_train_entry_point_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")

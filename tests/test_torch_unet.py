@@ -24,6 +24,11 @@ from nicediffusion_tpu_torch.utils.convert import (  # noqa: E402
     flax_params_to_torch_state_dict,
 )
 
+# The suite runs several pytest workers side by side, and every worker
+# imports this module. torch's default of one intra-op thread per core would
+# oversubscribe the host many times over; the tiny models here need no more.
+torch.set_num_threads(2)
+
 # ragged attention N (28x28 input, attention at 7x7 -> N = 49), AdaGN,
 # resblock up/down, [q|k|v] layout, CFG's extra null-class row
 CFG_ADA = dict(
