@@ -13,6 +13,10 @@ at ``openai_128``. It checks every hand-written kernel on the way:
   1. device: the card's name and power limit, torch/CUDA/Triton versions;
   2. build: K1 with K5, K2 and K4 (CUDA C++, one nvcc for sm_90a per source,
      started together) from the sources in this checkout, and K3 (Triton);
+     the registers and spills ptxas reports for each kernel, and the count
+     of warpgroup multiplies (HGMMA) in the attention library's machine code
+     (cuobjdump -sass), which must not be 0: bf16 K1 and K5 run on the
+     tensor cores (wgmma), f32 on the CUDA cores;
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
@@ -21,7 +25,9 @@ at ``openai_128``. It checks every hand-written kernel on the way:
      256, the interleaved layout, the pool's N = 65), f32 and bf16, with the
      JAX package's tolerances; its time per call (CUDA events around
      back-to-back calls) in the path's compute type, per shape and summed
-     over one forward, beside the plain version's. K5 runs at the
+     over one forward, beside the plain version's (attention also in
+     TFLOP/s of its two products and as a share of its bound; K1 at one N
+     of 1024 for head dims 64 to 256). K5 runs at the
      ``openai_128`` shapes as strided views of a projection and as separate
      contiguous tensors, and at D = 16, N = 49; then, with the counts reset,
      it is called directly at those shapes and held bit for bit against K1
@@ -31,7 +37,8 @@ at ``openai_128``. It checks every hand-written kernel on the way:
   5. the slice: bf16, CFG w=0.8, DDPM with learned-interpolation variance
      respaced to 25 steps, answering 3 requests of 8 labels; the launch
      counters must show every attention and GroupNorm call went through the
-     kernels; samples/s with kernels on and off;
+     kernels; samples/s with kernels on and off; a torch.profiler breakdown
+     of one sampling forward;
   5b. the full-width ``openai_128`` f32 forward, its classifier's logits and
      the guidance gradient, kernels on against ``kernels=False``; then the
      sampling entry point (``nicediffusion_tpu_torch.scripts.sample.main``)
@@ -97,6 +104,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,10 +212,12 @@ def phase_build():
         # then "Used N registers" for each template instance
         entry = spills = ""
         for line in nvcc_log.splitlines():
-            m = re.search(r"Compiling entry function '\S*?(attention_fwd|attention_bwd_dq|"
-                          r"attention_bwd_dkv|gn_silu_conv3x3|group_stats)_kernelI(\S+)'", line)
+            m = re.search(r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|"
+                          r"attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3|group_stats)"
+                          r"_kernelI(\S+)'", line)
             if m:
-                dt = "bf16" if "bfloat16" in m.group(2) else "f32"
+                wgmma = m.group(1).endswith("wgmma")
+                dt = "bf16" if wgmma or "bfloat16" in m.group(2) else "f32"
                 dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, own-tile rows
                 entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
                     f" rows={dims[1]}" if len(dims) > 1 else "")
@@ -215,6 +225,20 @@ def phase_build():
                 spills = line.strip()
             elif "registers" in line:
                 log(f"[build]   {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+            elif "wgmma" in line or "Performance Loss" in line:
+                log(f"[build]   ptxas: {line.strip()}")
+    # the bf16 attention kernel must run on the tensor cores: count the
+    # warpgroup multiplies (HGMMA) in the library's machine code
+    lib = _build.build("attention")[0]
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    log(f"[build] attention library: {hgmma} HGMMA instructions in its SASS")
+    if hgmma == 0:
+        raise AssertionError("the attention library holds no HGMMA: bf16 K1/K5 are off the "
+                             "tensor cores")
     log(f"[build] K1, K2 and K4 ready in {cuda_s:.2f} s (built side by side), "
         f"K3 (triton import) in {k3_s:.2f} s")
 
@@ -322,6 +346,16 @@ GUIDED_PATHS = ("unet128", "cls128")
 K2_PATHS = ("train", "emnist", "cls128", "unet128")  # unet128: openai_128 training at batch 4
 
 
+def rate(key, b, ms, bound):
+    """', X TFLOP/s, Y% of bound' for an attention call (its two products,
+    2 N^2 C flops each), '' for any other kernel."""
+    if key[0] != "attention":
+        return ""
+    _, n, c, _, _ = key
+    return (f", {4 * b * n * n * c / ms / 1e9:.2f} TFLOP/s, "
+            f"{100 * max(bound) / ms:.1f}% of bound")
+
+
 def check_mha(name, qkv, heads, split_first, dtype, tol):
     """K5 on strided views of ``qkv`` and on contiguous copies of them,
     against its plain version; the output pre-filled with NaN. Returns
@@ -398,8 +432,9 @@ def phase_kernels(dev, paths):
             if dtype == timed_dtype:
                 ms, plain, lib = time_ms(runs[0][0]), time_ms(runs[0][1]), time_ms(library)
                 tallies[kind, where].add(per_call, ms, plain, lib, bound)
-                log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+                log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms"
+                    f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} ms, "
+                    f"bound {max(bound):.4f} ms")
             if kind == "attention" and where in GUIDED_PATHS:
                 name = f"K5 B={b} H={heads} N={n} D={c // heads}"
                 err, views = check_mha(name, qkv, heads, split_first, dtype, tol)
@@ -408,17 +443,18 @@ def phase_kernels(dev, paths):
                     ms = time_ms(lambda: k1.mha_attention(*views))
                     plain = time_ms(lambda: k1.mha_attention_plain(*views))
                     tallies["mha", where].add(per_call, ms, plain, lib, bound)
-                    log(f"[kernels] {name} {dtype} as views of the projection: {ms:.4f} ms, "
-                        f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+                    log(f"[kernels] {name} {dtype} as views of the projection: {ms:.4f} ms"
+                        f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} "
+                        f"ms, bound {max(bound):.4f} ms")
     # a head dim under the smallest build and a ragged N (tests/test_pallas.py:18)
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.randn(2, 49, 3 * 2 * 16, generator=g, device=dev).to(dtype)
         tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["attention"]
         err, _ = check_mha("K5 B=2 H=2 N=49 D=16", qkv, 2, True, dtype, tol)
         errs["mha", dtype] = max(errs["mha", dtype], err)
-    # head dims 128, 192 and 256 at one N and 4 heads, beside the paths' own
+    # head dims 64 to 256 at one N and 4 heads, beside the paths' own
     # shapes: the rate per operation of each build
-    for hc in (128, 192, 256):
+    for hc in (64, 128, 192, 256):
         qkv = torch.randn(GUIDED_BATCH, 1024, 12 * hc, generator=g, device=dev).bfloat16()
         ms = time_ms(lambda: k1.fused_qkv_attention(qkv, 4, True))
         tflops = 4 * GUIDED_BATCH * 1024**2 * 4 * hc / ms / 1e9
@@ -582,6 +618,28 @@ def phase_slice(dev, state):
         f"(bf16, 25 DDPM steps, CFG, 8 samples per request)")
     log(f"[slice] kernels on vs off, final samples max abs diff per request "
         f"(bf16, 25 stochastic steps): {[round(d, 4) for d in diffs]}")
+
+    # where the device time of one sampling forward goes: 8 labels doubled by CFG
+    model = models[True][0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(16, model.resolution, model.resolution, model.in_channels, generator=g,
+                    device=dev)
+    t = torch.full((16,), 500, dtype=torch.long, device=dev)
+    y = torch.cat([requests[0], torch.zeros_like(requests[0])])
+
+    def forward():
+        with torch.inference_mode():
+            model(x, t, y)
+
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    profile_steps(forward, "openai_64 sampling forward (bf16, model batch 16)", min(walls[1:]),
+                  steps=3)
     return launches
 
 
@@ -1022,7 +1080,7 @@ def metrics_rows(path):
 # device time of a training step by kernel name: first match wins
 KERNEL_GROUPS = (
     ("K2 attention backward", ("attention_bwd",)),
-    ("K1 attention forward", ("attention_fwd_kernel",)),
+    ("K1 attention forward", ("attention_fwd_kernel", "attention_fwd_wgmma")),
     ("K3 GroupNorm forward", ("gn_kernel",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
@@ -1725,8 +1783,10 @@ def main():
         by_path.update(phase_train(dev, state, workdir))
         phase_done("[train]")
 
-    def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others):
+    def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
+              routes=None):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
+                **({"routes_by_dtype": routes} if routes else {}),
                 "launches": sum(path.get(counter, 0) for path in by_path.values()),
                 "launches_by_path": {k: path.get(counter, 0) for k, path in by_path.items()},
                 "max_abs_err": err, "max_abs_err_bf16": err_bf16,
@@ -1739,12 +1799,16 @@ def main():
                     for where, t in others.items()}}
 
     forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
+    # K1 and K5 are one kernel per input type
+    attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging",
+                        "float32": "FMA: CUDA cores"}
     kernels = [
         entry("fused_qkv_attention", "cuda", "nicediffusion_tpu_torch/csrc/attention.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS)}),
+              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS)},
+              attention_routes),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
@@ -1762,7 +1826,7 @@ def main():
               tallies["mha", "unet128"],
               f"sum over the attention calls of one openai_128 forward, bf16, batch "
               f"{GUIDED_BATCH}, q, k and v as views of the projection",
-              {"cls128": tallies["mha", "cls128"]}),
+              {"cls128": tallies["mha", "cls128"]}, attention_routes),
         # no model calls K4 either: its launches are phase_resblock_direct's calls
         entry("gn_silu_conv3x3", "cuda", "nicediffusion_tpu_torch/csrc/resblock.cu",
               "nicediffusion_tpu/ops/pallas/resblock.py:131", "resblock",

@@ -10,6 +10,17 @@ notes say what bounds each kernel on the card and what the designs do about
 the TPU kernels' whole-(N, N)-in-VMEM, one-program-per-batch-element form,
 which does not fit a Hopper block's shared memory.
 
+Routes by dtype (a dispatch, not a fallback). bf16 K1 and K5 run on the
+tensor cores: a flash-style kernel in which one warpgroup owns a 64-query
+tile, S = q k^T and O += p v are ``wgmma`` products (p from registers, f32
+sums), K and V stream through a two-stage ``cp.async`` ring in the 128-byte
+swizzle, and two warpgroups share a block's ring. f32 K1 and K5 stay on the
+CUDA cores in f32 FMA: their 2e-5 gate leaves no room for TF32. Both round
+where the JAX kernels do (f32 logits and softmax, p cast to the input type
+before the product with v), except that the kernels cast the unnormalised p
+and divide by the row sum at the end. K2 runs on the CUDA cores in f32
+FMA for both types.
+
 Head dims. K1 and K2 take 32, 64, 128, 192 and 256 (at 192 and 256 a K2
 block owns a 32-row tile, which fits a block's shared memory). K5 takes any
 D up to 256: the kernel built for the next head dim up zero-fills the

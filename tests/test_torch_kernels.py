@@ -1,5 +1,7 @@
 """K1, K2, K4, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
+bf16 K1 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores.
+
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
 
@@ -99,6 +101,65 @@ def test_k5_matches_plain(cuda, dtype, n, d, heads):
             assert torch.equal(out.transpose(1, 2).reshape(3, n, heads * d), fused)
 
 
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n", [49, 64, 65, 100, 196, 256, 1024])
+@pytest.mark.parametrize("hc", k1.SUPPORTED_HEAD_DIMS)
+def test_k1_bf16_matches_plain(cuda, hc, n, split_first):
+    """The bf16 kernel (wgmma on the tensor cores) at every head dim, ragged
+    and whole key tiles: every element written (the output is pre-filled
+    with NaN) and within the bf16 gate of the plain version."""
+    heads = 2
+    g = torch.Generator(device=cuda).manual_seed(hc * n)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    out = torch.full((2, n, heads * hc), float("nan"), dtype=torch.bfloat16, device=cuda)
+    k1.fused_qkv_attention(qkv, heads, split_first, out=out)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16, "k1"])
+
+
+@pytest.mark.parametrize("form", ["views", "contiguous", "row_stride_not_16_bytes"])
+@pytest.mark.parametrize("d", [16, 20, 64, 256])
+def test_k5_bf16_matches_plain(cuda, d, form):
+    """bf16 K5 on strided views of a projection, on contiguous copies and on
+    views whose row stride is not a multiple of 16 bytes (staged with
+    narrower loads), D under and between builds included."""
+    heads, n = 3, 100
+    g = torch.Generator(device=cuda).manual_seed(d)
+    if form == "row_stride_not_16_bytes":
+        wide = torch.randn(3, 2, heads, n, d + 3, generator=g, device=cuda).bfloat16()
+        q, k, v = wide[..., :d]
+        assert q.stride(2) * q.element_size() % 16
+    else:
+        qkv = torch.randn(2, n, 3 * heads * d, generator=g, device=cuda).bfloat16()
+        q, k, v = k1.split_qkv(qkv, heads, True)
+        if form == "contiguous":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.full((2, heads, n, d), float("nan"), dtype=torch.bfloat16, device=cuda)
+    k1.mha_attention(q, k, v, out=out)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    ref = k1.mha_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16, "k1"])
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc,heads", [
+    (1024, 64, 6), (256, 192, 4), (64, 256, 4), (65, 128, 4), (49, 32, 4),
+])
+def test_k5_equals_k1_bit_for_bit_bf16(cuda, n, hc, heads, split_first):
+    """One kernel, one tile order: bf16 K5 on the views of a projection and
+    on contiguous copies of them equals K1 on the projection bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n + hc)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    fused = k1.fused_qkv_attention(qkv, heads, split_first)
+    views = k1.split_qkv(qkv, heads, split_first)
+    for q, k, v in (views, tuple(t.contiguous() for t in views)):
+        out = k1.mha_attention(q, k, v)
+        assert torch.equal(out.transpose(1, 2).reshape(fused.shape), fused)
+
+
 def test_k5_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 64, 64, device=cuda)
     with pytest.raises(NotImplementedError, match="up to 256"):
@@ -186,6 +247,31 @@ def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads
     torch.testing.assert_close(got, ref, **TOL[torch.float32, "k2"])
     with torch.no_grad():
         assert k1.fused_qkv_attention(qkv, heads, split_first).grad_fn is None
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2),
+                                        (65, 192, 2), (100, 256, 2)])
+def test_attention_function_bf16_gradient_on_the_card(cuda, split_first, n, hc, heads):
+    """The autograd Function in bf16 (forward K1 on the tensor cores,
+    backward K2): the output within the bf16 gate of the plain forward, the
+    gradient within K2's bf16 gate of the plain backward fed the plain
+    forward's output; one K1 and one K2 launch."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).bfloat16()
+    fwd, bwd = k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches
+    leaf = qkv.clone().requires_grad_(True)
+    out = k1.fused_qkv_attention(leaf, heads, split_first)
+    got, = torch.autograd.grad(out, leaf, cot)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention.launches == fwd + 1
+    assert k1.fused_qkv_attention_bwd.launches == bwd + 1
+    plain = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[torch.bfloat16, "k1"])
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, plain, heads, split_first)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[torch.bfloat16, "k2"])
 
 
 @pytest.mark.parametrize("mode", ["plain", "silu", "ada"])

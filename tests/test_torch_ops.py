@@ -113,15 +113,31 @@ def test_attention_matches_jax(rng_np, split_first, n, hc):
         np.testing.assert_allclose(out, pallas, atol=2e-5)
 
 
-def test_attention_bf16_matches_jax(rng_np):
-    """bf16: f32 logits and softmax, p cast to bf16 before the product."""
-    qkv = rng_np.normal(size=(2, 64, 3 * 128)).astype(np.float32)
-    ref = jax_attention(jnp.asarray(qkv, jnp.bfloat16), 2, True, use_pallas=False)
-    out = qkv_attention(_t(qkv).bfloat16(), 2, True)
-    assert out.dtype == torch.bfloat16
-    np.testing.assert_allclose(
-        out.float().numpy(), np.asarray(ref, np.float32), atol=3e-2
-    )
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n", [49, 65, 256])
+@pytest.mark.parametrize("hc", [32, 64, 128])
+def test_attention_bf16_matches_jax(rng_np, hc, n, split_first):
+    """bf16: f32 logits and softmax, p cast to bf16 before the product. The
+    port's op and K1's plain version (what the card holds the tensor-core
+    kernel to) against the plain JAX op and the Pallas fused-qkv kernel in
+    interpret mode, ragged N (one and two key tiles past a multiple of 64)
+    and whole tiles, both layouts. K1's plain version rounds the normalised
+    p, as JAX does; the kernel rounds the unnormalised one (the bf16 gate
+    covers the difference)."""
+    heads = 2
+    qkv = rng_np.normal(size=(2, n, 3 * heads * hc)).astype(np.float32)
+    qkv_bf16 = jnp.asarray(qkv, jnp.bfloat16)
+    refs = [
+        np.asarray(jax_attention(qkv_bf16, heads, split_first, use_pallas=False), np.float32),
+        np.asarray(mha_attention_fused_qkv(qkv_bf16, heads, split_first, interpret=True),
+                   np.float32),
+    ]
+    outs = [qkv_attention(_t(qkv).bfloat16(), heads, split_first),
+            k1.fused_qkv_attention_plain(_t(qkv).bfloat16(), heads, split_first)]
+    for out in outs:
+        assert out.dtype == torch.bfloat16 and out.shape == (2, n, heads * hc)
+        for ref in refs:
+            np.testing.assert_allclose(out.float().numpy(), ref, atol=3e-2)
 
 
 @pytest.mark.parametrize("split_first", [True, False])
