@@ -13,21 +13,26 @@ at ``openai_128``. It checks every hand-written kernel on the way:
   1. device: the card's name and power limit, torch/CUDA/Triton versions;
   2. build: K1 with K5, K2 and K4 (CUDA C++, one nvcc for sm_90a per source,
      started together) from the sources in this checkout, and K3 (Triton);
-     the registers and spills ptxas reports for each kernel, and the count
-     of warpgroup multiplies (HGMMA) in the attention library's machine code
-     (cuobjdump -sass), which must not be 0: bf16 K1 and K5 run on the
-     tensor cores (wgmma), f32 on the CUDA cores;
+     the registers and spills ptxas reports for each kernel (kept beside a
+     cached build; a bf16 attention instantiation that spills fails), and
+     the count of warpgroup multiplies (HGMMA) in the machine code of the
+     attention libraries (cuobjdump -sass), which must not be 0 in either:
+     bf16 K1, K2 and K5 run on the tensor cores (wgmma), f32 on the CUDA
+     cores;
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
      whose shapes are ragged, at that recipe's batch of 468, and of
      ``openai_128`` and its classifier at batch 4: head dims 128, 192 and
      256, the interleaved layout, the pool's N = 65), f32 and bf16, with the
-     JAX package's tolerances; its time per call (CUDA events around
-     back-to-back calls) in the path's compute type, per shape and summed
-     over one forward, beside the plain version's (attention also in
-     TFLOP/s of its two products and as a share of its bound; K1 at one N
-     of 1024 for head dims 64 to 256). K5 runs at the
+     JAX package's tolerances; its time per call in the path's compute
+     type, per shape and summed over one forward, beside the plain
+     version's and the library call's, each two ways: host-timed (CUDA
+     events around back-to-back calls, which read the host's launch rate
+     for calls under about 40 us) and in device time (a CUDA graph of the
+     calls replayed); attention also in TFLOP/s of its two products and as
+     a share of its bound; K1 at one N of 1024 for head dims 64 to 256, and
+     with and without writing the row log-sum-exp. K5 runs at the
      ``openai_128`` shapes as strided views of a projection and as separate
      contiguous tensors, and at D = 16, N = 49; then, with the counts reset,
      it is called directly at those shapes and held bit for bit against K1
@@ -52,11 +57,16 @@ at ``openai_128``. It checks every hand-written kernel on the way:
      a torch.profiler breakdown of one guided step;
   6. K2 (the attention backward) against its plain version and against
      autograd through the plain forward, f32 and bf16, both layouts, output
-     pre-filled with NaN, at every attention shape of a training step of
-     both models, of the classifier's gradient and at a ragged N with head
-     dim 128; its times beside the
-     plain version's and the library call's; K1 and K3 at the training
-     batch; the cost of K3's backward (a recompute of its plain version);
+     pre-filled with NaN, with K1's row log-sum-exp handed over and without
+     it, at every attention shape of a training step of both models, of the
+     classifier's gradient and at a ragged N with head dims 128 and 192; bf16
+     also to a relative error of dq, dk and dv per (example, head), which a
+     planted fault (the lse handed over 0.05 too high) must fail at every
+     shape; its times beside the plain version's and the library call's (the
+     autograd backward of scaled_dot_product_attention, its device time from
+     torch.profiler), K2 and the library's forward read by CUDA graph and by
+     torch.profiler side by side; the cost of K3's backward (a recompute of
+     its plain version);
   7. loss and every parameter's gradient of the full-width f32 model, and
      of the EMNIST model at batch 468, kernels on against ``kernels=False``;
   8. the training slice: (a) ``Trainer.train()`` on ``openai_64`` in bf16
@@ -69,8 +79,9 @@ at ``openai_128``. It checks every hand-written kernel on the way:
   9. K4 (fused GN+SiLU+3x3 conv) against its plain version, f32 and bf16,
      plain and AdaGN, output pre-filled with NaN, at every (H, C, F) a
      residual-block half of ``openai_64`` has at model batch 16 and at small
-     ragged shapes; its times in bf16 per shape beside the plain version, the
-     library calls (F.group_norm, F.silu, F.conv2d) and the bound, summed over
+     ragged shapes; its times in bf16 per shape (host-timed and in device
+     time) beside the plain version, the library calls (F.group_norm, F.silu,
+     F.conv2d) and the bound, summed over
      the halves of one forward it could stand for. No model calls K4 (as in
      the JAX package): with the counts reset it is then called once in place
      of each such half of one f32 ``openai_64`` forward, on the block's own
@@ -94,7 +105,9 @@ move over 3.35 TB/s and its operations over the card's peak for their type
 (989 TFLOP/s for bf16 products, 67 TFLOP/s for f32 work, which the kernels
 do without TF32).
 
-Prints a JSON line describing the kernels, then, as the last line,
+Then ranks the kernels by their device time against the library's (rule 2),
+both sides read by one method (CUDA graphs; for K2 torch.profiler), prints a
+JSON line describing the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 so does a machine without a CUDA card. Imports nothing of JAX.
 """
@@ -122,6 +135,13 @@ BF16_TOL = {"attention": dict(atol=3e-2, rtol=0), "groupnorm": dict(atol=3e-2, r
 # than K1's (ds before its products), hence the relative part
 K2_F32_TOL = dict(atol=2e-5, rtol=0)
 K2_BF16_TOL = dict(atol=3e-2, rtol=2e-2)
+# K2 in bf16, beside K2_BF16_TOL: per element, that gate is about the size of a
+# typical gradient element at N = 1024 (|g| <= 1, unit logits), so an error in
+# proportion to the output can pass it. This gate scales with the output: the
+# relative Frobenius error of each of dq, dk and dv in each (example, head)
+# (k2_rel_err). An lse handed over 0.05 too high scales every p by 0.95 and
+# reads about 0.05
+K2_BF16_REL = 1e-2
 # K4: the JAX package's f32 gate (tests/test_pallas_resblock.py:49). In bf16 the
 # output is rounded once to bf16, one ulp of which is 0.03 for |out| in [4, 8);
 # beyond that the relative part covers it
@@ -155,9 +175,10 @@ def phase_done(name):
 
 
 def time_ms(fn, iters=20, rounds=5):
-    """Device time of one call: CUDA events around ``iters`` back-to-back
-    calls, divided by ``iters``; the median of ``rounds`` such runs. A call
-    shorter than its host-side launch cost is timed at the launch rate."""
+    """Host-timed length of one call: CUDA events around ``iters``
+    back-to-back calls, divided by ``iters``; the median of ``rounds`` such
+    runs. A call shorter than its host-side launch cost is timed at the
+    launch rate (``graph_ms`` gives its device time)."""
     fn()
     torch.cuda.synchronize()
     per_call = []
@@ -173,14 +194,84 @@ def time_ms(fn, iters=20, rounds=5):
     return statistics.median(per_call)
 
 
+def graph_ms(fn, iters=10, rounds=3):
+    """Device time of one call: a CUDA graph of ``iters`` calls, captured
+    after a warm-up on a side stream and replayed between CUDA events,
+    divided by ``iters``; the median of ``rounds`` replays. Free of the
+    host's launch cost, which sets ``time_ms`` for calls under about 40 us."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(per_call)
+
+
+def profiled_ms(fn, iters=10):
+    """Device time of one call where a CUDA graph cannot hold it (the
+    library's autograd backward runs on autograd's own thread): the summed
+    device time of the kernels that ``iters`` calls ran, from torch.profiler,
+    divided by ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / 1e3 / iters
+
+
+def within(out, ref, tol):
+    """Whether every element of ``out`` is finite and within atol + rtol*|ref|."""
+    out, ref = out.float(), ref.float()
+    return bool(torch.isfinite(out).all()
+                and ((out - ref).abs() <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+
+
 def check(name, out, ref, tol):
     """max |out - ref|; raises if any element is outside atol + rtol*|ref|."""
-    out, ref = out.float(), ref.float()
-    err = (out - ref).abs()
-    bad = err > tol["atol"] + tol["rtol"] * ref.abs()
-    if not torch.isfinite(out).all() or bad.any():
-        raise AssertionError(f"{name}: max abs err {err.max().item():.3g} over {tol}")
-    return err.max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not within(out, ref, tol):
+        raise AssertionError(f"{name}: max abs err {err:.3g} over {tol}")
+    return err
+
+
+def k2_rel_err(out, ref, heads, split_first):
+    """The largest ||out - ref||_F / ||ref||_F over dq, dk and dv of every
+    (example, head) of two (B, N, 3C) gradients laid out as their qkv."""
+    from nicediffusion_tpu_torch.ops.kernels.attention import split_qkv
+
+    worst = 0.0
+    for o, r in zip(split_qkv(out.float(), heads, split_first),
+                    split_qkv(ref.float(), heads, split_first)):
+        rel = torch.linalg.vector_norm(o - r, dim=(2, 3)) / torch.linalg.vector_norm(r, dim=(2, 3))
+        if not torch.isfinite(rel).all():
+            return math.inf
+        worst = max(worst, rel.max().item())
+    return worst
 
 
 def phase_device():
@@ -207,38 +298,52 @@ def phase_build():
     k3._kernel()
     k3_s = time.perf_counter() - t0
     for name, (nvcc_log, seconds) in _build.build_logs().items():
-        log(f"[build] {name}: nvcc {seconds:.2f} s")
+        log(f"[build] {name}: " + (f"nvcc {seconds:.2f} s" if seconds else
+                                   "cached build, with its nvcc log"))
         # ptxas -v: "Compiling entry function '<mangled>'", a spill line,
         # then "Used N registers" for each template instance
         entry = spills = ""
+        wgmma = False
+        checked = 0  # wgmma instantiations whose spills were read
         for line in nvcc_log.splitlines():
             m = re.search(r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|"
-                          r"attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3|group_stats)"
-                          r"_kernelI(\S+)'", line)
+                          r"attention_bwd_dq_wgmma|attention_bwd_dkv_wgmma|attention_bwd_dq|"
+                          r"attention_bwd_dkv|gn_silu_conv3x3|group_stats)_kernelI(\S+)'", line)
             if m:
                 wgmma = m.group(1).endswith("wgmma")
                 dt = "bf16" if wgmma or "bfloat16" in m.group(2) else "f32"
-                dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, own-tile rows
+                dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, f32 own-tile rows
                 entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
                     f" rows={dims[1]}" if len(dims) > 1 else "")
+                if m.group(1) == "attention_bwd_dkv_wgmma" and dims and int(dims[0]) > 128:
+                    entry += " (dV and dK in separate blocks)"
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
                 log(f"[build]   {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+                # a tensor-core kernel that spills holds its accumulators in local memory
+                if wgmma and not re.search(r"\b0 bytes spill stores", spills):
+                    raise AssertionError(f"{entry} spills: {spills}")
+                checked += wgmma
+            elif "Function properties" in line:
+                continue
             elif "wgmma" in line or "Performance Loss" in line:
                 log(f"[build]   ptxas: {line.strip()}")
-    # the bf16 attention kernel must run on the tensor cores: count the
-    # warpgroup multiplies (HGMMA) in the library's machine code
-    lib = _build.build("attention")[0]
+        if name.startswith("attention") and checked == 0:
+            raise AssertionError(f"the {name} build log names no wgmma instantiation: its "
+                                 "spills were not checked")
+    # the bf16 attention kernels must run on the tensor cores: count the
+    # warpgroup multiplies (HGMMA) in each library's machine code
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    hgmma = len(re.findall(r"\bHGMMA\.", sass))
-    log(f"[build] attention library: {hgmma} HGMMA instructions in its SASS")
-    if hgmma == 0:
-        raise AssertionError("the attention library holds no HGMMA: bf16 K1/K5 are off the "
-                             "tensor cores")
+    for name, kernels in (("attention", "K1/K5"), ("attention_bwd", "K2")):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.build(name)[0])],
+                              capture_output=True, text=True, check=True).stdout
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        log(f"[build] {name} library: {hgmma} HGMMA instructions in its SASS")
+        if hgmma == 0:
+            raise AssertionError(f"the {name} library holds no HGMMA: bf16 {kernels} are off "
+                                 "the tensor cores")
     log(f"[build] K1, K2 and K4 ready in {cuda_s:.2f} s (built side by side), "
         f"K3 (triton import) in {k3_s:.2f} s")
 
@@ -298,16 +403,22 @@ def groupnorm_bound_ms(b, h, w, c, dtype=torch.bfloat16):
 
 
 class Tally:
-    """Times summed over the calls of one forward or one step."""
+    """Times summed over the calls of one forward or one step: host-timed
+    (``time_ms``, back-to-back calls) and in device time (``graph_ms``, or
+    ``profiled_ms`` for the library's autograd backward)."""
 
     def __init__(self):
         self.ms = self.plain_ms = self.library_ms = 0.0
+        self.device_ms = self.device_plain_ms = self.device_library_ms = 0.0
         self.bytes_ms = self.ops_ms = self.bound_ms = 0.0
 
-    def add(self, count, ms, plain_ms, library_ms, bound):
+    def add(self, count, ms, plain_ms, library_ms, bound, device):
         self.ms += count * ms
         self.plain_ms += count * plain_ms
         self.library_ms += count * library_ms
+        self.device_ms += count * device[0]
+        self.device_plain_ms += count * device[1]
+        self.device_library_ms += count * device[2]
         self.bytes_ms += count * bound[0]
         self.ops_ms += count * bound[1]
         self.bound_ms += count * max(bound)
@@ -316,9 +427,17 @@ class Tally:
     def bound_by(self):
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
+    def fields(self):
+        return {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": self.bound_by, "library_ms": self.library_ms,
+                "device_ms": self.device_ms, "device_plain_ms": self.device_plain_ms,
+                "device_library_ms": self.device_library_ms}
+
     def __str__(self):
-        return (f"{self.ms:.4f} ms, plain {self.plain_ms:.4f} ms, library "
-                f"{self.library_ms:.4f} ms, bound {self.bound_ms:.4f} ms ({self.bound_by})")
+        return (f"host-timed {self.ms:.4f} ms, plain {self.plain_ms:.4f} ms, library "
+                f"{self.library_ms:.4f} ms; device time {self.device_ms:.4f} ms, plain "
+                f"{self.device_plain_ms:.4f} ms, library {self.device_library_ms:.4f} ms; "
+                f"bound {self.bound_ms:.4f} ms ({self.bound_by})")
 
 
 def library_group_norm(x, sc, bi, es, esh, mode):
@@ -431,21 +550,26 @@ def phase_kernels(dev, paths):
                 errs[kind, dtype] = max(errs[kind, dtype], err)
             if dtype == timed_dtype:
                 ms, plain, lib = time_ms(runs[0][0]), time_ms(runs[0][1]), time_ms(library)
-                tallies[kind, where].add(per_call, ms, plain, lib, bound)
+                device = tuple(graph_ms(fn) for fn in (runs[0][0], runs[0][1], library))
+                tallies[kind, where].add(per_call, ms, plain, lib, bound, device)
                 log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms"
-                    f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} ms, "
-                    f"bound {max(bound):.4f} ms")
+                    f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} ms; "
+                    f"device time {device[0]:.4f} ms{rate(key, b, device[0], bound)}, plain "
+                    f"{device[1]:.4f} ms, library {device[2]:.4f} ms; bound {max(bound):.4f} ms")
             if kind == "attention" and where in GUIDED_PATHS:
                 name = f"K5 B={b} H={heads} N={n} D={c // heads}"
                 err, views = check_mha(name, qkv, heads, split_first, dtype, tol)
                 errs["mha", dtype] = max(errs["mha", dtype], err)
                 if dtype == timed_dtype:
-                    ms = time_ms(lambda: k1.mha_attention(*views))
-                    plain = time_ms(lambda: k1.mha_attention_plain(*views))
-                    tallies["mha", where].add(per_call, ms, plain, lib, bound)
+                    fns = (lambda: k1.mha_attention(*views),
+                           lambda: k1.mha_attention_plain(*views))
+                    ms, plain = (time_ms(fn) for fn in fns)
+                    dev5 = tuple(graph_ms(fn) for fn in fns) + device[2:]
+                    tallies["mha", where].add(per_call, ms, plain, lib, bound, dev5)
                     log(f"[kernels] {name} {dtype} as views of the projection: {ms:.4f} ms"
                         f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} "
-                        f"ms, bound {max(bound):.4f} ms")
+                        f"ms; device time {dev5[0]:.4f} ms, plain {dev5[1]:.4f} ms, library "
+                        f"{dev5[2]:.4f} ms; bound {max(bound):.4f} ms")
     # a head dim under the smallest build and a ragged N (tests/test_pallas.py:18)
     for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.randn(2, 49, 3 * 2 * 16, generator=g, device=dev).to(dtype)
@@ -456,10 +580,20 @@ def phase_kernels(dev, paths):
     # shapes: the rate per operation of each build
     for hc in (64, 128, 192, 256):
         qkv = torch.randn(GUIDED_BATCH, 1024, 12 * hc, generator=g, device=dev).bfloat16()
-        ms = time_ms(lambda: k1.fused_qkv_attention(qkv, 4, True))
+        ms = graph_ms(lambda: k1.fused_qkv_attention(qkv, 4, True))
         tflops = 4 * GUIDED_BATCH * 1024**2 * 4 * hc / ms / 1e9
         log(f"[kernels] K1 at one N: B={GUIDED_BATCH} N=1024, 4 heads of {hc}, bf16: "
-            f"{ms:.4f} ms, {tflops:.2f} TFLOP/s of its two products")
+            f"{ms:.4f} ms of device time, {tflops:.2f} TFLOP/s of its two products")
+    # what writing the row log-sum-exp for K2 costs K1, at the openai_64 UNet's
+    # widest call at model batch 16, in turns
+    qkv = torch.randn(16, 1024, 1152, generator=g, device=dev).bfloat16()
+    lse = torch.empty(16, 6, 1024, device=dev)
+    turns = {"without": [], "with": []}
+    for which in ("without", "with", "with", "without"):
+        buf = lse if which == "with" else None
+        turns[which].append(graph_ms(lambda: k1.fused_qkv_attention(qkv, 6, True, lse=buf)))
+    log(f"[kernels] K1 at qkv (16, 1024, 1152), 6 heads, bf16, device time in turns: without "
+        f"the lse {turns['without']} ms, writing it {turns['with']} ms")
     for (kind, dtype), err in errs.items():
         log(f"[kernels] {kind} {dtype}: max abs err {err:.3g} vs plain")
     for (kind, where), tally in tallies.items():
@@ -884,18 +1018,31 @@ def phase_kernels_bwd(dev, paths):
     N = 65), of one ``openai_128`` training step (batch 4: head dims 128, 192
     and 256), and at N = 100 with head dims 128 and 192; both layouts,
     f32 and bf16, random cotangent with |g| <= 1, output pre-filled with
-    NaN. Times in each path's compute type summed over one step beside the
-    plain version, the library call (the autograd backward of
-    scaled_dot_product_attention) and the bound. Then the cost of K3's
-    backward, which recomputes the plain version, summed over one step."""
+    NaN. The forward output and the row log-sum-exp come from K1, and K2 runs
+    with that lse handed over (as the autograd Function runs it) and without
+    it (the wrapper then launches K1 for it). bf16 is held to K2_BF16_TOL and
+    to K2_BF16_REL; a planted fault, the lse handed over 0.05 too high, must
+    fail K2_BF16_REL at every shape. Times in each path's compute type summed
+    over one step, host-timed and in device time, beside the plain version,
+    the library call (the autograd backward of scaled_dot_product_attention;
+    its device time from torch.profiler) and the bound; K2 and the library's
+    forward are also read by torch.profiler, so the two device-time methods
+    stand side by side. Then the cost of K3's backward, which recomputes the
+    plain version, summed over one step."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    auto_err = 0.0
+    auto_err = rel_err = 0.0
+    fault_rel, fault_passes_tol, faults = math.inf, 0, 0
     calls = paths["train"]
     tallies = {where: Tally() for where in K2_PATHS}
+    no_lse = {where: 0.0 for where in K2_PATHS}  # device ms summed, K2 making its own lse
+    # device ms summed over a step, each call read both ways: K2 and the
+    # library's forward by a CUDA graph and by torch.profiler, the library's
+    # backward by torch.profiler
+    yard = {where: collections.Counter() for where in K2_PATHS}
     cases = [(key, n, where) for where in K2_PATHS
              for key, n in sorted(paths[where].items(), key=str) if key[0] == "attention"]
     # a ragged N at head dims 128 and 192, which no model has
@@ -908,16 +1055,34 @@ def phase_kernels_bwd(dev, paths):
             tol = K2_F32_TOL if dtype == torch.float32 else K2_BF16_TOL
             qkv = torch.randn(b, n, 3 * c, generator=g, device=dev).to(dtype)
             cot = (2 * torch.rand(b, n, c, generator=g, device=dev) - 1).to(dtype)
+            lse = torch.empty(b, heads, n, device=dev)
             for sf in (split_first, not split_first):
-                o = k1.fused_qkv_attention_plain(qkv, heads, sf)
-                out = torch.full_like(qkv, float("nan"))
-                res = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, sf, out=out)
-                torch.cuda.synchronize()
-                if res is not out or torch.isnan(out).any():
-                    raise AssertionError(f"{name} {dtype}: output elements left unwritten")
+                o = k1.fused_qkv_attention(qkv, heads, sf, lse=lse)
                 ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, sf)
-                errs[dtype] = max(errs[dtype], check(f"{name} {dtype} split_first={sf}",
-                                                     out, ref, tol))
+                for handed in (lse, None):
+                    out = torch.full_like(qkv, float("nan"))
+                    res = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, sf, lse=handed, out=out)
+                    torch.cuda.synchronize()
+                    made = "handed over" if handed is lse else "made"
+                    how = f"{dtype} split_first={sf} lse {made}"
+                    if res is not out or torch.isnan(out).any():
+                        raise AssertionError(f"{name} {how}: output elements left unwritten")
+                    errs[dtype] = max(errs[dtype], check(f"{name} {how}", out, ref, tol))
+                    if dtype == torch.bfloat16:
+                        rel = k2_rel_err(out, ref, heads, sf)
+                        if rel > K2_BF16_REL:
+                            raise AssertionError(f"{name} {how}: relative error {rel:.3g} of dq, "
+                                                 f"dk or dv over {K2_BF16_REL}")
+                        rel_err = max(rel_err, rel)
+                if dtype == torch.bfloat16:
+                    # the planted fault: every p 5% low
+                    bad = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, sf, lse=lse + 0.05)
+                    rel = k2_rel_err(bad, ref, heads, sf)
+                    if rel <= K2_BF16_REL:
+                        raise AssertionError(f"{name} split_first={sf}: an lse 0.05 too high "
+                                             f"reads {rel:.3g}, within K2_BF16_REL")
+                    fault_rel, faults = min(fault_rel, rel), faults + 1
+                    fault_passes_tol += within(bad, ref, tol)
                 if dtype == torch.float32:
                     leaf = qkv.clone().requires_grad_(True)
                     auto, = torch.autograd.grad(
@@ -925,29 +1090,60 @@ def phase_kernels_bwd(dev, paths):
                     auto_err = max(auto_err, check(f"{name} vs autograd split_first={sf}",
                                                    out, auto, tol))
             if dtype == timed_dtype:
-                o = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+                o = k1.fused_qkv_attention(qkv, heads, split_first, lse=lse)
                 q, k, v = (t.detach().requires_grad_(True)
                            for t in k1.split_qkv(qkv, heads, split_first))
                 lib_out = F.scaled_dot_product_attention(q, k, v)
                 lib_cot = cot.reshape(b, n, heads, c // heads).transpose(1, 2)
+                fns = (lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first,
+                                                          lse=lse),
+                       lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first))
+                library = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_out, (q, k, v), lib_cot, retain_graph=True)
+
+                def library_forward():
+                    with torch.no_grad():
+                        return F.scaled_dot_product_attention(q, k, v)
+
                 depth = dict(iters=10, rounds=3)
-                ms = time_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first),
-                             **depth)
-                plain = time_ms(
-                    lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first),
-                    **depth)
-                lib = time_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), lib_cot,
-                                                          retain_graph=True), **depth)
+                ms, plain, lib = (time_ms(fn, **depth) for fn in (*fns, library))
+                device = (graph_ms(fns[0]), graph_ms(fns[1]), profiled_ms(library))
+                own = graph_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads,
+                                                                  split_first))
+                no_lse[where] += per_step * own
+                read = {"k2_graph": device[0], "k2_profiler": profiled_ms(fns[0]),
+                        "library_profiler": device[2], "forward_graph": graph_ms(library_forward),
+                        "forward_profiler": profiled_ms(library_forward)}
+                yard[where].update({key: per_step * v for key, v in read.items()})
                 bound = attention_bound_ms(b, n, c, tensors=8, products=5, dtype=dtype)
-                tallies[where].add(per_step, ms, plain, lib, bound)
+                tallies[where].add(per_step, ms, plain, lib, bound, device)
                 log(f"[k2] {name} {dtype}, {per_step} per step: {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, library {lib:.4f} ms, bound {max(bound):.4f} ms")
+                    f"{plain:.4f} ms, library {lib:.4f} ms; device time {device[0]:.4f} ms "
+                    f"({5 * 2 * b * n * n * c / device[0] / 1e9:.2f} TFLOP/s of the five "
+                    f"products), without the lse handed over {own:.4f} ms, plain "
+                    f"{device[1]:.4f} ms, library {device[2]:.4f} ms; bound "
+                    f"{max(bound):.4f} ms; torch.profiler: K2 {read['k2_profiler']:.4f} ms, "
+                    f"the library's forward {read['forward_profiler']:.4f} ms "
+                    f"(graph {read['forward_graph']:.4f})")
     log(f"[k2] max abs err vs plain: f32 {errs[torch.float32]:.3g}, bf16 "
-        f"{errs[torch.bfloat16]:.3g}; f32 vs autograd of the plain forward {auto_err:.3g}")
+        f"{errs[torch.bfloat16]:.3g}; f32 vs autograd of the plain forward {auto_err:.3g}; "
+        f"bf16 relative error of dq, dk and dv per (example, head) {rel_err:.3g} (gate "
+        f"{K2_BF16_REL})")
+    log(f"[k2] planted fault, the lse handed over 0.05 too high, in {faults} bf16 cases: "
+        f"relative error at least {fault_rel:.3g}, failing K2_BF16_REL in all; "
+        f"{fault_passes_tol} of them pass K2_BF16_TOL alone")
     for where, tally in tallies.items():
         _, dtype, basis = PATHS[where]
-        log(f"[k2] {dtype} calls of the backward of {basis}: {tally}")
-
+        y = yard[where]
+        log(f"[k2] {dtype} calls of the backward of {basis}: {tally}; device time without the "
+            f"lse handed over (K2 with its own K1 launch) {no_lse[where]:.4f} ms")
+        log(f"[k2-yardstick] {basis}: K2 {y['k2_graph']:.4f} ms by CUDA graph, "
+            f"{y['k2_profiler']:.4f} by torch.profiler (graph / profiler "
+            f"{y['k2_graph'] / y['k2_profiler']:.3f}); the library's forward "
+            f"{y['forward_graph']:.4f} and {y['forward_profiler']:.4f} "
+            f"({y['forward_graph'] / y['forward_profiler']:.3f}); K2 over the library's "
+            f"backward, both by torch.profiler, {y['k2_profiler'] / y['library_profiler']:.2f}x"
+            f" (K2 by graph: {y['k2_graph'] / y['library_profiler']:.2f}x)")
     # K3's backward: autograd through a recompute of the plain version
     gn_ms = fwd_ms = 0.0
     for (kind, *rest), per_step in sorted(calls.items(), key=str):
@@ -972,7 +1168,7 @@ def phase_kernels_bwd(dev, paths):
     log(f"[k3-bwd] GroupNorm backward (plain recompute + autograd), bf16, summed over one "
         f"openai_64 backward at batch {TRAIN_BATCH}: {gn_ms:.4f} ms; K3 forward over the same "
         f"calls {fwd_ms:.4f} ms")
-    return errs, tallies
+    return errs, tallies, dict(yard["train"])
 
 
 def phase_grads(dev, off, preset="openai_64", batch=4):
@@ -1405,15 +1601,18 @@ def phase_resblock(dev, halves):
                 if dtype != torch.bfloat16 or not per_forward:
                     continue
                 lib_args = tuple(t.to(dtype) for t in args)
-                ms = time_ms(lambda: k4.gn_silu_conv3x3(*args), iters=5, rounds=3)
-                plain = time_ms(lambda: k4.gn_silu_conv3x3_plain(*args), iters=5, rounds=3)
-                lib = time_ms(lambda: library_gn_silu_conv(*lib_args), iters=5, rounds=3)
+                fns = (lambda: k4.gn_silu_conv3x3(*args),
+                       lambda: k4.gn_silu_conv3x3_plain(*args),
+                       lambda: library_gn_silu_conv(*lib_args))
+                ms, plain, lib = (time_ms(fn, iters=5, rounds=3) for fn in fns)
+                device = tuple(graph_ms(fn, iters=5) for fn in fns)
                 bound = resblock_bound_ms(b, h, h, c, f, dtype)
-                tally.add(per_forward, ms, plain, lib, bound)
-                tflops = 2 * 9 * c * f * b * h * h / ms / 1e9
-                log(f"[k4] {name} {dtype}, {per_forward} per forward: {ms:.4f} ms "
-                    f"({tflops:.2f} TFLOP/s), plain {plain:.4f} ms, library {lib:.4f} ms, "
-                    f"bound {max(bound):.4f} ms")
+                tally.add(per_forward, ms, plain, lib, bound, device)
+                tflops = 2 * 9 * c * f * b * h * h / device[0] / 1e9
+                log(f"[k4] {name} {dtype}, {per_forward} per forward: {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, library {lib:.4f} ms; device time {device[0]:.4f} ms "
+                    f"({tflops:.2f} TFLOP/s), plain {device[1]:.4f} ms, library "
+                    f"{device[2]:.4f} ms; bound {max(bound):.4f} ms")
     # tests/test_pallas_resblock.py:23, and ragged maps, channel and filter counts
     for shape, f, groups in (((2, 8, 8, 32), 64, 8), ((1, 16, 16, 64), 32, 32),
                              ((3, 4, 4, 96), 96, 32), ((2, 7, 7, 96), 40, 32),
@@ -1749,7 +1948,7 @@ def main():
     phase_done("models made, their kernel calls found")
     errs, tallies = phase_kernels(dev, paths)
     phase_done("[kernels]")
-    k2_errs, k2_tallies = phase_kernels_bwd(dev, paths)
+    k2_errs, k2_tallies, k2_yard = phase_kernels_bwd(dev, paths)
     phase_done("[k2]")
     k4_errs, k4_tally = phase_resblock(dev, halves)
     k4_launches = phase_resblock_direct(dev, reference)
@@ -1784,22 +1983,21 @@ def main():
         phase_done("[train]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
-              routes=None):
+              routes=None, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                **({"routes_by_dtype": routes} if routes else {}),
+                **({"routes_by_dtype": routes} if routes else {}), **extra,
                 "launches": sum(path.get(counter, 0) for path in by_path.values()),
                 "launches_by_path": {k: path.get(counter, 0) for k, path in by_path.items()},
                 "max_abs_err": err, "max_abs_err_bf16": err_bf16,
-                "ms": tally.ms, "plain_ms": tally.plain_ms, "bound_ms": tally.bound_ms,
-                "bound_by": tally.bound_by, "library_ms": tally.library_ms, "ms_basis": basis,
+                # ms, plain_ms, library_ms host-timed; device_* from CUDA-graph
+                # replays (the library's backward: torch.profiler)
+                **tally.fields(), "ms_basis": basis,
                 # the same sums over the other paths' calls, in their compute types
-                "other_paths": {f"{where}, batch {PATHS[where][0]}, {PATHS[where][1]}": {
-                    "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
-                    "bound_by": t.bound_by, "library_ms": t.library_ms}
-                    for where, t in others.items()}}
+                "other_paths": {f"{where}, batch {PATHS[where][0]}, {PATHS[where][1]}":
+                                t.fields() for where, t in others.items()}}
 
     forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
-    # K1 and K5 are one kernel per input type
+    # K1, K2 and K5: one kernel per input type
     attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging",
                         "float32": "FMA: CUDA cores"}
     kernels = [
@@ -1812,8 +2010,11 @@ def main():
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
-              f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}",
-              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128")}),
+              f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}, "
+              f"K1's row log-sum-exp handed over",
+              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128")}, attention_routes,
+              # the same step's sums read by CUDA graph and by torch.profiler
+              device_yardsticks=k2_yard),
         entry("group_norm_fused", "triton", "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
@@ -1837,6 +2038,23 @@ def main():
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on the main paths")
+    # rule 2: the kernel slowest against its library call first, in device
+    # time read by one method on both sides: CUDA graphs, or for K2, whose
+    # library backward a graph cannot hold, torch.profiler
+    def factor(k):
+        y = k.get("device_yardsticks")
+        return (y["k2_profiler"] / y["library_profiler"] if y
+                else k["device_ms"] / k["device_library_ms"])
+
+    for k in sorted(kernels, key=lambda k: -factor(k)):
+        y = k.get("device_yardsticks")
+        how = (f"both by torch.profiler: {y['k2_profiler']:.4f} against "
+               f"{y['library_profiler']:.4f} ms; K2 by CUDA graph {k['device_ms']:.4f} ms, "
+               f"{k['device_ms'] / k['device_library_ms']:.2f}x" if y else
+               f"both by CUDA graph: {k['device_ms']:.4f} against "
+               f"{k['device_library_ms']:.4f} ms")
+        log(f"[rank] {k['name']}: {factor(k):.2f}x its library call in device time, {how} "
+            f"({k['ms_basis']}); host-timed {k['ms']:.4f} against {k['library_ms']:.4f} ms")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

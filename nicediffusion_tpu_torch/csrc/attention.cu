@@ -58,6 +58,13 @@
 // K5 on views of a projection is bit-equal to K1 on it: one kernel, one
 // tile order, one shared-memory image whichever loader staged it.
 //
+// The row log-sum-exp. K1 called for a gradient (the autograd Function)
+// also writes, for each query row, lse = ln sum_j exp(scale q k_j) (natural
+// log, of the scaled logits) as an f32 (B, H, N) tensor, from the running
+// max and sum it already holds: K2 then recomputes p = exp(scale q k - lse)
+// without a pass of its own over the keys. Both kernels write it; inference
+// calls and K5 pass a null pointer and write none.
+//
 // Budget per head dim D (bf16). D = 32 is staged 64 columns wide (zeros past
 // 32). Shared memory: Q (128 rows) + 2 stages of K and V (64 rows each) =
 // 6 x 64 x max(D, 64) x 2 bytes + 1 KB of alignment: 50,176 bytes at
@@ -108,6 +115,7 @@ struct AttnArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;    // K1 only, may be null: the row log-sum-exp, f32 (batch, heads, n)
   View qs, ks, vs, os;
   int n;         // tokens
   int d;         // head dim in device memory, <= HC
@@ -231,6 +239,9 @@ attention_fwd_kernel(const AttnArgs a) {
   for (int i = 0; i < kTR; ++i) {
     const int row = q0 + ty * kTR + i;
     if (row >= n) continue;
+    // m is the row max of the scaled logits: lse = m + ln(l)
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((size_t)b * gridDim.y + head) * n + row] = m[i] + logf(l[i]);
     const float inv = 1.f / l[i];
     T* dst = ob + row * o_n;
 #pragma unroll
@@ -271,43 +282,6 @@ struct WgmmaTile {
   static constexpr size_t kSmem = kQBytes + 4 * kKVBytes + 1024;
 };
 
-// Stages rows [row0, row0 + ROWS) of a bf16 view (n rows of dv elements,
-// row stride ld) into a swizzled ROWS x DP tile at shared address dst: rows
-// past n and columns past dv as zeros. vec: 16-byte cp.async (the caller
-// commits the group); otherwise 2-byte loads and 16-byte shared stores.
-template <int ROWS, int DP>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src, long long ld,
-                                           int row0, int n, int dv, bool vec, int tid) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks of a row
-  // a loop left rolled, so that no address of a later pass is held in a
-  // register across the multiplies
-#pragma unroll 1
-  for (int id = tid; id < ROWS * kChunks; id += kBlockThreads) {
-    const int r = id / kChunks, chunk = id % kChunks;
-    const int row = row0 + r, col = chunk * 8;
-    const uint32_t at = dst + sm90::sw128_offset(r, chunk, ROWS);
-    const int valid = row < n ? min(max(dv - col, 0), 8) : 0;  // elements from memory
-    const __nv_bfloat16* p = src + (long long)row * ld + col;
-    if (vec) {
-      sm90::cp_async_16(at, valid > 0 ? p : src, 2 * valid);
-    } else {
-      const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (j < valid) w[j / 2] |= (uint32_t)e[j] << (16 * (j % 2));
-      sm90::st_shared_16(at, w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// 2^x on the multifunction unit; a result under 2^-126 flushes to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int HC>
 __global__ void __launch_bounds__(kBlockThreads)
 attention_fwd_wgmma_kernel(const AttnArgs a) {
@@ -334,9 +308,9 @@ attention_fwd_wgmma_kernel(const AttnArgs a) {
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + head * a.vs.h;
   bf16* ob = static_cast<bf16*>(a.o) + b * a.os.b + head * a.os.h;
 
-  stage_tile<kBlockRows, kDP>(q_s, qb, a.qs.n, q0, n, dv, vec, tid);
-  stage_tile<kWgBN, kDP>(kv_s, kb, a.ks.n, 0, n, dv, vec, tid);
-  stage_tile<kWgBN, kDP>(kv_s + kKV, vb, a.vs.n, 0, n, dv, vec, tid);
+  sm90::stage_tile<kBlockRows, kDP, kBlockThreads>(q_s, qb, a.qs.n, q0, n, dv, vec, tid);
+  sm90::stage_tile<kWgBN, kDP, kBlockThreads>(kv_s, kb, a.ks.n, 0, n, dv, vec, tid);
+  sm90::stage_tile<kWgBN, kDP, kBlockThreads>(kv_s + kKV, vb, a.vs.n, 0, n, dv, vec, tid);
   sm90::cp_async_commit();
 
   float o[kCB][32];
@@ -379,8 +353,9 @@ attention_fwd_wgmma_kernel(const AttnArgs a) {
     // tile t + 1 loads into the other stage, issued while S multiplies
     if (t + 1 < tiles) {
       const uint32_t next = kv_s + 2 * ((t + 1) & 1) * kKV;
-      stage_tile<kWgBN, kDP>(next, kb, a.ks.n, (t + 1) * kWgBN, n, dv, vec, tid);
-      stage_tile<kWgBN, kDP>(next + kKV, vb, a.vs.n, (t + 1) * kWgBN, n, dv, vec, tid);
+      const int row0 = (t + 1) * kWgBN;
+      sm90::stage_tile<kWgBN, kDP, kBlockThreads>(next, kb, a.ks.n, row0, n, dv, vec, tid);
+      sm90::stage_tile<kWgBN, kDP, kBlockThreads>(next + kKV, vb, a.vs.n, row0, n, dv, vec, tid);
       sm90::cp_async_commit();
     }
     sm90::wgmma_wait<0>();
@@ -403,7 +378,7 @@ attention_fwd_wgmma_kernel(const AttnArgs a) {
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = ex2((m[i] - mx[i]) * scale_log2);
+      corr[i] = sm90::ex2((m[i] - mx[i]) * scale_log2);
       m[i] = mx[i];
       ms[i] = mx[i] * scale_log2;
     }
@@ -411,7 +386,7 @@ attention_fwd_wgmma_kernel(const AttnArgs a) {
     for (int j = 0; j < kWgBN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = ex2(fmaf(s[4 * j + e], scale_log2, -ms[e / 2]));
+        const float p = sm90::ex2(fmaf(s[4 * j + e], scale_log2, -ms[e / 2]));
         rs[e / 2] += p;
         s[4 * j + e] = p;
       }
@@ -459,6 +434,9 @@ attention_fwd_wgmma_kernel(const AttnArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int row = g + 8 * half;
     if (row >= n) continue;
+    // m is the row max of the unscaled logits: lse = m scale + ln(l)
+    if (a.lse != nullptr && lane % 4 == 0)
+      a.lse[((size_t)b * gridDim.y + head) * n + row] = m[half] * a.scale + logf(l[half]);
     bf16* dst = ob + (long long)row * a.os.n;
 #pragma unroll
     for (int c = 0; c < kCB; ++c)
@@ -544,10 +522,13 @@ int dispatch(AttnArgs a, int batch, int heads, int dtype, void* stream) {
 extern "C" {
 
 // K1. qkv is (batch, n, 3c) and out is (batch, n, c), both contiguous on the
-// current device. Returns the CUDA error code of the launch (0 on success).
-int nd_fused_qkv_attention(const void* qkv, void* out, int batch, int n, int c,
-                           int num_heads, int split_first, int dtype, float scale,
-                           void* stream) {
+// current device. lse, when not null, is an f32 (batch, num_heads, n) that
+// receives each row's log-sum-exp of the scaled logits, ln sum_j exp(scale
+// q k_j), which K2 takes. Returns the CUDA error code of the launch (0 on
+// success).
+int nd_fused_qkv_attention_lse(const void* qkv, void* out, float* lse, int batch, int n, int c,
+                               int num_heads, int split_first, int dtype, float scale,
+                               void* stream) {
   if (num_heads <= 0 || c % num_heads != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long hc = c / num_heads, c3 = 3LL * c;
@@ -561,6 +542,7 @@ int nd_fused_qkv_attention(const void* qkv, void* out, int batch, int n, int c,
   a.k = base + part * elem;
   a.v = base + 2 * part * elem;
   a.o = out;
+  a.lse = lse;
   a.qs = a.ks = a.vs = in;
   a.os = {(long long)n * c, hc, c};
   a.n = n;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written in PTX: shared-memory matrix
 // descriptors for the 128-byte swizzle, warpgroup matrix multiplies
 // (wgmma.mma_async, bf16 in, f32 accumulate) and 16-byte cp.async with
-// zero fill. attention.cu's bf16 kernel is built from them.
+// zero fill, a tile stager and ex2. The bf16 attention kernels (attention.cu,
+// attention_bwd.cu) are built from them.
 //
 // Layout. A tile of R rows and a multiple of 64 bf16 columns is stored as
 // 64-column blocks one after another, each R x 128 bytes, row r at r * 128
@@ -95,11 +96,54 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Stages rows [row0, row0 + ROWS) of a bf16 view (n rows of dv elements,
+// row stride ld) into a swizzled ROWS x DP tile at shared address dst, with
+// THREADS threads: rows past n and columns past dv as zeros. vec: 16-byte
+// cp.async (the caller commits the group); otherwise 2-byte loads and
+// 16-byte shared stores.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src, long long ld,
+                                           int row0, int n, int dv, bool vec, int tid) {
+  constexpr int kChunks = DP / 8;  // 16-byte chunks of a row
+  // a loop left rolled, so that no address of a later pass is held in a
+  // register across the multiplies
+#pragma unroll 1
+  for (int id = tid; id < ROWS * kChunks; id += THREADS) {
+    const int r = id / kChunks, chunk = id % kChunks;
+    const int row = row0 + r, col = chunk * 8;
+    const uint32_t at = dst + sw128_offset(r, chunk, ROWS);
+    const int valid = row < n ? min(max(dv - col, 0), 8) : 0;  // elements from memory
+    const __nv_bfloat16* p = src + (long long)row * ld + col;
+    if (vec) {
+      cp_async_16(at, valid > 0 ? p : src, 2 * valid);
+    } else {
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < valid) w[j / 2] |= (uint32_t)e[j] << (16 * (j % 2));
+      st_shared_16(at, w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// 2^x on the multifunction unit; a result under 2^-126 flushes to zero,
+// 2^-inf is 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // two floats rounded to bf16 in one 32-bit register, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// the two bf16 halves of a packed register as floats (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
 
 // The warpgroup multiplies. A warpgroup is 128 threads; warp w of it owns
 // rows 16w to 16w + 15 of the 64-row tile, and lane l of that warp rows

@@ -5,7 +5,9 @@ a shared library with a plain C interface, loaded with ctypes. The library
 lands in ``nicediffusion_tpu_torch/_build/`` (listed in .gitignore) under a
 name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and
 the flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is. :func:`build_all` starts one nvcc per source at once. Only the package's own
+it is. nvcc's stderr (ptxas's register and spill report) is kept beside the
+library as ``lib<name>-<hash>.log`` and read back with it.
+:func:`build_all` starts one nvcc per source at once. Only the package's own
 sources and the installed toolkit's headers are used. A failed build raises
 with nvcc's stderr; nothing falls back.
 """
@@ -34,8 +36,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# name -> (ctypes library, nvcc stderr of the build or "" if it was cached,
-# seconds the build took); filled once per process by load_library
+# name -> (ctypes library, nvcc stderr of its build, seconds this process
+# spent building it: 0 if it was cached); filled once per process by load_library
 _LIBS: dict[str, tuple[ctypes.CDLL, str, float]] = {}
 
 
@@ -56,14 +58,16 @@ def _nvcc() -> str:
 
 def build(name: str) -> tuple[Path, str, float]:
     """Compile ``csrc/<name>.cu`` unless a build of the same source and flags
-    exists. Returns (library path, nvcc stderr, seconds spent building)."""
+    exists. Returns (library path, nvcc stderr of its build, seconds spent
+    building now: 0 for a cached build)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, "", 0.0
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return lib, log.read_text(), 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -80,6 +84,8 @@ def build(name: str) -> tuple[Path, str, float]:
             raise BuildError(
                 f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stderr}"
             )
+        # the log first: a library on disk always has its log beside it
+        log.write_text(proc.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -108,5 +114,5 @@ def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock"
 
 def build_logs() -> dict[str, tuple[str, float]]:
     """nvcc stderr (register and shared-memory use from ``-Xptxas -v``) and
-    build seconds of every library this process loaded."""
+    build seconds (0 if cached) of every library this process loaded."""
     return {name: (log, seconds) for name, (_, log, seconds) in _LIBS.items()}

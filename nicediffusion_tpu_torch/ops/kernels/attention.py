@@ -10,21 +10,23 @@ notes say what bounds each kernel on the card and what the designs do about
 the TPU kernels' whole-(N, N)-in-VMEM, one-program-per-batch-element form,
 which does not fit a Hopper block's shared memory.
 
-Routes by dtype (a dispatch, not a fallback). bf16 K1 and K5 run on the
-tensor cores: a flash-style kernel in which one warpgroup owns a 64-query
-tile, S = q k^T and O += p v are ``wgmma`` products (p from registers, f32
-sums), K and V stream through a two-stage ``cp.async`` ring in the 128-byte
-swizzle, and two warpgroups share a block's ring. f32 K1 and K5 stay on the
-CUDA cores in f32 FMA: their 2e-5 gate leaves no room for TF32. Both round
-where the JAX kernels do (f32 logits and softmax, p cast to the input type
-before the product with v), except that the kernels cast the unnormalised p
-and divide by the row sum at the end. K2 runs on the CUDA cores in f32
-FMA for both types.
+Routes by dtype (a dispatch, not a fallback). bf16 K1, K2 and K5 run on
+the tensor cores: one warpgroup owns a 64-row tile, every product is a
+``wgmma`` (p and ds as register operands, f32 sums), the streamed tiles go
+through a two-stage ``cp.async`` ring in the 128-byte swizzle. f32 K1, K2 and
+K5 stay on the CUDA cores in f32 FMA: their 2e-5 gate leaves no room for
+TF32. All round where the JAX kernels do (f32 logits and softmax, p cast to
+the input type before the product with v or g, ds before its products),
+except that K1 casts the unnormalised p and divides by the row sum at the
+end.
 
-Head dims. K1 and K2 take 32, 64, 128, 192 and 256 (at 192 and 256 a K2
-block owns a 32-row tile, which fits a block's shared memory). K5 takes any
-D up to 256: the kernel built for the next head dim up zero-fills the
-columns past D in shared memory.
+The row log-sum-exp. Called for a gradient, K1 also writes the f32
+(B, H, N) log-sum-exp of each row's scaled logits, and K2 takes it: K2 then
+recomputes p = exp(logits - lse) without a pass of its own over the keys.
+
+Head dims. K1 and K2 take 32, 64, 128, 192 and 256. K5 takes any D up to
+256: the kernel built for the next head dim up zero-fills the columns past
+D in shared memory.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
 (:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
@@ -33,9 +35,9 @@ what the kernel does not take; nothing falls back. The libraries are built
 from the package's source by ``_build`` at the first launch.
 
 Under autograd :func:`fused_qkv_attention` is a ``torch.autograd.Function``
-whose forward is K1 and whose backward is K2, with qkv and the forward
-output saved, as the JAX package's custom VJP does. Without a gradient to
-take it calls K1 directly and saves nothing.
+whose forward is K1 and whose backward is K2, with qkv, the forward output
+and the row log-sum-exp saved (the JAX package's custom VJP saves the first
+two). Without a gradient to take it calls K1 directly and saves nothing.
 """
 
 from __future__ import annotations
@@ -77,19 +79,25 @@ def split_qkv(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool):
     return qkv[0], qkv[1], qkv[2]
 
 
-def fused_qkv_attention_plain(
-    qkv: torch.Tensor, num_heads: int, split_qkv_first: bool
-) -> torch.Tensor:
-    """The plain torch version of K1: f32 logits and softmax, p cast to v's
-    dtype before the product with v. (B, N, 3C) -> (B, N, C)."""
+def _attend(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool):
+    """K1's plain arithmetic: (the (B, N, C) output, the f32 (B, H, N, N)
+    scaled logits it came from)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     hc = c // num_heads
     q, k, v = split_qkv(qkv, num_heads, split_qkv_first)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hc**-0.5
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(weights, v)
-    return out.transpose(1, 2).reshape(b, n, c).to(qkv.dtype)
+    out = torch.matmul(weights, v).transpose(1, 2).reshape(b, n, c).to(qkv.dtype)
+    return out, logits
+
+
+def fused_qkv_attention_plain(
+    qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
+) -> torch.Tensor:
+    """The plain torch version of K1: f32 logits and softmax, p cast to v's
+    dtype before the product with v. (B, N, 3C) -> (B, N, C)."""
+    return _attend(qkv, num_heads, split_qkv_first)[0]
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -100,13 +108,15 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def fused_qkv_attention_bwd_plain(
     qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
-    split_qkv_first: bool,
+    split_qkv_first: bool, lse: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain torch version of K2: the cotangent of
     :func:`fused_qkv_attention_plain` wrt qkv from the output cotangent ``g``
     and the forward output ``o``, with the formulas written out (no call to
     autograd) and the kernel's rounding points: p is rounded to qkv's dtype
     before ``p^T g``, ds before ``ds k`` and ``ds^T q``; every sum is f32.
+    With ``lse``, the forward's f32 (B, H, N) row log-sum-exp, p is
+    ``exp(logits - lse)`` as the kernel makes it; without, the softmax.
     (B, N, 3C), (B, N, C), (B, N, C) -> (B, N, 3C) in qkv's dtype."""
     b, n, c3 = qkv.shape
     hc = c3 // 3 // num_heads
@@ -115,7 +125,11 @@ def fused_qkv_attention_bwd_plain(
     gh = _heads(g, num_heads).float()
     oh = _heads(o, num_heads).float()
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    p = torch.softmax(logits, dim=-1).to(qkv.dtype).float()
+    if lse is None:
+        p = torch.softmax(logits, dim=-1)
+    else:
+        p = torch.exp(logits - lse.float()[..., None])
+    p = p.to(qkv.dtype).float()
     delta = (gh * oh).sum(dim=-1, keepdim=True)
     dv = torch.matmul(p.transpose(-1, -2), gh)
     dp = torch.matmul(gh, v.transpose(-1, -2))
@@ -140,10 +154,10 @@ _STRIDES = ctypes.c_longlong * 3
 
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("attention")
-    fn = lib.nd_fused_qkv_attention
+    fn = lib.nd_fused_qkv_attention_lse
     if fn.argtypes is None:
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
@@ -162,7 +176,7 @@ def _library() -> ctypes.CDLL:
 
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load_library("attention_bwd")
-    fn = lib.nd_fused_qkv_attention_bwd
+    fn = lib.nd_fused_qkv_attention_bwd_lse
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -202,25 +216,41 @@ def _check_out(kernel: str, out: torch.Tensor, shape, like: torch.Tensor) -> Non
         )
 
 
+def _check_lse(kernel: str, lse: torch.Tensor, shape, like: torch.Tensor) -> None:
+    if (lse.shape != shape or lse.dtype != torch.float32 or lse.device != like.device
+            or not lse.is_contiguous()):
+        raise ValueError(
+            f"{kernel} takes a contiguous float32 lse of shape {tuple(shape)} on "
+            f"{like.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
+        )
+
+
 def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
-             out: torch.Tensor | None = None) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+             out: torch.Tensor | None = None,
+             lse: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version on a CPU tensor; ``lse``, an
+    f32 (B, H, N), receives the row log-sum-exp."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if lse is not None:
+        _check_lse("K1", lse, (b, num_heads, n), qkv)
     if qkv.device.type == "cpu":
-        res = fused_qkv_attention_plain(qkv, num_heads, split_qkv_first)
+        res, logits = _attend(qkv, num_heads, split_qkv_first)
+        if lse is not None:
+            lse.copy_(torch.logsumexp(logits, dim=-1))
         return res if out is None else out.copy_(res)
     if qkv.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {qkv.device}")
     _check(qkv, num_heads)
-    b, n, c3 = qkv.shape
-    c = c3 // 3
     if out is None:
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     else:
         _check_out("K1", out, (b, n, c), qkv)
     with torch.cuda.device(qkv.device):
         lib = _library()
-        err = lib.nd_fused_qkv_attention(
-            qkv.data_ptr(), out.data_ptr(), b, n, c, num_heads,
+        err = lib.nd_fused_qkv_attention_lse(
+            qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, n, c, num_heads,
             int(split_qkv_first), _DTYPE_CODES[qkv.dtype],
             (c // num_heads) ** -0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream,
@@ -234,28 +264,40 @@ def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it on a 16-byte boundary (the bf16 kernel stages
+    its operands with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_qkv_attention_bwd(
     qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
-    split_qkv_first: bool, out: torch.Tensor | None = None,
+    split_qkv_first: bool, lse: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Cotangent of :func:`fused_qkv_attention` wrt qkv -> (B, N, 3C).
 
     ``g`` is the output cotangent and ``o`` the forward output, both
-    (B, N, C) in qkv's dtype. CPU tensors take the plain version; CUDA
-    tensors launch K2 (two kernels, one count) on the current stream.
-    ``fused_qkv_attention_bwd.launches`` counts the launches. ``out``, a
-    contiguous tensor like qkv, is written in place of a fresh
-    ``torch.empty`` (a check pre-fills it to see that every element is
-    written).
+    (B, N, C) in qkv's dtype; ``lse`` the forward's f32 (B, H, N) row
+    log-sum-exp (:func:`fused_qkv_attention`'s ``lse``). Without it the
+    wrapper makes it with one K1 launch (counted on K1) before K2. CPU
+    tensors take the plain version; CUDA tensors launch K2 (two kernels, one
+    count) on the current stream: bf16 on the tensor cores, f32 on the CUDA
+    cores. ``fused_qkv_attention_bwd.launches`` counts the launches.
+    ``out``, a contiguous tensor like qkv (on 16 bytes in bf16), is written in
+    place of a fresh ``torch.empty`` (a check pre-fills it to see that every
+    element is written).
     """
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if lse is not None:
+        _check_lse("K2", lse, (b, num_heads, n), qkv)
     if qkv.device.type == "cpu":
-        res = fused_qkv_attention_bwd_plain(qkv, g, o, num_heads, split_qkv_first)
+        res = fused_qkv_attention_bwd_plain(qkv, g, o, num_heads, split_qkv_first, lse)
         return res if out is None else out.copy_(res)
     if qkv.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors, got {qkv.device}")
     _check(qkv, num_heads, "K2")
-    b, n, c3 = qkv.shape
-    c = c3 // 3
     for name, t, shape in (("g", g, (b, n, c)), ("o", o, (b, n, c)), ("out", out, (b, n, c3))):
         if t is not None and (t.shape != shape or t.dtype != qkv.dtype
                               or t.device != qkv.device or not t.is_contiguous()):
@@ -263,14 +305,21 @@ def fused_qkv_attention_bwd(
                 f"K2 takes a contiguous {name} of shape {shape} and dtype "
                 f"{qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
+    if qkv.dtype == torch.bfloat16:
+        if out is not None and out.data_ptr() % 16:
+            raise ValueError("K2 takes a bf16 out that starts on 16 bytes")
+        qkv, g, o = _aligned(qkv), _aligned(g), _aligned(o)
+    if lse is None:
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+        _forward(qkv, num_heads, split_qkv_first, lse=lse)  # counted on K1
     dqkv = torch.empty_like(qkv) if out is None else out
-    # per-row log-sum-exp and delta, written by the dq kernel for the dk/dv kernel
-    stats = torch.empty((2, b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    # per-row delta = rowsum(g o), written by the dq kernel for the dk/dv kernel
+    delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         lib = _bwd_library()
-        err = lib.nd_fused_qkv_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), o.data_ptr(), dqkv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), b, n, c, num_heads,
+        err = lib.nd_fused_qkv_attention_bwd_lse(
+            qkv.data_ptr(), g.data_ptr(), o.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+            delta.data_ptr(), b, n, c, num_heads,
             int(split_qkv_first), _DTYPE_CODES[qkv.dtype],
             (c // num_heads) ** -0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream,
@@ -288,26 +337,34 @@ fused_qkv_attention_bwd.launches = 0
 
 
 class _FusedQKVAttention(torch.autograd.Function):
-    """Forward K1, backward K2 (their plain versions on CPU tensors)."""
+    """Forward K1, backward K2 (their plain versions on CPU tensors).
+
+    The residuals are qkv, the output and the f32 (B, H, N) row log-sum-exp
+    that K1 writes beside the output, which K2 takes instead of recomputing
+    it. The JAX package's custom VJP (nicediffusion_tpu/ops/attention.py)
+    keeps qkv and the output only; the gradient is the same.
+    """
 
     @staticmethod
     def forward(ctx, qkv, num_heads, split_qkv_first):
-        out = _forward(qkv, num_heads, split_qkv_first)
-        ctx.save_for_backward(qkv, out)
+        b, n, _ = qkv.shape
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+        out = _forward(qkv, num_heads, split_qkv_first, lse=lse)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.split_qkv_first = num_heads, split_qkv_first
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, out = ctx.saved_tensors
+        qkv, out, lse = ctx.saved_tensors
         g = g.to(qkv.dtype).contiguous()
-        dqkv = fused_qkv_attention_bwd(qkv, g, out, ctx.num_heads, ctx.split_qkv_first)
+        dqkv = fused_qkv_attention_bwd(qkv, g, out, ctx.num_heads, ctx.split_qkv_first, lse=lse)
         return dqkv, None, None
 
 
 def fused_qkv_attention(
     qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, lse: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T * hc^-0.5) v over a (B, N, 3C) projection -> (B, N, C).
 
@@ -317,13 +374,15 @@ def fused_qkv_attention(
     Function, whose backward is :func:`fused_qkv_attention_bwd`. ``out``, a
     contiguous (B, N, C) tensor like qkv, is written in place of a fresh
     ``torch.empty`` (a check pre-fills it to see that every element is
-    written); it cannot be combined with a gradient.
+    written). ``lse``, a contiguous f32 (B, H, N), receives each row's
+    log-sum-exp of the scaled logits, ``ln sum_j exp(q k_j * hc^-0.5)``, which
+    K2 takes. Neither can be combined with a gradient.
     """
     if torch.is_grad_enabled() and qkv.requires_grad:
-        if out is not None:
-            raise ValueError("K1 writes no caller's out under autograd")
+        if out is not None or lse is not None:
+            raise ValueError("K1 writes no caller's out or lse under autograd")
         return _FusedQKVAttention.apply(qkv, num_heads, split_qkv_first)
-    return _forward(qkv, num_heads, split_qkv_first, out)
+    return _forward(qkv, num_heads, split_qkv_first, out, lse)
 
 
 fused_qkv_attention.launches = 0

@@ -62,6 +62,81 @@ def test_bwd_plain_matches_pallas_and_einsum(rng_np, monkeypatch, split_first, n
     assert k1.fused_qkv_attention_bwd.launches == before
 
 
+def _jax_lse(qkv, heads, split_first):
+    """ln sum_j exp(scale q k_j) of every row, (B, H, N), in JAX."""
+    b, n, c3 = qkv.shape
+    hc = c3 // 3 // heads
+    x = jnp.asarray(qkv).reshape(b, n, 3, heads, hc) if split_first else \
+        jnp.asarray(qkv).reshape(b, n, heads, 3, hc).swapaxes(2, 3)
+    logits = jnp.einsum("bthc,bshc->bhts", x[:, :, 0], x[:, :, 1]) * hc**-0.5
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1))
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc", [(49, 32), (64, 32), (196, 32), (49, 64)])
+def test_bwd_plain_takes_lse_and_uses_it(rng_np, monkeypatch, split_first, n, hc):
+    """K1's wrapper on a CPU tensor (its plain version) writes the row
+    log-sum-exp of JAX's logits;
+    K2's plain version given it matches the Pallas backward (interpret mode)
+    and jax.grad of the einsum path, and it does use it: a shifted lse
+    scales p and moves the gradient."""
+    qkv, g, heads = _attention_case(rng_np, n, hc)
+    monkeypatch.setenv("NICEDIFFUSION_PALLAS_INTERPRET", "1")
+    _, vjp_p = jax.vjp(lambda q: _pallas_attention(q, heads, split_first), jnp.asarray(qkv))
+    ref_pallas, = vjp_p(jnp.asarray(g))
+    _, vjp_e = jax.vjp(lambda q: _einsum_attention(q, heads, split_first), jnp.asarray(qkv))
+    ref_einsum, = vjp_e(jnp.asarray(g))
+
+    lse = torch.empty(2, heads, n)
+    o = k1.fused_qkv_attention(_t(qkv), heads, split_first, lse=lse)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(qkv, heads, split_first), atol=ATOL)
+    got = k1.fused_qkv_attention_bwd(_t(qkv), _t(g), o, heads, split_first, lse=lse)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_pallas), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_einsum), atol=ATOL)
+    shifted = k1.fused_qkv_attention_bwd_plain(_t(qkv), _t(g), o, heads, split_first, lse + 1.0)
+    assert (shifted - got).abs().max() > 10 * ATOL
+
+
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc", [(49, 32), (64, 32), (196, 32), (49, 64)])
+def test_function_with_lse_matches_pallas_and_einsum(rng_np, monkeypatch, split_first, n, hc):
+    """The autograd Function saves qkv, the output and K1's row
+    log-sum-exp (one residual more than the JAX custom VJP) and hands the
+    lse to K2: its gradient == the Pallas backward (interpret mode) == the
+    einsum path's, at the tolerance of the plain-version test."""
+    qkv, g, heads = _attention_case(rng_np, n, hc)
+    monkeypatch.setenv("NICEDIFFUSION_PALLAS_INTERPRET", "1")
+    _, vjp_p = jax.vjp(lambda q: _pallas_attention(q, heads, split_first), jnp.asarray(qkv))
+    ref_pallas, = vjp_p(jnp.asarray(g))
+    _, vjp_e = jax.vjp(lambda q: _einsum_attention(q, heads, split_first), jnp.asarray(qkv))
+    ref_einsum, = vjp_e(jnp.asarray(g))
+
+    leaf = _t(qkv).requires_grad_(True)
+    out = k1.fused_qkv_attention(leaf, heads, split_first)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 3 and saved[2].shape == (2, heads, n)
+    np.testing.assert_allclose(saved[2].numpy(), _jax_lse(qkv, heads, split_first), atol=ATOL)
+    got, = torch.autograd.grad(out, leaf, _t(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_pallas), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_einsum), atol=ATOL)
+
+
+def test_k1_wrapper_writes_lse_and_refuses_a_wrong_one(rng_np):
+    """On a CPU tensor the K1 wrapper fills a caller's lse from the plain
+    version; a wrong shape or dtype, or an lse under autograd, raises."""
+    qkv, g, heads = _attention_case(rng_np, 49, 32)
+    lse = torch.full((2, heads, 49), float("nan"))
+    out = k1.fused_qkv_attention(_t(qkv), heads, True, lse=lse)
+    assert torch.equal(out, k1.fused_qkv_attention_plain(_t(qkv), heads, True))
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(qkv, heads, True), atol=ATOL)
+    with pytest.raises(ValueError, match="float32 lse"):
+        k1.fused_qkv_attention(_t(qkv), heads, True, lse=torch.zeros(2, heads, 48))
+    with pytest.raises(ValueError, match="float32 lse"):
+        k1.fused_qkv_attention_bwd(_t(qkv), _t(g), out, heads, True, lse=lse.double())
+    with pytest.raises(ValueError, match="under autograd"):
+        k1.fused_qkv_attention(_t(qkv).requires_grad_(True), heads, True, lse=lse)
+
+
 @pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("split_first", [True, False])
 def test_autograd_function_matches_jax_grad(rng_np, monkeypatch, split_first, kernels):

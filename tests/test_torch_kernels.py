@@ -1,6 +1,8 @@
 """K1, K2, K4, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
-bf16 K1 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores.
+bf16 K1, K2 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores.
+``-k k2`` runs K2's tests, ``-k "k1 or k5 or attention_function"`` the
+forward's.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -35,6 +37,19 @@ TOL = {
     (torch.float32, "k4"): dict(atol=2e-5, rtol=2e-5),
     (torch.bfloat16, "k4"): dict(atol=3e-2, rtol=1e-2),
 }
+# bf16 K2 beside its per-element gate, which is about the size of a typical
+# gradient element at N = 1024: the relative Frobenius error of each of dq, dk
+# and dv in each (example, head), as chip_smoke.py's K2_BF16_REL
+K2_BF16_REL = 1e-2
+
+
+def _k2_rel_err(out, ref, heads, split_first):
+    """The largest ||out - ref||_F / ||ref||_F over dq, dk and dv of every
+    (example, head) of two (B, N, 3C) gradients laid out as their qkv."""
+    rels = [torch.linalg.vector_norm(o - r, dim=(2, 3)) / torch.linalg.vector_norm(r, dim=(2, 3))
+            for o, r in zip(k1.split_qkv(out.float(), heads, split_first),
+                            k1.split_qkv(ref.float(), heads, split_first))]
+    return torch.stack(rels).max().item()
 
 
 @pytest.fixture()
@@ -208,6 +223,90 @@ def test_k2_matches_plain(cuda, dtype, split_first, n, hc, heads):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k2"])
 
 
+@pytest.mark.parametrize("with_lse", [True, False])
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n", [49, 64, 65, 100, 196, 256, 1024])
+@pytest.mark.parametrize("hc", k1.SUPPORTED_HEAD_DIMS)
+def test_k2_bf16_matches_plain(cuda, hc, n, split_first, with_lse):
+    """The bf16 K2 (wgmma on the tensor cores) at every head dim, ragged and
+    whole tiles, both layouts, with K1's row log-sum-exp handed over (as the
+    autograd Function does) and without it (the wrapper launches K1 for it):
+    every element written (the output is pre-filled with NaN), within K2's
+    bf16 gates of the plain version: per element and relative to each of dq,
+    dk and dv per (example, head)."""
+    heads = 2
+    g = torch.Generator(device=cuda).manual_seed(hc + n)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).bfloat16()
+    lse = torch.empty(2, heads, n, device=cuda) if with_lse else None
+    o = k1.fused_qkv_attention(qkv, heads, split_first, lse=lse)
+    out = torch.full_like(qkv, float("nan"))
+    fwd, bwd = k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches
+    k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first, lse=lse, out=out)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention_bwd.launches == bwd + 1
+    assert k1.fused_qkv_attention.launches == fwd + (0 if with_lse else 1)
+    assert not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16, "k2"])
+    assert _k2_rel_err(out, ref, heads, split_first) <= K2_BF16_REL
+
+
+@pytest.mark.parametrize("n", [65, 256, 1024])
+@pytest.mark.parametrize("hc", [64, 128, 256])
+def test_k2_bf16_relative_gate_sees_a_shifted_lse(cuda, hc, n):
+    """A planted fault, K1's lse handed over 0.05 too high (every p 5% low),
+    fails the relative gate at every shape, while the sound call passes it."""
+    heads = 2
+    g = torch.Generator(device=cuda).manual_seed(hc * n + 1)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).bfloat16()
+    lse = torch.empty(2, heads, n, device=cuda)
+    o = k1.fused_qkv_attention(qkv, heads, True, lse=lse)
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, True)
+    sound = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, True, lse=lse)
+    bad = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, True, lse=lse + 0.05)
+    assert _k2_rel_err(sound, ref, heads, True) <= K2_BF16_REL < _k2_rel_err(bad, ref, heads, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hc,heads", [
+    (1024, 64, 6), (49, 32, 4), (65, 128, 2), (256, 192, 4), (100, 256, 2),
+])
+def test_k1_lse_is_the_logsumexp_of_the_logits(cuda, dtype, n, hc, heads):
+    """K1's row log-sum-exp equals torch.logsumexp of the f32 logits of the
+    same inputs; rows past N are not written. f32: K1's gate. bf16: the
+    tensor cores sum the logits in another order and the exponentials are
+    ex2.approx (relative error about 2^-22), on values of a few units."""
+    g = torch.Generator(device=cuda).manual_seed(n + hc)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
+    lse = torch.full((2, heads, n), float("nan"), device=cuda)
+    out = k1.fused_qkv_attention(qkv, heads, True, lse=lse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k1.fused_qkv_attention(qkv, heads, True))
+    q, k, _ = k1.split_qkv(qkv, heads, True)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hc**-0.5
+    tol = dict(atol=2e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), **tol)
+
+
+def test_k2_bf16_takes_inputs_off_16_bytes(cuda):
+    """bf16 qkv, g and o that start 2 bytes past a 16-byte boundary are
+    copied to one by the wrapper and give the same result."""
+    heads, n, hc = 2, 65, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    store = torch.randn(2 * n * 3 * heads * hc + 1, generator=g, device=cuda).bfloat16()
+    qkv = store[1:].view(2, n, 3 * heads * hc)
+    cot = (torch.rand(2 * n * heads * hc + 1, generator=g, device=cuda) - 0.5).bfloat16()
+    cot = cot[1:].view(2, n, heads * hc)
+    assert qkv.data_ptr() % 16 and cot.data_ptr() % 16
+    o = k1.fused_qkv_attention(qkv.clone(), heads, False)
+    got = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, False)
+    ref = k1.fused_qkv_attention_bwd(qkv.clone(), cot.clone(), o, heads, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
 def test_k2_refuses_what_it_does_not_take(cuda):
     def call(qkv, g=None, o=None, heads=2, **kw):
         b, n, c3 = qkv.shape
@@ -225,6 +324,8 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         call(qkv, o=torch.zeros(1, 64, 128, device=cuda).bfloat16())
     with pytest.raises(ValueError, match="contiguous out"):
         call(qkv, out=torch.zeros(1, 64, 128, device=cuda))
+    with pytest.raises(ValueError, match="float32 lse"):
+        call(qkv, lse=torch.zeros(1, 2, 64, device=cuda).bfloat16())
 
 
 @pytest.mark.parametrize("split_first", [True, False])
