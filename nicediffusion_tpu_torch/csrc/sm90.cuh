@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written in PTX: shared-memory matrix
 // descriptors for the 128-byte swizzle, warpgroup matrix multiplies
 // (wgmma.mma_async, bf16 in, f32 accumulate) and 16-byte cp.async with
-// zero fill, a tile stager and ex2. The bf16 attention kernels (attention.cu,
-// attention_bwd.cu) are built from them.
+// zero fill, ldmatrix, a tile stager and ex2. The bf16 attention kernels
+// (attention.cu, attention_bwd.cu) and the bf16 residual-block kernel
+// (resblock.cu) are built from them.
 //
 // Layout. A tile of R rows and a multiple of 64 bf16 columns is stored as
 // 64-column blocks one after another, each R x 128 bytes, row r at r * 128
@@ -83,10 +84,35 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// waits until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void st_shared_16(uint32_t dst, uint32_t w0, uint32_t w1, uint32_t w2,
                                              uint32_t w3) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(w0), "r"(w1),
                "r"(w2), "r"(w3)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_16(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
+}
+
+// four 8 x 8 matrices of 16-bit elements from shared memory: lanes 8j to
+// 8j + 7 give the 16-byte row addresses of matrix j, and r[j] of lane l holds
+// its row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (the lower in the low half)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t src) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(src)
                : "memory");
 }
 

@@ -3,10 +3,14 @@
 Replaces the TPU kernel nicediffusion_tpu/ops/pallas/resblock.py ::
 gn_silu_conv3x3 (``csrc/resblock.cu``; its note says what bounds the kernel
 on the card and what the design does about the TPU kernel's one-example-in-
-VMEM form). It is either half of a ResidualBlock, ``in_norm -> in_conv`` or
-``out_norm (AdaGN) -> out_conv``, as one function: the normalised,
-activated map never goes to device memory. Like the JAX package's, it is
-not wired into the model; callers reach it directly.
+VMEM form). A bf16 tensor takes the tensor-core kernel
+(``gn_silu_conv3x3_wgmma_kernel``: wgmma products, the weights in a
+cp.async ring), an f32 tensor the FMA kernel (f32 products, for the 2e-5
+gate); both after the same statistics launch. It is either half of a
+ResidualBlock, ``in_norm -> in_conv`` or ``out_norm (AdaGN) -> out_conv``,
+as one function: the normalised, activated map never goes to device memory.
+Like the JAX package's, it is not wired into the model; callers reach it
+directly.
 
 Semantics (the TPU kernel's): f32 group statistics with the biased variance
 E[x^2] - E[x]^2, f32 affine, optional ``(1 + es) * y + eb`` from (B, C) rows,
@@ -101,7 +105,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.nd_gn_silu_conv3x3
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, p, p, p, p, p,
+        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, p, p, p, p, p, p,
                        i, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
@@ -160,8 +164,12 @@ def _forward(x, gamma, beta, weight, bias, es, eb, num_groups, eps, out=None):
         packed = pack_conv3x3_weight(weight, x.dtype)
         # no-ops for the model's f32 parameters
         gamma, beta, bias = (t.detach().float().contiguous() for t in (gamma, beta, bias))
-    # per-(example, group) mean and 1/std, written by the first launch for the second
+    # per-(example, group) mean and 1/std, written by the first launch for the
+    # second; for bf16 also each (example, channel)'s n = x * A + B as (A, B),
+    # the channels padded to a whole step of 64
     stats = torch.empty((2, b, num_groups), dtype=torch.float32, device=x.device)
+    ab = (torch.empty((b, -(-c // 64) * 64, 2), dtype=torch.float32, device=x.device)
+          if x.dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         lib = _library()
         err = lib.nd_gn_silu_conv3x3(
@@ -169,7 +177,7 @@ def _forward(x, gamma, beta, weight, bias, es, eb, num_groups, eps, out=None):
             es.data_ptr() if ada else None, eb.data_ptr() if ada else None,
             es.stride(0) if ada else 0, int(ada and es.dtype == torch.float32),
             packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), None if ab is None else ab.data_ptr(),
             b, h, w, c, f, num_groups, float(eps), int(ada), _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -218,7 +226,8 @@ def gn_silu_conv3x3(
     (F, C, 3, 3); bias: (F,); es/eb: optional (B, C) AdaGN rows
     (``SiLU((1 + es) * GN(x) + eb)`` before the conv). Returns (B, H, W, F)
     in x's dtype, every sum in f32. CPU tensors take the plain version; CUDA
-    tensors launch K4 (two kernels, one count) on the current stream.
+    tensors launch K4 (two kernels, one count) on the current stream: bf16
+    on the tensor cores, f32 on the CUDA cores.
     ``gn_silu_conv3x3.launches`` counts the launches. When a gradient is
     wanted the call goes through an autograd Function whose backward
     recomputes the plain version. ``out``, a contiguous (B, H, W, F) tensor

@@ -67,3 +67,32 @@ def test_rebuilds_when_the_key_or_log_changes(fake_tree, edit):
     again, log, _ = _build.build("k")
     assert "Used 42 registers" in log and _calls(fake_tree) == 2
     assert (again == lib) == (edit == "log_missing")
+
+
+# ptxas -v lines as nvcc writes them for one template instance of a kernel
+def _ptxas(kernel, spill_bytes):
+    mangled = f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelILi3EEEvN12_GLOBAL__N_18ConvArgsE"
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
+            f"{spill_bytes} bytes spill loads\n"
+            "ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]\n")
+
+
+def test_build_report_passes_a_clean_tensor_core_k4():
+    from chip_smoke import build_report
+
+    lines = build_report("resblock", _ptxas("group_stats", 0) + _ptxas("gn_silu_conv3x3_wgmma", 0))
+    assert any(line.startswith("gn_silu_conv3x3_wgmma bf16 filters=192: Used 168 registers")
+               for line in lines)
+
+
+@pytest.mark.parametrize("log,match", [
+    (_ptxas("gn_silu_conv3x3_wgmma", 16), "spills"),  # sums in local memory
+    (_ptxas("gn_silu_conv3x3", 0) + _ptxas("group_stats", 0), "names no wgmma"),
+], ids=["spilling", "no_wgmma_entry"])
+def test_build_report_refuses_a_k4_build(log, match):
+    from chip_smoke import build_report
+
+    with pytest.raises(AssertionError, match=match):
+        build_report("resblock", log)

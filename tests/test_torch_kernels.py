@@ -1,8 +1,8 @@
 """K1, K2, K4, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
 
-bf16 K1, K2 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores.
-``-k k2`` runs K2's tests, ``-k "k1 or k5 or attention_function"`` the
-forward's.
+bf16 K1, K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA
+cores. ``-k k2`` runs K2's tests, ``-k "k1 or k5 or attention_function"``
+the forward's, ``-k k4`` K4's.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -13,9 +13,12 @@ This file imports no JAX, so it runs where only torch is installed;
 ``--noconftest`` skips tests/conftest.py, which imports jax.
 """
 
+import functools
+
 import pytest
 import torch
 
+from nicediffusion_tpu_torch import DiffusionModel
 from nicediffusion_tpu_torch.ops.kernels import attention as k1
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 from nicediffusion_tpu_torch.ops.kernels import resblock as k4
@@ -41,6 +44,11 @@ TOL = {
 # gradient element at N = 1024: the relative Frobenius error of each of dq, dk
 # and dv in each (example, head), as chip_smoke.py's K2_BF16_REL
 K2_BF16_REL = 1e-2
+# bf16 K4 beside its per-element gate, whose fixed atol of 3e-2 can hide an
+# error in proportion to the output where the outputs are small: the
+# relative Frobenius error of each example's output, as chip_smoke.py's
+# K4_BF16_REL
+K4_BF16_REL = 1e-2
 
 
 def _k2_rel_err(out, ref, heads, split_first):
@@ -434,13 +442,17 @@ def _k4_inputs(dev, dtype, shape, f, ada, seed=0):
     # tests/test_pallas_resblock.py:23, then ragged maps, channels and filters
     ((2, 8, 8, 32), 64, 8), ((1, 16, 16, 64), 32, 32), ((3, 4, 4, 96), 96, 32),
     ((2, 7, 7, 96), 40, 32), ((2, 28, 14, 64), 3, 32), ((1, 9, 17, 40), 130, 8),
+    # C not a multiple of 8 (2-byte halo loads), F odd (2-byte weight loads, single stores)
+    ((1, 5, 11, 12), 7, 4),
     # openai_64: a level's first block, a decoder block, the widest input
     ((2, 32, 32, 192), 384, 32), ((2, 64, 64, 384), 192, 32), ((2, 8, 8, 1536), 768, 32),
 ])
 def test_k4_matches_plain(cuda, dtype, ada, shape, f, groups):
     """Every element written (the output is pre-filled with NaN) and equal
     to the plain version, whose padding is zero after the activation; one
-    count per launch; AdaGN rows as strided halves of one (B, 2C) tensor."""
+    count per launch; AdaGN rows as strided halves of one (B, 2C) tensor;
+    bf16 also to K4_BF16_REL, which the weight flipped left-right (what a
+    halo shifted the wrong way gives) must fail."""
     args = _k4_inputs(cuda, dtype, shape, f, ada, seed=shape[-1] + f)
     out = torch.full(shape[:3] + (f,), float("nan"), dtype=dtype, device=cuda)
     before = k4.gn_silu_conv3x3.launches
@@ -452,6 +464,53 @@ def test_k4_matches_plain(cuda, dtype, ada, shape, f, groups):
     ref = k4.gn_silu_conv3x3_plain(*args, num_groups=groups, conv_dtype=torch.float64)
     assert out.dtype == dtype and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k4"])
+    if dtype == torch.bfloat16:
+        assert _k4_rel_err(out, ref) <= K4_BF16_REL
+        flipped = (*args[:3], args[3].flip(-1), *args[4:])
+        assert _k4_rel_err(k4.gn_silu_conv3x3(*flipped, num_groups=groups), ref) > K4_BF16_REL
+
+
+def _k4_rel_err(out, ref):
+    """The largest ||out - ref||_F / ||ref||_F over the examples."""
+    out, ref = out.double(), ref.double()
+    dims = tuple(range(1, out.ndim))
+    return (torch.linalg.vector_norm(out - ref, dim=dims)
+            / torch.linalg.vector_norm(ref, dim=dims)).max().item()
+
+
+@functools.lru_cache(maxsize=None)
+def _halves(preset):
+    """The sorted (H, C, F, ada) keys of the residual-block halves of one
+    forward of the preset's UNet (chip_smoke.resblock_halves, on the meta
+    device: shapes only); tests/test_torch_resblock.py pins their count."""
+    from chip_smoke import resblock_halves
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    model = DiffusionModel(**MODEL_PRESETS[preset], kernels=False, device="meta").eval()
+    return sorted(resblock_halves(model, torch.device("meta")))
+
+
+@pytest.mark.parametrize("preset,index", [("openai_64", i) for i in range(27)]
+                         + [("openai_128", i) for i in range(30)])
+def test_k4_bf16_matches_plain_at_every_unet_half(cuda, preset, index):
+    """bf16 K4 (the tensor-core kernel) at every (H, C, F, ada) a residual-
+    block half of the preset's UNet has, at batch 2, against the plain
+    version with its convolution summed in float64: per element and to
+    K4_BF16_REL; the weight flipped left-right (what a halo shifted the wrong
+    way gives) must fail K4_BF16_REL."""
+    h, c, f, ada = _halves(preset)[index]
+    args = _k4_inputs(cuda, torch.bfloat16, (2, h, h, c), f, ada, seed=h + c + f)
+    out = torch.full((2, h, h, f), float("nan"), dtype=torch.bfloat16, device=cuda)
+    before = k4.gn_silu_conv3x3.launches
+    k4.gn_silu_conv3x3(*args, out=out)
+    torch.cuda.synchronize()
+    assert k4.gn_silu_conv3x3.launches == before + 1
+    assert not torch.isnan(out).any()
+    ref = k4.gn_silu_conv3x3_plain(*args, conv_dtype=torch.float64)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16, "k4"])
+    assert _k4_rel_err(out, ref) <= K4_BF16_REL
+    flipped = (*args[:3], args[3].flip(-1), *args[4:])
+    assert _k4_rel_err(k4.gn_silu_conv3x3(*flipped), ref) > K4_BF16_REL
 
 
 def test_k4_takes_f32_rows_beside_bf16_activations_and_repacks_a_changed_weight(cuda):

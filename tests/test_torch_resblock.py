@@ -1,13 +1,18 @@
 """K4's plain torch version against the JAX package's fused GN+SiLU+conv, on the CPU.
 
 The same numpy-made inputs (the three shapes of tests/test_pallas_resblock.py,
-plain and AdaGN) go through ``gn_silu_conv3x3`` in Pallas interpret mode,
+plain and AdaGN, and two of the UNet's real widths at batch 1) go through
+``gn_silu_conv3x3`` in Pallas interpret mode,
 through ``gn_silu_conv3x3_reference`` and, with the HWIO kernel turned to
 torch's OIHW by the port's converter, through the port's
 ``gn_silu_conv3x3_plain`` and its public wrapper, which takes the plain
 version for a CPU tensor. The CUDA kernel itself is held against the plain
-version on the card (tests/test_torch_kernels.py, chip_smoke.py).
+version on the card (tests/test_torch_kernels.py, chip_smoke.py), at the
+residual-block halves ``chip_smoke.resblock_halves`` finds; the last test
+pins what it finds.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -26,13 +31,13 @@ from nicediffusion_tpu_torch.utils.convert import gn_silu_conv3x3_args_to_torch 
 SHAPES = [((2, 8, 8, 32), 64, 8), ((1, 16, 16, 64), 32, 32), ((3, 4, 4, 96), 96, 32)]
 
 
-def _inputs(shape, f, ada, seed=0, dtype=np.float32):
+def _inputs(shape, f, ada, seed=0, dtype=np.float32, w_scale=0.05):
     rng = np.random.default_rng(seed)
     b, _, _, c = shape
     x = rng.normal(size=shape).astype(dtype)
     gamma = (rng.normal(size=(c,)) * 0.2 + 1).astype(np.float32)
     beta = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
-    kernel = (rng.normal(size=(3, 3, c, f)) * 0.05).astype(dtype)
+    kernel = (rng.normal(size=(3, 3, c, f)) * w_scale).astype(dtype)
     bias = (rng.normal(size=(f,)) * 0.1).astype(np.float32)
     es = eb = None
     if ada:
@@ -62,6 +67,22 @@ def test_plain_version_matches_the_pallas_kernel_and_its_reference(shape, f, gro
     assert out.shape == shape[:3] + (f,) and out.dtype == torch.float32
     np.testing.assert_allclose(plain.numpy(), np.asarray(fused), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(plain.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("ada", [False, True], ids=["plain", "ada"])
+@pytest.mark.parametrize("shape,f", [((1, 8, 8, 1536), 768), ((1, 16, 16, 576), 576)],
+                         ids=["8x8x1536-768", "16x16x576-576"])
+def test_plain_version_matches_the_pallas_kernel_at_unet_widths(shape, f, ada):
+    """The UNet's widest 8x8 input (C/G = 48) and a 16x16 level's width,
+    32 groups, the weights scaled by their fan-in as the model's are (outputs
+    of order 1): the same 2e-5 gate as the small shapes, over sums of 9 C =
+    13,824 and 5,184 f32 products."""
+    x, gamma, beta, kernel, bias, es, eb = _inputs(
+        shape, f, ada, seed=shape[-1] + f, w_scale=1 / math.sqrt(9 * shape[-1]))
+    fused = jax_fused(x, gamma, beta, kernel, bias, es=es, eb=eb, num_groups=32,
+                      interpret=True)
+    plain = k4.gn_silu_conv3x3_plain(*_torch_args(x, gamma, beta, kernel, bias, es, eb))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(fused), atol=2e-5, rtol=2e-5)
 
 
 def test_padding_is_zero_after_the_activation():
@@ -160,3 +181,23 @@ def test_refuses_a_device_that_is_neither_cpu_nor_cuda():
     args = [t.to("meta") for t in _torch_args(*_inputs((1, 4, 4, 32), 8, False)[:5])]
     with pytest.raises(ValueError, match="runs on CUDA tensors"):
         k4.gn_silu_conv3x3(*args, num_groups=8)
+
+
+@pytest.mark.parametrize("preset,batch,keys,halves,tflop", [
+    ("openai_64", 16, 27, 66, 2.596), ("openai_128", 4, 30, 62, 1.984),
+])
+def test_resblock_halves_of_the_unets(preset, batch, keys, halves, tflop):
+    """What chip_smoke.py's K4 yardstick sums over, and what the card tests
+    index: the residual-block halves of one forward of each UNet (the model
+    built on the meta device, shapes only), their (H, C, F, ada) keys and the
+    products' operations, 2 * 9 * C * F a pixel, at the path's batch."""
+    from chip_smoke import resblock_halves
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    model = DiffusionModel(**MODEL_PRESETS[preset], kernels=False, device="meta").eval()
+    found = resblock_halves(model, torch.device("meta"))
+    assert len(found) == keys and sum(found.values()) == halves
+    ops = sum(n * 2 * 9 * c * f * batch * h * h for (h, c, f, _), n in found.items())
+    assert round(ops / 1e12, 3) == tflop
+    assert {k[1] % 64 for k in found} == {0}  # every C a whole number of 64-channel steps
