@@ -10,12 +10,13 @@ fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
 cache, limited-interval guidance, v-prediction) at ``openai_64``, and training
 at ``openai_128``. It checks every hand-written kernel on the way:
 
-  1. device: the card's name and power limit, torch/CUDA/Triton versions;
-  2. build: K1 with K5, K2 and K4 (CUDA C++, one nvcc for sm_90a per source,
-     started together) from the sources in this checkout, and K3 (Triton);
-     the registers and spills ptxas reports for each kernel (kept beside a
-     cached build; a bf16 tensor-core instantiation that spills fails, and
-     so does a library of K1/K5, K2 or K4 whose log names none), and the
+  1. device: the card's name and power limit, torch and CUDA versions;
+  2. build: K1 with K5, K2, K3 (forward and backward) and K4 (CUDA C++, one
+     nvcc for sm_90a per source, started together) from the sources in this
+     checkout; the registers and spills ptxas reports for each kernel (kept
+     beside a cached build; a bf16 tensor-core instantiation that spills
+     fails, and so does a library of K1/K5, K2 or K4 whose log names none;
+     K3 has no wgmma, and any of its instantiations that spills fails), and the
      count of warpgroup multiplies (HGMMA) in the machine code of those
      three libraries (cuobjdump -sass), which must not be 0 in any: bf16 K1,
      K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores;
@@ -27,9 +28,13 @@ at ``openai_128``. It checks every hand-written kernel on the way:
      256, the interleaved layout, the pool's N = 65), f32 and bf16, with the
      JAX package's tolerances; its time per call in the path's compute
      type, per shape and summed over one forward, beside the plain
-     version's and the library call's, host-timed (CUDA events around
-     back-to-back calls, which read the host's launch rate for calls under
-     about 40 us) and in device time (a CUDA graph of the calls replayed),
+     version's and the library call's (K3 also with the route its plan
+     takes, every row held in shared memory or some read twice, and the HBM
+     bytes that moves; bf16 K3 is also held to K3_BF16_REL, which a planted
+     fault, the scale handed over 5% high, must fail at every shape),
+     host-timed (CUDA events around back-to-back calls, which read the
+     host's launch rate for calls under about 40 us) and in device time (a
+     CUDA graph of the calls replayed),
      the kernel and the library call also by torch.profiler (the kernels'
      own device time, without the gaps between launches); attention also
      in TFLOP/s of its two products and as
@@ -67,15 +72,23 @@ at ``openai_128``. It checks every hand-written kernel on the way:
      shape; its times beside the plain version's and the library call's (the
      autograd backward of scaled_dot_product_attention, its device time from
      torch.profiler), K2 and the library's forward read by CUDA graph and by
-     torch.profiler side by side; the cost of K3's backward (a recompute of
-     its plain version);
+     torch.profiler side by side;
+  6b. K3's backward kernel against its plain version (the closed form, f32 to
+     1e-5 of each output's largest element, bf16 to K3_BF16_REL per output,
+     which the rstd handed over 5% high must fail at every shape, bit-equal
+     across two runs) at every GroupNorm shape of an ``openai_64`` training
+     step, of the EMNIST recipe, of an ``openai_128`` training step and of
+     the classifier's gradient; its times summed over one ``openai_64``
+     training step at batch 8 and one guidance gradient at batch 4, beside
+     the plain version, the library's autograd backward of F.group_norm, the
+     modulation and F.silu (by torch.profiler) and the bound;
   7. loss and every parameter's gradient of the full-width f32 model, and
      of the EMNIST model at batch 468, kernels on against ``kernels=False``;
   8. the training slice: (a) ``Trainer.train()`` on ``openai_64`` in bf16
      with remat and dropout, then ``save()``, ``restore`` into a fresh
      Trainer and ``sample()``; (b) the train entry point's EMNIST recipe at
-     batch 468. Launch counts of K1, K2 and K3 must equal what the model's
-     structure gives; steps/s with kernels on and off; a torch.profiler
+     batch 468. Launch counts of K1, K2, K3 and K3's backward must equal
+     what the model's structure gives; steps/s with kernels on and off; a torch.profiler
      breakdown of one training step by kernel group.
 
   9. K4 (fused GN+SiLU+3x3 conv; bf16 on the tensor cores) against its
@@ -157,6 +170,11 @@ K4_BF16_TOL = dict(atol=3e-2, rtol=1e-2)
 # Frobenius error of each example's output (k4_rel_err). The weight flipped
 # left-right, what a halo shifted the wrong way gives, must fail it
 K4_BF16_REL = 1e-2
+# K3 and its backward in bf16, beside BF16_TOL["groupnorm"]: the relative
+# Frobenius error of each example's output (of each output of the backward,
+# the parameters' gradients as one) (k3_rel_err). The scale handed over 5% high
+# (the forward) and the rstd handed over 5% high (the backward) must fail it
+K3_BF16_REL = 1e-2
 MODEL_TOL = 1e-3
 GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
 LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
@@ -244,17 +262,19 @@ def profiled_ms(fn, iters=10, by_name=False):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)}
-    total = sum(names.values())
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return (total, names) if by_name else total
+    # a profiled run now and then records no device activity at all: up to two more
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)}
+        total = sum(names.values())
+        if total > 0:
+            return (total, names) if by_name else total
+    raise AssertionError("torch.profiler recorded no device time in three tries")
 
 
 def within(out, ref, tol):
@@ -287,16 +307,27 @@ def k2_rel_err(out, ref, heads, split_first):
     return worst
 
 
+def k3_rel_err(out, ref):
+    """||out - ref||_F / ||ref||_F, the largest over the examples (dim 0) of a
+    batched output, over the whole of a (C,) parameter gradient."""
+    out, ref = out.double(), ref.double()
+    if out.ndim == 1:
+        rel = torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)
+    else:
+        dims = tuple(range(1, out.ndim))
+        rel = (torch.linalg.vector_norm(out - ref, dim=dims)
+               / torch.linalg.vector_norm(ref, dim=dims))
+    return rel.max().item() if torch.isfinite(rel).all() else math.inf
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    import triton
-
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"triton {triton.__version__} python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}")
     return smi
 
 
@@ -304,10 +335,13 @@ def phase_device():
 # name a wgmma instantiation, none may spill, and the machine code must hold
 # warpgroup multiplies (HGMMA)
 WGMMA_LIBS = {"attention": "K1/K5", "attention_bwd": "K2", "resblock": "K4"}
+# libraries with no tensor-core kernel, none of whose instantiations may spill
+# (no HGMMA gate applies to them)
+NO_SPILL_LIBS = {"groupnorm": "K3"}
 _ENTRY = re.compile(
     r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
-    r"gn_silu_conv3x3|group_stats)_kernelI(\S+)'")
+    r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd)_kernelI(\S+)'")
 
 
 def build_report(name, nvcc_log):
@@ -315,11 +349,13 @@ def build_report(name, nvcc_log):
     entry function '<mangled>'", a spill line, then "Used N registers" for
     each template instance), one line per kernel instance. Raises if a
     tensor-core (wgmma) instance spills, or if a library of WGMMA_LIBS names
-    no wgmma instance, whose spills would then go unchecked."""
+    no wgmma instance, whose spills would then go unchecked; for a library
+    of NO_SPILL_LIBS, if any instance spills or the log names none."""
     lines = []
     entry = spills = ""
     wgmma = False
-    checked = 0  # wgmma instantiations whose spills were read
+    gated = name in NO_SPILL_LIBS
+    checked = 0  # instantiations whose spills were read and gated
     for line in nvcc_log.splitlines():
         m = _ENTRY.search(line)
         if m:
@@ -328,6 +364,8 @@ def build_report(name, nvcc_log):
             dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, f32 own-tile rows; K4's NB
             if m.group(1) == "gn_silu_conv3x3_wgmma":
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
+            elif m.group(1).startswith("group_norm"):
+                entry = f"{m.group(1)} {dt}" + (f" vector={dims[0]}" if dims else "")
             else:
                 entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
                     f" rows={dims[1]}" if len(dims) > 1 else "")
@@ -337,10 +375,11 @@ def build_report(name, nvcc_log):
             spills = line.strip()
         elif "registers" in line:
             lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spills}")
-            # a tensor-core kernel that spills holds its accumulators in local memory
-            if wgmma and not re.search(r"\b0 bytes spill stores", spills):
+            # a tensor-core kernel that spills holds its accumulators in local
+            # memory; K3's keep their sums and coefficients in registers
+            if (wgmma or gated) and not re.search(r"\b0 bytes spill stores", spills):
                 raise AssertionError(f"{name}: {entry} spills: {spills}")
-            checked += wgmma
+            checked += wgmma or gated
         elif "Function properties" in line:
             continue
         elif "wgmma" in line or "Performance Loss" in line:
@@ -348,22 +387,23 @@ def build_report(name, nvcc_log):
     if name in WGMMA_LIBS and checked == 0:
         raise AssertionError(f"the {name} build log names no wgmma instantiation: its "
                              "spills were not checked")
+    if gated and checked == 0:
+        raise AssertionError(f"the {name} build log names no {NO_SPILL_LIBS[name]} "
+                             "instantiation: its spills were not checked")
     return lines
 
 
 def phase_build():
     from nicediffusion_tpu_torch.ops.kernels import _build
-    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     t0 = time.perf_counter()
     _build.build_all()
     cuda_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    k3._kernel()
-    k3_s = time.perf_counter() - t0
     for name, (nvcc_log, seconds) in _build.build_logs().items():
+        gate = (f"; no wgmma here: no HGMMA gate, and no instantiation may spill"
+                if name in NO_SPILL_LIBS else "")
         log(f"[build] {name}: " + (f"nvcc {seconds:.2f} s" if seconds else
-                                   "cached build, with its nvcc log"))
+                                   "cached build, with its nvcc log") + gate)
         for line in build_report(name, nvcc_log):
             log(f"[build]   {line}")
     # the bf16 kernels must run on the tensor cores: count the warpgroup
@@ -378,8 +418,7 @@ def phase_build():
         if hgmma == 0:
             raise AssertionError(f"the {name} library holds no HGMMA: bf16 {kernels} are off "
                                  "the tensor cores")
-    log(f"[build] K1, K2 and K4 ready in {cuda_s:.2f} s (built side by side), "
-        f"K3 (triton import) in {k3_s:.2f} s")
+    log(f"[build] K1, K2, K3 and K4 ready in {cuda_s:.2f} s (built side by side)")
 
 
 def main_path_calls(model, dev):
@@ -552,6 +591,10 @@ def phase_kernels(dev, paths):
     g = torch.Generator(device=dev).manual_seed(SEED)
     kinds = ("attention", "groupnorm", "mha")
     errs = {(k, dt): 0.0 for k in kinds for dt in (torch.float32, torch.bfloat16)}
+    # bf16 K3: the worst relative error per example, and the planted fault's
+    k3_gates = {"max_rel_err_bf16": 0.0, "scale_high_min_rel_err": math.inf,
+                "scale_high_cases": 0, "scale_high_passing_abs_gate": 0}
+    routes = collections.Counter()  # (path, route) -> K3 calls per forward
     tallies = {(k, where): Tally() for k in kinds for where in PATHS}
     cases = [(key, n, where) for where, path_calls in paths.items()
              for key, n in sorted(path_calls.items(), key=str)]
@@ -589,13 +632,37 @@ def phase_kernels(dev, paths):
             for kernel_fn, plain_fn in runs:
                 out = kernel_fn()
                 torch.cuda.synchronize()
-                err = check(f"{name} {dtype}", out, plain_fn(), tol)
+                ref = plain_fn()
+                err = check(f"{name} {dtype}", out, ref, tol)
                 errs[kind, dtype] = max(errs[kind, dtype], err)
+                if kind == "groupnorm" and dtype == torch.bfloat16:
+                    rel = k3_rel_err(out, ref)
+                    if rel > K3_BF16_REL:
+                        raise AssertionError(f"{name} {dtype}: relative error {rel:.3g} over "
+                                             f"{K3_BF16_REL}")
+                    # the planted fault: the scale 5% high, what an rstd 5% high gives
+                    bad = k3.group_norm_fused(x, sc * 1.05, *args[2:], **kw)
+                    bad_rel = k3_rel_err(bad, ref)
+                    if bad_rel <= K3_BF16_REL:
+                        raise AssertionError(f"{name}: the scale 5% high reads {bad_rel:.3g}, "
+                                             f"within K3_BF16_REL")
+                    k3_gates["max_rel_err_bf16"] = max(k3_gates["max_rel_err_bf16"], rel)
+                    k3_gates["scale_high_min_rel_err"] = min(
+                        k3_gates["scale_high_min_rel_err"], bad_rel)
+                    k3_gates["scale_high_cases"] += 1
+                    k3_gates["scale_high_passing_abs_gate"] += within(bad, ref, tol)
             if dtype == timed_dtype:
                 ms, plain, lib = time_ms(runs[0][0]), time_ms(runs[0][1]), time_ms(library)
                 device = tuple(graph_ms(fn) for fn in (runs[0][0], runs[0][1], library))
                 prof = (profiled_ms(runs[0][0]), profiled_ms(library))
                 tallies[kind, where].add(per_call, ms, plain, lib, bound, device, prof)
+                if kind == "groupnorm":
+                    plan = k3.group_norm_plan((b, h, w, c), dtype)
+                    routes[where, plan["route"]] += per_call
+                    log(f"[kernels] {name} {dtype}: route {plan['route']}, HBM "
+                        f"{plan['hbm_bytes'] / 1e6:.3f} MB (x and the output once: "
+                        f"{2 * x.numel() * x.element_size() / 1e6:.3f}); "
+                        + ", ".join(f"{k} {plan[k]}" for k in k3.PLAN_FIELDS))
                 log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms"
                     f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} ms; "
                     f"device time {device[0]:.4f} ms{rate(key, b, device[0], bound)}, plain "
@@ -643,12 +710,19 @@ def phase_kernels(dev, paths):
         f"the lse {turns['without']} ms, writing it {turns['with']} ms")
     for (kind, dtype), err in errs.items():
         log(f"[kernels] {kind} {dtype}: max abs err {err:.3g} vs plain")
+    log(f"[kernels] K3 bf16: relative error per example at most "
+        f"{k3_gates['max_rel_err_bf16']:.3g} (gate {K3_BF16_REL}); planted fault, the scale "
+        f"5% high, in {k3_gates['scale_high_cases']} cases: at least "
+        f"{k3_gates['scale_high_min_rel_err']:.3g}, failing K3_BF16_REL in all; "
+        f"{k3_gates['scale_high_passing_abs_gate']} of them pass BF16_TOL alone")
+    log(f"[kernels] K3 calls per forward by route: "
+        + ", ".join(f"{where} {route} {n}" for (where, route), n in sorted(routes.items())))
     for (kind, where), tally in tallies.items():
         if kind == "mha" and where not in GUIDED_PATHS:
             continue
         _, dtype, basis = PATHS[where]
         log(f"[kernels] {kind}, {dtype} calls of {basis}, each timed back to back: {tally}")
-    return errs, tallies
+    return errs, tallies, k3_gates
 
 
 def phase_mha_direct(dev, paths):
@@ -764,7 +838,7 @@ def phase_slice(dev, state):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    for kernels in (True, False):  # warm-up: Triton bf16 variants, cuDNN plans
+    for kernels in (True, False):  # warm-up: cuDNN plans
         models[kernels][1].denoise(torch.Generator(device=dev).manual_seed(7),
                                    y=requests[0], batch_size=8, steps_to_do=2)
     torch.cuda.synchronize()
@@ -788,7 +862,7 @@ def phase_slice(dev, state):
     launches = read_launches()
     calls = steps * len(requests)
     expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
-              "mha": 0, "resblock": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -843,7 +917,7 @@ def guided_diffusion_config(classifier):
 def phase_model_128(dev, unet_off, cls_off):
     """Full-width ``openai_128`` f32 forward (head dims 128, 192, 256), its
     classifier's logits and the guidance gradient (forward K1 and K3,
-    backward K2 and K3's recompute), kernels on against ``kernels=False``."""
+    backward K2 and K3's backward), kernels on against ``kernels=False``."""
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel, EncoderUNet
     from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
 
@@ -959,13 +1033,13 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     n_attn = (count(unet, AttentionBlock), count(cls, AttentionBlock, AttentionPool))
     n_gn = (count(unet, GroupNormOp), count(cls, GroupNormOp))
     expect = {"attention": sum(n_attn) * calls, "attention_bwd": n_attn[1] * calls,
-              "groupnorm": sum(n_gn) * calls, "mha": 0, "resblock": 0}
+              "groupnorm": sum(n_gn) * calls, "groupnorm_bwd": n_gn[1] * calls, "mha": 0,
+              "resblock": 0}
     log(f"[guided] entry point, openai_128 + classifier, bf16, {steps} DDIM steps, "
         f"{len(labels_arg)} samples of {batch}: {images} files of 128x128 in {cli_s:.2f} s "
-        f"(models built, checkpoints loaded, Triton's bf16 variants compiled and images "
-        f"saved inside that time); launches {launches}, expected {expect} (per step: "
-        f"{n_attn[0]} K1 in the UNet, {n_attn[1]} K1 and K2 in the classifier, "
-        f"{n_gn[0]} + {n_gn[1]} K3)")
+        f"(models built, checkpoints loaded and images saved inside that time); launches "
+        f"{launches}, expected {expect} (per step: {n_attn[0]} K1 in the UNet, {n_attn[1]} K1 "
+        f"and K2 in the classifier, {n_gn[0]} + {n_gn[1]} K3, {n_gn[1]} K3 backward)")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
 
@@ -1074,16 +1148,13 @@ def phase_kernels_bwd(dev, paths):
     the library call (the autograd backward of scaled_dot_product_attention;
     its device time from torch.profiler) and the bound; K2 and the library's
     forward are also read by torch.profiler, so the two device-time methods
-    stand side by side. Then the cost of K3's backward, which recomputes the
-    plain version, summed over one step."""
+    stand side by side."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
-    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     auto_err = rel_err = 0.0
     fault_rel, fault_passes_tol, faults = math.inf, 0, 0
-    calls = paths["train"]
     tallies = {where: Tally() for where in K2_PATHS}
     no_lse = {where: 0.0 for where in K2_PATHS}  # device ms summed, K2 making its own lse
     # device ms summed over a step, each call read both ways: K2 and the
@@ -1192,31 +1263,138 @@ def phase_kernels_bwd(dev, paths):
             f"({y['forward_graph'] / y['forward_profiler']:.3f}); K2 over the library's "
             f"backward, both by torch.profiler, {y['k2_profiler'] / y['library_profiler']:.2f}x"
             f" (K2 by graph: {y['k2_graph'] / y['library_profiler']:.2f}x)")
-    # K3's backward: autograd through a recompute of the plain version
-    gn_ms = fwd_ms = 0.0
-    for (kind, *rest), per_step in sorted(calls.items(), key=str):
-        if kind != "groupnorm":
-            continue
-        (h, w, c), mode = rest
-        x = (2 * torch.randn(TRAIN_BATCH, h, w, c, generator=g, device=dev) + 0.5).bfloat16()
-        x.requires_grad_(True)
-        sc = torch.randn(c, generator=g, device=dev).requires_grad_(True)
-        bi = torch.randn(c, generator=g, device=dev).requires_grad_(True)
-        emb = (0.1 * torch.randn(TRAIN_BATCH, 2 * c, generator=g, device=dev)).bfloat16()
-        mod = (tuple(t.clone().requires_grad_(True) for t in emb.chunk(2, dim=-1))
-               if mode == "ada" else ())
-        inputs = (x, sc, bi) + mod
-        out = k3.group_norm_fused(*inputs, silu=mode != "plain")
-        cot = torch.randn(out.shape, generator=g, device=dev).bfloat16()
-        gn_ms += per_step * time_ms(
-            lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True), iters=10, rounds=3)
-        with torch.no_grad():
-            fwd_ms += per_step * time_ms(
-                lambda: k3.group_norm_fused(*inputs, silu=mode != "plain"), iters=10, rounds=3)
-    log(f"[k3-bwd] GroupNorm backward (plain recompute + autograd), bf16, summed over one "
-        f"openai_64 backward at batch {TRAIN_BATCH}: {gn_ms:.4f} ms; K3 forward over the same "
-        f"calls {fwd_ms:.4f} ms")
     return errs, tallies, dict(yard["train"])
+
+
+def groupnorm_bwd_bound_ms(b, h, w, c, dtype=torch.bfloat16):
+    """(bytes ms, operations ms) of K3's backward: x and the cotangent read
+    and dx written once; about 25 f32 operations an element (the forward's
+    recompute, SiLU's derivative, two sums, dx) on the CUDA cores."""
+    elems = b * h * w * c
+    return (3 * elems * dtype.itemsize / HBM_BYTES_PER_S * 1e3,
+            25 * elems / F32_FLOPS * 1e3)
+
+
+def library_group_norm_grad(x, sc, bi, es, esh, mode, cot):
+    """The library's autograd backward of ``library_group_norm`` in x's dtype
+    (F.group_norm, the modulation, F.silu), for every input, as a callable
+    that reruns it on one recorded graph."""
+    leaves = [t.detach().to(x.dtype).requires_grad_(True) for t in (x, sc, bi)]
+    leaves += [t.detach().clone().requires_grad_(True) for t in (es, esh)] if mode == "ada" else []
+    out = library_group_norm(*leaves[:3], *(leaves[3:] or (None, None)), mode)
+    lib_cot = cot.permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(out, leaves, lib_cot, retain_graph=True)
+
+
+K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128")  # unet128: openai_128 training
+K3_BWD_TIMED = ("train", "cls128")
+
+
+def phase_k3_bwd(dev, paths):
+    """K3's backward kernel against its plain version at every GroupNorm
+    shape of one ``openai_64`` training step (batch 8), of the classifier's
+    guidance gradient (batch 4), of the EMNIST recipe (batch 468) and of an
+    ``openai_128`` training step (batch 4), f32 and bf16, the mean and rstd
+    from K3's forward: f32 to 1e-5 of each output's largest element, bf16 to
+    K3_BF16_REL per example and output, two runs bit-equal; a planted fault,
+    the rstd handed over 5% high, must fail K3_BF16_REL at every shape. Times
+    in bf16 summed over the ``openai_64`` step and the guidance gradient:
+    host-timed, device time by CUDA graph and by torch.profiler, beside the
+    plain version, the library's autograd backward (torch.profiler) and the
+    bound."""
+    from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    gates = {"max_rel_err_bf16": 0.0, "rstd_high_min_rel_err": math.inf, "rstd_high_cases": 0,
+             "rstd_high_passing_abs_gate": 0}
+    tallies = {where: Tally() for where in K3_BWD_TIMED}
+    routes = collections.Counter()
+    names = ("dx", "dscale", "dbias", "demb_scale", "demb_shift")
+    for where in K3_BWD_PATHS:
+        b, timed_dtype, _ = PATHS[where]
+        keys = sorted((k, n) for k, n in paths[where].items() if k[0] == "groupnorm")
+        for (_, (h, w, c), mode), per_step in keys:
+            silu = mode != "plain"
+            name = f"K3 backward {mode} {(b, h, w, c)}"
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (2 * torch.randn(b, h, w, c, generator=g, device=dev) + 0.5).to(dtype)
+                sc = torch.randn(c, generator=g, device=dev)
+                bi = torch.randn(c, generator=g, device=dev)
+                emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
+                es, esh = emb.chunk(2, dim=-1) if mode == "ada" else (None, None)
+                cot = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+                args = (x, sc, bi, es, esh, cot)
+                _, mean, rstd = k3.group_norm_fused_with_stats(*args[:5], silu=silu)
+                got = k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu)
+                again = k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu)
+                ref = k3.group_norm_fused_bwd_plain(*args, silu=silu)
+                torch.cuda.synchronize()
+                for out_name, a, a2, r in zip(names, got, again, ref):
+                    if r is None:
+                        continue
+                    if not torch.equal(a, a2):
+                        raise AssertionError(f"{name} {dtype}: {out_name} differs between runs")
+                    err = (a.float() - r.float()).abs().max().item()
+                    scale = r.float().abs().max().item()
+                    if dtype == torch.float32:
+                        if not err <= 1e-5 * scale:
+                            raise AssertionError(f"{name} f32 {out_name}: max abs err {err:.3g} "
+                                                 f"over 1e-5 of {scale:.3g}")
+                        errs[dtype] = max(errs[dtype], err / scale)
+                    else:
+                        rel = k3_rel_err(a, r)
+                        if rel > K3_BF16_REL:
+                            raise AssertionError(f"{name} bf16 {out_name}: relative error "
+                                                 f"{rel:.3g} over {K3_BF16_REL}")
+                        errs[dtype] = max(errs[dtype], err)
+                        gates["max_rel_err_bf16"] = max(gates["max_rel_err_bf16"], rel)
+                if dtype == torch.bfloat16:
+                    bad = k3.group_norm_fused_bwd(*args, mean, rstd * 1.05, silu=silu)
+                    pairs = [(a, r) for a, r in zip(bad, ref) if r is not None]
+                    bad_rel = max(k3_rel_err(a, r) for a, r in pairs)
+                    if bad_rel <= K3_BF16_REL:
+                        raise AssertionError(f"{name}: the rstd 5% high reads {bad_rel:.3g}, "
+                                             f"within K3_BF16_REL")
+                    gates["rstd_high_min_rel_err"] = min(gates["rstd_high_min_rel_err"], bad_rel)
+                    gates["rstd_high_cases"] += 1
+                    gates["rstd_high_passing_abs_gate"] += all(
+                        within(a, r, BF16_TOL["groupnorm"]) for a, r in pairs)
+                if dtype != timed_dtype or where not in K3_BWD_TIMED:
+                    continue
+                fns = (lambda: k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu),
+                       lambda: k3.group_norm_fused_bwd_plain(*args, silu=silu))
+                library = library_group_norm_grad(*args[:5], mode, cot)
+                depth = dict(iters=10, rounds=3)
+                ms, plain, lib = (time_ms(fn, **depth) for fn in (*fns, library))
+                device = (graph_ms(fns[0]), graph_ms(fns[1]), profiled_ms(library))
+                prof = (profiled_ms(fns[0]), device[2])
+                bound = groupnorm_bwd_bound_ms(b, h, w, c, dtype)
+                tallies[where].add(per_step, ms, plain, lib, bound, device, prof)
+                plan = k3.group_norm_plan((b, h, w, c), dtype, backward=True)
+                routes[where, plan["route"]] += per_step
+                log(f"[k3-bwd] {name} {dtype}, {per_step} per step: device time "
+                    f"{device[0]:.4f} ms by graph, {prof[0]:.4f} by torch.profiler, host-timed "
+                    f"{ms:.4f}; plain {device[1]:.4f} (host {plain:.4f}); library backward "
+                    f"{device[2]:.4f} by torch.profiler (host {lib:.4f}); bound "
+                    f"{max(bound):.4f} ms; route {plan['route']}, HBM "
+                    f"{plan['hbm_bytes'] / 1e6:.3f} MB (x, dy and dx once: "
+                    f"{3 * x.numel() * x.element_size() / 1e6:.3f}); "
+                    + ", ".join(f"{k} {plan[k]}" for k in k3.PLAN_FIELDS))
+    log(f"[k3-bwd] f32: every output within {errs[torch.float32]:.3g} of its largest element "
+        f"(gate 1e-5); bf16: max abs err {errs[torch.bfloat16]:.3g}, relative error per "
+        f"example and output at most {gates['max_rel_err_bf16']:.3g} (gate {K3_BF16_REL}); two "
+        f"runs bit-equal at every shape")
+    log(f"[k3-bwd] planted fault, the rstd handed over 5% high, in {gates['rstd_high_cases']} "
+        f"bf16 cases: relative error at least {gates['rstd_high_min_rel_err']:.3g}, failing "
+        f"K3_BF16_REL in all; {gates['rstd_high_passing_abs_gate']} of them pass "
+        f"BF16_TOL['groupnorm'] alone")
+    log(f"[k3-bwd] calls per step by route: "
+        + ", ".join(f"{where} {route} {n}" for (where, route), n in sorted(routes.items())))
+    for where, tally in tallies.items():
+        _, dtype, basis = PATHS[where]
+        log(f"[k3-bwd] {dtype} calls of the backward of {basis}: {tally}")
+    return errs, tallies, gates
 
 
 def phase_grads(dev, off, preset="openai_64", batch=4):
@@ -1286,7 +1464,8 @@ def kernel_counters():
     from nicediffusion_tpu_torch.ops.kernels import resblock as k4
 
     return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
-            "groupnorm": k3.group_norm_fused, "mha": k1.mha_attention,
+            "groupnorm": k3.group_norm_fused, "groupnorm_bwd": k3.group_norm_fused_bwd,
+            "mha": k1.mha_attention,
             "resblock": k4.gn_silu_conv3x3}
 
 
@@ -1301,13 +1480,14 @@ def read_launches():
 
 def expect_train_launches(model, steps, sample_calls=0):
     """Launches the structure gives: with remat every block's forward runs
-    twice in a step (forward and recompute) and its backward once."""
+    twice in a step (forward and recompute) and its backward once; every
+    GroupNorm's backward runs once a step."""
     n_attn, gn_in, gn_out = block_counts(model)
     twice = 2 if model.use_remat else 1
     return {"attention": n_attn * (steps * twice + sample_calls),
             "attention_bwd": n_attn * steps,
             "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls,
-            "mha": 0, "resblock": 0}
+            "groupnorm_bwd": steps * (gn_in + gn_out), "mha": 0, "resblock": 0}
 
 
 def metrics_rows(path):
@@ -1325,7 +1505,8 @@ def metrics_rows(path):
 KERNEL_GROUPS = (
     ("K2 attention backward", ("attention_bwd",)),
     ("K1 attention forward", ("attention_fwd_kernel", "attention_fwd_wgmma")),
-    ("K3 GroupNorm forward", ("gn_kernel",)),
+    ("K3 GroupNorm backward", ("group_norm_bwd",)),
+    ("K3 GroupNorm forward", ("group_norm_fwd",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
     ("matrix products (dense layers)", ("gemm", "cutlass", "cublas")),
@@ -1337,8 +1518,8 @@ KERNEL_GROUPS = (
 
 def profile_steps(step, what, unprofiled_ms, steps=2, detail=True):
     """torch.profiler over ``steps`` calls of ``step`` (one ``what``): device
-    time by kernel group, and the device and host time of K3's backward (the
-    autograd node that recomputes the plain GroupNorm). The device idle share
+    time by kernel group, and the device and host time of K3's backward
+    nodes (its kernel and the sum of the parameters' rows). The device idle share
     is the busy time against ``unprofiled_ms``, the wall time of a step
     measured in this run with the profiler off; host times read under the
     profiler are inflated by it. Returns the device's busy ms per step (None
@@ -1389,8 +1570,8 @@ def profile_steps(step, what, unprofiled_ms, steps=2, detail=True):
     log(f"[profile]   largest of 'other': "
         f"{[(name, round(ms, 3)) for name, ms in other.most_common(4)]}")
     if gn_bwd:
-        log(f"[profile]   K3's backward nodes (recompute of the plain version and its "
-            f"autograd; their kernels are counted in the groups above): device "
+        log(f"[profile]   K3's backward nodes (the backward kernel and the sum of the "
+            f"parameters' rows; their kernels are counted in the groups above): device "
             f"{gn_bwd[0]:.3f} ms, host {gn_bwd[1]:.3f} ms per step (host time under the "
             f"profiler, which inflates it)")
     return busy
@@ -1896,7 +2077,8 @@ def phase_fast(dev, state, workdir):
     gn = (count(model.downsampling, GroupNormOp), sum(count(p, GroupNormOp) for p in decoder))
     n = len(labels_arg)
     expect = {"attention": n * (len(enc) * attn[0] + len(dec) * attn[1]), "attention_bwd": 0,
-              "groupnorm": n * (len(enc) * gn[0] + len(dec) * gn[1]), "mha": 0, "resblock": 0}
+              "groupnorm": n * (len(enc) * gn[0] + len(dec) * gn[1]), "groupnorm_bwd": 0,
+              "mha": 0, "resblock": 0}
     log(f"[fast] entry point, openai_64, bf16, CFG, DPM++ {steps} steps, dynamic thresholding, "
         f"encoder cache {k}, guidance in {interval}: {len(expect_files)} files of 64x64 in "
         f"{cli_s:.2f} s (model built, checkpoint loaded, images saved inside that time); per "
@@ -2014,7 +2196,7 @@ def phase_train_128(dev, off):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train-128] openai_128, {nparams} parameters, bf16, remat, batch {GUIDED_BATCH}, 3 "
         f"steps on one batch with fixed t and noise: losses {[round(v, 5) for v in losses]}, "
-        f"seconds a step {[round(v, 4) for v in seconds]} (the first holds Triton's and cuDNN's "
+        f"seconds a step {[round(v, 4) for v in seconds]} (the first holds cuDNN's "
         f"warm-up), steps/s over the last two {2 / sum(seconds[1:]):.4f}; peak device memory "
         f"{peak:.2f} GiB; launches {launches}, expected {expect}")
     if launches != expect:
@@ -2067,10 +2249,12 @@ def main():
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev)}
     halves = resblock_halves(reference, dev)
     phase_done("models made, their kernel calls found")
-    errs, tallies = phase_kernels(dev, paths)
+    errs, tallies, k3_gates = phase_kernels(dev, paths)
     phase_done("[kernels]")
     k2_errs, k2_tallies, k2_yard = phase_kernels_bwd(dev, paths)
     phase_done("[k2]")
+    k3b_errs, k3b_tallies, k3b_gates = phase_k3_bwd(dev, paths)
+    phase_done("[k3-bwd]")
     k4_errs, k4_tally, k4_gates = phase_resblock(dev, halves)
     k4_launches = phase_resblock_direct(dev, reference, torch.float32)
     k4_launches_bf16 = phase_resblock_direct(dev, reference, torch.bfloat16)
@@ -2140,11 +2324,24 @@ def main():
               {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128")}, attention_routes,
               # the same step's sums read by CUDA graph and by torch.profiler
               device_yardsticks=k2_yard),
-        entry("group_norm_fused", "triton", "nicediffusion_tpu_torch/ops/kernels/groupnorm.py",
+        entry("group_norm_fused", "cuda", "nicediffusion_tpu_torch/csrc/groupnorm.cu",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS)}),
+              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS)},
+              {"bfloat16": "CUDA cores; thread-block clusters, the tile in shared memory",
+               "float32": "the same kernel in f32"}, **k3_gates),
+        # the backward of K3's custom VJP (a jnp recompute under jax.vjp in the
+        # JAX package, a kernel here); max_abs_err is f32, relative to each
+        # output's largest element
+        entry("group_norm_fused_bwd", "cuda", "nicediffusion_tpu_torch/csrc/groupnorm.cu",
+              "nicediffusion_tpu/ops/groupnorm.py:128", "groupnorm_bwd",
+              k3b_errs[torch.float32], k3b_errs[torch.bfloat16], k3b_tallies["train"],
+              f"sum over one openai_64 training step's GroupNorm backwards, bf16, batch "
+              f"{TRAIN_BATCH}, the forward's mean and rstd handed over",
+              {"cls128": k3b_tallies["cls128"]},
+              {"bfloat16": "CUDA cores; thread-block clusters, x and dy in shared memory",
+               "float32": "the same kernel in f32"}, **k3b_gates),
         # no model calls K5: its launches are phase_mha_direct's direct calls
         entry("mha_attention", "cuda", "nicediffusion_tpu_torch/csrc/attention.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:486", "mha",

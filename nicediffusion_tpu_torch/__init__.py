@@ -10,8 +10,8 @@ accumulation, checkpoints), the entry points
 ``python -m nicediffusion_tpu_torch.scripts.sample`` and
 ``python -m nicediffusion_tpu_torch.scripts.train``, and five kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
-CUDA C++; K3, fused GroupNorm in Triton; K4, fused GroupNorm+SiLU+3x3 conv in
-CUDA C++, reached directly as in the JAX package). ``device=None`` means
+CUDA C++; K3, fused GroupNorm and its backward in CUDA C++; K4, fused
+GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package). ``device=None`` means
 the CUDA card everywhere; the CPU has to be asked for. The JAX package
 stays the reference this package is tested against; this package imports
 torch and numpy only.

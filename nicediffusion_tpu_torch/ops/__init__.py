@@ -1,1 +1,1 @@
-"""Plain torch ops of the port and, under kernels/, its hand-written CUDA and Triton kernels."""
+"""Plain torch ops of the port and, under kernels/, its hand-written CUDA kernels."""

@@ -9,8 +9,10 @@ value to x's dtype before modulating, as the JAX op does).
 
 ``kernels=True`` (the model's default) sends every call to kernel K3
 (ops/kernels/groupnorm.py), which takes the plain version of its own on a
-CPU tensor and the Triton kernel on a CUDA tensor. The JAX package keeps
-its TPU kernel opt-in for a TPU-only DMA reason; the port does not.
+CPU tensor and the CUDA kernel (csrc/groupnorm.cu) on a CUDA tensor; under
+autograd its backward is K3's backward kernel, on the mean and rstd the
+forward handed over. The JAX package keeps its TPU kernel opt-in for a
+TPU-only DMA reason; the port does not.
 """
 
 from __future__ import annotations

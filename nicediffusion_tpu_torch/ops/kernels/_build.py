@@ -102,7 +102,8 @@ def load_library(name: str, built: tuple[Path, str, float] | None = None) -> cty
     return _LIBS[name][0]
 
 
-def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock")) -> None:
+def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock",
+                                         "groupnorm")) -> None:
     """Build several sources, one nvcc process per source, all started
     together (nvcc is a subprocess, so threads are enough), and load each
     through :func:`load_library`."""

@@ -96,3 +96,35 @@ def test_build_report_refuses_a_k4_build(log, match):
 
     with pytest.raises(AssertionError, match=match):
         build_report("resblock", log)
+
+
+def _ptxas_k3(kernel, spill_bytes):
+    mangled = (f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelI13__nv_bfloat16Li8EEEv"
+               "NS_6GnArgsE")
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
+            f"{spill_bytes} bytes spill loads\n"
+            "ptxas info    : Used 72 registers, used 1 barriers, 512 bytes cmem[0]\n")
+
+
+def test_build_report_passes_a_clean_k3():
+    from chip_smoke import build_report
+
+    lines = build_report("groupnorm", _ptxas_k3("group_norm_fwd", 0)
+                         + _ptxas_k3("group_norm_bwd", 0))
+    assert lines[0].startswith("group_norm_fwd bf16 vector=8: Used 72 registers")
+    assert lines[1].startswith("group_norm_bwd bf16 vector=8: Used 72 registers")
+
+
+@pytest.mark.parametrize("log,match", [
+    (_ptxas_k3("group_norm_fwd", 0) + _ptxas_k3("group_norm_bwd", 8), "spills"),
+    ("ptxas info    : 0 bytes gmem\n", "names no K3"),
+], ids=["spilling", "no_k3_entry"])
+def test_build_report_refuses_a_k3_build(log, match):
+    """K3 has no wgmma, so no HGMMA gate applies; a spill in any of its
+    instantiations fails, and so does a log that names none."""
+    from chip_smoke import build_report
+
+    with pytest.raises(AssertionError, match=match):
+        build_report("groupnorm", log)

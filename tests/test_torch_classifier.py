@@ -293,24 +293,34 @@ def test_bf16_classifier_gives_f32_gradient_and_no_parameter_grads():
 @pytest.mark.parametrize("mode", ["silu", "ada"])
 def test_groupnorm_backward_computes_only_the_wanted_gradients(mode, monkeypatch):
     """K3's autograd backward honours ``needs_input_grad``: with frozen
-    parameters and modulation rows (the classifier gradient) it asks
-    autograd for x's gradient alone."""
+    parameters and modulation rows (the classifier gradient) it asks K3's
+    backward for x's gradient alone, gets None for the others, and
+    differentiates nothing through autograd (the backward is closed form)."""
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.normal(size=(2, 4, 4, 64)).astype(np.float32)).requires_grad_(True)
     sc, bi = torch.ones(64), torch.zeros(64)
     emb = [torch.from_numpy(0.1 * rng.normal(size=(2, 64)).astype(np.float32))
            for _ in range(2)] if mode == "ada" else []
-    asked = []
-    real = torch.autograd.grad
+    asked, returned = [], []
+    real, real_bwd = torch.autograd.grad, k3.group_norm_fused_bwd
 
     def spy(outputs, inputs, *a, **k):
         asked.append(len(inputs))
         return real(outputs, inputs, *a, **k)
 
+    def bwd_spy(*a, **k):
+        out = real_bwd(*a, **k)
+        returned.append((tuple(k["needs"]), out))
+        return out
+
     out = k3.group_norm_fused(x, sc, bi, *emb)
     monkeypatch.setattr(torch.autograd, "grad", spy)
+    monkeypatch.setattr(k3, "group_norm_fused_bwd", bwd_spy)
     out.sum().backward()
     monkeypatch.undo()
-    assert asked == [1]
+    assert asked == []
+    (needs, grads), = returned
+    assert needs == (True, False, False, False, False)[:len(needs)]
+    assert grads[0] is not None and all(t is None for t in grads[1:])
     ref, = real(k3.group_norm_fused_plain(x, sc, bi, *emb).sum(), x)
     torch.testing.assert_close(x.grad, ref)

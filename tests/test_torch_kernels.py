@@ -1,8 +1,9 @@
-"""K1, K2, K4, K5 (CUDA C++) and K3 (Triton) against their plain torch versions on the card.
+"""K1 to K5 (CUDA C++) against their plain torch versions on the card.
 
 bf16 K1, K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA
-cores. ``-k k2`` runs K2's tests, ``-k "k1 or k5 or attention_function"``
-the forward's, ``-k k4`` K4's.
+cores; K3 and its backward on the CUDA cores in both. ``-k k2`` runs K2's
+tests, ``-k "k1 or k5 or attention_function"`` the forward's, ``-k k4``
+K4's, ``-k k3`` K3's forward and backward.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -49,6 +50,11 @@ K2_BF16_REL = 1e-2
 # relative Frobenius error of each example's output, as chip_smoke.py's
 # K4_BF16_REL
 K4_BF16_REL = 1e-2
+# bf16 K3 and its backward beside the per-element gate, whose atol of 3e-2 can
+# hide an error in proportion to the output where the outputs are small: the
+# relative Frobenius error of each example's output (of each output of the
+# backward, the parameters' gradients as one), as chip_smoke.py's K3_BF16_REL
+K3_BF16_REL = 1e-2
 
 
 def _k2_rel_err(out, ref, heads, split_first):
@@ -385,8 +391,9 @@ def test_attention_function_bf16_gradient_on_the_card(cuda, split_first, n, hc, 
 
 @pytest.mark.parametrize("mode", ["plain", "silu", "ada"])
 def test_k3_function_gradient_on_the_card(cuda, mode):
-    """K3 under autograd: the forward launches the kernel, the backward
-    equals autograd through the plain version."""
+    """K3 under autograd: the forward launches the kernel, the backward the
+    backward kernel once, and the gradients equal autograd through the plain
+    version."""
     g = torch.Generator(device=cuda).manual_seed(5)
     x = torch.randn(2, 8, 8, 96, generator=g, device=cuda, requires_grad=True)
     sc = torch.randn(96, generator=g, device=cuda, requires_grad=True)
@@ -395,33 +402,202 @@ def test_k3_function_gradient_on_the_card(cuda, mode):
            for _ in range(2)] if mode == "ada" else []
     inputs = [x, sc, bi, *emb]
     cot = torch.randn(2, 8, 8, 96, generator=g, device=cuda)
-    before = k3.group_norm_fused.launches
+    before = k3.group_norm_fused.launches, k3.group_norm_fused_bwd.launches
     out = k3.group_norm_fused(*inputs, silu=mode != "plain")
-    assert k3.group_norm_fused.launches == before + 1
+    assert k3.group_norm_fused.launches == before[0] + 1
     got = torch.autograd.grad(out, inputs, cot)
+    assert k3.group_norm_fused_bwd.launches == before[1] + 1
     ref = torch.autograd.grad(
         k3.group_norm_fused_plain(*inputs, silu=mode != "plain"), inputs, cot)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+def _k3_inputs(dev, dtype, shape, mode, seed, groups=32):
+    """x, scale, bias and, for AdaGN, modulation rows as the two halves of one
+    (B, 2C) tensor (the model's ``emb.chunk(2)``), and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, _, _, c = shape
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    sc = torch.randn(c, generator=g, device=dev)
+    bi = torch.randn(c, generator=g, device=dev)
+    emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
+    es, esh = emb.chunk(2, dim=-1) if mode == "ada" else (None, None)
+    cot = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return (x, sc, bi, es, esh), cot
+
+
+def _k3_rel_err(out, ref):
+    """||out - ref||_F / ||ref||_F, the largest over the examples (dim 0) of
+    a batched output; over the whole of a (C,) parameter gradient."""
+    out, ref = out.double(), ref.double()
+    if out.ndim == 1:
+        return (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+    dims = tuple(range(1, out.ndim))
+    return (torch.linalg.vector_norm(out - ref, dim=dims)
+            / torch.linalg.vector_norm(ref, dim=dims)).max().item()
+
+
+def _k3_check_forward(args, dtype, silu, groups=32):
+    """K3 and its statistics against the plain version: f32 to 1e-5, bf16 to
+    the per-element gate and K3_BF16_REL, which the scale handed over 5% high
+    (what an rstd 5% high gives) must fail."""
+    before = k3.group_norm_fused.launches
+    out, mean, rstd = k3.group_norm_fused_with_stats(*args, num_groups=groups, silu=silu)
+    torch.cuda.synchronize()
+    assert k3.group_norm_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    ref = k3.group_norm_fused_plain(*args, num_groups=groups, silu=silu)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k3"])
+    _, m, var = k3.group_stats(args[0], groups)
+    b = args[0].shape[0]
+    torch.testing.assert_close(mean, m.reshape(b, groups), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, torch.rsqrt(var + 1e-5).reshape(b, groups),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(k3.group_norm_fused(*args, num_groups=groups, silu=silu), out)
+    if dtype == torch.bfloat16:
+        assert _k3_rel_err(out, ref) <= K3_BF16_REL
+        bad = k3.group_norm_fused(args[0], args[1] * 1.05, *args[2:], num_groups=groups,
+                                  silu=silu)
+        assert _k3_rel_err(bad, ref) > K3_BF16_REL
+    return mean, rstd
+
+
+def _k3_check_backward(args, cot, mean, rstd, dtype, silu, groups=32):
+    """K3's backward against its plain version: f32 to 1e-5 of each output's
+    largest element, bf16 to K3_BF16_REL per output, which the rstd handed
+    over 5% high must fail; bit-equal across two runs."""
+    before = k3.group_norm_fused_bwd.launches
+    got = k3.group_norm_fused_bwd(*args, cot, mean, rstd, num_groups=groups, silu=silu)
+    torch.cuda.synchronize()
+    assert k3.group_norm_fused_bwd.launches == before + 1
+    ref = k3.group_norm_fused_bwd_plain(*args, cot, num_groups=groups, silu=silu)
+    again = k3.group_norm_fused_bwd(*args, cot, mean, rstd, num_groups=groups, silu=silu)
+    for name, a, r, a2, inp in zip(("dx", "dscale", "dbias", "demb_scale", "demb_shift"),
+                                   got, ref, again, args):
+        if inp is None:
+            assert a is None and r is None
+            continue
+        assert a.dtype == inp.dtype and a.shape == inp.shape, name
+        assert torch.equal(a, a2), f"{name} differs between two runs"
+        if dtype == torch.float32:
+            err = (a - r).abs().max().item()
+            assert err <= 1e-5 * r.abs().max().item(), f"{name}: {err:.3g}"
+        else:
+            assert _k3_rel_err(a, r) <= K3_BF16_REL, name
+    if dtype == torch.bfloat16:
+        bad = k3.group_norm_fused_bwd(*args, cot, mean, rstd * 1.05, num_groups=groups,
+                                      silu=silu)
+        assert max(_k3_rel_err(a, r) for a, r in zip(bad, ref) if r is not None) > K3_BF16_REL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["plain", "silu", "ada"])
 @pytest.mark.parametrize("shape", [(4, 64, 64, 384), (4, 8, 8, 1536), (3, 7, 7, 96)])
 def test_k3_matches_plain(cuda, dtype, mode, shape):
-    g = torch.Generator(device=cuda).manual_seed(shape[-1])
-    b, _, _, c = shape
-    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
-    sc = torch.randn(c, generator=g, device=cuda)
-    bi = torch.randn(c, generator=g, device=cuda)
-    emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(dtype)
-    es, esh = emb.chunk(2, dim=-1) if mode == "ada" else (None, None)
-    before = k3.group_norm_fused.launches
-    out = k3.group_norm_fused(x, sc, bi, es, esh, silu=mode != "plain")
-    torch.cuda.synchronize()
-    assert k3.group_norm_fused.launches == before + 1
-    ref = k3.group_norm_fused_plain(x, sc, bi, es, esh, silu=mode != "plain")
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k3"])
+    """K3 (one launch, its statistics beside it) against the plain version;
+    bf16 also to K3_BF16_REL, with a planted fault that must fail it."""
+    args, _ = _k3_inputs(cuda, dtype, shape, mode, seed=shape[-1])
+    _k3_check_forward(args, dtype, mode != "plain")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "silu", "ada"])
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 64, 64, 384), 32), ((4, 8, 8, 1536), 32), ((3, 7, 7, 96), 32), ((2, 7, 5, 64), 32),
+    # C/G = 3 with C no multiple of a 16-byte vector; an odd C (2-byte vectors)
+    ((2, 9, 11, 36), 12), ((1, 5, 3, 15), 5),
+])
+def test_k3_bwd_matches_plain(cuda, dtype, mode, shape, groups):
+    args, cot = _k3_inputs(cuda, dtype, shape, mode, seed=shape[-1] + 1)
+    mean, rstd = _k3_check_forward(args, dtype, mode != "plain", groups)
+    _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain", groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_keys(preset):
+    """The sorted ((H, W, C), mode) GroupNorm keys of one forward of a model
+    (chip_smoke.main_path_calls on the meta device: shapes only);
+    tests/test_torch_groupnorm_bwd.py pins their count."""
+    from chip_smoke import classifier_config, main_path_calls, model_config
+    from nicediffusion_tpu_torch import EncoderUNet
+
+    meta = torch.device("meta")
+    if preset == "classifier":
+        model = EncoderUNet(**classifier_config(), kernels=False, device=meta)
+    else:
+        model = DiffusionModel(**model_config(preset), kernels=False, device=meta)
+    return sorted((k[1], k[2]) for k in main_path_calls(model.eval(), meta)
+                  if k[0] == "groupnorm")
+
+
+@pytest.mark.parametrize("preset,index", [
+    (p, i) for p, n in (("openai_64", 30), ("openai_128", 33), ("classifier", 19), ("EMNIST", 21))
+    for i in range(n)])
+def test_k3_forward_and_backward_at_every_model_shape(cuda, preset, index):
+    """K3 and its backward at every GroupNorm shape of the preset, at batch
+    2, f32 and bf16, with the gates and planted faults of the two checks."""
+    (h, w, c), mode = _gn_keys(preset)[index]
+    for dtype in (torch.float32, torch.bfloat16):
+        args, cot = _k3_inputs(cuda, dtype, (2, h, w, c), mode, seed=h + c)
+        mean, rstd = _k3_check_forward(args, dtype, mode != "plain")
+        _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_re_read_route(cuda, backward, dtype):
+    """A map too large for its cluster's shared memory even in channel
+    slices: the blocks hold the last rows of their ranges and read the
+    others twice."""
+    shape = (1, 128, 128, 256) if backward else (1, 256, 256, 64)
+    assert k3.group_norm_plan(shape, dtype, backward=backward)["route"] == "re-read"
+    args, cot = _k3_inputs(cuda, dtype, shape, "ada", seed=3)
+    mean, rstd = _k3_check_forward(args, dtype, True)
+    if backward:
+        _k3_check_backward(args, cot, mean, rstd, dtype, True)
+
+
+def test_k3_takes_f32_rows_beside_bf16_activations_and_unaligned_x(cuda):
+    args, cot = _k3_inputs(cuda, torch.bfloat16, (2, 8, 8, 64), "ada", seed=7)
+    x, sc, bi, es, esh = args
+    rows = (es.float().contiguous(), esh.float().contiguous())
+    mean, rstd = _k3_check_forward((x, sc, bi, *rows), torch.bfloat16, True)
+    _k3_check_backward((x, sc, bi, *rows), cot, mean, rstd, torch.bfloat16, True)
+    # x two bytes past a 16-byte boundary: 2-byte vectors
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    x_off = flat[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 == 2
+    assert k3.group_norm_plan(x.shape, x.dtype, align=2)["vector"] == 1
+    mean, rstd = _k3_check_forward((x_off, sc, bi, es, esh), torch.bfloat16, True)
+    _k3_check_backward((x_off, sc, bi, es, esh), cot, mean, rstd, torch.bfloat16, True)
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    (x, sc, bi, es, esh), cot = _k3_inputs(cuda, torch.float32, (2, 8, 8, 64), "ada", seed=1)
+    mean, rstd = k3.group_norm_fused_with_stats(x, sc, bi, es, esh)[1:]
+    with pytest.raises(TypeError):
+        k3.group_norm_fused(x.half(), sc, bi)
+    with pytest.raises(TypeError):
+        k3.group_norm_fused_bwd(x.half(), sc, bi, None, None, cot, mean, rstd)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        k3.group_norm_fused(x.permute(0, 2, 1, 3), sc, bi)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        k3.group_norm_fused_bwd(x.permute(0, 2, 1, 3), sc, bi, None, None, cot, mean, rstd)
+    wide = torch.randn(2, 3 * 64, device=cuda)
+    with pytest.raises(ValueError, match="modulation rows"):  # two rows of other strides
+        k3.group_norm_fused(x, sc, bi, wide[:, :64], es)
+    with pytest.raises(ValueError, match="modulation rows"):  # channels not contiguous
+        k3.group_norm_fused(x, sc, bi, wide[:, ::3], wide[:, 1::3])
+    with pytest.raises(ValueError, match="together"):
+        k3.group_norm_fused(x, sc, bi, es)
+    with pytest.raises(ValueError, match="not divisible"):
+        k3.group_norm_fused(x, sc, bi, num_groups=24)
+    with pytest.raises(ValueError, match="mean and rstd"):
+        k3.group_norm_fused_bwd(x, sc, bi, es, esh, cot)
+    with pytest.raises(ValueError, match="mean and rstd"):
+        k3.group_norm_fused_bwd(x, sc, bi, es, esh, cot, mean[:1], rstd[:1])
 
 
 def _k4_inputs(dev, dtype, shape, f, ada, seed=0):

@@ -3,8 +3,8 @@
 Inputs come from numpy with a fixed seed and go through both. GroupNorm and
 attention are held against the plain JAX op and against the Pallas kernel in
 interpret mode; on CPU tensors the port's kernel wrappers take their plain
-torch versions, so these tests pin the arithmetic the CUDA and Triton
-kernels are compared with on the card.
+torch versions, so these tests pin the arithmetic the CUDA kernels are
+compared with on the card.
 """
 
 import os
@@ -269,8 +269,8 @@ def test_kernel_wrappers_refuse_other_devices():
 
 
 def test_port_imports_without_jax_or_triton():
-    """The package never imports jax, and the Triton kernel's module
-    imports (and runs plain on CPU tensors) where triton is missing."""
+    """The package never imports jax, and K3's module imports (and runs
+    plain on CPU tensors) where triton is missing: the port needs none."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None; "
         "sys.modules['triton'] = None\n"
