@@ -7,19 +7,22 @@ seed: class-conditional sampling with classifier-free guidance and training
 at the ``openai_64`` preset, the sampling entry point with classifier
 guidance at ``openai_128`` with its noisy classifier, the entry point's
 fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
-cache, limited-interval guidance, v-prediction) at ``openai_64``, and training
-at ``openai_128``. It checks every hand-written kernel on the way:
+cache, limited-interval guidance, v-prediction) at ``openai_64``, static int8
+serving (``--dtype int8``) at ``openai_64``, and training at ``openai_128``.
+It checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: K1 with K5, K2, K3 (forward and backward) and K4 (CUDA C++, one
-     nvcc for sm_90a per source, started together) from the sources in this
-     checkout; the registers and spills ptxas reports for each kernel (kept
-     beside a cached build; a bf16 tensor-core instantiation that spills
-     fails, and so does a library of K1/K5, K2 or K4 whose log names none;
-     K3 has no wgmma, and any of its instantiations that spills fails), and the
-     count of warpgroup multiplies (HGMMA) in the machine code of those
-     three libraries (cuobjdump -sass), which must not be 0 in any: bf16 K1,
-     K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA cores;
+  2. build: K1 with K5, K2, K3 (forward and backward), K4 and the int8 conv
+     (CUDA C++, one nvcc for sm_90a per source, started together) from the
+     sources in this checkout; the registers and spills ptxas reports for
+     each kernel (kept beside a cached build; a tensor-core instantiation
+     that spills fails, and so does a library of K1/K5, K2, K4 or the int8
+     conv whose log names none; K3 has no wgmma, and any of its
+     instantiations that spills fails), and the count of warpgroup
+     multiplies in the machine code of those four libraries (cuobjdump
+     -sass: HGMMA for the bf16 ones, any integer mnemonic, IGMMA, for the
+     int8 conv), which must not be 0 in any: bf16 K1, K2, K4 and K5 and the
+     int8 conv run on the tensor cores (wgmma), f32 on the CUDA cores;
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
@@ -116,12 +119,30 @@ at ``openai_128``. It checks every hand-written kernel on the way:
  11. training ``openai_128`` (head dims 128, 192 and 256: K2's 32-row tiles):
      every parameter's f32 gradient kernels on against ``kernels=False``, then
      3 ``Trainer.train_step`` calls in bf16 with remat at batch 4, with the
-     launch counts the structure gives, steps/s and peak memory.
+     launch counts the structure gives, steps/s and peak memory;
+ 12. static int8 (``[int8]``): (a) the int8 conv (s8 x s8 -> s32 wgmma,
+     the quantize in its prologue) against its plain version (exact float64
+     sums) at every (H, W, C, F, k, stride) one int8 forward of
+     ``openai_64`` and of the EMNIST model gives it (found by hooks), model
+     batch 16, f32 and bf16 input: s32 sums and outputs bit-equal; its bf16
+     times per call (host-timed, by CUDA graph, by torch.profiler), in TOPS,
+     beside the plain version, the bf16 F.conv2d it replaces and the bound
+     (bytes over 3.35 TB/s or 2 MACs over 1,979 TOPS), summed over one
+     forward; (b) the sampling entry point on ``64x64_diffusion.pt`` with
+     ``--dtype int8``, CFG 0.8, 25 DDIM steps, 2 requests of 8 labels,
+     ``--int8_calibration`` first writing the file (the calibration chain
+     drawn through the dynamic path), then reading it: the two runs' images
+     bit-equal, the launch counts what the structure gives (every int8 conv
+     call through the kernel, K1 and K3 as before); (c) int8 against bf16
+     samples/s and the device's idle share at batch 8 and at batch 64
+     (model batch 128), kernels on, in turns; (d) the max stack (frozen
+     int8, encoder_cache 2, guidance_interval (0.1, 0.7)) finite and
+     correlated above 0.9 with the exact bf16 chain.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
-(989 TFLOP/s for bf16 products, 67 TFLOP/s for f32 work, which the kernels
-do without TF32).
+(989 TFLOP/s for bf16 products, 1,979 TOPS for int8 ones, 67 TFLOP/s for
+f32 work, which the kernels do without TF32).
 
 Then ranks the kernels by their device time against the library's (rule 2),
 both sides read by torch.profiler, the CUDA graph's factor beside it, prints
@@ -334,14 +355,22 @@ def phase_device():
 # libraries whose bf16 kernels run on the tensor cores: each build log must
 # name a wgmma instantiation, none may spill, and the machine code must hold
 # warpgroup multiplies (HGMMA)
-WGMMA_LIBS = {"attention": "K1/K5", "attention_bwd": "K2", "resblock": "K4"}
+WGMMA_LIBS = {"attention": "K1/K5", "attention_bwd": "K2", "resblock": "K4",
+              "int8conv": "the int8 conv"}
+# the warpgroup multiplies each library must hold in its machine code: bf16
+# ones (HGMMA), or for the int8 conv any integer one, whatever mnemonic
+# cuobjdump prints for it (IGMMA on CUDA 12.8)
+GMMA_SASS = {"attention": r"HGMMA", "attention_bwd": r"HGMMA", "resblock": r"HGMMA",
+             "int8conv": r"(?!HGMMA|QGMMA)[A-Z]*GMMA"}
 # libraries with no tensor-core kernel, none of whose instantiations may spill
 # (no HGMMA gate applies to them)
 NO_SPILL_LIBS = {"groupnorm": "K3"}
 _ENTRY = re.compile(
     r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
-    r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd)_kernelI(\S+)'")
+    r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_wgmma|quantize)"
+    r"_kernelI(\S+)'")
+_INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
 
 def build_report(name, nvcc_log):
@@ -362,7 +391,11 @@ def build_report(name, nvcc_log):
             wgmma = m.group(1).endswith("wgmma")
             dt = "bf16" if wgmma or "bfloat16" in m.group(2) else "f32"
             dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, f32 own-tile rows; K4's NB
-            if m.group(1) == "gn_silu_conv3x3_wgmma":
+            if m.group(1) == "int8_conv_wgmma":
+                entry = f"{m.group(1)} s8 out={_INT8_TYPES.get(dims[0], dims[0])}"
+            elif m.group(1) == "quantize":  # the int8 conv's quantize launch
+                entry = f"{m.group(1)} {dt}"
+            elif m.group(1) == "gn_silu_conv3x3_wgmma":
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1).startswith("group_norm"):
                 entry = f"{m.group(1)} {dt}" + (f" vector={dims[0]}" if dims else "")
@@ -406,19 +439,21 @@ def phase_build():
                                    "cached build, with its nvcc log") + gate)
         for line in build_report(name, nvcc_log):
             log(f"[build]   {line}")
-    # the bf16 kernels must run on the tensor cores: count the warpgroup
-    # multiplies (HGMMA) in each library's machine code
+    # the bf16 kernels and the int8 conv must run on the tensor cores: count
+    # the warpgroup multiplies (HGMMA; the integer ones for the int8 conv) in
+    # each library's machine code
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name, kernels in WGMMA_LIBS.items():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.build(name)[0])],
                               capture_output=True, text=True, check=True).stdout
-        hgmma = len(re.findall(r"\bHGMMA\.", sass))
-        log(f"[build] {name} library: {hgmma} HGMMA instructions in its SASS")
-        if hgmma == 0:
-            raise AssertionError(f"the {name} library holds no HGMMA: bf16 {kernels} are off "
-                                 "the tensor cores")
-    log(f"[build] K1, K2, K3 and K4 ready in {cuda_s:.2f} s (built side by side)")
+        found = collections.Counter(re.findall(rf"\b({GMMA_SASS[name]})\.", sass))
+        log(f"[build] {name} library: {sum(found.values())} warpgroup multiplies in its SASS "
+            f"{dict(found)}")
+        if not found:
+            raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
+                                 f"{kernels} is off the tensor cores")
+    log(f"[build] K1, K2, K3, K4 and the int8 conv ready in {cuda_s:.2f} s (built side by side)")
 
 
 def main_path_calls(model, dev):
@@ -862,7 +897,7 @@ def phase_slice(dev, state):
     launches = read_launches()
     calls = steps * len(requests)
     expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
-              "groupnorm_bwd": 0, "mha": 0, "resblock": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -1034,7 +1069,7 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     n_gn = (count(unet, GroupNormOp), count(cls, GroupNormOp))
     expect = {"attention": sum(n_attn) * calls, "attention_bwd": n_attn[1] * calls,
               "groupnorm": sum(n_gn) * calls, "groupnorm_bwd": n_gn[1] * calls, "mha": 0,
-              "resblock": 0}
+              "resblock": 0, "int8conv": 0}
     log(f"[guided] entry point, openai_128 + classifier, bf16, {steps} DDIM steps, "
         f"{len(labels_arg)} samples of {batch}: {images} files of 128x128 in {cli_s:.2f} s "
         f"(models built, checkpoints loaded and images saved inside that time); launches "
@@ -1461,12 +1496,13 @@ def block_counts(model):
 def kernel_counters():
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+    from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
     from nicediffusion_tpu_torch.ops.kernels import resblock as k4
 
     return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
             "groupnorm": k3.group_norm_fused, "groupnorm_bwd": k3.group_norm_fused_bwd,
             "mha": k1.mha_attention,
-            "resblock": k4.gn_silu_conv3x3}
+            "resblock": k4.gn_silu_conv3x3, "int8conv": k8.int8_conv_nhwc}
 
 
 def reset_launches():
@@ -1487,7 +1523,7 @@ def expect_train_launches(model, steps, sample_calls=0):
     return {"attention": n_attn * (steps * twice + sample_calls),
             "attention_bwd": n_attn * steps,
             "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls,
-            "groupnorm_bwd": steps * (gn_in + gn_out), "mha": 0, "resblock": 0}
+            "groupnorm_bwd": steps * (gn_in + gn_out), "mha": 0, "resblock": 0, "int8conv": 0}
 
 
 def metrics_rows(path):
@@ -1507,6 +1543,7 @@ KERNEL_GROUPS = (
     ("K1 attention forward", ("attention_fwd_kernel", "attention_fwd_wgmma")),
     ("K3 GroupNorm backward", ("group_norm_bwd",)),
     ("K3 GroupNorm forward", ("group_norm_fwd",)),
+    ("int8 conv", ("int8_conv",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
     ("matrix products (dense layers)", ("gemm", "cutlass", "cublas")),
@@ -2078,7 +2115,7 @@ def phase_fast(dev, state, workdir):
     n = len(labels_arg)
     expect = {"attention": n * (len(enc) * attn[0] + len(dec) * attn[1]), "attention_bwd": 0,
               "groupnorm": n * (len(enc) * gn[0] + len(dec) * gn[1]), "groupnorm_bwd": 0,
-              "mha": 0, "resblock": 0}
+              "mha": 0, "resblock": 0, "int8conv": 0}
     log(f"[fast] entry point, openai_64, bf16, CFG, DPM++ {steps} steps, dynamic thresholding, "
         f"encoder cache {k}, guidance in {interval}: {len(expect_files)} files of 64x64 in "
         f"{cli_s:.2f} s (model built, checkpoint loaded, images saved inside that time); per "
@@ -2212,6 +2249,296 @@ def phase_train_128(dev, off):
     return launches
 
 
+INT8_OPS = 1979e12  # int8 tensor-core operations a second, dense
+INT8_SERVE_BATCH = 64  # bench.py's batch: model batch 128 under CFG
+
+
+def int8_conv_calls(model, cfg, dev):
+    """Every int8 conv call of one forward of ``cfg``'s quantized model, as a
+    Counter of (H, W, C, F, k, stride) -> calls per forward: hooks on the
+    layers of the float ``model`` (kernels=False; shapes only) that the
+    quantized model makes int8 (its int8_layers' names)."""
+    from nicediffusion_tpu_torch import DiffusionModel
+
+    names = DiffusionModel(**cfg, quantized=True, device="meta").int8_layers()
+    modules = dict(model.named_modules())
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        _, h, w, c = args[0].shape
+        f, _, k, _ = mod.weight.shape
+        calls[(h, w, c, f, k, mod.stride)] += 1
+
+    hooks = [modules[name].register_forward_pre_hook(hook) for name in names]
+    x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        model(x, zero, zero)
+    for h in hooks:
+        h.remove()
+    if sum(calls.values()) != len(names):
+        raise AssertionError(f"{sum(calls.values())} int8 conv calls for {len(names)} layers")
+    return calls
+
+
+def int8_bound_ms(b, h, w, c, f, k, stride, xbytes=2, obytes=2):
+    """(bytes ms, operations ms) of the int8 conv: x read once (in its float
+    type), the int8 weights once, the output written once; 2 k^2 C F
+    operations an output pixel at the int8 tensor-core peak."""
+    pixels = b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    bytes_moved = b * h * w * c * xbytes + f * k * k * c + pixels * f * obytes + 8 * f
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, 2 * pixels * f * k * k * c / INT8_OPS * 1e3
+
+
+def library_conv_bf16(x, weight, bias, stride):
+    """What int8 serving replaces: the port's bf16 Conv2d, F.conv2d (cuDNN)
+    on the channels-last view, permuted back."""
+    k = weight.shape[-1]
+    return F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
+                    padding=k // 2).permute(0, 2, 3, 1).contiguous()
+
+
+def int8_inputs(g, dev, b, h, w, c, f, k, xdtype):
+    """x (a few values past the static scale's range, so some clip at
+    +-127), int8 weights (F, k, k, C), inv_act, deq and a bias."""
+    x = (2.0 * torch.randn(b, h, w, c, generator=g, device=dev)).to(xdtype)
+    kq = torch.randint(-127, 128, (f, k, k, c), generator=g, device=dev, dtype=torch.int8)
+    inv_act = torch.tensor(127.0 / 6.0, device=dev)
+    deq = 1e-4 * (1.0 + torch.rand(f, generator=g, device=dev))
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    return x, kq, inv_act, deq, bias
+
+
+def phase_int8_kernel(dev, calls64, calls_emnist):
+    """The int8 conv against its plain version (exact float64 sums) at every
+    (H, W, C, F, k, stride) one int8 forward of ``openai_64`` and of the
+    EMNIST model gives it, at model batch 16, f32 and bf16 input: the s32
+    sums and the outputs bit-equal. bf16 times of the ``openai_64`` calls
+    (host-timed, by CUDA graph and by torch.profiler) beside the plain
+    version, the bf16 F.conv2d the int8 path replaces and the bound, summed
+    over one forward; TOPS per call."""
+    from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
+
+    b = PATHS["forward"][0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tally = Tally()
+    checked = 0
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}  # max |out - plain| by input type
+    for key in sorted(set(calls64) | set(calls_emnist)):
+        h, w, c, f, k, stride = key
+        for xdtype in (torch.float32, torch.bfloat16):
+            x, kq, inv_act, deq, bias = int8_inputs(g, dev, b, h, w, c, f, k, xdtype)
+            out, sums = k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride, xdtype, raw=True)
+            torch.cuda.synchronize()
+            ref, ref_sums = k8.int8_conv_plain(x, kq, inv_act, deq, bias, stride, xdtype,
+                                               raw=True)
+            if not torch.equal(sums, ref_sums):
+                bad = (sums != ref_sums).sum().item()
+                raise AssertionError(f"int8 conv {key} {xdtype}: {bad} s32 sums differ")
+            errs[xdtype] = max(errs[xdtype], (out.float() - ref.float()).abs().max().item())
+            if not torch.equal(out, ref):
+                raise AssertionError(f"int8 conv {key} {xdtype}: outputs differ by "
+                                     f"{errs[xdtype]:.3g}")
+            checked += 1
+        per_forward = calls64.get(key, 0)
+        if not per_forward:
+            continue
+        del out, sums, ref, ref_sums
+        weight = torch.randn(f, c, k, k, generator=g, device=dev, dtype=torch.bfloat16)
+        lib_bias = bias.to(torch.bfloat16)
+        fns = (lambda: k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride),
+               lambda: k8.int8_conv_plain(x, kq, inv_act, deq, bias, stride),
+               lambda: library_conv_bf16(x, weight, lib_bias, stride))
+        ms = time_ms(fns[0], iters=10, rounds=3)
+        plain = time_ms(fns[1], iters=2, rounds=1)
+        lib = time_ms(fns[2], iters=10, rounds=3)
+        device = (graph_ms(fns[0]), graph_ms(fns[1], iters=2, rounds=1), graph_ms(fns[2]))
+        prof = (profiled_ms(fns[0]), profiled_ms(fns[2]))
+        bound = int8_bound_ms(b, h, w, c, f, k, stride)
+        tally.add(per_forward, ms, plain, lib, bound, device, prof)
+        ops = 2 * b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * f * k * k * c
+        log(f"[int8] conv {(b, h, w, c)} -> {f}, {k}x{k}, stride {stride}, bf16, {per_forward} "
+            f"per forward: device time {device[0]:.4f} ms by graph "
+            f"({ops / device[0] / 1e9:.1f} TOPS), {prof[0]:.4f} by torch.profiler "
+            f"({ops / prof[0] / 1e9:.1f} TOPS), host-timed {ms:.4f}; plain {device[1]:.4f} "
+            f"(host {plain:.4f}); bf16 F.conv2d {device[2]:.4f} by graph, {prof[1]:.4f} by "
+            f"torch.profiler (host {lib:.4f}); bound {max(bound):.4f} ms "
+            f"({'bytes' if bound[0] >= bound[1] else 'operations'})")
+    log(f"[int8] the int8 conv at {checked} (shape, input type) cases of one openai_64 and one "
+        f"EMNIST int8 forward at model batch {b}: s32 sums and outputs bit-equal to the plain "
+        f"version (exact float64 sums, the same f32 epilogue)")
+    log(f"[int8] bf16 calls of {PATHS['forward'][2]}'s {sum(calls64.values())} int8 convs, "
+        f"each timed back to back: {tally}; "
+        f"{2 * sum(n * b * ((h - 1) // s + 1) * ((w - 1) // s + 1) * f * k * k * c for (h, w, c, f, k, s), n in calls64.items()) / tally.profiler_ms / 1e9:.1f} "
+        f"TOPS by torch.profiler")
+    return tally, checked, errs
+
+
+def phase_int8(dev, state, workdir, n_int8):
+    """Static int8 serving through the sampling entry point at full-width
+    ``openai_64``: ``--dtype int8``, CFG w = 0.8, 25 DDIM steps, 2 requests
+    of 8 labels, ``--int8_calibration`` first writing the file (the
+    calibration chain drawn through the dynamic path), then reading it; the
+    two runs' images must be bit-equal and the launch counts what the
+    structure gives (every int8 conv call through the kernel, K1 and K3 as
+    on every path). Then int8 against bf16 samples/s and the device's idle
+    share at the requests' batch and at batch 64, and the max stack: frozen
+    int8, encoder_cache 2 and guidance_interval (0.1, 0.7), against the
+    exact bf16 chain."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.utils.checkpoint import load_calibration
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    model_path = os.path.join(workdir, "64x64_diffusion.pt")
+    if not os.path.exists(model_path):
+        torch.save(state, model_path)
+    calib_path = os.path.join(workdir, "int8_calibration.npz")
+    batch, labels_arg = FAST_BATCH, (3, 7)
+    common = ["--model_path", model_path, "--guidance_method", "classifier_free",
+              "--guidance_strength", "0.8", "--num_classes", str(model_config()["num_classes"]),
+              "--batch_size", str(batch), "--num_samples", str(len(labels_arg)), "--labels",
+              "/".join(map(str, labels_arg)), "--seed", "0", "--dtype", "int8",
+              "--int8_calibration", calib_path, "-w"]
+    model = DiffusionModel(**model_config(), dtype=torch.bfloat16, quantized=True,
+                           device=dev).eval()
+    model.load_state_dict(state, strict=True)
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    n_gn = sum(isinstance(m, GroupNormOp) for m in model.modules())
+    if len(model.int8_layers()) != n_int8:
+        raise AssertionError(f"{len(model.int8_layers())} int8 layers, {n_int8} int8 conv calls")
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free",
+                guidance_strength=0.8)
+    steps = Diffusion(model=model, **dcfg).rescaled_num_steps
+    points = len({int(round(i * (steps - 1) / 5)) for i in range(6)})  # calibration_inputs'
+    runs = []
+    total = collections.Counter()
+    for i, what in enumerate(("calibrates and writes", "reads")):
+        out_dir = os.path.join(workdir, f"int8_{i}") + os.sep
+        os.makedirs(out_dir)
+        reset_launches()
+        t0 = time.perf_counter()
+        samples = sample_main(common + ["--save_path", out_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        served = steps * len(labels_arg)  # the requests' model calls
+        drawn = steps if i == 0 else 0  # the calibration chain, the dynamic int8 path
+        recorded = points if i == 0 else 0  # float forwards that record the absmax
+        expect = {"attention": n_attn * (served + drawn + recorded), "attention_bwd": 0,
+                  "groupnorm": n_gn * (served + drawn + recorded), "groupnorm_bwd": 0,
+                  "mha": 0, "resblock": 0, "int8conv": n_int8 * (served + drawn)}
+        files = sorted(os.listdir(out_dir))
+        expect_files = sorted(f"{lab}_sample{j}.jpg" for lab in labels_arg for j in range(batch))
+        log(f"[int8] entry point, openai_64 --dtype int8, CFG 0.8, {steps} DDIM steps, "
+            f"{len(labels_arg)} requests of {batch}, --int8_calibration {what} the file: "
+            f"{len(files)} files in {seconds:.2f} s (model built, checkpoint loaded"
+            f"{', calibration chain drawn and recorded' if i == 0 else ', calibration read'}, "
+            f"images saved inside that time); launches {launches}, expected {expect} "
+            f"({n_int8} int8 convs, {n_attn} K1, {n_gn} K3 a call; {served} served calls"
+            + (f", {drawn} of the calibration draw, {recorded} recording" if i == 0 else "")
+            + ")")
+        if files != expect_files or launches != expect:
+            raise AssertionError(f"int8 entry point: files {files}, launches {launches}")
+        for (_, out, labels), lab in zip(samples, labels_arg):
+            if (out.shape != (batch, 64, 64, 3) or labels.tolist() != [lab] * batch
+                    or any(img.std() == 0 for img in out)):
+                raise AssertionError(f"int8 sample of label {lab}: {out.shape}")
+        runs.append(samples)
+        total.update(launches)
+        if not os.path.exists(calib_path):
+            raise AssertionError("--int8_calibration wrote no file")
+    for (_, a, _), (_, b, _) in zip(*runs):
+        if not (a == b).all():
+            raise AssertionError("the run that read the calibration gave other images than "
+                                 "the run that wrote it")
+    log(f"[int8] the two runs' {2 * batch} images are bit-equal")
+
+    # int8 against bf16, kernels on both, in turns, through the library
+    model.freeze_int8(load_calibration(calib_path, dev))
+    bf16 = DiffusionModel(**model_config(), dtype=torch.bfloat16, device=dev).eval()
+    bf16.load_state_dict(state, strict=True)
+    diffs = {"int8": Diffusion(model=model, **dcfg), "bf16": Diffusion(model=bf16, **dcfg)}
+    rates = {}
+    for b in (batch, INT8_SERVE_BATCH):
+        y = torch.arange(b, device=dev) * 97 % 1000 + 1
+
+        def chain(which, **levers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = diffs[which].denoise(torch.Generator(device=dev).manual_seed(5), y=y,
+                                       batch_size=b, **levers)
+            torch.cuda.synchronize()
+            return out, b / (time.perf_counter() - t0)
+
+        chain("int8"), chain("bf16")  # warm-up: cuDNN plans at this batch
+        got = {"int8": [], "bf16": []}
+        outs = {}
+        for which in ("int8", "bf16", "bf16", "int8"):
+            outs[which], r = chain(which)
+            got[which].append(r)
+        corr = torch.corrcoef(torch.stack([outs["int8"].flatten(),
+                                           outs["bf16"].flatten()]))[0, 1].item()
+        if not torch.isfinite(outs["int8"]).all() or outs["int8"].abs().max() > 1.0:
+            raise AssertionError(f"int8 chain at batch {b}: values not finite in [-1, 1]")
+        rates[b] = got
+        log(f"[int8] samples/s at batch {b} (model batch {2 * b}), CFG 0.8, {steps} DDIM "
+            f"steps, kernels on, in turns: int8 {got['int8']}, bf16 {got['bf16']}; final "
+            f"samples int8 against bf16: corrcoef {corr:.4f}")
+        x = torch.randn(2 * b, 64, 64, 3, generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev)
+        t = torch.full((2 * b,), 500, dtype=torch.long, device=dev)
+        yy = torch.cat([y, torch.zeros_like(y)])
+        for which, m in (("int8", model), ("bf16", bf16)):
+            def forward(m=m):
+                with torch.inference_mode():
+                    m(x, t, yy)
+
+            walls = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            profile_steps(forward, f"openai_64 {which} sampling forward (model batch {2 * b})",
+                          min(walls[1:]), steps=2, detail=b == INT8_SERVE_BATCH)
+        if b == batch:
+            # one forward, int8 against bf16: the correlation bar of the JAX
+            # package's quantized-forward tests (tests/test_quant.py); their
+            # max |diff| / std bar (0.35) is for a 2 x 16 x 16 x 2 output, and
+            # the largest of these 393,216 differences sits further out in the
+            # tail, so it is read, not gated
+            with torch.inference_mode():
+                q8, ref = model(x, t, yy), bf16(x, t, yy)
+            fwd_corr = torch.corrcoef(torch.stack([q8.flatten(), ref.flatten()]))[0, 1].item()
+            fwd_err = ((q8 - ref).abs().max() / ref.std()).item()
+            log(f"[int8] one forward at model batch {2 * b}, t = 500, int8 against bf16: "
+                f"corrcoef {fwd_corr:.6f} (gate 0.99); max |diff| / std {fwd_err:.4f}")
+            if not fwd_corr > 0.99:
+                raise AssertionError(f"the int8 forward strays from the bf16 one: {fwd_corr}")
+            # the max stack: frozen int8, the encoder cache and limited guidance
+            stacked, _ = chain("int8", encoder_cache=2, guidance_interval=(0.1, 0.7))
+            levers_bf16, _ = chain("bf16", encoder_cache=2, guidance_interval=(0.1, 0.7))
+            exact, _ = chain("bf16")
+
+            def corr(a, c):
+                return torch.corrcoef(torch.stack([a.flatten(), c.flatten()]))[0, 1].item()
+
+            log(f"[int8] max stack (int8, encoder_cache 2, guidance_interval (0.1, 0.7)) at "
+                f"batch {b}: finite in [-1, 1]; corrcoef with the exact bf16 chain "
+                f"{corr(stacked, exact):.4f} (the bf16 chain with the same levers "
+                f"{corr(levers_bf16, exact):.4f}, the int8 chain without them "
+                f"{corr(outs['int8'], exact):.4f}: a {steps}-step chain of random weights "
+                f"carries small differences far, so this is read, not gated)")
+            if not torch.isfinite(stacked).all() or stacked.abs().max() > 1.0:
+                raise AssertionError("the max stack: values not finite in [-1, 1]")
+    del model, bf16, diffs
+    torch.cuda.empty_cache()
+    return dict(total), rates
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -2248,6 +2575,8 @@ def main():
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev)}
     halves = resblock_halves(reference, dev)
+    int8_calls = int8_conv_calls(reference, model_config(), dev)
+    int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
     phase_done("models made, their kernel calls found")
     errs, tallies, k3_gates = phase_kernels(dev, paths)
     phase_done("[kernels]")
@@ -2259,6 +2588,8 @@ def main():
     k4_launches = phase_resblock_direct(dev, reference, torch.float32)
     k4_launches_bf16 = phase_resblock_direct(dev, reference, torch.bfloat16)
     phase_done("[k4]")
+    int8_tally, int8_cases, int8_errs = phase_int8_kernel(dev, int8_calls, int8_calls_emnist)
+    phase_done("[int8] kernel")
     mha_launches = phase_mha_direct(dev, paths)
     phase_model_128(dev, unet128, cls128)
     phase_done("[k5], [model-128]")
@@ -2287,6 +2618,9 @@ def main():
         phase_done("[guided]")
         by_path["sample_cli_openai_64_fast"] = phase_fast(dev, state, workdir)
         phase_done("[fast]")
+        by_path["sample_cli_openai_64_int8"], int8_rates = phase_int8(
+            dev, state, workdir, sum(int8_calls.values()))
+        phase_done("[int8] entry point")
         by_path.update(phase_train(dev, state, workdir))
         phase_done("[train]")
 
@@ -2358,6 +2692,22 @@ def main():
               "stand for, bf16, model batch 16", {},
               {"bfloat16": "wgmma: tensor cores, weights in a cp.async ring",
                "float32": "FMA: CUDA cores"}, **k4_gates),
+        # no Pallas kernel in the JAX package: XLA's int8 conv (and dense
+        # product) of its static int8 serving path; max_abs_err is of the
+        # output against the plain version by input type (the gate: s32 sums
+        # and outputs bit-equal)
+        entry("int8_conv", "cuda", "nicediffusion_tpu_torch/csrc/int8conv.cu",
+              "nicediffusion_tpu/ops/quant.py:87", "int8conv", int8_errs[torch.float32],
+              int8_errs[torch.bfloat16], int8_tally,
+              f"sum over the {sum(int8_calls.values())} int8 conv calls of one openai_64 int8 "
+              f"sampling forward, bf16 in and out, model batch {PATHS['forward'][0]}; the "
+              f"library call is the bf16 F.conv2d that int8 serving replaces", {},
+              {"bfloat16": "wgmma s8 x s8 -> s32: tensor cores, x quantized by a launch "
+                            "before it, A and B by cp.async",
+               "float32": "the same kernel", "int8": "the same kernel, x already quantized "
+               "(the dynamic path)"},
+              bit_equal_cases=int8_cases,
+              samples_per_s={f"batch {b}": r for b, r in int8_rates.items()}),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -4,14 +4,15 @@ Class-conditional sampling with classifier-free or classifier guidance and
 training on one NVIDIA H100: the UNet and the noisy classifier (EncoderUNet)
 as torch ``nn.Module``s with the original reference's parameter names, the
 DDPM, DDIM and DPM-Solver++ sampling chains with v-prediction, dynamic
-thresholding, the encoder cache and limited-interval guidance, the four
-training losses, the Trainer (AdamW, EMA,
-accumulation, checkpoints), the entry points
+thresholding, the encoder cache and limited-interval guidance, static int8
+serving (calibrate, freeze, serve), the four training losses, the Trainer
+(AdamW, EMA, accumulation, checkpoints), the entry points
 ``python -m nicediffusion_tpu_torch.scripts.sample`` and
-``python -m nicediffusion_tpu_torch.scripts.train``, and five kernels
+``python -m nicediffusion_tpu_torch.scripts.train``, and six kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
 CUDA C++; K3, fused GroupNorm and its backward in CUDA C++; K4, fused
-GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package). ``device=None`` means
+GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package;
+the int8 conv, s8 x s8 -> s32 in CUDA C++). ``device=None`` means
 the CUDA card everywhere; the CPU has to be asked for. The JAX package
 stays the reference this package is tested against; this package imports
 torch and numpy only.

@@ -37,8 +37,18 @@ first ran, so the dropout mask is the same, and puts the generator back
 afterwards. Parameters are f32 and cast per call, so bf16 compute gives f32
 gradients.
 
-int8 is ROADMAP queue A work ("Static int8"); Winograd is an
-ablation the port leaves out. ``device=None`` means the CUDA card
+Static int8 serving (``quantized=True``; ``quantized_attention=True`` also
+quantizes the attention projections). The residual blocks' convs, the
+Upsample/Downsample convs and (optionally) the attention projections become
+Int8Conv/Int8Dense, which keep the float layers' ``weight`` and ``bias``
+(float checkpoints load with ``strict=True``); the stem and the output head
+stay float, as in the JAX package. Each int8 layer owns its state and runs in
+one of three modes, set by the model's methods (no global): under
+``model.calibrating()`` the float compute, recording the running max |x| of
+its input; after ``model.freeze_int8(calib)`` the static path (its
+``kernel_q``, ``inv_act`` and ``deq`` buffers, not in the state dict), through
+the int8 conv kernel; otherwise the dynamic path (ops/quant.py). Winograd is
+an ablation the port leaves out. ``device=None`` means the CUDA card
 (utils/device.py); the CPU has to be asked for.
 """
 
@@ -47,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,10 +67,18 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import qkv_attention
 from ..ops.groupnorm import ada_group_norm_silu, group_norm, group_norm_silu
 from ..ops.math import timestep_embedding
+from ..ops.quant import (
+    int8_conv,
+    int8_conv_static,
+    int8_dense,
+    int8_dense_static,
+    kernel_layout,
+    static_quant_triple,
+)
 from ..ops.resize import avg_pool_2x, upsample_nearest_2x
 from ..utils.device import resolve_device
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "Int8Conv", "Int8Dense"]
 
 
 class Conv2d(nn.Module):
@@ -109,6 +127,78 @@ class Linear(nn.Module):
         return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
 
 
+class _Int8State:
+    """What an int8 layer owns (JAX ``Int8Conv``/``Int8Dense``'s 'calib' and
+    'quant' collections): ``absmax``, the running max |x| recorded while
+    ``recording``; ``kernel_q`` (F, k, k, C) int8, ``inv_act`` (0-dim f32)
+    and ``deq`` (F,) f32 once frozen. Buffers outside the state dict."""
+
+    def _init_int8(self, kernels: bool):
+        self.kernels, self.recording = kernels, False
+        for name in ("absmax", "kernel_q", "inv_act", "deq"):
+            self.register_buffer(name, None, persistent=False)
+
+    def _record(self, x):
+        a = x.detach().float().abs().amax()
+        self.absmax = a if self.absmax is None else torch.maximum(self.absmax, a)
+
+    def freeze(self, absmax):
+        """Quantize the weights per output channel and keep the static scales
+        (ops/quant.py static_quant_triple)."""
+        with torch.no_grad():
+            w_q, self.inv_act, self.deq = static_quant_triple(self.weight, absmax, axis=0)
+            self.kernel_q = kernel_layout(w_q)
+
+
+class Int8Conv(_Int8State, Conv2d):
+    """A Conv2d with int8 x int8 -> int32 compute (JAX models/unet.py
+    ``Int8Conv``): float while recording, the static path once frozen, the
+    dynamic path otherwise. ``kernels=False`` takes the plain version of the
+    int8 conv kernel."""
+
+    def __init__(self, *args, kernels: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self._init_int8(kernels)
+
+    def forward(self, x):
+        if self.recording:
+            self._record(x)
+            return super().forward(x)
+        out_dtype = self.dtype or x.dtype
+        if self.kernel_q is not None:
+            return int8_conv_static(x, self.kernel_q, self.inv_act, self.deq, self.bias,
+                                    self.stride, out_dtype, kernels=self.kernels)
+        return int8_conv(x, self.weight, self.bias, self.stride, out_dtype, kernels=self.kernels)
+
+
+class Int8Dense(_Int8State, Linear):
+    """A Linear with the modes of Int8Conv (JAX ``Int8Dense``), for the
+    attention projections; its product is the int8 conv kernel as a 1 x 1
+    conv."""
+
+    def __init__(self, *args, kernels: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self._init_int8(kernels)
+
+    def forward(self, x):
+        if self.recording:
+            self._record(x)
+            return super().forward(x)
+        out_dtype = self.dtype or x.dtype
+        if self.kernel_q is not None:
+            return int8_dense_static(x, self.kernel_q, self.inv_act, self.deq, self.bias,
+                                     out_dtype, kernels=self.kernels)
+        return int8_dense(x, self.weight, self.bias, out_dtype, kernels=self.kernels)
+
+
+def _conv(in_ch, out_ch, k, stride=1, zero_init=False, dtype=None, device=None,
+          quantized=False, kernels=True):
+    """JAX unet.py ``_conv``: an Int8Conv when quantized, else a Conv2d."""
+    if quantized:
+        return Int8Conv(in_ch, out_ch, k, stride, zero_init, dtype, device, kernels=kernels)
+    return Conv2d(in_ch, out_ch, k, stride, zero_init, dtype, device)
+
+
 class GroupNormOp(nn.Module):
     """GroupNorm parameters, applied through the fused ops.
 
@@ -139,9 +229,14 @@ class GroupNormOp(nn.Module):
 class Upsample(nn.Module):
     """2x nearest upsample, optional 3x3 conv (reference model.py:51-80)."""
 
-    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None):
+    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None,
+                 quantized: bool = False, kernels: bool = True):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, dtype=dtype, device=device) if with_conv else None
+        self.conv = (
+            _conv(channels, channels, 3, dtype=dtype, device=device, quantized=quantized,
+                  kernels=kernels)
+            if with_conv else None
+        )
 
     def forward(self, x):
         x = upsample_nearest_2x(x)
@@ -151,10 +246,12 @@ class Upsample(nn.Module):
 class Downsample(nn.Module):
     """2x downsample via stride-2 conv or avg-pool (reference model.py:83-112)."""
 
-    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None):
+    def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None,
+                 quantized: bool = False, kernels: bool = True):
         super().__init__()
         self.conv = (
-            Conv2d(channels, channels, 3, stride=2, dtype=dtype, device=device)
+            _conv(channels, channels, 3, stride=2, dtype=dtype, device=device,
+                  quantized=quantized, kernels=kernels)
             if with_conv else None
         )
 
@@ -169,23 +266,23 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, upsample: bool = False,
                  downsample: bool = False, use_adaptive_gn: bool = False,
-                 dropout: float = 0.0, dtype=None, kernels: bool = True, device=None):
+                 dropout: float = 0.0, dtype=None, kernels: bool = True, device=None,
+                 quantized: bool = False):
         super().__init__()
         self.upsample, self.downsample = upsample, downsample
         self.use_adaptive_gn, self.dropout = use_adaptive_gn, dropout
+        conv = functools.partial(_conv, dtype=dtype, device=device, quantized=quantized,
+                                 kernels=kernels)
         self.in_norm = GroupNormOp(in_ch, "silu", kernels=kernels, device=device)
-        self.in_conv = Conv2d(in_ch, out_ch, 3, dtype=dtype, device=device)
+        self.in_conv = conv(in_ch, out_ch, 3)
         self.step_embedding = Linear(
             emb_dim, 2 * out_ch if use_adaptive_gn else out_ch, dtype=dtype, device=device
         )
         self.out_norm = GroupNormOp(
             out_ch, "ada" if use_adaptive_gn else "silu", kernels=kernels, device=device
         )
-        self.out_conv = Conv2d(out_ch, out_ch, 3, zero_init=True, dtype=dtype, device=device)
-        self.skip = (
-            None if out_ch == in_ch
-            else Conv2d(in_ch, out_ch, 1, dtype=dtype, device=device)
-        )
+        self.out_conv = conv(out_ch, out_ch, 3, zero_init=True)
+        self.skip = None if out_ch == in_ch else conv(in_ch, out_ch, 1)
 
     def forward(self, x, emb, generator=None):
         h = self.in_norm(x)
@@ -218,7 +315,7 @@ class AttentionBlock(nn.Module):
 
     def __init__(self, channels: int, num_heads: int = 1,
                  num_head_channels: int | None = None, split_qkv_first: bool = True,
-                 dtype=None, kernels: bool = True, device=None):
+                 dtype=None, kernels: bool = True, device=None, quantized: bool = False):
         super().__init__()
         if num_head_channels is None:
             self.heads = num_heads
@@ -231,10 +328,11 @@ class AttentionBlock(nn.Module):
             self.heads = channels // num_head_channels
         self.split_qkv_first, self.kernels = split_qkv_first, kernels
         self.norm = GroupNormOp(channels, "plain", kernels=kernels, device=device)
-        self.qkv_nin = Linear(channels, 3 * channels, conv1d_weight=True,
+        dense = functools.partial(Int8Dense, kernels=kernels) if quantized else Linear
+        self.qkv_nin = dense(channels, 3 * channels, conv1d_weight=True,
+                             dtype=dtype, device=device)
+        self.proj_out = dense(channels, channels, zero_init=True, conv1d_weight=True,
                               dtype=dtype, device=device)
-        self.proj_out = Linear(channels, channels, zero_init=True, conv1d_weight=True,
-                               dtype=dtype, device=device)
 
     def forward(self, x):
         b, hh, ww, c = x.shape
@@ -313,10 +411,6 @@ class OutHead(nn.Sequential):
         )
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP queue A, "{where}")')
-
-
 class DiffusionModel(nn.Module):
     """UNet epsilon predictor (reference model.py:294-476), NHWC.
 
@@ -324,6 +418,9 @@ class DiffusionModel(nn.Module):
     ``timestep`` is the original-chain timestep (the diffusion engine maps
     rescaled indices through its timestep_map before calling the model).
     ``dtype`` is the compute dtype (None: the input's); parameters stay f32.
+    ``quantized`` makes the residual blocks' and resamplers' convs int8
+    (``quantized_attention`` also the attention projections); see the
+    module docstring for their calibrate -> freeze -> serve modes.
     """
 
     def __init__(
@@ -352,8 +449,6 @@ class DiffusionModel(nn.Module):
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        if quantized or quantized_attention:
-            raise _not_ported("int8 serving", "Static int8")
         if winograd:
             raise NotImplementedError("Winograd is an ablation the port leaves out (ROADMAP)")
         device = resolve_device(device)
@@ -367,11 +462,12 @@ class DiffusionModel(nn.Module):
         def res(cin, cout, up=False, down=False):
             return ResidualBlock(cin, cout, emb_dim, upsample=up, downsample=down,
                                  use_adaptive_gn=use_adaptive_gn, dropout=dropout,
-                                 kernels=kernels, **kw)
+                                 kernels=kernels, quantized=quantized, **kw)
 
         def attn(ch):
             return AttentionBlock(ch, num_heads, num_head_channels, split_qkv_first,
-                                  kernels=kernels, **kw)
+                                  kernels=kernels, quantized=quantized and quantized_attention,
+                                  **kw)
 
         self.step_embed = EmbedMLP(model_channels, emb_dim, **kw)
         if self.conditional:
@@ -394,7 +490,8 @@ class DiffusionModel(nn.Module):
                 if resblock_updown:
                     down.append(seq([res(ch, ch, down=True)]))
                 else:
-                    down.append(seq([Downsample(ch, conv_resample, **kw)]))
+                    down.append(seq([Downsample(ch, conv_resample, quantized=quantized,
+                                                kernels=kernels, **kw)]))
                 skip_chs.append(ch)
                 curr_res //= 2
         self.downsampling = nn.ModuleList(down)
@@ -414,7 +511,8 @@ class DiffusionModel(nn.Module):
                     if resblock_updown:
                         layers.append(res(ch, ch, up=True))
                     else:
-                        layers.append(Upsample(ch, conv_resample, **kw))
+                        layers.append(Upsample(ch, conv_resample, quantized=quantized,
+                                               kernels=kernels, **kw))
                     curr_res *= 2
                 up.append(seq(layers))
         self.upsampling = nn.ModuleList(up)
@@ -424,6 +522,61 @@ class DiffusionModel(nn.Module):
     @property
     def conditional(self) -> bool:
         return self.num_classes is not None
+
+    # ---- static int8 (JAX ops/quant.py's calibrate -> freeze -> serve) ----
+
+    def int8_layers(self) -> dict[str, nn.Module]:
+        """Every Int8Conv/Int8Dense by its module name (the state-dict prefix
+        of its weight), in module order; empty unless ``quantized``."""
+        return {name: m for name, m in self.named_modules() if isinstance(m, _Int8State)}
+
+    @contextlib.contextmanager
+    def calibrating(self):
+        """Within the block every int8 layer computes in float and records
+        the running max |x| of its input, starting afresh."""
+        layers = list(self.int8_layers().values())
+        for m in layers:
+            m.absmax, m.recording = None, True
+        try:
+            yield self
+        finally:
+            for m in layers:
+                m.recording = False
+
+    def int8_calibration(self) -> dict[str, torch.Tensor]:
+        """``{layer name: absmax}`` recorded by the last ``calibrating()``."""
+        out = {}
+        for name, m in self.int8_layers().items():
+            if m.absmax is None:
+                raise RuntimeError(f"int8 layer {name} recorded no calibration input")
+            out[name] = m.absmax.detach().clone()
+        return out
+
+    def freeze_int8(self, calib: Mapping[str, torch.Tensor]) -> None:
+        """Freeze every int8 layer from ``calib`` (``{layer name: absmax}``,
+        one entry per layer, as ``int8_calibration`` returns); the model then
+        serves the static path."""
+        layers = self.int8_layers()
+        if set(calib) != set(layers):
+            raise KeyError(f"the calibration names {sorted(set(calib) ^ set(layers))[:4]} "
+                           "not both in it and among the model's int8 layers")
+        for name, m in layers.items():
+            m.freeze(calib[name])
+
+    def load_int8_state(self, quant: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Set every int8 layer's frozen buffers from ``{layer name:
+        {"kernel_q", "inv_act", "deq"}}`` (utils/convert.py
+        ``flax_quant_to_torch`` reads the JAX package's 'quant' tree so)."""
+        layers = self.int8_layers()
+        if set(quant) != set(layers):
+            raise KeyError(f"the quant state names {sorted(set(quant) ^ set(layers))[:4]} "
+                           "not both in it and among the model's int8 layers")
+        for name, m in layers.items():
+            dev = m.weight.device
+            q = {k: torch.as_tensor(v) for k, v in quant[name].items()}
+            m.kernel_q = q["kernel_q"].to(dev, torch.int8).contiguous()
+            m.inv_act = q["inv_act"].to(dev, torch.float32).reshape(())
+            m.deq = q["deq"].to(dev, torch.float32).contiguous()
 
     # The forward pass keeps the JAX package's embed / encode / decode split,
     # which the encoder cache of Diffusion.denoise builds on.

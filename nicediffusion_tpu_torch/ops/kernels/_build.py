@@ -103,7 +103,7 @@ def load_library(name: str, built: tuple[Path, str, float] | None = None) -> cty
 
 
 def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock",
-                                         "groupnorm")) -> None:
+                                         "groupnorm", "int8conv")) -> None:
     """Build several sources, one nvcc process per source, all started
     together (nvcc is a subprocess, so threads are enough), and load each
     through :func:`load_library`."""

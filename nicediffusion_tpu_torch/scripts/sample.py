@@ -20,9 +20,20 @@ Fast sampling: ``--sampler dpm++`` (with fewer ``--rescaled_num_steps``),
 and ``--guidance_interval LO HI`` go through to ``Diffusion`` and its
 ``denoise``.
 
+Static int8 serving: ``--dtype int8`` builds the model quantized (int8
+convs through the int8 conv kernel, bfloat16 elsewhere) and, before the
+first sample, calibrates it: one chain of ``min(batch_size, 8)`` images drawn
+through the unfrozen model (the dynamic int8 path), q-sampled back to six
+points of the chain, the running max |x| of every int8 layer's input
+recorded over float forwards of those, then frozen. The calibration draw
+takes its random numbers from a generator of its own (seeded from
+``--seed`` + 1), so the samples are the same whether the calibration was
+drawn or loaded. ``--int8_calibration f.npz`` saves that calibration (the
+JAX package's 'calib' tree, which either package reads), or, if the file
+exists, loads and freezes it without drawing.
+
 Flags whose feature the port does not have yet raise NotImplementedError
-naming their ROADMAP entry, before any model is built: ``--dtype int8``,
-``--int8_calibration`` (ROADMAP queue A, "Static int8"), ``--upsample`` ("SR
+naming their ROADMAP entry, before any model is built: ``--upsample`` ("SR
 and ESRGAN") and ``--data_parallel`` ("Multi-GPU").
 
 Usage:
@@ -30,19 +41,19 @@ Usage:
       --batch_size 8 --num_samples 2 [--labels 3/7] [--save_path out/] [-w] \\
       [--classifier_path 64x64_classifier.pt --guidance_strength 1.0] \\
       [--sampler dpm++ --rescaled_num_steps 20 --dynamic_thresholding 0.995 \\
-       --encoder_cache 3 --guidance_interval 0.0 0.6]
+       --encoder_cache 3 --guidance_interval 0.0 0.6] \\
+      [--dtype int8 --int8_calibration calib.npz]
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 
 def _refuse_unported(args) -> None:
     """Raise for every flag whose feature waits in ROADMAP queue A."""
     unported = (
-        (args.dtype == "int8", "--dtype int8", "Static int8"),
-        (args.int8_calibration is not None, "--int8_calibration", "Static int8"),
         (args.upsample, "--upsample", "SR and ESRGAN"),
         (args.data_parallel, "--data_parallel", "Multi-GPU"),
     )
@@ -63,7 +74,8 @@ def main(argv: list[str] | None = None):
     from ..diffusion.process import Diffusion
     from ..models.classifier import EncoderUNet
     from ..models.unet import DiffusionModel
-    from ..utils.checkpoint import load_state_dict
+    from ..ops.quant import calibration_inputs, collect_calibration, freeze_int8
+    from ..utils.checkpoint import load_calibration, load_state_dict, save_calibration
     from ..utils.cli import get_dicts_from_args, make_argparser
     from ..utils.config import classifier_preset_for_path
     from ..utils.image import grayscale_to_rgb, load_start_image, save_image, to_uint8
@@ -93,30 +105,34 @@ def main(argv: list[str] | None = None):
             "sampling runs on the CUDA card and torch.cuda.is_available() is "
             "False; pass --cpu to run on the CPU"
         )
-    generator = torch.Generator(device=device).manual_seed(
-        other_args["seed"] if other_args["seed"] is not None else 0
-    )
+    seed = other_args["seed"] if other_args["seed"] is not None else 0
+    generator = torch.Generator(device=device).manual_seed(seed)
     wordy = other_args["wordy"]
     num_samples, batch_size = other_args["num_samples"], other_args["batch_size"]
     labels_arg, save_path = other_args["labels"], other_args["save_path"]
     conditional = model_args["num_classes"] is not None
     resolution, in_channels = model_args["resolution"], model_args["in_channels"]
 
+    # int8: the quantized convs, bfloat16 elsewhere (as the JAX CLI)
     dtype_flag = other_args["dtype"]
+    quantized = dtype_flag == "int8"
     if dtype_flag == "auto":
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    elif quantized:
+        dtype = torch.bfloat16
     else:
         dtype = getattr(torch, dtype_flag)
     if dtype == torch.float32 and device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     if wordy:
-        print(f"Computing in {str(dtype).removeprefix('torch.')} on {device}")
+        print(f"Computing in {'int8/' if quantized else ''}"
+              f"{str(dtype).removeprefix('torch.')} on {device}")
 
     def count(module):
         return sum(p.numel() for p in module.parameters())
 
-    model = DiffusionModel(**model_args, dtype=dtype, device=device).eval()
+    model = DiffusionModel(**model_args, dtype=dtype, quantized=quantized, device=device).eval()
     model.load_state_dict(load_state_dict(other_args["model_path"], device), strict=True)
 
     # noisy-classifier guidance: a guided-diffusion EncoderUNet whose
@@ -137,6 +153,30 @@ def main(argv: list[str] | None = None):
               f"{batch_size} images each")
 
     diffusion = Diffusion(model=model, **diff_args)
+
+    if quantized:
+        calib_path = other_args["int8_calibration"]
+        if calib_path and os.path.exists(calib_path):
+            if wordy:
+                print(f"Loading int8 calibration from {calib_path}")
+            calib = load_calibration(calib_path, device)
+        else:
+            calib_gen = torch.Generator(device=device).manual_seed(seed + 1)
+            calib_batch = min(batch_size, 8)
+            calib_y = (
+                torch.randint(0, model_args["num_classes"], (calib_batch,),
+                              generator=calib_gen, device=device)
+                if conditional else None
+            )
+            if wordy:
+                print("Calibrating int8 activation scales on one chain...")
+            inputs = calibration_inputs(diffusion, calib_gen, y=calib_y, batch_size=calib_batch)
+            calib = collect_calibration(model, inputs)
+            if calib_path:
+                save_calibration(calib, calib_path)
+                if wordy:
+                    print(f"Saved int8 calibration to {calib_path}")
+        freeze_int8(model, calib)
 
     start_batch = None
     if other_args["start_img"] is not None and other_args["steps_to_do"] is not None:

@@ -13,6 +13,12 @@ The result loads into nicediffusion_tpu_torch.DiffusionModel, or for a
 classifier checkpoint (``*_classifier.pt``, or the ``.npz`` of the JAX
 EncoderUNet's tree) into nicediffusion_tpu_torch.EncoderUNet, with
 ``strict=True``.
+
+:func:`save_params_npz` writes a nested tree as that flat ``.npz`` (the JAX
+package's keys), and :func:`load_npz_tree` reads one back as the tree; with
+utils/convert.py's calibration converters they keep the ``--int8_calibration``
+file, which either package can read: :func:`save_calibration`,
+:func:`load_calibration`.
 """
 
 from __future__ import annotations
@@ -22,10 +28,16 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .convert import flax_params_to_torch_state_dict, rename_guided_diffusion_keys
+from .convert import (
+    calibration_to_flax,
+    flax_calibration_to_torch,
+    flax_params_to_torch_state_dict,
+    rename_guided_diffusion_keys,
+)
 from .device import resolve_device
 
-__all__ = ["load_state_dict"]
+__all__ = ["load_state_dict", "save_params_npz", "load_npz_tree", "save_calibration",
+           "load_calibration"]
 
 _SEP = "::"
 
@@ -41,6 +53,46 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            out[_SEP.join(prefix + (k,))] = np.asarray(v)
+    return out
+
+
+def save_params_npz(tree: Mapping, path: str) -> None:
+    """Save a nested tree of arrays (or tensors) as a flat ``.npz``, keys
+    joined by ``::``: nicediffusion_tpu.utils.checkpoint.save_params_npz's
+    format, which its ``load_params`` reads."""
+    np.savez(path, **_flatten(tree))
+
+
+def load_npz_tree(path: str) -> dict:
+    """A flat ``.npz`` of ``::``-joined keys as the nested tree of numpy
+    arrays."""
+    with np.load(path) as data:
+        return _unflatten({k: data[k] for k in data.files})
+
+
+def save_calibration(calib: Mapping[str, torch.Tensor], path: str) -> None:
+    """An int8 calibration (``{layer name: absmax}``) as the JAX package's
+    'calib' tree in an ``.npz``."""
+    save_params_npz(calibration_to_flax(calib), path)
+
+
+def load_calibration(path: str, device: torch.device | str | None = None
+                     ) -> dict[str, torch.Tensor]:
+    """An int8 calibration ``.npz`` written by either package ->
+    ``{layer name: absmax}`` of f32 scalars on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in flax_calibration_to_torch(load_npz_tree(path)).items()}
+
+
 def load_state_dict(
     path: str, device: torch.device | str | None = None
 ) -> dict[str, torch.Tensor]:
@@ -48,8 +100,7 @@ def load_state_dict(
     tensors on ``device`` (``None`` means the CUDA card, utils/device.py)."""
     device = resolve_device(device)
     if path.endswith(".npz"):
-        with np.load(path) as data:
-            tree = _unflatten({k: data[k] for k in data.files})
+        tree = load_npz_tree(path)
         return {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in flax_params_to_torch_state_dict(tree).items()

@@ -18,7 +18,14 @@ The port's module tree keeps the original torch reference's parameter names
     ``torch.optim.AdamW.state_dict()`` (``exp_avg``, ``exp_avg_sq``,
     ``step``);
   * :func:`gn_silu_conv3x3_args_to_torch` turns the arrays of a call to the
-    JAX package's fused GN+SiLU+conv kernel into the port's arguments.
+    JAX package's fused GN+SiLU+conv kernel into the port's arguments;
+  * static int8 state: :func:`calibration_to_flax` and
+    :func:`flax_calibration_to_torch` carry a calibration (one absmax per
+    int8 layer: the port's ``{layer name: absmax}``, the JAX package's
+    'calib' tree) both ways, and :func:`flax_quant_to_torch` turns the JAX
+    package's frozen 'quant' tree (``kernel_q`` HWIO or (I, O) int8,
+    ``inv_act``, ``deq``) into the port's buffers, ``kernel_q`` in the int8
+    conv kernel's (F, k, k, C) layout.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ __all__ = [
     "flax_params_to_torch_state_dict",
     "train_state_to_torch",
     "gn_silu_conv3x3_args_to_torch",
+    "calibration_to_flax",
+    "flax_calibration_to_torch",
+    "flax_quant_to_torch",
 ]
 
 # rename bare `qkv` -> `qkv_nin` but leave `qkv_nin` (idempotence) and the
@@ -102,6 +112,22 @@ def _flax_path(torch_name: str) -> tuple[list[str], str]:
     return out, leaf
 
 
+def _torch_path(mods: Sequence[str]) -> list[str]:
+    """Flax module path -> torch module path, the inverse of :func:`_flax_path`:
+    ``['downsampling_3', 'layers_0', 'in_norm']`` -> ``['downsampling', '3',
+    '0', 'in_norm']``."""
+    out: list[str] = []
+    for m in mods:
+        stem, _, idx = m.rpartition("_")
+        if stem in _LIST_CONTAINERS and idx.isdigit():
+            out += [stem, idx]
+        elif stem == "layers" and idx.isdigit():
+            out.append(idx)
+        else:
+            out.append(m)
+    return out
+
+
 def _convert_leaf(path: list[str], leaf: str, value: np.ndarray):
     """Transpose/rename one torch tensor into its flax (name, array) form."""
     module = path[-1] if path else ""
@@ -158,15 +184,7 @@ def flax_params_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
             return
         value = np.asarray(node)
         *mods, leaf = path
-        torch_mods = []
-        for m in mods:
-            stem, _, idx = m.rpartition("_")
-            if stem in _LIST_CONTAINERS and idx.isdigit():
-                torch_mods += [stem, idx]
-            elif stem == "layers" and idx.isdigit():
-                torch_mods.append(idx)
-            else:
-                torch_mods.append(m)
+        torch_mods = _torch_path(mods)
         if leaf in ("scale", "embedding"):
             name = "weight"
         elif leaf == "positional_embedding":
@@ -235,3 +253,56 @@ def gn_silu_conv3x3_args_to_torch(
     if es is not None:
         out += [np.asarray(es), np.asarray(eb)]
     return tuple(out)
+
+
+def calibration_to_flax(calib: Mapping[str, Any]) -> dict:
+    """The port's ``{layer name: absmax}`` -> the JAX package's merged 'calib'
+    tree (``{..., 'in_conv': {'absmax': f32 scalar}}``), which its
+    ``save_params_npz`` / ``load_params`` and ``freeze_int8`` take."""
+    tree: dict = {}
+    for name, value in calib.items():
+        path, _ = _flax_path(name + ".absmax")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        value = value.detach().cpu().numpy() if hasattr(value, "detach") else value
+        node["absmax"] = np.asarray(value, np.float32).reshape(())
+    return tree
+
+
+def _leaves(tree: Mapping, path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def flax_calibration_to_torch(tree: Mapping) -> dict[str, np.ndarray]:
+    """A JAX 'calib' tree (merged scalars, or the tuples flax's ``sow``
+    leaves) -> the port's ``{layer name: absmax}`` of f32 scalars."""
+    out = {}
+    for (*mods, leaf), value in _leaves(tree):
+        if leaf != "absmax":
+            raise ValueError(f"unexpected calibration leaf {'/'.join([*mods, leaf])}")
+        if isinstance(value, tuple):
+            value = value[0]
+        out[".".join(_torch_path(mods))] = np.asarray(value, np.float32).reshape(())
+    return out
+
+
+def flax_quant_to_torch(tree: Mapping) -> dict[str, dict[str, np.ndarray]]:
+    """The JAX package's frozen 'quant' tree -> ``{layer name: {"kernel_q",
+    "inv_act", "deq"}}`` for ``DiffusionModel.load_int8_state``: a conv's
+    HWIO ``kernel_q`` becomes (F, kh, kw, C), a dense layer's (I, O) becomes
+    (O, 1, 1, I); the scales are unchanged."""
+    out: dict[str, dict[str, np.ndarray]] = {}
+    for (*mods, leaf), value in _leaves(tree):
+        value = np.array(value)  # a writable copy of a (read-only) device array
+        if leaf == "kernel_q":
+            value = value.transpose(3, 0, 1, 2) if value.ndim == 4 else value.T[:, None, None, :]
+            value = np.ascontiguousarray(value)
+        elif leaf not in ("inv_act", "deq"):
+            raise ValueError(f"unexpected quant leaf {'/'.join([*mods, leaf])}")
+        out.setdefault(".".join(_torch_path(mods)), {})[leaf] = value
+    return out

@@ -128,3 +128,61 @@ def test_build_report_refuses_a_k3_build(log, match):
 
     with pytest.raises(AssertionError, match=match):
         build_report("groupnorm", log)
+
+
+def _ptxas_int8(out_type, spill_bytes):
+    mangled = ("_ZN44_GLOBAL__N__56394114_11_int8conv_cu_4548ab4222int8_conv_wgmma_kernelILi"
+               f"{out_type}EEEvNS_4ArgsE")
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
+            f"{spill_bytes} bytes spill loads\n"
+            "ptxas info    : Used 122 registers, used 1 barriers\n")
+
+
+def _ptxas_quantize(dtype):
+    mangled = (f"_ZN44_GLOBAL__N__56394114_11_int8conv_cu_4548ab4215quantize_kernelI{dtype}EEvPKT_"
+               "PKfPalli")
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+            "ptxas info    : Used 26 registers, used 0 barriers\n")
+
+
+def test_build_report_passes_a_clean_int8_conv():
+    """The int8 conv's instances (out bf16 or f32) and its two quantize
+    launches (f32, bf16 in), named as nvcc 12.8 mangles them: each a line,
+    the conv's spills gated."""
+    from chip_smoke import build_report
+
+    lines = build_report("int8conv", _ptxas_int8(1, 0) + _ptxas_int8(0, 0)
+                         + _ptxas_quantize("13__nv_bfloat16") + _ptxas_quantize("f"))
+    assert [line.split(":")[0] for line in lines] == [
+        "int8_conv_wgmma s8 out=bf16", "int8_conv_wgmma s8 out=f32", "quantize bf16",
+        "quantize f32"]
+    assert lines[0].endswith("0 bytes spill loads") and "Used 122 registers" in lines[0]
+
+
+@pytest.mark.parametrize("log,match", [
+    (_ptxas_int8(1, 0) + _ptxas_int8(0, 24), "spills"),
+    (_ptxas_quantize("f"), "names no wgmma"),
+], ids=["spilling", "no_wgmma_entry"])
+def test_build_report_refuses_an_int8_conv_build(log, match):
+    from chip_smoke import build_report
+
+    with pytest.raises(AssertionError, match=match):
+        build_report("int8conv", log)
+
+
+def test_the_int8_sass_gate_counts_integer_warpgroup_multiplies():
+    """The int8 library's gate counts integer warpgroup multiplies under any
+    mnemonic and no bf16 or fp8 one; the bf16 libraries' counts HGMMA."""
+    import re
+
+    from chip_smoke import GMMA_SASS
+
+    sass = ("  /*0a10*/  IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24 ;\n"
+            "  /*0a20*/  HGMMA.64x64x16.F32.BF16 R0, gdesc[UR8], R0 ;\n"
+            "  /*0a30*/  QGMMA.64x64x32.F32.E4M3.E4M3 R0, gdesc[UR8], R0 ;\n")
+    assert re.findall(rf"\b({GMMA_SASS['int8conv']})\.", sass) == ["IGMMA"]
+    assert re.findall(rf"\b({GMMA_SASS['resblock']})\.", sass) == ["HGMMA"]

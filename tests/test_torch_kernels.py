@@ -1,9 +1,11 @@
-"""K1 to K5 (CUDA C++) against their plain torch versions on the card.
+"""K1 to K5 and the int8 conv (CUDA C++) against their plain torch versions
+on the card.
 
 bf16 K1, K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA
-cores; K3 and its backward on the CUDA cores in both. ``-k k2`` runs K2's
-tests, ``-k "k1 or k5 or attention_function"`` the forward's, ``-k k4``
-K4's, ``-k k3`` K3's forward and backward.
+cores; K3 and its backward on the CUDA cores in both; the int8 conv on the
+tensor cores in s8 (its s32 sums bit-equal to the plain version's). ``-k k2``
+runs K2's tests, ``-k "k1 or k5 or attention_function"`` the forward's, ``-k
+k4`` K4's, ``-k k3`` K3's forward and backward, ``-k int8`` the int8 conv's.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -22,6 +24,7 @@ import torch
 from nicediffusion_tpu_torch import DiffusionModel
 from nicediffusion_tpu_torch.ops.kernels import attention as k1
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
+from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
 from nicediffusion_tpu_torch.ops.kernels import resblock as k4
 
 pytestmark = pytest.mark.cuda
@@ -740,3 +743,115 @@ def test_k4_function_gradient_on_the_card(cuda, ada):
     ref = torch.autograd.grad(k4.gn_silu_conv3x3_plain(*inputs), inputs, cot)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _int8_inputs(dev, shape, f, k, xdtype, seed=0):
+    """x (int8 already quantized, or float with a static scale that clips a
+    few values), kernel_q (F, k, k, C) int8 with every filter's extremes at
+    +-127, inv_act, deq and a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    if xdtype == torch.int8:
+        x = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    else:
+        x = (2.0 * torch.randn(shape, generator=g, device=dev)).to(xdtype)
+    kq = torch.randint(-127, 128, (f, k, k, c), generator=g, device=dev, dtype=torch.int8)
+    inv_act = torch.tensor(127.0 / 6.0, device=dev)
+    deq = 1e-4 * (1.0 + torch.rand(f, generator=g, device=dev))
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    return x, kq, inv_act, deq, bias
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "s8"])
+@pytest.mark.parametrize("shape,f,k,stride", [
+    # openai_64 (model batch 2 here): a level's convs, a skip, a decoder input
+    ((2, 64, 64, 192), 192, 3, 1), ((2, 32, 32, 384), 384, 3, 1), ((2, 16, 16, 576), 576, 3, 1),
+    ((2, 8, 8, 768), 768, 3, 1), ((2, 64, 64, 384), 192, 1, 1), ((2, 8, 8, 1536), 768, 3, 1),
+    # EMNIST: ragged maps (28, 14, 7), 64 channels
+    ((3, 28, 28, 64), 64, 3, 1), ((3, 7, 7, 256), 256, 3, 1), ((3, 14, 14, 192), 128, 1, 1),
+    # a Downsample conv, a 1x1 at stride 2, ragged C and F (byte loads, masked filters)
+    ((2, 16, 16, 64), 64, 3, 2), ((2, 9, 7, 40), 24, 1, 2), ((1, 5, 11, 12), 7, 3, 1),
+    ((2, 6, 6, 200), 130, 3, 1),
+    # a dense layer as the model calls it: a 1x1 conv over (1, 1, M, C)
+    ((1, 1, 2 * 256, 384), 3 * 384, 1, 1),
+])
+def test_int8_conv_matches_plain(cuda, xdtype, shape, f, k, stride):
+    """s32 sums bit-equal to the plain version's exact ones (float64), the
+    outputs (f32 and bf16) bit-equal too: the same f32 product and sum, each
+    rounded once; one count per launch."""
+    x, kq, inv_act, deq, bias = _int8_inputs(cuda, shape, f, k, xdtype, seed=shape[-1] + f)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = k8.int8_conv_nhwc.launches
+        out, sums = k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride, out_dtype, raw=True)
+        torch.cuda.synchronize()
+        assert k8.int8_conv_nhwc.launches == before + 1
+        ref, ref_sums = k8.int8_conv_plain(x, kq, inv_act, deq, bias, stride, out_dtype, raw=True)
+        assert sums.dtype == torch.int32 and sums.shape == ref_sums.shape
+        assert torch.equal(sums, ref_sums)
+        assert out.dtype == out_dtype and torch.equal(out, ref)
+    assert ref_sums.abs().max() > 0
+    if xdtype != torch.int8:  # some activations clip at +-127
+        assert (x.float() * inv_act).abs().max() > 127
+
+
+def test_int8_conv_without_bias_and_on_strided_views(cuda):
+    """No bias, a non-contiguous x and kernel_q (made contiguous by the
+    wrapper), and the raw sums alone of an f32 input."""
+    x, kq, inv_act, deq, _ = _int8_inputs(cuda, (2, 12, 10, 96), 80, 3, torch.float32)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    out = k8.int8_conv_nhwc(xt, kq, inv_act, deq, None)
+    assert torch.equal(out, k8.int8_conv_plain(x, kq, inv_act, deq, None))
+
+
+def test_int8_conv_refuses_what_it_does_not_take(cuda):
+    x, kq, inv_act, deq, bias = _int8_inputs(cuda, (1, 8, 8, 32), 16, 3, torch.float32)
+    with pytest.raises(NotImplementedError, match="k in"):
+        k8.int8_conv_nhwc(x, torch.zeros(16, 5, 5, 32, dtype=torch.int8, device=cuda),
+                          inv_act, deq, bias)
+    with pytest.raises(NotImplementedError, match="stride"):
+        k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride=3)
+    with pytest.raises(ValueError, match="out_dtype"):
+        k8.int8_conv_nhwc(x.to(torch.int8), kq, inv_act, deq, bias)
+    with pytest.raises(TypeError):
+        k8.int8_conv_nhwc(x.half(), kq, inv_act, deq, bias)
+    with pytest.raises(ValueError, match="channels"):
+        k8.int8_conv_nhwc(x, kq[..., :16], inv_act, deq, bias)
+    with pytest.raises(ValueError, match="deq"):
+        k8.int8_conv_nhwc(x, kq, inv_act, deq[:8], bias)
+
+
+def test_int8_model_runs_every_quantized_layer_through_the_kernel(cuda):
+    """A small quantized UNet on the card: frozen from its own calibration,
+    one forward launches the int8 conv once per int8 layer (convs and the
+    attention projections), and agrees with ``kernels=False`` (the plain
+    versions of every kernel) to a correlation above 0.9999."""
+    from nicediffusion_tpu_torch.ops.quant import collect_calibration, freeze_int8
+
+    cfg = dict(resolution=16, in_channels=3, model_channels=64, out_channels=6,
+               num_res_blocks=1, attention_resolutions=(8,), channel_mult=(1, 2),
+               num_head_channels=32, num_classes=11, use_adaptive_gn=True,
+               resblock_updown=False)
+    models = [DiffusionModel(**cfg, quantized=True, quantized_attention=True, kernels=kern,
+                             dtype=torch.bfloat16, device=cuda).eval() for kern in (True, False)]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for p in models[0].parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g, device=cuda))
+    models[1].load_state_dict(models[0].state_dict())
+    x = torch.randn(4, 16, 16, 3, generator=g, device=cuda)
+    t = torch.tensor([10, 500, 900, 999], device=cuda)
+    y = torch.tensor([1, 2, 0, 0], device=cuda)
+    calib = collect_calibration(models[1], [(x, t, y)])
+    outs = []
+    for m in models:
+        freeze_int8(m, calib)
+        before = k8.int8_conv_nhwc.launches
+        with torch.inference_mode():
+            outs.append(m(x, t, y))
+        torch.cuda.synchronize()
+        launched = k8.int8_conv_nhwc.launches - before
+        assert launched == (len(m.int8_layers()) if m.kernels else 0)
+    assert torch.isfinite(outs[0]).all()
+    corr = torch.corrcoef(torch.stack([outs[0].flatten(), outs[1].flatten()]))[0, 1]
+    assert corr > 0.9999, corr

@@ -208,8 +208,21 @@ def test_guidance_interval_wants_classifier_free_guidance(checkpoints, tmp_path)
     ("--dtype", "int8"), ("--int8_calibration", "calib.npz"), ("--data_parallel",),
     ("--upsample",),
 ], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_name_their_roadmap_entry(flags, tmp_path):
-    """Raised before any model is built: the checkpoint does not exist."""
+def test_unported_flags_name_their_roadmap_entry(flags, checkpoints, tmp_path):
+    """Raised before any model is built: the checkpoint does not exist.
+    Static int8 is ported: ``--dtype int8`` samples through the quantized
+    model, calibrated on the spot, and ``--int8_calibration`` (with it) writes
+    the calibration file on the first run and serves from it on the next."""
+    if flags[0] in ("--dtype", "--int8_calibration"):
+        model_path, _ = checkpoints
+        extra = ("--dtype", "int8", "--int8_calibration", str(tmp_path / flags[1])) \
+            if flags[0] == "--int8_calibration" else flags
+        runs = [main(_argv(model_path, str(tmp_path / f"out{i}") + "/", *extra))
+                for i in range(2)]
+        assert runs[0][0][1].shape == (2, 16, 16, 3) and runs[0][0][1].std() > 0
+        np.testing.assert_array_equal(runs[0][0][1], runs[1][0][1])
+        assert os.path.exists(tmp_path / flags[1]) == (flags[0] == "--int8_calibration")
+        return
     argv = _argv(str(tmp_path / "absent.npz"), str(tmp_path / "out") + "/", *flags)
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue A") as err:
         main(argv)

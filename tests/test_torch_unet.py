@@ -202,6 +202,19 @@ def test_unported_model_options_raise(option):
     if option == "use_remat":  # ported with the training path: it builds now
         assert DiffusionModel(**CFG_PLAIN, use_remat=True, device="meta").use_remat
         return
+    if option in ("quantized", "quantized_attention"):  # static int8: builds now
+        from nicediffusion_tpu_torch.models.unet import Int8Conv, Int8Dense
+
+        model = DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
+        kinds = {type(m) for m in model.int8_layers().values()}
+        # as in JAX, quantized_attention acts only together with quantized
+        assert kinds == ({Int8Conv} if option == "quantized" else set())
+        both = DiffusionModel(**CFG_PLAIN, quantized=True, quantized_attention=True,
+                              device="meta")
+        assert {type(m) for m in both.int8_layers().values()} == {Int8Conv, Int8Dense}
+        assert list(both.state_dict()) == list(DiffusionModel(**CFG_PLAIN, device="meta")
+                                              .state_dict())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
 
