@@ -8,7 +8,9 @@ at the ``openai_64`` preset, the sampling entry point with classifier
 guidance at ``openai_128`` with its noisy classifier, the entry point's
 fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
 cache, limited-interval guidance, v-prediction) at ``openai_64``, static int8
-serving (``--dtype int8``) at ``openai_64``, and training at ``openai_128``.
+serving (``--dtype int8``) at ``openai_64``, training at ``openai_128``,
+the super-resolution UNet at ``openai_256`` widths, the ESRGAN stage
+(``--upsample``) and guided and progressive distillation at ``openai_64``.
 It checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
@@ -26,9 +28,11 @@ It checks every hand-written kernel on the way:
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
-     whose shapes are ragged, at that recipe's batch of 468, and of
+     whose shapes are ragged, at that recipe's batch of 468, of
      ``openai_128`` and its classifier at batch 4: head dims 128, 192 and
-     256, the interleaved layout, the pool's N = 65), f32 and bf16, with the
+     256, the interleaved layout, the pool's N = 65, and of the
+     super-resolution UNet at ``openai_256`` widths at batch 2: K3 at up to
+     256 channels on 256x256 maps, K1 at C = 512 and 1024), f32 and bf16, with the
      JAX package's tolerances; its time per call in the path's compute
      type, per shape and summed over one forward, beside the plain
      version's and the library call's (K3 also with the route its plan
@@ -137,7 +141,33 @@ It checks every hand-written kernel on the way:
      samples/s and the device's idle share at batch 8 and at batch 64
      (model batch 128), kernels on, in turns; (d) the max stack (frozen
      int8, encoder_cache 2, guidance_interval (0.1, 0.7)) finite and
-     correlated above 0.9 with the exact bf16 chain.
+     correlated above 0.9 with the exact bf16 chain;
+ 13. super-resolution (``[sr]``): the SuperResolutionModel at ``openai_256``
+     widths (in_channels 6) with a 64x64 ``low_res``: its f32 forward at
+     batch 2, kernels on against ``kernels=False`` (1e-3), then a bf16
+     DDIM-25 chain through ``Diffusion.with_model_kwargs(low_res=...)``, its
+     K1 and K3 launch counts and its time;
+ 14. ESRGAN (``[esrgan]``): the sampling entry point with ``--upsample`` on
+     ``64x64_diffusion.pt``, 1 request of 4 labels, from a working directory
+     whose ``models/RealESRGAN_x4plus.pth`` holds seeded random weights at
+     the published width; the 256x256 files, no skip message, the stage's
+     seconds per image;
+ 15. distillation (``[distill]``): (a) the loss and every student-parameter
+     gradient of one GuidedDistiller and one ProgressiveDistiller step
+     (var_weight 1.0) at ``openai_64`` in f32, batch 2, kernels on against
+     ``kernels=False`` (LOSS_TOL, GRAD_TOL); (b) the distillation entry point
+     on ``64x64_diffusion.pt``, bf16, ``--distill_guidance 0.8 --rounds 1
+     --steps 50 --iterations 4 --batch_size 8 --var_weight 1.0``: the student
+     ``.npz`` loads strictly, the sidecar holds 25 steps, guided, the
+     teacher's odd indices; K1, K2, K3 and K3's backward launched as the
+     structure gives (a guided step: a teacher forward at model batch 16
+     without gradient, the student's forward and backward at 8; a halving
+     step: two teacher forwards at 8 and the student's); steps/s of each
+     stage with kernels on and off, peak memory, a torch.profiler breakdown
+     of one step of each; (c) the sampling entry point on the student with
+     the printed hint (25 forwards at batch 8 a request) against the
+     teacher's CFG chain on the same labels (50 at model batch 16), images/s
+     of both.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -204,6 +234,8 @@ TRAIN_BATCH = 8
 EMNIST_BATCH = 468  # the train entry point's recipe
 GUIDED_BATCH = 4  # the classifier-guided openai_128 slice, and openai_128 training
 FAST_BATCH = 8  # labels a chain of the fast-sampling slice
+SR_BATCH = 2  # the super-resolution slice: images a chain
+SR_LOW = 64  # its low-res input, upsampled 4x to openai_256's 256
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -461,7 +493,12 @@ def main_path_calls(model, dev):
     a Counter of call keys -> calls per forward. ``model`` runs with
     ``kernels=False``, so this launches no kernel."""
     from nicediffusion_tpu_torch.models.classifier import AttentionPool
-    from nicediffusion_tpu_torch.models.unet import AttentionBlock, DiffusionModel, GroupNormOp
+    from nicediffusion_tpu_torch.models.unet import (
+        AttentionBlock,
+        DiffusionModel,
+        GroupNormOp,
+        SuperResolutionModel,
+    )
 
     calls = collections.Counter()
 
@@ -485,7 +522,14 @@ def main_path_calls(model, dev):
     x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
     zero = torch.zeros(1, dtype=torch.long, device=dev)
     with torch.inference_mode():
-        model(x, zero, zero) if isinstance(model, DiffusionModel) else model(x, zero)
+        if isinstance(model, SuperResolutionModel):  # the image and its low-res version
+            x = x[..., :model.in_channels // 2]
+            model(x, zero, low_res=torch.zeros(1, SR_LOW, SR_LOW, x.shape[-1], device=dev),
+                  y=zero)
+        elif isinstance(model, DiffusionModel):
+            model(x, zero, zero)
+        else:
+            model(x, zero)
     for h in hooks:
         h.remove()
     return calls
@@ -577,6 +621,9 @@ PATHS = {
                 f"one openai_128 sampling forward at batch {GUIDED_BATCH}"),
     "cls128": (GUIDED_BATCH, torch.bfloat16,
                f"one forward of the openai_128 classifier at batch {GUIDED_BATCH}"),
+    "sr256": (SR_BATCH, torch.bfloat16,
+              f"one forward of the super-resolution UNet at openai_256 widths at batch "
+              f"{SR_BATCH}"),
 }
 GUIDED_PATHS = ("unet128", "cls128")
 K2_PATHS = ("train", "emnist", "cls128", "unet128")  # unet128: openai_128 training at batch 4
@@ -2539,6 +2586,375 @@ def phase_int8(dev, state, workdir, n_int8):
     return dict(total), rates
 
 
+# ---------------------------------------------------------------------------
+# super-resolution, ESRGAN and distillation
+# ---------------------------------------------------------------------------
+
+def sr_config():
+    """The super-resolution UNet at the ``openai_256`` preset's widths, its
+    input the noisy 256x256 image and the 64x64 low-res image upsampled to it
+    (in_channels doubled, as the JAX package takes it)."""
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    return dict(MODEL_PRESETS["openai_256"], in_channels=6)
+
+
+def phase_sr(dev, off):
+    """``[sr]``: ``off`` is the f32 SuperResolutionModel (kernels=False).
+    Its forward at batch 2 with a 64x64 ``low_res``, kernels on against off;
+    then a bf16 DDIM-25 chain (the preset's diffusion) driven through
+    ``Diffusion.with_model_kwargs(low_res=...)``, its K1 and K3 launch counts
+    against the structure and its time."""
+    from nicediffusion_tpu_torch import Diffusion
+    from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = sr_config()
+    res = cfg["resolution"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    low = torch.rand(SR_BATCH, SR_LOW, SR_LOW, 3, generator=g, device=dev) * 2 - 1
+    x = torch.randn(SR_BATCH, res, res, 3, generator=g, device=dev)
+    t = torch.tensor([980, 500], device=dev)
+    y = torch.tensor([207, 933], device=dev)
+    on = SuperResolutionModel(**cfg, device=dev).eval()
+    on.load_state_dict(off.state_dict(), strict=True)
+    nparams = sum(p.numel() for p in on.parameters())
+    with torch.inference_mode():
+        a = on(x, t, low_res=low, y=y)
+        b = off(x, t, low_res=low, y=y)
+    torch.cuda.synchronize()
+    err = check("f32 SR forward, kernels on vs off", a, b, dict(atol=MODEL_TOL, rtol=0))
+    log(f"[sr] SuperResolutionModel at openai_256 widths (in_channels 6), {nparams} parameters, "
+        f"f32 forward at batch {SR_BATCH}, low_res {SR_LOW}x{SR_LOW} -> {res}x{res}: kernels on "
+        f"vs off max abs {err:.3g} (gate {MODEL_TOL}; output max abs {b.abs().max().item():.3g})")
+    del on, a, b
+    torch.cuda.empty_cache()
+
+    model = SuperResolutionModel(**cfg, dtype=torch.bfloat16, device=dev).eval()
+    model.load_state_dict(off.state_dict(), strict=True)
+    diff = Diffusion(model=model, **DIFFUSION_PRESETS["openai_256"]).with_model_kwargs(low_res=low)
+    steps = diff.rescaled_num_steps
+    n_attn, gn_in, gn_out = block_counts(model)
+    expect = {"attention": n_attn * steps, "attention_bwd": 0, "groupnorm": (gn_in + gn_out) * steps,
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+    secs = []
+    for i in range(2):  # the first chain warms cuDNN's plans up
+        start = torch.randn(SR_BATCH, res, res, 3, generator=g, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = diff.denoise(g, x=start, y=y)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = read_launches()
+        if launches != expect:
+            raise AssertionError(f"SR chain launch counts {launches} != {expect}")
+    if (out.shape != (SR_BATCH, res, res, 3) or not torch.isfinite(out).all()
+            or out.abs().max() > 1.0):
+        raise AssertionError(f"SR chain output {tuple(out.shape)} not finite in [-1, 1]")
+    log(f"[sr] bf16 DDIM {steps} steps, batch {SR_BATCH}, through with_model_kwargs(low_res=): "
+        f"{secs[1]:.3f} s a chain ({secs[0]:.3f} s the first), {SR_BATCH / secs[1]:.4f} images/s; "
+        f"launches {launches}, expected {expect} ({n_attn} attention blocks, "
+        f"{gn_in + gn_out} GroupNorms a forward)")
+    t_last = torch.full((SR_BATCH,), steps - 1, dtype=torch.long, device=dev)
+
+    @torch.inference_mode()
+    def sr_step():
+        diff.ddim_step(start, t_last, g, y=y)
+
+    profile_steps(sr_step, "SR DDIM step (its model call at batch 2)",
+                  unprofiled_ms=1e3 * secs[1] / steps)
+    del model, diff
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_esrgan(dev, workdir):
+    """``[esrgan]``: the sampling entry point with ``--upsample`` on the
+    ``64x64_diffusion.pt`` that ``[fast]`` wrote, 1 request of 4 labels, run
+    from a working directory whose ``models/RealESRGAN_x4plus.pth`` holds
+    seeded random weights at the published width under basicsr's names
+    inside ``{"params_ema": ...}``. The 256x256 files must be there and the
+    skip message must not print; the ESRGAN stage is timed per image."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.models import rrdb
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+
+    root = os.path.join(workdir, "esrgan")
+    os.makedirs(os.path.join(root, "models"))
+    torch.manual_seed(SEED)  # the module initialisers draw from the global RNG
+    net = rrdb.RRDBNet(device="cpu")
+    nparams = sum(p.numel() for p in net.parameters())
+    torch.save({"params_ema": net.state_dict()},
+               os.path.join(root, "models", "RealESRGAN_x4plus.pth"))
+    del net
+    timed = []
+    inner = rrdb.esrgan_upsample_batches
+
+    def timing(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*args, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        return res
+
+    out_dir = os.path.join(root, "out") + os.sep
+    os.makedirs(out_dir)
+    cwd, buf = os.getcwd(), io.StringIO()
+    rrdb.esrgan_upsample_batches = timing
+    os.chdir(root)
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            samples = sample_main([
+                "--model_path", os.path.join(workdir, "64x64_diffusion.pt"), "--num_classes",
+                str(model_config()["num_classes"]), "--batch_size", "4", "--num_samples", "1",
+                "--labels", "3", "--save_path", out_dir, "--upsample", "--seed", "0", "-w"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        os.chdir(cwd)
+        rrdb.esrgan_upsample_batches = inner
+    text = buf.getvalue()
+    if "Skipping" in text or "Upsampling to 256x256" not in text:
+        raise AssertionError(f"--upsample did not run the ESRGAN stage: {text[-400:]}")
+    names = sorted(os.listdir(out_dir))
+    sizes = {Image.open(out_dir + n).size for n in names}
+    shown, out, _ = samples[0]
+    if (len(names) != 4 or sizes != {(256, 256)} or out.shape != (4, 256, 256, 3)
+            or shown.shape != out.shape or out.std() == 0):
+        raise AssertionError(f"--upsample files {names} of sizes {sizes}, output {out.shape}")
+    model = DiffusionModel(**model_config(), device="meta")
+    n_attn, gn_in, gn_out = block_counts(model)
+    steps = 25  # the openai_64 preset's chain
+    expect = {"attention": n_attn * steps, "attention_bwd": 0, "groupnorm": (gn_in + gn_out) * steps,
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+    if launches != expect:
+        raise AssertionError(f"--upsample launch counts {launches} != {expect}")
+    log(f"[esrgan] entry point with --upsample, openai_64 bf16 DDIM {steps}, 4 labels, ESRGAN at "
+        f"the published width ({nparams} parameters, f32): {len(names)} files of 256x256; the "
+        f"ESRGAN stage {timed[0]:.3f} s, {timed[0] / 4:.4f} s per image (model built and "
+        f"weights read inside that time); launches {launches} (the UNet's chain: ESRGAN runs "
+        f"no hand-written kernel)")
+    return launches
+
+
+def distill_grads(dev, state):
+    """``[distill]`` (a): the loss and every student-parameter gradient of
+    one GuidedDistiller step (w 0.8) and one ProgressiveDistiller step, both
+    with var_weight 1.0, at ``openai_64`` full width in f32, batch 2,
+    injected j and noise: kernels on against ``kernels=False``, loss to
+    LOSS_TOL of itself, each gradient to GRAD_TOL of its largest element."""
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.training.distill import GuidedDistiller, ProgressiveDistiller
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = model_config()
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=50)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x0 = torch.rand(2, 64, 64, 3, generator=g, device=dev) * 2 - 1
+    noise = torch.randn(2, 64, 64, 3, generator=g, device=dev)
+    y = torch.tensor([207, 933], device=dev)
+    stages = {
+        "guided": (lambda m: GuidedDistiller(m, state, dcfg, iter(()), 1, guidance_strength=0.8,
+                                             var_weight=1.0),
+                   torch.tensor([3, 41], device=dev)),
+        "progressive": (lambda m: ProgressiveDistiller(m, state, dcfg, iter(()), 1,
+                                                       var_weight=1.0),
+                        torch.tensor([0, 24], device=dev)),
+    }
+    for stage, (make, j) in stages.items():
+        res = {}
+        for kernels in (True, False):
+            dist = make(DiffusionModel(**cfg, kernels=kernels, device=dev))
+            loss_eps, loss_var = dist._losses(x0, y, j, noise)
+            loss = loss_eps + loss_var
+            grads = torch.autograd.grad(loss, dist._params)
+            names = [n for n, _ in dist.model.named_parameters()]
+            res[kernels] = (loss.item(), loss_var.item(), grads)
+            del dist, loss, loss_eps, loss_var
+        (loss_on, var_on, grads_on), (loss_off, var_off, grads_off) = res[True], res[False]
+        if not abs(loss_on - loss_off) <= LOSS_TOL * max(1.0, abs(loss_off)):
+            raise AssertionError(f"{stage} distill loss with kernels {loss_on} vs {loss_off}")
+        worst, worst_name = 0.0, ""
+        for name, a, b in zip(names, grads_on, grads_off):
+            scale = b.abs().max().item()
+            diff = (a - b).abs().max().item()
+            rel = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"{stage} distill gradient of {name}: {rel:.3g} of its max")
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"[distill] {stage} step, openai_64 f32, batch 2, var_weight 1.0: loss {loss_on:.6f} "
+            f"with kernels (variance term {var_on:.6g}), {loss_off:.6f} without "
+            f"({var_off:.6g}); {len(names)} gradients, worst max |diff| / max |grad| "
+            f"{worst:.3g} ({worst_name}), gate {GRAD_TOL}")
+        del res, grads_on, grads_off
+        torch.cuda.empty_cache()
+
+
+def phase_distill(dev, state, workdir):
+    """``[distill]``: (a) ``distill_grads``; (b) the distillation entry point
+    on the ``64x64_diffusion.pt`` that ``[fast]`` wrote, bf16, guided stage
+    (w 0.8) then one halving round from 50 steps, 4 iterations each at batch
+    8, var_weight 1.0: the student ``.npz`` loads strictly, the sidecar holds
+    the nested grid, the launch counts are the structure's; steps/s of each
+    stage with kernels on and off, peak memory, a torch.profiler breakdown
+    of one step of each; (c) the sampling entry point on the student with
+    the printed hint against the teacher's CFG chain on the same labels:
+    model calls and their batches counted by a hook on the forward,
+    images/s of both."""
+    import contextlib
+    import io
+
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.scripts.distill import main as distill_main
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.training.distill import GuidedDistiller, ProgressiveDistiller
+    from nicediffusion_tpu_torch.utils.checkpoint import load_state_dict
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    distill_grads(dev, state)
+    cfg = model_config()
+    ncls = str(cfg["num_classes"])
+    model_path = os.path.join(workdir, "64x64_diffusion.pt")
+    student_path = os.path.join(workdir, "64x64_distilled.npz")
+    teacher_steps, iters = 50, 4
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sidecar = distill_main([
+            "--model_path", model_path, "--num_classes", ncls, "--distill_guidance", "0.8",
+            "--rounds", "1", "--steps", str(teacher_steps), "--iterations", str(iters),
+            "--batch_size", str(TRAIN_BATCH), "--var_weight", "1.0", "--save_path", student_path,
+            "-w"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[distill] entry point: {line}")
+    student = DiffusionModel(**cfg, dtype=torch.bfloat16, device=dev).eval()
+    student.load_state_dict(load_state_dict(student_path, dev), strict=True)
+    # a guided step: one teacher forward (model batch 16, no gradient), the
+    # student's forward and backward; a halving step: two teacher forwards
+    expect = expect_train_launches(student, 2 * iters, sample_calls=iters * 1 + iters * 2)
+    grid = Diffusion(model=None, **dict(DIFFUSION_PRESETS["openai_64"],
+                                        rescaled_num_steps=teacher_steps), device=dev)
+    odd = grid.timestep_map.tolist()[1::2]
+    log(f"[distill] entry point, openai_64 bf16, guided (w 0.8) then one halving round "
+        f"{teacher_steps} -> {sidecar['steps']} steps, {iters} iterations each at batch "
+        f"{TRAIN_BATCH}, var_weight 1.0: {cli_s:.2f} s (model built, weights read and written "
+        f"inside that time), peak device memory {peak:.2f} GiB; sidecar {sidecar}; launches "
+        f"{launches}, expected {expect}")
+    if (sidecar["steps"] != 25 or sidecar["guided"] is not True
+            or sidecar["timestep_indices"] != odd):
+        raise AssertionError(f"sidecar {sidecar}: want 25 steps, guided, the indices {odd}")
+    if launches != expect:
+        raise AssertionError(f"distillation launch counts {launches} != {expect}")
+    by_path = {"distill_cli_openai_64": launches}
+
+    # steps/s of each stage, kernels on and off in turns; a profile of one step
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x0 = torch.rand(TRAIN_BATCH, 64, 64, 3, generator=g, device=dev) * 2 - 1
+    labels = torch.randint(1, cfg["num_classes"], (TRAIN_BATCH,), generator=g, device=dev)
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=teacher_steps)
+    for stage in ("guided", "progressive"):
+        def make(kernels):
+            m = DiffusionModel(**cfg, dtype=torch.bfloat16, kernels=kernels, device=dev)
+            kw = dict(model=m, teacher_params=state, diffusion_args=dcfg, dataloader=iter(()),
+                      iterations=iters, var_weight=1.0, seed=SEED)
+            if stage == "guided":
+                return GuidedDistiller(**kw, guidance_strength=0.8)
+            return ProgressiveDistiller(**kw)
+
+        dists = {True: make(True), False: make(False)}
+
+        def timed_steps(dist, n=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                dist.train_step(x0, labels)
+            torch.cuda.synchronize()
+            return n / (time.perf_counter() - t0)
+
+        for dist in dists.values():
+            timed_steps(dist, 1)  # warm-up
+        rates = {True: [], False: []}
+        for kernels in (True, False, False, True):
+            rates[kernels].append(timed_steps(dists[kernels]))
+        log(f"[distill] {stage} stage steps/s, openai_64 bf16, batch {TRAIN_BATCH}, 3 steps a "
+            f"reading: kernels on {rates[True]}, kernels off {rates[False]}")
+        profile_steps(lambda: dists[True].train_step(x0, labels), f"{stage} distillation step",
+                      unprofiled_ms=1e3 / max(rates[True]))
+        del dists
+        torch.cuda.empty_cache()
+
+    # (c) the student with the printed hint against the teacher's CFG chain
+    hint = text[text.index("Sample with:\n") + len("Sample with:\n"):]
+    hint = hint.splitlines()[0].split("#")[0].split()
+    calls, chains = [], []
+    forward, denoise = DiffusionModel.forward, Diffusion.denoise
+
+    def counting(self, x, *args, **kw):
+        calls.append(x.shape[0])
+        return forward(self, x, *args, **kw)
+
+    def timing(self, *args, **kw):  # the chain alone, without the command's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise(self, *args, **kw)
+        torch.cuda.synchronize()
+        chains.append(time.perf_counter() - t0)
+        return out
+
+    runs = {"student": ["--model_path", student_path, *hint],
+            "teacher": ["--model_path", model_path, "--guidance_method", "classifier_free",
+                        "--guidance_strength", "0.8", "--rescaled_num_steps", str(teacher_steps)]}
+    seen = {}
+    DiffusionModel.forward, Diffusion.denoise = counting, timing
+    try:
+        for who, flags in runs.items():
+            out_dir = os.path.join(workdir, f"distill_{who}") + os.sep
+            os.makedirs(out_dir)
+            calls.clear()
+            chains.clear()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples = sample_main(flags + ["--num_classes", ncls, "--batch_size", str(FAST_BATCH),
+                                           "--num_samples", "2", "--labels", "3/7", "--save_path",
+                                           out_dir, "--seed", "0"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            by_path[f"sample_cli_openai_64_{who}"] = read_launches()
+            seen[who] = (list(calls), secs, list(chains))
+            if (len(os.listdir(out_dir)) != 2 * FAST_BATCH
+                    or any(out.shape != (FAST_BATCH, 64, 64, 3) for _, out, _ in samples)):
+                raise AssertionError(f"{who} sampling gave the wrong files or shapes")
+    finally:
+        DiffusionModel.forward, Diffusion.denoise = forward, denoise
+    want = {"student": [FAST_BATCH] * 2 * 25, "teacher": [2 * FAST_BATCH] * 2 * teacher_steps}
+    for who, (got, secs, chain_s) in seen.items():
+        log(f"[distill] sampling entry point, {who} ({' '.join(runs[who][2:])}): 2 requests of "
+            f"{FAST_BATCH} labels, {len(got)} model forwards at batches {sorted(set(got))}; "
+            f"the chains {[round(c, 4) for c in chain_s]} s, {FAST_BATCH / chain_s[-1]:.4f} "
+            f"images/s over the second; the command {secs:.2f} s (model built, weights read, "
+            f"images saved; a structural check, not a claim)")
+        if got != want[who]:
+            raise AssertionError(f"{who}: forwards at batches {got}, want {want[who]}")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -2572,8 +2988,14 @@ def main():
     randomize(unet128, SEED + 1)
     cls128 = EncoderUNet(**classifier_config(), kernels=False, device=dev).eval()
     randomize(cls128, SEED + 2)
+    # the super-resolution slice's model: openai_256 widths, in_channels doubled
+    from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
+
+    sr256 = SuperResolutionModel(**sr_config(), kernels=False, device=dev).eval()
+    randomize(sr256, SEED + 4)
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
-             "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev)}
+             "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev),
+             "sr256": main_path_calls(sr256, dev)}
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
@@ -2610,6 +3032,10 @@ def main():
                "resblock_halves_direct_bf16": k4_launches_bf16,
                "train_openai_128": train128_launches}
     phase_done("[slice]")
+    by_path["sr_chain_openai_256"] = phase_sr(dev, sr256)
+    del sr256
+    torch.cuda.empty_cache()
+    phase_done("[sr]")
     with tempfile.TemporaryDirectory() as workdir:
         by_path["sample_cli_openai_128_guided"] = phase_sample_cli(
             dev, unet128_state, cls128_state, workdir)
@@ -2623,6 +3049,10 @@ def main():
         phase_done("[int8] entry point")
         by_path.update(phase_train(dev, state, workdir))
         phase_done("[train]")
+        by_path["sample_cli_openai_64_upsample"] = phase_esrgan(dev, workdir)
+        phase_done("[esrgan]")
+        by_path.update(phase_distill(dev, state, workdir))
+        phase_done("[distill]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -2648,7 +3078,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS)},
+              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256")},
               attention_routes),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
@@ -2662,7 +3092,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS)},
+              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256")},
               {"bfloat16": "CUDA cores; thread-block clusters, the tile in shared memory",
                "float32": "the same kernel in f32"}, **k3_gates),
         # the backward of K3's custom VJP (a jnp recompute under jax.vjp in the

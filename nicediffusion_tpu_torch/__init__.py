@@ -1,14 +1,16 @@
 """nicediffusion_tpu_torch — the PyTorch and CUDA port of nicediffusion_tpu.
 
 Class-conditional sampling with classifier-free or classifier guidance and
-training on one NVIDIA H100: the UNet and the noisy classifier (EncoderUNet)
-as torch ``nn.Module``s with the original reference's parameter names, the
+training on one NVIDIA H100: the UNet, the super-resolution UNet, the noisy
+classifier (EncoderUNet) and the Real-ESRGAN RRDBNet as torch ``nn.Module``s
+with the original reference's (and basicsr's) parameter names, the
 DDPM, DDIM and DPM-Solver++ sampling chains with v-prediction, dynamic
 thresholding, the encoder cache and limited-interval guidance, static int8
 serving (calibrate, freeze, serve), the four training losses, the Trainer
-(AdamW, EMA, accumulation, checkpoints), the entry points
-``python -m nicediffusion_tpu_torch.scripts.sample`` and
-``python -m nicediffusion_tpu_torch.scripts.train``, and six kernels
+(AdamW, EMA, accumulation, checkpoints), guided and progressive distillation,
+the entry points ``python -m nicediffusion_tpu_torch.scripts.sample`` (with
+``--upsample``), ``python -m nicediffusion_tpu_torch.scripts.train`` and
+``python -m nicediffusion_tpu_torch.scripts.distill``, and six kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
 CUDA C++; K3, fused GroupNorm and its backward in CUDA C++; K4, fused
 GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package;

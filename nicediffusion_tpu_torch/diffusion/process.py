@@ -31,6 +31,10 @@ guidance, where the steps outside the interval run one conditional forward
 and the skipped half of the CFG batch is simply never called, and the
 encoder cache, where only the first step of every group of k runs the
 UNet's encoder.
+
+Super-resolution: ``with_model_kwargs(low_res=...)`` hands the low-res batch
+to every model call of a SuperResolutionModel (models/unet.py); the chain
+then starts from an ``x`` the caller passes, with the image's channels.
 """
 
 from __future__ import annotations
@@ -258,6 +262,19 @@ class Diffusion:
         self._dpmpp_c_d = as32(alpha_p * (1.0 - exp_mh))
         self._dpmpp_m = as32(m)
 
+        # extra keyword arguments of every model call, such as low_res for a
+        # SuperResolutionModel (with_model_kwargs)
+        self.model_kwargs: dict = {}
+
+    def with_model_kwargs(self, **kwargs) -> "Diffusion":
+        """Set extra keyword arguments for every model call (e.g.
+        ``low_res=<image batch>`` to drive a SuperResolutionModel); returns
+        self. They go to the model as given: under classifier-free guidance
+        the model batch is doubled, so batched kwargs must be doubled
+        already. The encoder cache refuses them."""
+        self.model_kwargs = kwargs
+        return self
+
     # ------------------------------------------------------------------
     # Forward (q) process
     # ------------------------------------------------------------------
@@ -286,11 +303,12 @@ class Diffusion:
 
     def _apply_model(self, x, t, y, generator=None):
         """Run the UNet at the mapped original timestep (diffusion.py:246).
-        ``generator`` feeds the dropout masks of a model in ``train()`` mode."""
-        y = y if self.model.conditional else None
-        if generator is None:
-            return self.model(x, self.timestep_map[t], y)
-        return self.model(x, self.timestep_map[t], y, generator=generator)
+        ``generator`` feeds the dropout masks of a model in ``train()`` mode;
+        ``model_kwargs`` go with every call."""
+        kwargs = dict(self.model_kwargs, y=y if self.model.conditional else None)
+        if generator is not None:
+            kwargs["generator"] = generator
+        return self.model(x, self.timestep_map[t], **kwargs)
 
     def _resolve_log_var(self, raw_log_var, t, ndim):
         """Resolve the log-variance per sampling_var_type (reference
@@ -383,6 +401,11 @@ class Diffusion:
         The timestep embedding and the decoder always run at the current t;
         only the encoder stack (its bottom feature and skip activations) is
         frozen to the last refresh step. Returns (out, cache)."""
+        if self.model_kwargs:
+            raise NotImplementedError(
+                "encoder_cache does not support extra model kwargs "
+                "(e.g. SuperResolutionModel low_res)"
+            )
         model = self.model
         emb = model.embed(self.timestep_map[t], y if model.conditional else None)
         if refresh:

@@ -75,10 +75,10 @@ from ..ops.quant import (
     kernel_layout,
     static_quant_triple,
 )
-from ..ops.resize import avg_pool_2x, upsample_nearest_2x
+from ..ops.resize import avg_pool_2x, resize_bilinear, upsample_nearest_2x
 from ..utils.device import resolve_device
 
-__all__ = ["DiffusionModel", "Int8Conv", "Int8Dense"]
+__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense"]
 
 
 class Conv2d(nn.Module):
@@ -613,3 +613,20 @@ class DiffusionModel(nn.Module):
         emb = self.embed(timestep, y)
         h, xs = self.encode(x, emb, generator)
         return self.decode(h, xs, emb, generator)
+
+
+class SuperResolutionModel(DiffusionModel):
+    """Super-resolution UNet conditioned on a low-resolution image, resized
+    bilinearly to the input's size and concatenated to it on the channel
+    axis (reference model.py:479-499, JAX ``models/unet.py:666-679``).
+
+    Construct with ``in_channels = 2 * image_channels``: the image and the
+    upsampled low-res image. ``low_res`` is NHWC with the image's channels;
+    the diffusion engine passes it through ``Diffusion.with_model_kwargs``.
+    """
+
+    def forward(self, x, timestep, low_res=None, y=None, generator=None):
+        assert low_res is not None, "must pass low_res to SuperResolutionModel"
+        _, h, w, _ = x.shape
+        x = torch.cat([x, resize_bilinear(low_res.to(x.dtype), h, w)], dim=-1)
+        return super().forward(x, timestep, y, generator)

@@ -32,9 +32,13 @@ drawn or loaded. ``--int8_calibration f.npz`` saves that calibration (the
 JAX package's 'calib' tree, which either package reads), or, if the file
 exists, loads and freezes it without drawing.
 
-Flags whose feature the port does not have yet raise NotImplementedError
-naming their ROADMAP entry, before any model is built: ``--upsample`` ("SR
-and ESRGAN") and ``--data_parallel`` ("Multi-GPU").
+``--upsample`` sends every batch through the Real-ESRGAN 4x stage
+(models/rrdb.py) on the same device, reading ``models/RealESRGAN_x4plus.pth``
+under the working directory; without that file it prints the JAX script's
+"Skipping --upsample" message and keeps the samples as they are.
+
+``--data_parallel`` raises NotImplementedError naming its ROADMAP entry
+("Multi-GPU") before any model is built.
 
 Usage:
   python -m nicediffusion_tpu_torch.scripts.sample --model_path 64x64_diffusion.pt \\
@@ -42,7 +46,7 @@ Usage:
       [--classifier_path 64x64_classifier.pt --guidance_strength 1.0] \\
       [--sampler dpm++ --rescaled_num_steps 20 --dynamic_thresholding 0.995 \\
        --encoder_cache 3 --guidance_interval 0.0 0.6] \\
-      [--dtype int8 --int8_calibration calib.npz]
+      [--dtype int8 --int8_calibration calib.npz] [--upsample]
 """
 
 from __future__ import annotations
@@ -52,16 +56,11 @@ import sys
 
 
 def _refuse_unported(args) -> None:
-    """Raise for every flag whose feature waits in ROADMAP queue A."""
-    unported = (
-        (args.upsample, "--upsample", "SR and ESRGAN"),
-        (args.data_parallel, "--data_parallel", "Multi-GPU"),
-    )
-    for given, flag, where in unported:
-        if given:
-            raise NotImplementedError(
-                f'{flag} is not ported yet (ROADMAP queue A, "{where}")'
-            )
+    """Raise for the flag whose feature waits in ROADMAP queue A."""
+    if args.data_parallel:
+        raise NotImplementedError(
+            '--data_parallel is not ported yet (ROADMAP queue A, "Multi-GPU")'
+        )
 
 
 def main(argv: list[str] | None = None):
@@ -251,6 +250,20 @@ def main(argv: list[str] | None = None):
     if wordy:
         what = "Displaying" if save_path is None else f"Saving to '{save_path}'"
         print(f"{what} {num_samples * batch_size} generated images!")
+
+    if other_args["upsample"]:
+        from ..models.rrdb import esrgan_upsample_batches
+
+        if wordy:
+            r4 = resolution * 4
+            print(f"Upsampling to {r4}x{r4} resolution!")
+        try:
+            samples = esrgan_upsample_batches(samples, device=device)
+        except FileNotFoundError as e:
+            print(
+                f"Skipping --upsample: Real-ESRGAN weights not found ({e}).\n"
+                "Download RealESRGAN_x4plus.pth into models/ to enable it."
+            )
 
     if save_path is None:  # display
         import matplotlib.pyplot as plt

@@ -27,8 +27,10 @@ Every draw (t, label drop, noise, dropout masks, sampling) comes from one
 ``train_step`` also takes injected draws, so a test can feed this trainer
 and the JAX one the same numbers. Checkpoints are ``checkpoint_dir/step_{N}/
 state.pt`` written with ``torch.save``: model, EMA, optimizer state, pending
-accumulated gradients and step. Multi-GPU training and reading the JAX
-trainer's orbax directories are ROADMAP work.
+accumulated gradients and step. Multi-GPU training is ROADMAP work. Reading
+the JAX trainer's orbax directories is not ported (orbax is built on jax):
+the JAX package's scripts/export.py turns one into a ``.pt``, and
+utils/convert.py::train_state_to_torch carries its optimizer state across.
 """
 
 from __future__ import annotations

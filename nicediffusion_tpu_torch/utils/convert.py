@@ -25,7 +25,12 @@ The port's module tree keeps the original torch reference's parameter names
     'calib' tree) both ways, and :func:`flax_quant_to_torch` turns the JAX
     package's frozen 'quant' tree (``kernel_q`` HWIO or (I, O) int8,
     ``inv_act``, ``deq``) into the port's buffers, ``kernel_q`` in the int8
-    conv kernel's (F, k, k, C) layout.
+    conv kernel's (F, k, k, C) layout;
+  * the super-resolution UNet's flax tree goes through
+    :func:`flax_params_to_torch_state_dict` as the UNet's does (only its
+    ``in_channels`` differ), and :func:`flax_rrdb_to_torch_state_dict` turns
+    the JAX ``RRDBNet`` tree (``body_{i}``, HWIO kernels) into basicsr's
+    names and layout, which models/rrdb.py loads.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ __all__ = [
     "calibration_to_flax",
     "flax_calibration_to_torch",
     "flax_quant_to_torch",
+    "flax_rrdb_to_torch_state_dict",
 ]
 
 # rename bare `qkv` -> `qkv_nin` but leave `qkv_nin` (idempotence) and the
@@ -305,4 +311,21 @@ def flax_quant_to_torch(tree: Mapping) -> dict[str, dict[str, np.ndarray]]:
         elif leaf not in ("inv_act", "deq"):
             raise ValueError(f"unexpected quant leaf {'/'.join([*mods, leaf])}")
         out.setdefault(".".join(_torch_path(mods)), {})[leaf] = value
+    return out
+
+
+def flax_rrdb_to_torch_state_dict(params: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's ``RRDBNet`` params tree -> basicsr-named state dict
+    of numpy arrays (``body_{i}.rdb{j}.conv{k}`` -> ``body.{i}.rdb{j}.conv{k}``,
+    HWIO kernels -> OIHW weights), the inverse of the JAX package's
+    ``convert_esrgan_state_dict``; loads into models/rrdb.py's RRDBNet with
+    ``strict=True``."""
+    out: dict[str, np.ndarray] = {}
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        if mods[0].startswith("body_"):
+            mods = ["body", mods[0][len("body_"):]] + list(mods[1:])
+        if leaf == "kernel":
+            leaf, value = "weight", np.asarray(value).transpose(3, 2, 0, 1)
+        out[".".join(mods + [leaf])] = np.asarray(value)
     return out

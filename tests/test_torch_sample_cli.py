@@ -208,11 +208,37 @@ def test_guidance_interval_wants_classifier_free_guidance(checkpoints, tmp_path)
     ("--dtype", "int8"), ("--int8_calibration", "calib.npz"), ("--data_parallel",),
     ("--upsample",),
 ], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_name_their_roadmap_entry(flags, checkpoints, tmp_path):
+def test_unported_flags_name_their_roadmap_entry(flags, checkpoints, tmp_path, capsys,
+                                                monkeypatch):
     """Raised before any model is built: the checkpoint does not exist.
     Static int8 is ported: ``--dtype int8`` samples through the quantized
     model, calibrated on the spot, and ``--int8_calibration`` (with it) writes
-    the calibration file on the first run and serves from it on the next."""
+    the calibration file on the first run and serves from it on the next.
+    ``--upsample`` is ported: without ``models/RealESRGAN_x4plus.pth`` under
+    the working directory it prints the skip message and keeps the images;
+    with random full-width ESRGAN weights there (basicsr names, inside
+    ``params_ema``) every saved image is 4x."""
+    if flags[0] == "--upsample":
+        from nicediffusion_tpu_torch.models.rrdb import RRDBNet
+
+        model_path, _ = checkpoints
+        monkeypatch.chdir(tmp_path)
+        skipped = main(_argv(model_path, str(tmp_path / "skip") + "/", *flags))
+        assert "Skipping --upsample" in capsys.readouterr().out
+        assert skipped[0][1].shape == (2, 16, 16, 3)
+        os.makedirs(tmp_path / "models")
+        torch.manual_seed(0)  # the module initialisers draw from the global RNG
+        torch.save({"params_ema": RRDBNet(device="cpu").state_dict()},
+                   tmp_path / "models" / "RealESRGAN_x4plus.pth")
+        out_dir = str(tmp_path / "up") + "/"
+        upsampled = main(_argv(model_path, out_dir, *flags))
+        assert "Skipping" not in capsys.readouterr().out
+        shown, out, _ = upsampled[0]
+        assert out.shape == shown.shape == (2, 64, 64, 3) and out.dtype == np.uint8
+        assert out.std() > 0
+        names = sorted(os.listdir(out_dir))
+        assert len(names) == 2 and Image.open(out_dir + names[0]).size == (64, 64)
+        return
     if flags[0] in ("--dtype", "--int8_calibration"):
         model_path, _ = checkpoints
         extra = ("--dtype", "int8", "--int8_calibration", str(tmp_path / flags[1])) \
