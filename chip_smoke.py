@@ -10,7 +10,9 @@ fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
 cache, limited-interval guidance, v-prediction) at ``openai_64``, static int8
 serving (``--dtype int8``) at ``openai_64``, training at ``openai_128``,
 the super-resolution UNet at ``openai_256`` widths, the ESRGAN stage
-(``--upsample``) and guided and progressive distillation at ``openai_64``.
+(``--upsample``), guided and progressive distillation at ``openai_64``, and
+the serving daemon (HTTP requests micro-batched into one chain) at
+``openai_64`` in bf16 and int8.
 It checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
@@ -32,7 +34,10 @@ It checks every hand-written kernel on the way:
      ``openai_128`` and its classifier at batch 4: head dims 128, 192 and
      256, the interleaved layout, the pool's N = 65, and of the
      super-resolution UNet at ``openai_256`` widths at batch 2: K3 at up to
-     256 channels on 256x256 maps, K1 at C = 512 and 1024), f32 and bf16, with the
+     256 channels on 256x256 maps, K1 at C = 512 and 1024, and of
+     ``openai_64`` again at model batch 128, the daemon's batch at serve
+     batch 64 under CFG, where K3's plan of clusters and waves differs), f32
+     and bf16, with the
      JAX package's tolerances; its time per call in the path's compute
      type, per shape and summed over one forward, beside the plain
      version's and the library call's (K3 also with the route its plan
@@ -167,7 +172,24 @@ It checks every hand-written kernel on the way:
      of one step of each; (c) the sampling entry point on the student with
      the printed hint (25 forwards at batch 8 a request) against the
      teacher's CFG chain on the same labels (50 at model batch 16), images/s
-     of both.
+     of both;
+ 16. the serving daemon (``[serve]``): (a) the serving entry point's
+     ``build_service`` on ``64x64_diffusion.pt``, bf16, CFG 0.8, DDIM-25,
+     serve batch 8, behind its HTTP front end: /healthz, 8 concurrent /sample
+     requests of 1 to 3 labels in both encodings (packing, padding, requests
+     that wait for a later batch), /stats and a bad request (400); K1 and K3
+     launched (batches + warmup) x 25 x their count a forward, the plain
+     versions refused while it runs; (b) in f32 (TF32 off), DDIM-10, a
+     request alone and in the last row of a full batch to 1e-5, that batch
+     bit-equal to ``Diffusion.denoise`` on its start noise and step generator
+     and within 1e-3 of ``kernels=False``; the same in bf16, read; (c)
+     ``--dtype int8 --int8_calibration`` on ``[int8]``'s file, one batch of 8,
+     the int8 conv 25 x 91 a batch; (d) samples/s, occupancy and p50/p95
+     latency with 8 and 64 closed-loop HTTP clients at serve batch 8 and 64
+     (at 64 three repeats, and first one full batch held bit for bit to
+     ``Diffusion.denoise``), the counts reset before the clients and read
+     after them, beside ``Diffusion.denoise`` in a loop, and the device idle
+     share of one served batch and of one library chain at 8.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -182,6 +204,7 @@ so does a machine without a CUDA card. Imports nothing of JAX.
 """
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -237,6 +260,7 @@ FAST_BATCH = 8  # labels a chain of the fast-sampling slice
 SR_BATCH = 2  # the super-resolution slice: images a chain
 SR_LOW = 64  # its low-res input, upsampled 4x to openai_256's 256
 HBM_BYTES_PER_S = 3.35e12
+PROFILER_TRIES = 8  # profiled_ms: tries before a run with no device time fails
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
@@ -315,8 +339,11 @@ def profiled_ms(fn, iters=10, by_name=False):
 
     fn()
     torch.cuda.synchronize()
-    # a profiled run now and then records no device activity at all: up to two more
-    for _ in range(3):
+    # a profiled run now and then records no device activity at all, up to three
+    # in a row in one run of this script: up to seven more, each after a pause
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.1 * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -326,8 +353,10 @@ def profiled_ms(fn, iters=10, by_name=False):
                  and not getattr(e, "is_user_annotation", False)}
         total = sum(names.values())
         if total > 0:
+            if attempt:
+                log(f"[profile] torch.profiler recorded device time at try {attempt + 1}")
             return (total, names) if by_name else total
-    raise AssertionError("torch.profiler recorded no device time in three tries")
+    raise AssertionError(f"torch.profiler recorded no device time in {PROFILER_TRIES} tries")
 
 
 def within(out, ref, tol):
@@ -624,6 +653,9 @@ PATHS = {
     "sr256": (SR_BATCH, torch.bfloat16,
               f"one forward of the super-resolution UNet at openai_256 widths at batch "
               f"{SR_BATCH}"),
+    "serve64": (128, torch.bfloat16,
+                "one openai_64 forward of the daemon at serve batch 64 (model batch 128 "
+                "under CFG)"),
 }
 GUIDED_PATHS = ("unet128", "cls128")
 K2_PATHS = ("train", "emnist", "cls128", "unet128")  # unet128: openai_128 training at batch 4
@@ -663,7 +695,8 @@ def phase_kernels(dev, paths):
     sampling at model batch 16: 8 requests doubled by CFG; ``openai_64``
     training at batch 8; the entry point's EMNIST recipe at batch 468, whose
     N = 49 and 196 and 7x7 maps are ragged for the tiles; ``openai_128`` and
-    its classifier at batch 4), in f32 and bf16; times in each path's compute
+    its classifier at batch 4; the serving daemon at model batch 128), in f32
+    and bf16; times in each path's compute
     type per shape and summed per forward, beside the plain version, the
     library call and the bound. K5 runs at the attention shapes of the
     ``openai_128`` paths and at D = 16, N = 49."""
@@ -2955,6 +2988,459 @@ def phase_distill(dev, state, workdir):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# the serving daemon
+# ---------------------------------------------------------------------------
+
+SERVE_STEPS = 25  # the openai_64 preset's DDIM eta=0 chain
+# (serve batch = closed-loop clients, rounds each, repeats, linger ms)
+SERVE_LOAD = ((8, 6, 1, 20.0), (64, 3, 3, 100.0))
+
+
+def http_json(url, body=None, timeout=600):
+    """GET ``url`` (or POST ``body`` as JSON) and return the decoded reply."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def check_reply(payload, n, what):
+    from nicediffusion_tpu_torch.serving import decode_images
+
+    images = decode_images(payload)
+    if payload["shape"] != [n, 64, 64, 3] or images.shape != (n, 64, 64, 3):
+        raise AssertionError(f"{what}: shape {payload['shape']}, decoded {images.shape}")
+    if not (abs(images).max() <= 1.0):  # also false on a NaN
+        raise AssertionError(f"{what}: values not finite in [-1, 1]")
+    return images
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """While the block runs, the plain versions the model would take with
+    kernels=False (attention, GroupNorm, the int8 conv) raise."""
+    from nicediffusion_tpu_torch.ops import attention, groupnorm, quant
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the served path")
+
+    saved = [(attention, "fused_qkv_attention_plain"), (groupnorm, "_plain_group_norm"),
+             (quant, "int8_conv_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def http_front(service):
+    """``make_server(port=0)`` over ``service`` on a thread; yields its base
+    URL."""
+    import threading
+
+    from nicediffusion_tpu_torch.serving import make_server
+
+    server = make_server(service, port=0, request_timeout=600)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+    try:
+        yield f"http://{host}:{port}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def closed_loop(base, clients, rounds, seed0):
+    """``clients`` threads each send ``rounds`` one-label requests back to
+    back; returns (each request's latency in s, the wall s of the whole)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def client(i):
+        lat = []
+        for r in range(rounds):
+            body = {"labels": [(97 * i + r) % 1000 + 1], "seed": seed0 + rounds * i + r,
+                    "encoding": "b64npz"}
+            t0 = time.perf_counter()
+            check_reply(http_json(f"{base}/sample", body), 1, f"client {i} request {r}")
+            lat.append(time.perf_counter() - t0)
+        return lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        lats = [x for lat in pool.map(client, range(clients)) for x in lat]
+    return lats, time.perf_counter() - t0
+
+
+def traced_busy_ms(fn, logdir):
+    """Run ``fn`` once under ``utils/profiling.trace`` and return the summed
+    device time of the kernels it recorded. A run that records none is
+    tried again, as in ``profiled_ms``; after PROFILER_TRIES such runs it
+    fails."""
+    from nicediffusion_tpu_torch.utils.profiling import trace
+
+    for attempt in range(PROFILER_TRIES):
+        if attempt:
+            time.sleep(0.1 * attempt)
+        with trace(logdir) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
+        if busy > 0:
+            if attempt:
+                log(f"[profile] torch.profiler recorded device time at try {attempt + 1}")
+            return busy
+    raise AssertionError(f"torch.profiler recorded no device time in {PROFILER_TRIES} tries")
+
+
+def serve_expect(model, calls, int8=False):
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+
+    n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    n_gn = sum(isinstance(m, GroupNormOp) for m in model.modules())
+    n_int8 = len(model.int8_layers()) if int8 else 0
+    return {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
+            "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": n_int8 * calls}
+
+
+def library_rates(diffusion, dev, batch, chains):
+    """samples/s of ``chains`` calls of Diffusion.denoise at ``batch``, each
+    synchronised."""
+    y = torch.arange(batch, device=dev) * 97 % 1000 + 1
+    rates = []
+    for i in range(chains):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(50 + i)
+        diffusion.denoise(gen, y=y, batch_size=batch)
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+    return rates
+
+
+def serve_load(svc, dev, batch, rounds, repeats, smi):
+    """``batch`` closed-loop HTTP clients of ``svc`` (serve batch ``batch``),
+    ``rounds`` one-label requests each, ``repeats`` times behind one front
+    end, between two chains of the library path at the same batch. Each
+    repeat reads samples/s (over its wall and over its served batches' own
+    seconds), occupancy and p50/p95 latency. The counts are set to 0 just
+    before the first repeat and read just after the last, and must equal
+    (served batches) x SERVE_STEPS x each kernel's calls a forward. Returns
+    (the readings, those launch counts)."""
+    linger = svc.config.linger_ms
+    lib = library_rates(svc.diffusion, dev, batch, 1)
+    runs = []
+    first = svc.stats()
+    reset_launches()
+    with http_front(svc) as base:
+        for i in range(repeats):
+            before = svc.stats()
+            lats, wall = closed_loop(base, batch, rounds, seed0=1000 * batch + 100 * i)
+            after = svc.stats()
+            served = {k: after[k] - before[k]
+                      for k in ("samples", "batches", "padded_rows", "sample_seconds")}
+            runs.append({
+                "requests": len(lats), "samples_per_s": len(lats) / wall,
+                "served_batch_samples_per_s": served["samples"] / served["sample_seconds"],
+                "occupancy": served["samples"] / (served["samples"] + served["padded_rows"]),
+                "batches": served["batches"],
+                "chain_s": served["sample_seconds"] / served["batches"],
+                "p50_s": statistics.median(lats),
+                "p95_s": statistics.quantiles(lats, n=20)[18]})
+            log(f"[serve] serve batch {batch}, {batch} closed-loop HTTP clients x {rounds} "
+                f"one-label requests, linger {linger} ms, repeat {i + 1} of {repeats} ({smi}): "
+                f"{runs[-1]['samples_per_s']:.4f} samples/s over the wall ({len(lats)} requests "
+                f"in {wall:.3f} s), {runs[-1]['served_batch_samples_per_s']:.4f} over the "
+                f"served batches' own seconds ({served['batches']} batches, "
+                f"{runs[-1]['chain_s']:.4f} s each), occupancy {runs[-1]['occupancy']:.4f}; "
+                f"latency p50 {runs[-1]['p50_s']:.4f} s, p95 {runs[-1]['p95_s']:.4f} s")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    batches = svc.stats()["batches"] - first["batches"]
+    expect = serve_expect(svc.diffusion.model, batches * SERVE_STEPS)
+    lib += library_rates(svc.diffusion, dev, batch, 1)
+    last = svc.stats()
+    r = {"clients": batch, "rounds": rounds, "repeats": runs, "linger_ms": linger,
+         "full_batch_samples_per_s": batch * batches / (last["sample_seconds"]
+                                                        - first["sample_seconds"]),
+         "library_samples_per_s": lib, "launches": launches}
+    log(f"[serve] serve batch {batch} over {repeats} repeats ({smi}): samples/s over the wall "
+        f"{[round(x['samples_per_s'], 4) for x in runs]}, occupancy "
+        f"{[round(x['occupancy'], 4) for x in runs]}, p95 "
+        f"{[round(x['p95_s'], 4) for x in runs]} s; a full batch "
+        f"{r['full_batch_samples_per_s']:.4f} samples/s; the library path (Diffusion.denoise "
+        f"at batch {batch}, before and after) {[round(x, 4) for x in lib]} samples/s; "
+        f"launches {launches}, expected {expect} ({batches} served batches x {SERVE_STEPS})")
+    if launches != expect:
+        raise AssertionError(f"[serve] serve batch {batch}: launches {launches} != {expect}")
+    return r, launches
+
+
+def serve_positions(diff, dev):
+    """A SamplerService (serve batch 8) over ``diff``: one request served
+    alone (batch 0, padded), then the same (seed, label) in the last row of
+    a full batch (batch 1), then alone again (batch 2). Returns (max abs
+    difference of the first two, of the two served alone, the full batch as
+    served, its x_T and labels on the card, Diffusion.denoise of them with
+    batch 1's step generator)."""
+    import numpy as np
+
+    from nicediffusion_tpu_torch.serving import SamplerService, ServingConfig
+
+    target = (417, 42)  # (label, seed)
+    rows = [(int(j * 97 % 1000 + 1), j) for j in range(7)] + [target]
+    with SamplerService(diff, ServingConfig(serve_batch=8, linger_ms=200.0), device=dev) as s:
+        alone = s.sample(labels=[target[0]], seed=target[1], timeout=600)
+        futs = [s.submit(labels=[lab], seed=seed) for lab, seed in rows]
+        full = [f.result(timeout=600) for f in futs]
+        repeat = s.sample(labels=[target[0]], seed=target[1], timeout=600)
+        st = s.stats()
+        if st["batches"] != 3 or st["padded_rows"] != 14:
+            raise AssertionError(f"[serve] the position check's batches: {st}")
+        x = torch.cat([s._draw_x(seed, 1) for _, seed in rows]).to(dev)
+        y = torch.tensor([lab for lab, _ in rows]).to(dev)
+        again = diff.denoise(s._step_generator(1), x=x, y=y, batch_size=8).float().cpu()
+    pos, rerun = float(abs(alone - full[-1]).max()), float(abs(alone - repeat).max())
+    return pos, rerun, torch.from_numpy(np.concatenate(full)), x, y, again
+
+
+def phase_serve(dev, state, workdir, smi):
+    """``[serve]``: the serving daemon at full-width ``openai_64``.
+    (a) ``scripts/serve.py::build_service`` on ``64x64_diffusion.pt``, bf16,
+    CFG 0.8, DDIM-25, serve batch 8 (the kernels built and the chain run once
+    by its warmup), behind ``make_server(port=0)``: /healthz, 8 concurrent
+    /sample POSTs of 1 to 3 labels (17 rows, both encodings: packing,
+    padding, requests that wait for a later batch), /stats, one bad request
+    (400); K1 and K3 launched (batches + warmup) x 25 x their count a
+    forward, the plain versions refused. (b) f32 (TF32 off), DDIM-10: a
+    request served alone and again in the last row of a full batch, held to
+    1e-5; that batch equal bit for bit to ``Diffusion.denoise`` on its x_T and
+    step generator, and within 1e-3 of the kernels=False model; bf16 the
+    same, read. (c) ``--dtype int8 --int8_calibration`` on the file ``[int8]``
+    wrote: one batch of 8, the int8 conv 25 x 91 a batch. (d) samples/s,
+    occupancy, p50/p95 latency with closed-loop HTTP clients at serve batch 8
+    and 64 (three repeats at 64), with the launches counted over the clients'
+    requests and held to the structure, beside ``Diffusion.denoise`` in a
+    loop; at 64 first one full batch (model batch 128) held bit for bit to
+    ``Diffusion.denoise`` on its x_T and step generator ([kernels] holds K1
+    and K3 against their plain versions at that batch's shapes); the device
+    idle share of one served batch and of one library chain at 8 by
+    torch.profiler."""
+    import urllib.error
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.scripts.serve import build_service
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        log(f"[serve] {name} took {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    model_path = os.path.join(workdir, "64x64_diffusion.pt")
+    if not os.path.exists(model_path):
+        torch.save(state, model_path)
+    calib_path = os.path.join(workdir, "int8_calibration.npz")
+    if not os.path.exists(calib_path):
+        raise AssertionError("[serve] needs the calibration file [int8] wrote")
+    cfg = model_config()
+    common = ["--model_path", model_path, "--guidance_method", "classifier_free",
+              "--guidance_strength", "0.8", "--num_classes", str(cfg["num_classes"]),
+              "--seed", "0"]
+    by_path = {}
+
+    # (a) the entry point behind HTTP, a concurrent burst
+    reset_launches()
+    with plain_versions_refused():
+        batch, _, _, linger = SERVE_LOAD[0]
+        svc, _ = build_service(common + ["--batch_size", str(batch), "--linger_ms", str(linger)])
+        if svc.diffusion.rescaled_num_steps != SERVE_STEPS or svc.diffusion.sampler != "ddim":
+            raise AssertionError(f"[serve] chain: {svc.diffusion.sampler}, "
+                                 f"{svc.diffusion.rescaled_num_steps} steps")
+        with http_front(svc) as base:
+            health = http_json(f"{base}/healthz")
+            if health != {"ok": True, "warm": True}:
+                raise AssertionError(f"/healthz after the warmup: {health}")
+            sizes = (3, 2, 3, 1, 2, 3, 1, 2)
+            bodies = [{"labels": [(131 * i + j) % 1000 + 1 for j in range(n)], "seed": 100 + i,
+                       "encoding": ("b64npz", "list")[i % 2]} for i, n in enumerate(sizes)]
+
+            def post(body):
+                t0 = time.perf_counter()
+                payload = http_json(f"{base}/sample", body)
+                return payload, time.perf_counter() - t0
+
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                replies = list(pool.map(post, bodies))
+            for i, ((payload, _), body) in enumerate(zip(replies, bodies)):
+                check_reply(payload, len(body["labels"]), f"burst request {i}")
+            stats = http_json(f"{base}/stats")
+            try:
+                http_json(f"{base}/sample", {"labels": [5000]})
+                raise AssertionError("a label out of range got no 400")
+            except urllib.error.HTTPError as e:
+                if e.code != 400:
+                    raise AssertionError(f"a label out of range got {e.code}, not 400")
+        launches = read_launches()
+    rows, b = sum(sizes), stats["batches"]
+    expect = serve_expect(svc.diffusion.model, (b + 1) * SERVE_STEPS)
+    log(f"[serve] entry point, openai_64 bf16, CFG 0.8, DDIM-{SERVE_STEPS}, serve batch 8, "
+        f"{len(sizes)} concurrent requests of {list(sizes)} labels ({rows} rows, both "
+        f"encodings): {b} batches, {stats['padded_rows']} padded rows, occupancy "
+        f"{stats['occupancy']:.4f}; latencies {[round(s, 3) for _, s in replies]} s; "
+        f"400 on a bad label; launches {launches}, expected {expect} ((batches + warmup) x "
+        f"{SERVE_STEPS} forwards at model batch 16)")
+    if (stats["requests"] != len(sizes) or stats["samples"] != rows or b < 3
+            or stats["padded_rows"] != batch * b - rows or not stats["warm"]):
+        raise AssertionError(f"[serve] stats {stats}")
+    if launches != expect:
+        raise AssertionError(f"[serve] launches {launches} != {expect}")
+    by_path["serve_openai_64_bf16"] = launches
+
+    part_done("(a)")
+
+    # (d) at serve batch 8: closed-loop clients, the library path, idle shares
+    readings = {}
+    with plain_versions_refused():
+        readings["8"], by_path["serve_openai_64_bf16_b8_load"] = serve_load(
+            svc, dev, *SERVE_LOAD[0][:3], smi)
+    # one served batch of 8 rows and one library chain at 8 under torch.profiler,
+    # each against the median of 3 walls with the profiler off
+    diffusion = svc.diffusion
+    y8 = torch.arange(8, device=dev) * 97 % 1000 + 1
+    walls = []
+    for _ in range(3):
+        before = svc.stats()["sample_seconds"]
+        svc.sample(labels=y8.tolist(), seed=7, timeout=600)
+        walls.append((svc.stats()["sample_seconds"] - before) * 1e3)
+    served_ms = statistics.median(walls)
+    served_busy = traced_busy_ms(lambda: svc.sample(labels=y8.tolist(), seed=7, timeout=600),
+                                 os.path.join(workdir, "serve_trace"))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diffusion.denoise(torch.Generator(device=dev).manual_seed(7), y=y8, batch_size=8)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    lib_ms = statistics.median(walls)
+    lib_busy = traced_busy_ms(
+        lambda: diffusion.denoise(torch.Generator(device=dev).manual_seed(7), y=y8,
+                                  batch_size=8),
+        os.path.join(workdir, "serve_trace"))
+    idle, lib_idle = 1 - served_busy / served_ms, 1 - lib_busy / lib_ms
+    readings["8"].update(idle_share=idle, library_idle_share=lib_idle)
+    log(f"[serve] one served batch of 8 ({smi}): device busy {served_busy:.3f} ms of "
+        f"{served_ms:.3f} ms (the median of 3 with the profiler off), idle share "
+        f"{idle:.4f}; one library chain at 8: busy {lib_busy:.3f} of {lib_ms:.3f} ms "
+        f"(the median of 3), idle share {lib_idle:.4f}")
+    svc.close()
+    del svc, diffusion
+    torch.cuda.empty_cache()
+    part_done("(d) at serve batch 8")
+
+    # (b) batch-position independence, and the service against Diffusion.denoise
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=10,
+                guidance_method="classifier_free", guidance_strength=0.8)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        m = DiffusionModel(**cfg, dtype=dtype, device=dev).eval()
+        m.load_state_dict(state, strict=True)
+        diff = Diffusion(model=m, **dcfg)
+        pos, rerun, served, x, y, again = serve_positions(diff, dev)
+        if dtype == torch.bfloat16:
+            log(f"[serve] {name}, DDIM-10, CFG 0.8: one request alone (a padded batch) against "
+                f"the same (seed, label) in the last row of a full batch: max abs diff "
+                f"{pos:.6g}; alone against alone again: {rerun:.6g} (read, not gated)")
+            break
+        off = DiffusionModel(**cfg, kernels=False, device=dev).eval()
+        off.load_state_dict(state, strict=True)
+        plain = Diffusion(model=off, **dcfg).denoise(
+            torch.Generator(device=dev).manual_seed(0), x=x, y=y, batch_size=8).float().cpu()
+        err_off = (served - plain).abs().max().item()
+        bit = torch.equal(served, again)
+        log(f"[serve] {name} (TF32 off), DDIM-10, CFG 0.8: one request alone against the same "
+            f"(seed, label) in the last row of a full batch: max abs diff {pos:.6g} (gate "
+            f"1e-5), alone against alone again {rerun:.6g}; the served batch against "
+            f"Diffusion.denoise on its x_T and step generator: "
+            f"{'bit-equal' if bit else 'DIFFERENT'}; against kernels=False: max abs "
+            f"{err_off:.3g} (gate {MODEL_TOL})")
+        if not pos <= 1e-5 or not rerun <= 1e-5 or not bit or not err_off <= MODEL_TOL:
+            raise AssertionError("[serve] the f32 service adds more than packing")
+        del m, off, diff, plain
+        torch.cuda.empty_cache()
+    del m, diff
+    torch.cuda.empty_cache()
+    part_done("(b)")
+
+    # (c) int8 through the daemon: the calibration loaded, one batch of 8
+    reset_launches()
+    with plain_versions_refused():
+        svc, _ = build_service(common + ["--batch_size", "8", "--dtype", "int8",
+                                         "--int8_calibration", calib_path])
+        with svc:
+            futs = [svc.submit(labels=[int(j * 37 % 1000 + 1) for j in range(n)], seed=200 + n)
+                    for n in (3, 3, 2)]
+            outs = [f.result(timeout=600) for f in futs]
+            st = svc.stats()
+            launches = read_launches()
+            expect = serve_expect(svc.diffusion.model, (st["batches"] + 1) * SERVE_STEPS, True)
+    log(f"[serve] entry point --dtype int8 --int8_calibration (read), serve batch 8, "
+        f"requests of 3, 3 and 2 labels: {st['batches']} batch, {st['padded_rows']} padded "
+        f"rows; launches {launches}, expected {expect} ((batch + warmup) x {SERVE_STEPS})")
+    if st["batches"] != 1 or st["padded_rows"] != 0 or launches != expect:
+        raise AssertionError(f"[serve] int8: stats {st}, launches {launches}")
+    for o, n in zip(outs, (3, 3, 2)):
+        if o.shape != (n, 64, 64, 3) or not (abs(o).max() <= 1.0):
+            raise AssertionError(f"[serve] int8 reply {o.shape}")
+    by_path["serve_openai_64_int8"] = launches
+    del svc
+    torch.cuda.empty_cache()
+    part_done("(c)")
+
+    # (d) at serve batch 64: one full batch held to Diffusion.denoise, then the
+    # closed-loop clients
+    batch, rounds, repeats, linger = SERVE_LOAD[1]
+    with plain_versions_refused():
+        svc, _ = build_service(common + ["--batch_size", str(batch), "--linger_ms", str(linger)])
+        with svc:
+            labels = [int(j * 97 % 1000 + 1) for j in range(batch)]
+            served = torch.from_numpy(svc.sample(labels=labels, seed=64, timeout=600))
+            st = svc.stats()
+            x, y = svc._draw_x(64, batch).to(dev), torch.tensor(labels).to(dev)
+            again = svc.diffusion.denoise(svc._step_generator(0), x=x, y=y,
+                                          batch_size=batch).float().cpu()
+            bit = torch.equal(served, again)
+            log(f"[serve] serve batch {batch} (model batch {2 * batch} under CFG), bf16, one "
+                f"request of {batch} labels: {st['batches']} batch, {st['padded_rows']} padded "
+                f"rows; against Diffusion.denoise on its x_T and step generator: "
+                f"{'bit-equal' if bit else 'DIFFERENT'}; finite in [-1, 1]: "
+                f"{bool(served.abs().max() <= 1.0)}")
+            if st["batches"] != 1 or st["padded_rows"] != 0 or not bit or not (
+                    served.abs().max() <= 1.0):
+                raise AssertionError(f"[serve] serve batch {batch}: the full batch, stats {st}")
+            del x, y, served, again
+            readings[str(batch)], by_path["serve_openai_64_bf16_b64"] = serve_load(
+                svc, dev, batch, rounds, repeats, smi)
+    del svc
+    torch.cuda.empty_cache()
+    part_done(f"(d) at serve batch {batch}")
+    return by_path, readings
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -2995,7 +3481,7 @@ def main():
     randomize(sr256, SEED + 4)
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev),
-             "sr256": main_path_calls(sr256, dev)}
+             "sr256": main_path_calls(sr256, dev), "serve64": calls}
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
@@ -3053,6 +3539,10 @@ def main():
         phase_done("[esrgan]")
         by_path.update(phase_distill(dev, state, workdir))
         phase_done("[distill]")
+        serve_paths, serve_readings = phase_serve(dev, state, workdir, smi)
+        by_path.update(serve_paths)
+        log(f"[serve] readings {json.dumps(serve_readings)}")
+        phase_done("[serve]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -3078,7 +3568,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256")},
+              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64")},
               attention_routes),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
@@ -3092,7 +3582,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256")},
+              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64")},
               {"bfloat16": "CUDA cores; thread-block clusters, the tile in shared memory",
                "float32": "the same kernel in f32"}, **k3_gates),
         # the backward of K3's custom VJP (a jnp recompute under jax.vjp in the

@@ -8,9 +8,14 @@ DDPM, DDIM and DPM-Solver++ sampling chains with v-prediction, dynamic
 thresholding, the encoder cache and limited-interval guidance, static int8
 serving (calibrate, freeze, serve), the four training losses, the Trainer
 (AdamW, EMA, accumulation, checkpoints), guided and progressive distillation,
-the entry points ``python -m nicediffusion_tpu_torch.scripts.sample`` (with
-``--upsample``), ``python -m nicediffusion_tpu_torch.scripts.train`` and
-``python -m nicediffusion_tpu_torch.scripts.distill``, and six kernels
+the serving daemon (``serving/``: ``SamplerService`` micro-batching requests
+into one chain at a fixed batch, behind a stdlib HTTP front end), the entry
+points ``python -m nicediffusion_tpu_torch.scripts.sample`` (with
+``--upsample``), ``python -m nicediffusion_tpu_torch.scripts.train``,
+``python -m nicediffusion_tpu_torch.scripts.distill``,
+``python -m nicediffusion_tpu_torch.scripts.serve`` (the daemon) and
+``python -m nicediffusion_tpu_torch.scripts.export`` (``.pt`` <-> ``.npz``
+and the Trainer's checkpoints), and six kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
 CUDA C++; K3, fused GroupNorm and its backward in CUDA C++; K4, fused
 GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package;

@@ -51,7 +51,6 @@ Usage:
 
 from __future__ import annotations
 
-import os
 import sys
 
 
@@ -70,13 +69,7 @@ def main(argv: list[str] | None = None):
     import numpy as np
     import torch
 
-    from ..diffusion.process import Diffusion
-    from ..models.classifier import EncoderUNet
-    from ..models.unet import DiffusionModel
-    from ..ops.quant import calibration_inputs, collect_calibration, freeze_int8
-    from ..utils.checkpoint import load_calibration, load_state_dict, save_calibration
-    from ..utils.cli import get_dicts_from_args, make_argparser
-    from ..utils.config import classifier_preset_for_path
+    from ..utils.cli import build_diffusion, get_dicts_from_args, make_argparser
     from ..utils.image import grayscale_to_rgb, load_start_image, save_image, to_uint8
 
     # argv re-split (reference sample.py:18-21 accepts space-joined args)
@@ -95,15 +88,8 @@ def main(argv: list[str] | None = None):
     _refuse_unported(args)
     other_args, model_args, diff_args = get_dicts_from_args(args)
 
-    if other_args["cpu"]:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda")
-    else:
-        raise RuntimeError(
-            "sampling runs on the CUDA card and torch.cuda.is_available() is "
-            "False; pass --cpu to run on the CPU"
-        )
+    diffusion = build_diffusion(other_args, model_args, diff_args, other_args["batch_size"])
+    device = diffusion.device
     seed = other_args["seed"] if other_args["seed"] is not None else 0
     generator = torch.Generator(device=device).manual_seed(seed)
     wordy = other_args["wordy"]
@@ -111,71 +97,9 @@ def main(argv: list[str] | None = None):
     labels_arg, save_path = other_args["labels"], other_args["save_path"]
     conditional = model_args["num_classes"] is not None
     resolution, in_channels = model_args["resolution"], model_args["in_channels"]
-
-    # int8: the quantized convs, bfloat16 elsewhere (as the JAX CLI)
-    dtype_flag = other_args["dtype"]
-    quantized = dtype_flag == "int8"
-    if dtype_flag == "auto":
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    elif quantized:
-        dtype = torch.bfloat16
-    else:
-        dtype = getattr(torch, dtype_flag)
-    if dtype == torch.float32 and device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     if wordy:
-        print(f"Computing in {'int8/' if quantized else ''}"
-              f"{str(dtype).removeprefix('torch.')} on {device}")
-
-    def count(module):
-        return sum(p.numel() for p in module.parameters())
-
-    model = DiffusionModel(**model_args, dtype=dtype, quantized=quantized, device=device).eval()
-    model.load_state_dict(load_state_dict(other_args["model_path"], device), strict=True)
-
-    # noisy-classifier guidance: a guided-diffusion EncoderUNet whose
-    # grad log p(y | x_t) steers the sampler
-    if other_args["classifier_path"]:
-        cls_path = other_args["classifier_path"]
-        classifier = EncoderUNet(
-            **classifier_preset_for_path(cls_path), dtype=dtype, device=device
-        )
-        classifier.load_state_dict(load_state_dict(cls_path, device), strict=True)
-        diff_args["classifier"] = classifier
-        if wordy:
-            print(f"Classifier made from {cls_path} with {count(classifier)} parameters! :)")
-
-    if wordy:
-        print(f"Model made from {other_args['model_path']} with {count(model)} parameters! :)")
         print(f"Starting Diffusion! There are {num_samples} samples of "
               f"{batch_size} images each")
-
-    diffusion = Diffusion(model=model, **diff_args)
-
-    if quantized:
-        calib_path = other_args["int8_calibration"]
-        if calib_path and os.path.exists(calib_path):
-            if wordy:
-                print(f"Loading int8 calibration from {calib_path}")
-            calib = load_calibration(calib_path, device)
-        else:
-            calib_gen = torch.Generator(device=device).manual_seed(seed + 1)
-            calib_batch = min(batch_size, 8)
-            calib_y = (
-                torch.randint(0, model_args["num_classes"], (calib_batch,),
-                              generator=calib_gen, device=device)
-                if conditional else None
-            )
-            if wordy:
-                print("Calibrating int8 activation scales on one chain...")
-            inputs = calibration_inputs(diffusion, calib_gen, y=calib_y, batch_size=calib_batch)
-            calib = collect_calibration(model, inputs)
-            if calib_path:
-                save_calibration(calib, calib_path)
-                if wordy:
-                    print(f"Saved int8 calibration to {calib_path}")
-        freeze_int8(model, calib)
 
     start_batch = None
     if other_args["start_img"] is not None and other_args["steps_to_do"] is not None:

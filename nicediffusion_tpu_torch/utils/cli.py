@@ -7,15 +7,21 @@ the card. Flag-for-flag mirror of the reference CLI (reference utils.py:12-143
 shared by the sampling and training programs, four argument groups, default
 preset dispatch by model-path substring, '/'-separated list parsing, and the
 out_channels / num_classes derivation rules (via utils/config.py).
+
+`build_diffusion` is the port's own: the model, its weights and the
+`Diffusion` that the sampling and serving entry points both build from the
+parsed flags.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from .config import apply_derivations, preset_for_path
 
-__all__ = ["make_argparser", "get_dicts_from_args"]
+__all__ = ["make_argparser", "get_dicts_from_args", "cli_device", "compute_dtype",
+           "freeze_from_args", "build_diffusion"]
 
 
 def make_argparser(prog: str) -> argparse.ArgumentParser:
@@ -306,3 +312,120 @@ def get_dicts_from_args(args) -> tuple[dict, dict, dict]:
 
     apply_derivations(model_args, diff_args)
     return other_args, model_args, diff_args
+
+
+def cli_device(cpu: bool):
+    """``--cpu`` -> the CPU; otherwise the CUDA card, raising RuntimeError
+    where there is none."""
+    import torch
+
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "sampling runs on the CUDA card and torch.cuda.is_available() is "
+            "False; pass --cpu to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def compute_dtype(dtype_flag: str, device):
+    """``--dtype`` -> (compute dtype, quantized): ``auto`` is bfloat16 on the
+    card and float32 on the CPU; ``int8`` quantizes the convs and computes in
+    bfloat16 elsewhere (as the JAX CLI). float32 on the card turns TF32 off
+    in cuDNN and cuBLAS, as the kernels' f32 paths use none."""
+    import torch
+
+    quantized = dtype_flag == "int8"
+    if dtype_flag == "auto":
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    elif quantized:
+        dtype = torch.bfloat16
+    else:
+        dtype = getattr(torch, dtype_flag)
+    if dtype == torch.float32 and device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dtype, quantized
+
+
+def freeze_from_args(diffusion, calib_path: str | None, batch_size: int, seed: int,
+                     wordy: bool) -> None:
+    """Freeze the quantized model of ``diffusion`` for static int8: load the
+    calibration at ``calib_path`` if the file exists, otherwise draw one
+    chain of min(batch_size, 8) through the dynamic path from a generator of
+    its own (seed + 1), record it, and save it at ``calib_path`` if given."""
+    import torch
+
+    from ..ops.quant import calibration_inputs, collect_calibration, freeze_int8
+    from .checkpoint import load_calibration, save_calibration
+
+    model, device = diffusion.model, diffusion.device
+    if calib_path and os.path.exists(calib_path):
+        if wordy:
+            print(f"Loading int8 calibration from {calib_path}")
+        calib = load_calibration(calib_path, device)
+    else:
+        calib_gen = torch.Generator(device=device).manual_seed(seed + 1)
+        calib_batch = min(batch_size, 8)
+        calib_y = (
+            torch.randint(0, model.num_classes, (calib_batch,),
+                          generator=calib_gen, device=device)
+            if model.conditional else None
+        )
+        if wordy:
+            print("Calibrating int8 activation scales on one chain...")
+        inputs = calibration_inputs(diffusion, calib_gen, y=calib_y, batch_size=calib_batch)
+        calib = collect_calibration(model, inputs)
+        if calib_path:
+            save_calibration(calib, calib_path)
+            if wordy:
+                print(f"Saved int8 calibration to {calib_path}")
+    freeze_int8(model, calib)
+
+
+def build_diffusion(other_args: dict, model_args: dict, diff_args: dict, batch_size: int,
+                    classifier: bool = True):
+    """The `Diffusion` that the parsed flags describe: on the card unless
+    ``--cpu``, in the ``--dtype`` compute type, the model loaded strictly
+    from ``--model_path``, with the ``--classifier_path`` classifier if
+    ``classifier`` and one is given, and under ``--dtype int8`` frozen from
+    ``--int8_calibration`` (`freeze_from_args`, ``batch_size`` bounding the
+    calibration draw)."""
+    from ..diffusion.process import Diffusion
+    from ..models.classifier import EncoderUNet
+    from ..models.unet import DiffusionModel
+    from .checkpoint import load_state_dict
+    from .config import classifier_preset_for_path
+
+    device = cli_device(other_args["cpu"])
+    seed = other_args["seed"] if other_args["seed"] is not None else 0
+    wordy = other_args["wordy"]
+    dtype, quantized = compute_dtype(other_args["dtype"], device)
+    if wordy:
+        print(f"Computing in {'int8/' if quantized else ''}"
+              f"{str(dtype).removeprefix('torch.')} on {device}")
+
+    def count(module):
+        return sum(p.numel() for p in module.parameters())
+
+    model = DiffusionModel(**model_args, dtype=dtype, quantized=quantized, device=device).eval()
+    model.load_state_dict(load_state_dict(other_args["model_path"], device), strict=True)
+
+    # noisy-classifier guidance: a guided-diffusion EncoderUNet whose
+    # grad log p(y | x_t) steers the sampler
+    diff_args = dict(diff_args)
+    if classifier and other_args.get("classifier_path"):
+        cls_path = other_args["classifier_path"]
+        cls = EncoderUNet(**classifier_preset_for_path(cls_path), dtype=dtype, device=device)
+        cls.load_state_dict(load_state_dict(cls_path, device), strict=True)
+        diff_args["classifier"] = cls
+        if wordy:
+            print(f"Classifier made from {cls_path} with {count(cls)} parameters! :)")
+    if wordy:
+        print(f"Model made from {other_args['model_path']} with {count(model)} parameters! :)")
+
+    diffusion = Diffusion(model=model, **diff_args)
+    if quantized:
+        freeze_from_args(diffusion, other_args["int8_calibration"], batch_size, seed, wordy)
+    return diffusion

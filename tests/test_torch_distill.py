@@ -251,6 +251,35 @@ def test_two_steps_match_jax(case):
     assert_tree_close(pdist.teacher_model, params, "teacher", rel=0)
 
 
+def test_guided_variance_term_matches_jax_off_the_teacher():
+    """The guided distiller's variance term at a non-zero value: one step
+    with var_weight=1.0 from a student jittered away from the teacher (the
+    same numpy jitter in both packages), the metrics to 1e-5 relative. No
+    parameters are compared, so AdamW's float noise does not arise."""
+    kw = dict(guidance_strength=0.8, var_weight=1.0, ema_rate=0.5, seed=5)
+    model, params, batch, labels = jax_setup(TINY_LV, seed=1)
+    rng = np.random.default_rng(9)
+    student = jax.tree.map(
+        lambda p: (np.asarray(p) + 0.05 * rng.normal(size=p.shape)).astype(np.float32), params)
+    jdist = jd.GuidedDistiller(model=model, teacher_params=params, diffusion_args=DARGS_LV,
+                               dataloader=iter(()), iterations=2, **kw)
+    jdist.state = jdist.state.replace(params=jax.tree.map(jnp.asarray, student))
+    pdist = port_pair("guided", TINY_LV, params, DARGS_LV, **kw)
+    pdist.model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+                                 flax_params_to_torch_state_dict(student).items()}, strict=True)
+    _, step_rng = jax.random.split(jdist.rng)
+    _, want = jdist._step_fn(jdist.state, jdist.teacher_params, jnp.asarray(batch),
+                             jnp.asarray(labels), step_rng)
+    j_rng, n_rng = jax.random.split(step_rng)
+    j = jax.random.randint(j_rng, (BATCH,), 0, jdist.student.rescaled_num_steps)
+    noise = jax.random.normal(n_rng, batch.shape, dtype=jnp.float32)
+    got = pdist.train_step(batch, labels, j=np.asarray(j), noise=np.asarray(noise))
+    assert float(want["loss_var"]) > 1e-4 * float(want["loss"]) > 0  # the term is live
+    for name in ("loss", "loss_eps", "loss_var", "grad_norm"):
+        np.testing.assert_allclose(got[name].item(), float(want[name]), rtol=1e-5, atol=0,
+                                   err_msg=name)
+
+
 def test_run_draws_from_its_generator_and_returns_the_live_student():
     model, params, batch, labels = jax_setup(TINY_COND)
 

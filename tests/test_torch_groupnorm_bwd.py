@@ -30,7 +30,8 @@ SHAPES = [(2, 8, 8, 96), (2, 7, 5, 64)]
 # GroupNorm calls of one forward, distinct (H, W, C, mode) keys, as
 # chip_smoke.main_path_calls finds them; tests/test_torch_kernels.py runs K3
 # on the card at each of them by index
-MODEL_GN_KEYS = {"openai_64": 30, "openai_128": 33, "classifier": 19, "EMNIST": 21}
+MODEL_GN_KEYS = {"openai_64": 30, "openai_128": 33, "classifier": 19, "EMNIST": 21,
+                 "sr256": 31}
 
 
 def _t(a):
@@ -190,12 +191,15 @@ def test_bwd_refuses_other_devices():
 def test_model_groupnorm_keys_are_pinned(preset):
     """The GroupNorm shapes the card tests index: chip_smoke.main_path_calls
     on a meta-device model (shapes only)."""
-    from chip_smoke import classifier_config, main_path_calls, model_config
+    from chip_smoke import classifier_config, main_path_calls, model_config, sr_config
     from nicediffusion_tpu_torch import DiffusionModel, EncoderUNet
+    from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
 
     meta = torch.device("meta")
     if preset == "classifier":
         model = EncoderUNet(**classifier_config(), kernels=False, device=meta)
+    elif preset == "sr256":
+        model = SuperResolutionModel(**sr_config(), kernels=False, device=meta)
     else:
         model = DiffusionModel(**model_config(preset), kernels=False, device=meta)
     keys = [k for k in main_path_calls(model.eval(), meta) if k[0] == "groupnorm"]

@@ -522,12 +522,15 @@ def _gn_keys(preset):
     """The sorted ((H, W, C), mode) GroupNorm keys of one forward of a model
     (chip_smoke.main_path_calls on the meta device: shapes only);
     tests/test_torch_groupnorm_bwd.py pins their count."""
-    from chip_smoke import classifier_config, main_path_calls, model_config
+    from chip_smoke import classifier_config, main_path_calls, model_config, sr_config
     from nicediffusion_tpu_torch import EncoderUNet
+    from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
 
     meta = torch.device("meta")
     if preset == "classifier":
         model = EncoderUNet(**classifier_config(), kernels=False, device=meta)
+    elif preset == "sr256":  # the super-resolution UNet at openai_256 widths
+        model = SuperResolutionModel(**sr_config(), kernels=False, device=meta)
     else:
         model = DiffusionModel(**model_config(preset), kernels=False, device=meta)
     return sorted((k[1], k[2]) for k in main_path_calls(model.eval(), meta)
@@ -535,7 +538,8 @@ def _gn_keys(preset):
 
 
 @pytest.mark.parametrize("preset,index", [
-    (p, i) for p, n in (("openai_64", 30), ("openai_128", 33), ("classifier", 19), ("EMNIST", 21))
+    (p, i) for p, n in (("openai_64", 30), ("openai_128", 33), ("classifier", 19), ("EMNIST", 21),
+                        ("sr256", 31))
     for i in range(n)])
 def test_k3_forward_and_backward_at_every_model_shape(cuda, preset, index):
     """K3 and its backward at every GroupNorm shape of the preset, at batch
