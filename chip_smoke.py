@@ -10,9 +10,10 @@ fast-sampling configuration (DPM-Solver++, dynamic thresholding, the encoder
 cache, limited-interval guidance, v-prediction) at ``openai_64``, static int8
 serving (``--dtype int8``) at ``openai_64``, training at ``openai_128``,
 the super-resolution UNet at ``openai_256`` widths, the ESRGAN stage
-(``--upsample``), guided and progressive distillation at ``openai_64``, and
-the serving daemon (HTTP requests micro-batched into one chain) at
-``openai_64`` in bf16 and int8.
+(``--upsample``), guided and progressive distillation at ``openai_64``, the
+serving daemon (HTTP requests micro-batched into one chain) at
+``openai_64`` in bf16 and int8, and data-parallel training, sampling and
+serving at ``openai_64`` (two ranks sharing the card, one through torchrun).
 It checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
@@ -36,8 +37,9 @@ It checks every hand-written kernel on the way:
      super-resolution UNet at ``openai_256`` widths at batch 2: K3 at up to
      256 channels on 256x256 maps, K1 at C = 512 and 1024, and of
      ``openai_64`` again at model batch 128, the daemon's batch at serve
-     batch 64 under CFG, where K3's plan of clusters and waves differs), f32
-     and bf16, with the
+     batch 64 under CFG, where K3's plan of clusters and waves differs, and
+     at batch 4, one of two data-parallel ranks' rows of a training step),
+     f32 and bf16, with the
      JAX package's tolerances; its time per call in the path's compute
      type, per shape and summed over one forward, beside the plain
      version's and the library call's (K3 also with the route its plan
@@ -77,7 +79,8 @@ It checks every hand-written kernel on the way:
   6. K2 (the attention backward) against its plain version and against
      autograd through the plain forward, f32 and bf16, both layouts, output
      pre-filled with NaN, with K1's row log-sum-exp handed over and without
-     it, at every attention shape of a training step of both models, of the
+     it, at every attention shape of a training step of both models (and of
+     one data-parallel rank's ``openai_64`` step at batch 4), of the
      classifier's gradient and at a ragged N with head dims 128 and 192; bf16
      also to a relative error of dq, dk and dv per (example, head), which a
      planted fault (the lse handed over 0.05 too high) must fail at every
@@ -89,9 +92,10 @@ It checks every hand-written kernel on the way:
      1e-5 of each output's largest element, bf16 to K3_BF16_REL per output,
      which the rstd handed over 5% high must fail at every shape, bit-equal
      across two runs) at every GroupNorm shape of an ``openai_64`` training
-     step, of the EMNIST recipe, of an ``openai_128`` training step and of
-     the classifier's gradient; its times summed over one ``openai_64``
-     training step at batch 8 and one guidance gradient at batch 4, beside
+     step, of the EMNIST recipe, of an ``openai_128`` training step, of the
+     classifier's gradient and of one data-parallel rank's ``openai_64``
+     step at batch 4; its times summed over one ``openai_64`` training step
+     at batch 8, one guidance gradient at batch 4 and the rank's step, beside
      the plain version, the library's autograd backward of F.group_norm, the
      modulation and F.silu (by torch.profiler) and the bound;
   7. loss and every parameter's gradient of the full-width f32 model, and
@@ -189,7 +193,28 @@ It checks every hand-written kernel on the way:
      (at 64 three repeats, and first one full batch held bit for bit to
      ``Diffusion.denoise``), the counts reset before the clients and read
      after them, beside ``Diffusion.denoise`` in a loop, and the device idle
-     share of one served batch and of one library chain at 8.
+     share of one served batch and of one library chain at 8; and one served
+     f32 batch at serve batch 64 (model batch 128, DDIM-10) within 1e-3 of
+     ``kernels=False``;
+ 17. data parallelism (``[dp]``) at full-width ``openai_64`` on the weights of
+     ``64x64_diffusion.pt``: (b) the train entry point through ``python -m
+     torch.distributed.run --nproc_per_node 1`` (NCCL for CUDA tensors, 3
+     steps at openai_64 widths, bf16, batch 8); then two ranks sharing the
+     card over gloo (NCCL refuses two ranks on one device), started by
+     ``parallel/dryrun.py::spawn_ranks`` under one timeout: (a)
+     ``Trainer(distributed=True)``, remat, dropout 0, global batch 8 as 4 a
+     rank, 3 steps in f32 and in bf16, each step held on rank 0 to a
+     single-process Trainer on the whole batch (loss and gradient norm to
+     LOSS_TOL, every parameter's reduced gradient to GRAD_TOL; f32 gated, bf16
+     read); (c) ``scripts/sample.py --data_parallel`` at batch 16, DDIM-10 and
+     DDPM-10, f32 and bf16, against the one-rank run at the same seed (f32:
+     the saved uint8 images within 1 count; bf16 read), and each rank's f32
+     forward at its model batch of 16 kernels on against ``kernels=False``;
+     (d) ``scripts/serve.py --serve_data_parallel`` at serve batch 16: one
+     HTTP request against the one-rank daemon (f32, DDIM-10, within 1e-3;
+     bf16, DDIM-25, read) and samples/s of closed-loop clients for one rank
+     and for two sharing the card. Each rank's K1, K2, K3 and K3 backward
+     launches are held to the structure.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -254,6 +279,7 @@ GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
 LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
 SEED = 0
 TRAIN_BATCH = 8
+DP_WORLD = 2  # [dp]'s ranks on the one card: a rank trains on TRAIN_BATCH // DP_WORLD rows
 EMNIST_BATCH = 468  # the train entry point's recipe
 GUIDED_BATCH = 4  # the classifier-guided openai_128 slice, and openai_128 training
 FAST_BATCH = 8  # labels a chain of the fast-sampling slice
@@ -656,9 +682,12 @@ PATHS = {
     "serve64": (128, torch.bfloat16,
                 "one openai_64 forward of the daemon at serve batch 64 (model batch 128 "
                 "under CFG)"),
+    "dp_train": (TRAIN_BATCH // DP_WORLD, torch.bfloat16,
+                 f"one forward of a data-parallel openai_64 training step on one of "
+                 f"{DP_WORLD} ranks, {TRAIN_BATCH // DP_WORLD} rows a rank"),
 }
 GUIDED_PATHS = ("unet128", "cls128")
-K2_PATHS = ("train", "emnist", "cls128", "unet128")  # unet128: openai_128 training at batch 4
+K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train")  # unet128: openai_128 training
 
 
 def rate(key, b, ms, bound):
@@ -695,7 +724,8 @@ def phase_kernels(dev, paths):
     sampling at model batch 16: 8 requests doubled by CFG; ``openai_64``
     training at batch 8; the entry point's EMNIST recipe at batch 468, whose
     N = 49 and 196 and 7x7 maps are ragged for the tiles; ``openai_128`` and
-    its classifier at batch 4; the serving daemon at model batch 128), in f32
+    its classifier at batch 4; the serving daemon at model batch 128; one
+    rank's rows of a data-parallel ``openai_64`` training step, 4), in f32
     and bf16; times in each path's compute
     type per shape and summed per forward, beside the plain version, the
     library call and the bound. K5 runs at the attention shapes of the
@@ -1401,19 +1431,21 @@ def library_group_norm_grad(x, sc, bi, es, esh, mode, cot):
     return lambda: torch.autograd.grad(out, leaves, lib_cot, retain_graph=True)
 
 
-K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128")  # unet128: openai_128 training
-K3_BWD_TIMED = ("train", "cls128")
+K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128", "dp_train")  # unet128: openai_128 training
+K3_BWD_TIMED = ("train", "cls128", "dp_train")
 
 
 def phase_k3_bwd(dev, paths):
     """K3's backward kernel against its plain version at every GroupNorm
     shape of one ``openai_64`` training step (batch 8), of the classifier's
     guidance gradient (batch 4), of the EMNIST recipe (batch 468) and of an
-    ``openai_128`` training step (batch 4), f32 and bf16, the mean and rstd
+    ``openai_128`` training step (batch 4) and of one rank's data-parallel
+    ``openai_64`` step (batch 4), f32 and bf16, the mean and rstd
     from K3's forward: f32 to 1e-5 of each output's largest element, bf16 to
     K3_BF16_REL per example and output, two runs bit-equal; a planted fault,
     the rstd handed over 5% high, must fail K3_BF16_REL at every shape. Times
-    in bf16 summed over the ``openai_64`` step and the guidance gradient:
+    in bf16 summed over the ``openai_64`` step, the guidance gradient and the
+    data-parallel rank's step:
     host-timed, device time by CUDA graph and by torch.profiler, beside the
     plain version, the library's autograd backward (torch.profiler) and the
     bound."""
@@ -3241,6 +3273,7 @@ def phase_serve(dev, state, workdir, smi):
 
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
     from nicediffusion_tpu_torch.scripts.serve import build_service
+    from nicediffusion_tpu_torch.serving import SamplerService, ServingConfig
     from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
 
     t_part = [time.perf_counter()]
@@ -3411,6 +3444,30 @@ def phase_serve(dev, state, workdir, smi):
     torch.cuda.empty_cache()
     part_done("(c)")
 
+    # the daemon's batch at 64 (model batch 128 under CFG: a K3 plan no other
+    # phase reaches) in f32, DDIM-10: one served batch against kernels=False
+    batch = SERVE_LOAD[1][0]
+    on = DiffusionModel(**cfg, device=dev).eval()
+    on.load_state_dict(state, strict=True)
+    off = DiffusionModel(**cfg, kernels=False, device=dev).eval()
+    off.load_state_dict(state, strict=True)
+    labels = [int(j * 89 % 1000 + 1) for j in range(batch)]
+    with SamplerService(Diffusion(model=on, **dcfg), ServingConfig(serve_batch=batch),
+                        device=dev) as s:
+        served = torch.from_numpy(s.sample(labels=labels, seed=65, timeout=600))
+        x, y, gen = s._draw_x(65, batch).to(dev), torch.tensor(labels).to(dev), \
+            s._step_generator(0)
+    plain = Diffusion(model=off, **dcfg).denoise(gen, x=x, y=y, batch_size=batch).float().cpu()
+    err_off = (served - plain).abs().max().item()
+    log(f"[serve] f32 (TF32 off), DDIM-10, CFG 0.8, serve batch {batch} (model batch "
+        f"{2 * batch}): one served batch against kernels=False on its x_T and step generator, "
+        f"max abs {err_off:.3g} (gate {MODEL_TOL})")
+    if not err_off <= MODEL_TOL:
+        raise AssertionError(f"[serve] serve batch {batch}: kernels on against off {err_off}")
+    del on, off, served, plain, x, y
+    torch.cuda.empty_cache()
+    part_done(f"(b) at serve batch {batch}")
+
     # (d) at serve batch 64: one full batch held to Diffusion.denoise, then the
     # closed-loop clients
     batch, rounds, repeats, linger = SERVE_LOAD[1]
@@ -3438,6 +3495,465 @@ def phase_serve(dev, state, workdir, smi):
     del svc
     torch.cuda.empty_cache()
     part_done(f"(d) at serve batch {batch}")
+    return by_path, readings
+
+
+
+# ---------------------------------------------------------------------------
+# [dp]: data parallelism. Two gloo ranks share the one card (NCCL refuses two
+# ranks on one device); one rank goes through torchrun and NCCL.
+# ---------------------------------------------------------------------------
+
+DP_TRAIN_STEPS = 3
+DP_SAMPLE_BATCH = 16  # 8 rows a rank; under CFG a rank's model batch is 16
+DP_SAMPLE_STEPS = 10
+DP_SERVE_CLIENTS = (16, 2)  # closed-loop clients, requests each, at serve batch 16
+DP_TIMEOUT_S = 480.0  # the group of two ranks: parts (a), (c) and (d)
+DP_TORCHRUN_TIMEOUT_S = 240.0
+# f32 on two ranks against one: the saved uint8 images within 1 count (a
+# float difference can flip a rounding), the served images in [-1, 1] within
+# the repo's parity bar
+DP_IMAGE_TOL = 1
+DP_SERVE_TOL = MODEL_TOL
+# the train entry point's EMNIST recipe at openai_64's widths (its images
+# keep EMNIST's one channel)
+OPENAI_64_WIDTHS = ["--resolution", "64", "--model_channels", "192", "--channel_mult",
+                    "1/2/3/4", "--num_res_blocks", "3", "--attention_resolutions", "32/16/8",
+                    "--num_head_channels", "64"]
+
+
+def dp_draws(step, cfg, steps):
+    """A global training batch and its injected draws, from a CPU generator
+    seeded by the step: the same on every rank and in the parent."""
+    g = torch.Generator().manual_seed(1000 + step)
+    res, ch = cfg["resolution"], cfg["in_channels"]
+    return dict(batch=torch.rand((TRAIN_BATCH, res, res, ch), generator=g) * 2 - 1,
+                labels=torch.randint(1, cfg["num_classes"], (TRAIN_BATCH,), generator=g),
+                t=torch.randint(0, steps, (TRAIN_BATCH,), generator=g),
+                noise=torch.randn((TRAIN_BATCH, res, res, ch), generator=g),
+                drop=torch.rand((TRAIN_BATCH,), generator=g) < 0.1)
+
+
+def dp_sample_argv(model_flags, out_dir, sampler, dtype):
+    os.makedirs(out_dir, exist_ok=True)
+    return [*model_flags, "--guidance_method", "classifier_free", "--guidance_strength", "0.8",
+            "--batch_size", str(DP_SAMPLE_BATCH), "--num_samples", "1", "--save_path",
+            out_dir + "/", "--seed", "3", "--sampler", sampler, "--rescaled_num_steps",
+            str(DP_SAMPLE_STEPS), "--dtype", dtype]
+
+
+def dp_serve_argv(model_flags, dtype):
+    extra = ["--dtype", "float32", "--rescaled_num_steps", str(DP_SAMPLE_STEPS)] \
+        if dtype == "float32" else []
+    return [*model_flags, "--guidance_method", "classifier_free", "--guidance_strength", "0.8",
+            "--seed", "0", "--batch_size", str(DP_SAMPLE_BATCH), "--linger_ms", "100", *extra]
+
+
+def dp_request(cfg):
+    return {"labels": [(97 * j) % (cfg["num_classes"] - 1) + 1 for j in range(DP_SAMPLE_BATCH)],
+            "seed": 21, "encoding": "b64npz"}
+
+
+def dp_train_part(dev, cfg, state, r, n):
+    """(a) on one rank: DP_TRAIN_STEPS data-parallel steps (remat, dropout 0,
+    global batch TRAIN_BATCH, this rank's rows of injected draws) in f32 and
+    in bf16; on rank 0 beside each step the same step of a single-process
+    Trainer on the whole batch, with the loss, the gradient norm and every
+    parameter's gradient as the update sees it (after the reduce) held to it:
+    LOSS_TOL, GRAD_TOL, gated in f32 (raises), read in bf16. Returns, by
+    dtype, the worst errors and this rank's launches over its DP steps."""
+    from nicediffusion_tpu_torch import DiffusionModel, Trainer
+    from nicediffusion_tpu_torch.parallel import shard_rows
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def trainer(distributed):
+            model = DiffusionModel(**dict(cfg, dropout=0.0), use_remat=True, device=dev,
+                                   dtype=None if dtype == torch.float32 else dtype)
+            model.load_state_dict(state, strict=True)
+            tr = Trainer(model, dcfg, iter(()), iterations=0, batch_size=TRAIN_BATCH, lr=1e-4,
+                         weight_decay=1e-3, ema_rate=0.99, seed=SEED, distributed=distributed)
+            reduce = tr._reduce
+            tr.reduce_s = []
+
+            def record(grads, loss):  # the gradients the update sees, and the reduce's time
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grads, loss = reduce(grads, loss)
+                torch.cuda.synchronize()
+                tr.reduce_s.append(time.perf_counter() - t0)
+                tr.grads = [g.detach().clone() for g in grads]
+                return grads, loss
+
+            tr._reduce = record
+            return tr
+
+        dp = trainer(True)
+        one = trainer(False) if r == 0 else None
+        launches = collections.Counter()
+        worst = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0, "grad_name": ""}
+        losses, step_s, one_s = [], [], []
+        for i in range(DP_TRAIN_STEPS):
+            d = {k: v.to(dev) for k, v in dp_draws(i, cfg, dp.train_diffusion.rescaled_num_steps)
+                 .items()}
+            reset_launches()
+            t0 = time.perf_counter()
+            m = dp.train_step(**{k: shard_rows(v, r, n) for k, v in d.items()})
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            launches.update(read_launches())
+            loss, norm = m["loss"].item(), m["grad_norm"].item()
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                raise AssertionError(f"[dp] (a) rank {r} step {i}: loss {loss}, norm {norm}")
+            losses.append(loss)
+            if one is None:
+                continue
+            t0 = time.perf_counter()
+            m1 = one.train_step(**d)
+            loss1, norm1 = m1["loss"].item(), m1["grad_norm"].item()
+            one_s.append(time.perf_counter() - t0)
+            worst["loss"] = max(worst["loss"], abs(loss - loss1) / max(1.0, abs(loss1)))
+            worst["grad_norm"] = max(worst["grad_norm"], abs(norm - norm1) / max(1.0, abs(norm1)))
+            for (name, _), a, b in zip(dp.model.named_parameters(), dp.grads, one.grads):
+                scale = b.abs().max().item()
+                rel = (a - b).abs().max().item() / scale if scale else float("inf")
+                if rel > worst["grad"]:
+                    worst["grad"], worst["grad_name"] = rel, name
+            one.grads = None
+        expect = expect_train_launches(dp.model, DP_TRAIN_STEPS)
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {"worst": worst, "losses": losses, "launches": dict(launches),
+                     "expect": expect, "step_s": step_s, "reduce_s": dp.reduce_s,
+                     "one_process_step_s": one_s}
+        if dict(launches) != expect:
+            raise AssertionError(f"[dp] (a) {name} rank {r}: launches {dict(launches)} != {expect}")
+        if one is not None and dtype == torch.float32 and not (
+                worst["loss"] <= LOSS_TOL and worst["grad_norm"] <= LOSS_TOL
+                and worst["grad"] <= GRAD_TOL):
+            raise AssertionError(f"[dp] (a) f32: two ranks against one process {worst} (gates: "
+                                 f"loss and norm {LOSS_TOL}, gradients {GRAD_TOL})")
+        del dp, one
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_sample_part(dev, cfg, state, work, model_flags, r, n):
+    """(c) on one rank: the sampling entry point with --data_parallel, DDIM
+    and DDPM, f32 and bf16 (rank 0 saves the uint8 images it gathered), this
+    rank's launches over the four runs; then this rank's f32 forward at its
+    model batch, kernels on against off."""
+    import numpy as np
+
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+
+    launches = collections.Counter()
+    for sampler in ("ddim", "ddpm"):
+        for dtype in ("float32", "bfloat16"):
+            argv = dp_sample_argv(model_flags, os.path.join(work, f"dp_{sampler}_{dtype}"),
+                                  sampler, dtype)
+            reset_launches()
+            samples = sample_main(argv + ["--data_parallel"])
+            torch.cuda.synchronize()
+            launches.update(read_launches())
+            if r == 0:
+                np.save(os.path.join(work, f"dp_{sampler}_{dtype}.npy"), samples[0][1])
+            elif samples:
+                raise AssertionError(f"[dp] (c) rank {r} returned samples")
+    b = 2 * DP_SAMPLE_BATCH // n  # this rank's model batch under CFG
+    on = DiffusionModel(**cfg, device=dev).eval()
+    on.load_state_dict(state, strict=True)
+    off = DiffusionModel(**cfg, kernels=False, device=dev).eval()
+    off.load_state_dict(state, strict=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10 + r)
+    res, ch = cfg["resolution"], cfg["in_channels"]
+    x = torch.randn(b, res, res, ch, generator=g, device=dev)
+    t = torch.randint(0, 1000, (b,), generator=g, device=dev)
+    y = torch.randint(0, cfg["num_classes"], (b,), generator=g, device=dev)
+    with torch.inference_mode():
+        err = (on(x, t, y) - off(x, t, y)).abs().max().item()
+    if not err <= MODEL_TOL:
+        raise AssertionError(f"[dp] (c) rank {r}: f32 forward at model batch {b}, kernels on "
+                             f"against off, max abs {err}")
+    return {"launches": dict(launches), "forward_err": err, "model_batch": b}
+
+
+def dp_serve_part(dev, work, model_flags, cfg, r):
+    """(d) on one rank: the serving entry point with --serve_data_parallel at
+    serve batch DP_SAMPLE_BATCH, f32 (DDIM-10) then bf16 (the preset's
+    DDIM-25). Rank 0 serves HTTP: one request of DP_SAMPLE_BATCH labels
+    (reply saved), in bf16 then closed-loop clients; the other ranks
+    follow(). This rank's launches by dtype, rank 0's batches and rates."""
+    import numpy as np
+
+    from nicediffusion_tpu_torch.scripts.serve import build_service
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        reset_launches()
+        svc, _ = build_service(dp_serve_argv(model_flags, dtype) + ["--serve_data_parallel"])
+        steps = svc.diffusion.rescaled_num_steps
+        if r:
+            svc.follow()
+            torch.cuda.synchronize()
+            out[dtype] = {"launches": read_launches(), "steps": steps}
+            continue
+        with svc, http_front(svc) as base:
+            images = check_reply(http_json(f"{base}/sample", dp_request(cfg)), DP_SAMPLE_BATCH,
+                                 f"[dp] (d) {dtype}")
+            np.save(os.path.join(work, f"dp_serve_{dtype}.npy"), images)
+            part = {}
+            if dtype == "bfloat16":
+                part = dp_closed_loop(svc, base)
+            stats = svc.stats()
+        torch.cuda.synchronize()
+        out[dtype] = {"launches": read_launches(), "steps": steps, "batches": stats["batches"],
+                      **part}
+    return out
+
+
+def dp_closed_loop(svc, base):
+    clients, rounds = DP_SERVE_CLIENTS
+    before = svc.stats()
+    lats, wall = closed_loop(base, clients, rounds, seed0=5000)
+    after = svc.stats()
+    served = after["samples"] - before["samples"]
+    return {"samples_per_s": len(lats) / wall, "p50_s": statistics.median(lats),
+            "occupancy": served / (served + after["padded_rows"] - before["padded_rows"]),
+            "load_batches": after["batches"] - before["batches"]}
+
+
+def dp_rank(work, model_path, cfg, model_flags):
+    """One rank of ``[dp]``'s group (started by parallel/dryrun.py::spawn_ranks,
+    two ranks on one card over gloo): parts (a), (c) and (d) in turn, on the
+    card. A rank that sees no card raises: nothing of [dp] runs on the CPU."""
+    from nicediffusion_tpu_torch.parallel import rank, world
+
+    r, n = rank(), world()
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"[dp] rank {r} sees no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state = torch.load(model_path, map_location=dev, weights_only=True)
+    times = {}
+    t0 = time.perf_counter()
+    out = {"train": dp_train_part(dev, cfg, state, r, n)}
+    times["a"] = time.perf_counter() - t0
+    out["sample"] = dp_sample_part(dev, cfg, state, work, model_flags, r, n)
+    times["c"] = time.perf_counter() - t0 - times["a"]
+    del state
+    out["serve"] = dp_serve_part(dev, work, model_flags, cfg, r)
+    times["d"] = time.perf_counter() - t0 - times["a"] - times["c"]
+    out["seconds"] = times
+    return out
+
+
+def run_group(cmd, timeout_s, env):
+    """Run ``cmd`` in a session of its own; on timeout kill the whole
+    session (torchrun's agent and its workers). Returns (exit code, output)."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{cmd[:6]} outlasted {timeout_s} s:\n{out[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, out
+
+
+def dp_torchrun(workdir):
+    """(b) the train entry point through torchrun on one rank: NCCL for the
+    CUDA tensors, the real environment, an all-reduce of one rank."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics = os.path.join(workdir, "dp_torchrun.jsonl")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "nicediffusion_tpu_torch.scripts.train", "--synthetic", "--iterations",
+           str(DP_TRAIN_STEPS), "-w", "--print_every", "1", "--batch_size", str(TRAIN_BATCH),
+           *OPENAI_64_WIDTHS, "--checkpoint_dir", os.path.join(workdir, "dp_torchrun"),
+           "--metrics_path", metrics, "--samples_dir", os.path.join(workdir, "dp_samples"),
+           "--use_fp16"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    rc, out = run_group(cmd, DP_TORCHRUN_TIMEOUT_S, env)
+    seconds = time.perf_counter() - t0
+    line = next((ln for ln in out.splitlines() if ln.startswith("Data-parallel training:")), "")
+    if rc != 0 or " on cuda:0," not in line or "backends: cuda nccl, cpu gloo" not in line:
+        raise AssertionError(f"[dp] (b) torchrun exit {rc}, '{line}':\n{out[-4000:]}")
+    rows = metrics_rows(metrics)
+    if len(rows) != DP_TRAIN_STEPS:
+        raise AssertionError(f"[dp] (b) {len(rows)} metric rows")
+    return line, rows, seconds
+
+
+def phase_dp(dev, workdir, smi):
+    """``[dp]``: data parallelism at full-width ``openai_64``, the weights the
+    parent wrote (``64x64_diffusion.pt``), two gloo ranks sharing the card.
+    (a) training (``Trainer(distributed=True)``, held to one process on rank
+    0); (b) the train entry point through ``torch.distributed.run`` on one
+    NCCL rank; (c) ``scripts/sample.py --data_parallel``, DDIM-10 and
+    DDPM-10, f32 and bf16, against the one-rank run at the same seed (f32
+    gated on the saved uint8 images, bf16 read), each rank's f32 forward at
+    its batch kernels on against off; (d) ``scripts/serve.py
+    --serve_data_parallel`` at serve batch 16: one HTTP request against the
+    one-rank daemon (f32 gated, bf16 read), samples/s of closed-loop clients
+    for one rank and for two sharing the card. Every rank's launches are
+    counted against the structure. Returns the paths' launches (both ranks
+    summed) and the readings."""
+    import numpy as np
+
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.parallel.dryrun import spawn_ranks
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.scripts.serve import build_service
+
+    cfg = model_config()
+    model_path = os.path.join(workdir, "64x64_diffusion.pt")
+    model_flags = ["--model_path", model_path, "--num_classes", str(cfg["num_classes"])]
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        log(f"[dp] {name} took {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    # (b) one NCCL rank through the launcher
+    line, rows, seconds = dp_torchrun(workdir)
+    log(f"[dp] (b) torchrun --nproc_per_node 1, the train entry point at openai_64 widths "
+        f"(EMNIST's one channel), bf16, batch {TRAIN_BATCH}, {DP_TRAIN_STEPS} steps in "
+        f"{seconds:.1f} s with the launch: '{line}'; losses "
+        f"{[round(r['loss'], 5) for r in rows]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in rows]}")
+    part_done("(b)")
+
+    # the one-rank references of (c) and (d), in this process
+    one = {}
+    for sampler in ("ddim", "ddpm"):
+        for dtype in ("float32", "bfloat16"):
+            samples = sample_main(dp_sample_argv(
+                model_flags, os.path.join(workdir, f"one_{sampler}_{dtype}"), sampler, dtype))
+            one[sampler, dtype] = samples[0][1]
+    serve_one = {}
+    for dtype in ("float32", "bfloat16"):
+        svc, _ = build_service(dp_serve_argv(model_flags, dtype))
+        with svc, http_front(svc) as base:
+            serve_one[dtype] = check_reply(http_json(f"{base}/sample", dp_request(cfg)),
+                                           DP_SAMPLE_BATCH, f"[dp] one rank {dtype}")
+            if dtype == "bfloat16":
+                serve_one["load"] = dp_closed_loop(svc, base)
+        del svc
+    torch.cuda.empty_cache()
+    part_done("one-rank references of (c) and (d)")
+
+    # (a), (c), (d) on two ranks sharing the card
+    got = spawn_ranks("chip_smoke:dp_rank", DP_WORLD,
+                      dict(work=workdir, model_path=model_path, cfg=cfg, model_flags=model_flags),
+                      timeout_s=DP_TIMEOUT_S, one_device=True,
+                      pythonpath=(os.path.dirname(os.path.abspath(__file__)),))
+    log(f"[dp] two ranks on one card (gloo): seconds by part of rank 0 "
+        f"{ {k: round(v, 1) for k, v in got[0]['seconds'].items()} }")
+    part_done("(a), (c), (d) on two ranks")
+    readings = {"device": smi}
+    meta = DiffusionModel(**cfg, device="meta")
+    nparams = sum(p.numel() for p in meta.parameters())
+
+    # (a)
+    for dtype in ("float32", "bfloat16"):
+        w = got[0]["train"][dtype]["worst"]
+        readings[f"train_{dtype}"] = w
+        log(f"[dp] (a) openai_64 {dtype}, remat, dropout 0, global batch {TRAIN_BATCH} as "
+            f"{TRAIN_BATCH // DP_WORLD} a rank, {DP_TRAIN_STEPS} steps, two ranks against one "
+            f"process: worst loss {w['loss']:.3g}, grad norm {w['grad_norm']:.3g} (relative), "
+            f"gradient {w['grad']:.3g} of its largest element ({w['grad_name']}); "
+            + (f"gated at LOSS_TOL {LOSS_TOL}, GRAD_TOL {GRAD_TOL}" if dtype == "float32"
+               else "read") + f"; losses {[round(x, 5) for x in got[0]['train'][dtype]['losses']]}"
+            f"; launches a rank {[g['train'][dtype]['launches'] for g in got]}")
+        t = got[0]["train"][dtype]
+        readings[f"train_{dtype}_seconds"] = {k: t[k] for k in
+                                              ("step_s", "reduce_s", "one_process_step_s")}
+        log(f"[dp] (a) {dtype} ({smi}): rank 0's DP steps {[round(x, 4) for x in t['step_s']]} s, "
+            f"of which the gradient all-reduce over gloo ({nparams / 1e6:.1f}M f32 gradients "
+            f"staged through the host, 25 MB buckets) {[round(x, 4) for x in t['reduce_s']]} s; "
+            f"one process at the "
+            f"global batch on the same card {[round(x, 4) for x in t['one_process_step_s']]} s")
+        if got[0]["train"][dtype]["losses"] != got[1]["train"][dtype]["losses"]:
+            raise AssertionError("[dp] (a) the ranks saw different losses")
+
+    # (c)
+    for (sampler, dtype), ref in one.items():
+        dp = np.load(os.path.join(workdir, f"dp_{sampler}_{dtype}.npy"))
+        diff = int(np.abs(dp.astype(int) - ref.astype(int)).max())
+        names = sorted(os.listdir(os.path.join(workdir, f"dp_{sampler}_{dtype}")))
+        same = names == sorted(os.listdir(os.path.join(workdir, f"one_{sampler}_{dtype}")))
+        readings[f"sample_{sampler}_{dtype}_max_count_diff"] = diff
+        log(f"[dp] (c) --data_parallel, {sampler.upper()}-{DP_SAMPLE_STEPS}, {dtype}, batch "
+            f"{DP_SAMPLE_BATCH} as {DP_SAMPLE_BATCH // DP_WORLD} a rank: the uint8 images against "
+            f"one rank's at the same seed, max {diff} counts, "
+            f"{float((dp != ref).mean()):.4%} of values differ; {len(names)} files, names "
+            f"{'the same' if same else 'DIFFERENT'}"
+            + (f" (gate {DP_IMAGE_TOL})" if dtype == "float32" else " (read)"))
+        if not same or dp.shape != ref.shape or (dtype == "float32" and diff > DP_IMAGE_TOL):
+            raise AssertionError(f"[dp] (c) {sampler} {dtype}: {diff} counts, names {same}")
+    log(f"[dp] (c) each rank's f32 forward at model batch {got[0]['sample']['model_batch']}, "
+        f"kernels on against off: max abs {[g['sample']['forward_err'] for g in got]} (gate "
+        f"{MODEL_TOL})")
+
+    # (d)
+    for dtype in ("float32", "bfloat16"):
+        dp = np.load(os.path.join(workdir, f"dp_serve_{dtype}.npy"))
+        err = float(np.abs(dp - serve_one[dtype]).max())
+        readings[f"serve_{dtype}_max_abs"] = err
+        log(f"[dp] (d) --serve_data_parallel, serve batch {DP_SAMPLE_BATCH}, {dtype}, DDIM-"
+            f"{got[0]['serve'][dtype]['steps']}: one HTTP request of {DP_SAMPLE_BATCH} labels "
+            f"against the one-rank daemon, max abs {err:.6g}"
+            + (f" (gate {DP_SERVE_TOL})" if dtype == "float32" else " (read)"))
+        if dtype == "float32" and not err <= DP_SERVE_TOL:
+            raise AssertionError(f"[dp] (d) f32 two ranks against one: {err}")
+    two, single = got[0]["serve"]["bfloat16"], serve_one["load"]
+    readings["serve_load"] = {"one_rank": single, "two_ranks": {
+        k: two[k] for k in ("samples_per_s", "p50_s", "occupancy", "load_batches")}}
+    log(f"[dp] (d) bf16 DDIM-25 at serve batch {DP_SAMPLE_BATCH}, {DP_SERVE_CLIENTS[0]} "
+        f"closed-loop clients x {DP_SERVE_CLIENTS[1]} one-label requests, linger 100 ms ({smi}): "
+        f"one rank {single['samples_per_s']:.4f} samples/s (p50 {single['p50_s']:.4f} s, "
+        f"occupancy {single['occupancy']:.4f}), two ranks sharing the card "
+        f"{two['samples_per_s']:.4f} (p50 {two['p50_s']:.4f} s, occupancy "
+        f"{two['occupancy']:.4f}); a finding, not a claim")
+
+    # every rank's launches against the structure
+    by_path = {}
+    for path, per_rank, expect in (
+            ("dp_train_openai_64", [g["train"][d]["launches"] for g in got
+                                    for d in ("float32", "bfloat16")],
+             got[0]["train"]["float32"]["expect"]),
+            ("dp_sample_openai_64", [g["sample"]["launches"] for g in got],
+             serve_expect(meta, 4 * DP_SAMPLE_STEPS)),
+            ("dp_serve_openai_64", [g["serve"][d]["launches"] for g in got
+                                    for d in ("float32", "bfloat16")], None)):
+        total = collections.Counter()
+        for launches in per_rank:
+            total.update(launches)
+        by_path[path] = dict(total)
+        if expect is not None and any(x != expect for x in per_rank):
+            raise AssertionError(f"[dp] {path}: launches {per_rank}, expected {expect} a run")
+    for dtype in ("float32", "bfloat16"):
+        s = got[0]["serve"][dtype]
+        expect = serve_expect(meta, (s["batches"] + 1) * s["steps"])
+        runs = [g["serve"][dtype]["launches"] for g in got]
+        log(f"[dp] (d) {dtype}: {s['batches']} served batches and the warmup a rank; launches "
+            f"a rank {runs}, expected {expect}")
+        if any(x != expect for x in runs):
+            raise AssertionError(f"[dp] (d) {dtype} launches {runs} != {expect}")
     return by_path, readings
 
 
@@ -3481,7 +3997,7 @@ def main():
     randomize(sr256, SEED + 4)
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev),
-             "sr256": main_path_calls(sr256, dev), "serve64": calls}
+             "sr256": main_path_calls(sr256, dev), "serve64": calls, "dp_train": calls}
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
@@ -3543,6 +4059,10 @@ def main():
         by_path.update(serve_paths)
         log(f"[serve] readings {json.dumps(serve_readings)}")
         phase_done("[serve]")
+        dp_paths, dp_readings = phase_dp(dev, workdir, smi)
+        by_path.update(dp_paths)
+        log(f"[dp] readings {json.dumps(dp_readings)}")
+        phase_done("[dp]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -3560,6 +4080,7 @@ def main():
                                 t.fields() for where, t in others.items()}}
 
     forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
+    forward_others = ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64", "dp_train")
     # K1, K2 and K5: one kernel per input type
     attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging",
                         "float32": "FMA: CUDA cores"}
@@ -3568,21 +4089,22 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64")},
+              {w: tallies["attention", w] for w in forward_others},
               attention_routes),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
               f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}, "
               f"K1's row log-sum-exp handed over",
-              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128")}, attention_routes,
+              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128", "dp_train")},
+              attention_routes,
               # the same step's sums read by CUDA graph and by torch.profiler
               device_yardsticks=k2_yard),
         entry("group_norm_fused", "cuda", "nicediffusion_tpu_torch/csrc/groupnorm.cu",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64")},
+              {w: tallies["groupnorm", w] for w in forward_others},
               {"bfloat16": "CUDA cores; thread-block clusters, the tile in shared memory",
                "float32": "the same kernel in f32"}, **k3_gates),
         # the backward of K3's custom VJP (a jnp recompute under jax.vjp in the
@@ -3593,7 +4115,7 @@ def main():
               k3b_errs[torch.float32], k3b_errs[torch.bfloat16], k3b_tallies["train"],
               f"sum over one openai_64 training step's GroupNorm backwards, bf16, batch "
               f"{TRAIN_BATCH}, the forward's mean and rstd handed over",
-              {"cls128": k3b_tallies["cls128"]},
+              {w: k3b_tallies[w] for w in ("cls128", "dp_train")},
               {"bfloat16": "CUDA cores; thread-block clusters, x and dy in shared memory",
                "float32": "the same kernel in f32"}, **k3b_gates),
         # no model calls K5: its launches are phase_mha_direct's direct calls

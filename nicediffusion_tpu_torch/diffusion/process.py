@@ -47,6 +47,7 @@ import torch
 
 from ..ops.math import discretized_gaussian_log_likelihood, kl_div, mean_flat
 from ..ops.schedule import DiffusionSchedule
+from ..parallel.mesh import shard_rows
 from ..utils.device import resolve_device
 
 __all__ = ["Diffusion", "VarType", "LossType"]
@@ -453,10 +454,24 @@ class Diffusion:
             grad, = torch.autograd.grad(selected, xx)
         return grad.float()
 
-    def _noise(self, like, generator):
-        return torch.randn(
-            like.shape, generator=generator, dtype=torch.float32, device=like.device
-        )
+    def _noise(self, like, generator, row_shard=None):
+        """N(0, I) shaped like ``like``, f32, from ``generator``.
+
+        Under a row shard ``(rank, world)``, ``like`` holds this rank's rows
+        of a global batch ``world`` times as large: the draw is made at the
+        global shape from the generator every rank holds alike, and the rank
+        keeps its rows (``parallel/mesh.py::shard_rows``), so a sharded chain
+        draws what the unsharded one draws. The cost is one global-shape
+        ``randn`` a draw: 64 x 3 x 64 x 64 f32, 3.1 MB at ``openai_64`` batch
+        64, next to a UNet forward."""
+        if row_shard is None:
+            return torch.randn(
+                like.shape, generator=generator, dtype=torch.float32, device=like.device
+            )
+        rank, world = row_shard
+        full = torch.randn((like.shape[0] * world, *like.shape[1:]), generator=generator,
+                           dtype=torch.float32, device=like.device)
+        return shard_rows(full, rank, world)
 
     # ------------------------------------------------------------------
     # Reverse (p) steps
@@ -552,16 +567,18 @@ class Diffusion:
     # Reverse chain
     # ------------------------------------------------------------------
 
-    def _one_step(self, x, x0_prev, t, first, generator, y, eps_log_var):
+    def _one_step(self, x, x0_prev, t, first, generator, y, eps_log_var, row_shard=None):
         """One reverse update of the configured sampler from an (eps,
         log_var) pair made already; ``first`` marks the chain's first step.
         DDPM and DDIM draw one noise tensor a step from ``generator`` (the
         draw at t == 0 is masked), whatever levers made the pair, so every
-        variant of a chain sees one stream."""
+        variant of a chain sees one stream; under ``row_shard`` it is drawn
+        at the global shape (``_noise``)."""
         if self.sampler == "dpm++":
             return self.dpmpp_step(x, t, x0_prev, y, first=first, eps_log_var=eps_log_var)
         step = self.ddim_step if self.sampler == "ddim" else self.ddpm_step
-        x, _ = step(x, t, generator, y, eps_log_var=eps_log_var)
+        noise = self._noise(x, generator, row_shard)
+        x, _ = step(x, t, generator, y, noise=noise, eps_log_var=eps_log_var)
         return x, x0_prev
 
     @torch.inference_mode()
@@ -575,12 +592,21 @@ class Diffusion:
         batch_size: int = 1,
         encoder_cache: int | None = None,
         guidance_interval: tuple[float, float] | None = None,
+        row_shard: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """Run the reverse chain (reference diffusion.py:155-226) -> f32 NHWC.
 
         Starts from N(0, I) drawn from `generator` when `x` is None; every
         step's noise comes from the same generator, which must live on the
         tables' device.
+
+        ``row_shard=(rank, world)`` runs this rank's rows of a data-parallel
+        chain (the counterpart of a ``P('data')``-sharded batch): ``x`` and
+        ``y`` are the rank's rows of the global batch, ``batch_size`` (when
+        ``x`` is None) is the global batch, and every draw is made at the
+        global shape from ``generator``, which every rank seeds alike
+        (``_noise``). The rank's rows then come out as the unsharded chain's
+        rows: the chain is independent per example.
 
         ``encoder_cache=k`` ("Faster Diffusion", arXiv:2312.09608) runs the
         chain in groups of k steps: the first step of a group runs the UNet's
@@ -643,6 +669,8 @@ class Diffusion:
                 (batch_size, m.resolution, m.resolution, m.in_channels),
                 generator=generator, dtype=torch.float32, device=self.device,
             )
+            if row_shard is not None:
+                x = shard_rows(x, *row_shard)
         if y is not None:
             assert y.shape[0] == x.shape[0], "len(labels) != batch size"
 
@@ -666,13 +694,15 @@ class Diffusion:
                     t = at(ts)
                     eps_lv, cache = self._guided_eps_cached(
                         x, t, y, cache, refresh=j == 0, want_log_var=want_lv, guided=guided)
-                    x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y, eps_lv)
+                    x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y,
+                                                eps_lv, row_shard)
         plain = chain[head:]
         for start, length, guided in _runs([in_gi(ts) for ts in plain]):
             for ts in plain[start:start + length]:
                 t = at(ts)
                 eps_lv = self._guided_eps(x, t, y, want_log_var=want_lv, guided=guided)
-                x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y, eps_lv)
+                x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y,
+                                            eps_lv, row_shard)
         return x
 
     # ------------------------------------------------------------------

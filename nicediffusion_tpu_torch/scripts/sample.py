@@ -1,4 +1,4 @@
-"""Sampling CLI, the main user entry point (torch, one device).
+"""Sampling CLI, the main user entry point (torch; one device, or one process per GPU).
 
 Counterpart of scripts/sample.py of the JAX package: the same flags
 (utils/cli.py), default-preset dispatch by model-path substring, ``--custom``
@@ -37,8 +37,15 @@ exists, loads and freezes it without drawing.
 under the working directory; without that file it prints the JAX script's
 "Skipping --upsample" message and keeps the samples as they are.
 
-``--data_parallel`` raises NotImplementedError naming its ROADMAP entry
-("Multi-GPU") before any model is built.
+``--data_parallel`` shards each batch over the GPUs, one process per GPU
+launched by torchrun (parallel/multihost.py): every rank draws the global
+start noise and labels from the same generator, denoises its rows
+(``Diffusion.denoise``'s row shard: the step noise is drawn at the global
+shape too), and rank 0 gathers the rows and saves them under the names a
+single process writes. ``--batch_size`` is the global batch and must divide
+by the world size. Without torchrun's environment (a world of one) the flag
+changes nothing; launched by torchrun without it, the script refuses to run
+so that several processes do not each write the same files.
 
 Usage:
   python -m nicediffusion_tpu_torch.scripts.sample --model_path 64x64_diffusion.pt \\
@@ -47,6 +54,8 @@ Usage:
       [--sampler dpm++ --rescaled_num_steps 20 --dynamic_thresholding 0.995 \\
        --encoder_cache 3 --guidance_interval 0.0 0.6] \\
       [--dtype int8 --int8_calibration calib.npz] [--upsample]
+  python -m torch.distributed.run --nproc_per_node N \\
+      -m nicediffusion_tpu_torch.scripts.sample --data_parallel [same flags]
 """
 
 from __future__ import annotations
@@ -54,21 +63,17 @@ from __future__ import annotations
 import sys
 
 
-def _refuse_unported(args) -> None:
-    """Raise for the flag whose feature waits in ROADMAP queue A."""
-    if args.data_parallel:
-        raise NotImplementedError(
-            '--data_parallel is not ported yet (ROADMAP queue A, "Multi-GPU")'
-        )
-
-
 def main(argv: list[str] | None = None):
     """Parse ``argv`` (default: the command line), sample, save or display,
     and return the samples as a list of (shown input, output, labels) uint8
-    numpy batches, one per ``--num_samples``."""
+    numpy batches, one per ``--num_samples`` (on rank 0; the other ranks of
+    a ``--data_parallel`` run return an empty list)."""
     import numpy as np
     import torch
 
+    from ..parallel import gather_rows, maybe_initialize_distributed, shard_rows
+    from ..parallel import rank as dp_rank
+    from ..parallel import world as dp_world
     from ..utils.cli import build_diffusion, get_dicts_from_args, make_argparser
     from ..utils.image import grayscale_to_rgb, load_start_image, save_image, to_uint8
 
@@ -81,12 +86,20 @@ def main(argv: list[str] | None = None):
     parser = make_argparser("diff_sample")
     parser.add_argument(
         "--data_parallel", action="store_true", default=False,
-        help="shard each batch over all local CUDA cards (batch_size must "
-             "divide by the card count)",
+        help="shard each batch over the processes of a torchrun launch, one "
+             "per GPU (batch_size must divide by their count)",
     )
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     other_args, model_args, diff_args = get_dicts_from_args(args)
+
+    # under torchrun: join the group before the first device use
+    maybe_initialize_distributed()
+    rank, world = dp_rank(), dp_world()
+    if world > 1 and not args.data_parallel:
+        raise ValueError(f"launched as {world} processes: pass --data_parallel")
+    if other_args["batch_size"] % world:
+        raise AssertionError("batch_size must divide the device count for --data_parallel")
+    row_shard = (rank, world) if world > 1 else None
 
     diffusion = build_diffusion(other_args, model_args, diff_args, other_args["batch_size"])
     device = diffusion.device
@@ -97,9 +110,12 @@ def main(argv: list[str] | None = None):
     labels_arg, save_path = other_args["labels"], other_args["save_path"]
     conditional = model_args["num_classes"] is not None
     resolution, in_channels = model_args["resolution"], model_args["in_channels"]
+    wordy = wordy and rank == 0
     if wordy:
         print(f"Starting Diffusion! There are {num_samples} samples of "
               f"{batch_size} images each")
+        if row_shard:
+            print(f"Sharding batches over {world} processes")
 
     start_batch = None
     if other_args["start_img"] is not None and other_args["steps_to_do"] is not None:
@@ -151,16 +167,22 @@ def main(argv: list[str] | None = None):
         if wordy:
             print(f"Denoising sample {i_sample + 1}! :)")
         out = diffusion.denoise(
-            generator, x=denoise_input, y=labels,
+            generator,
+            x=denoise_input if row_shard is None else shard_rows(denoise_input, *row_shard),
+            y=labels if labels is None or row_shard is None else shard_rows(labels, *row_shard),
             start_step=steps if start_batch is not None else None,
             steps_to_do=steps,
             encoder_cache=other_args["encoder_cache"],
             guidance_interval=(
                 tuple(gi) if (gi := other_args["guidance_interval"]) is not None else None
             ),
+            row_shard=row_shard,
         )
+        out = gather_rows(out)  # the whole batch on rank 0
+        if rank:
+            continue
 
-        out = to_uint8(out.cpu().numpy())
+        out = to_uint8(out.numpy())
         shown_input = to_uint8(
             (start_batch if start_batch is not None else data).cpu().numpy()
         )
@@ -171,6 +193,8 @@ def main(argv: list[str] | None = None):
             (shown_input, out, labels.cpu().numpy() if labels is not None else None)
         )
 
+    if rank:
+        return samples  # rank 0 saves
     if wordy:
         what = "Displaying" if save_path is None else f"Saving to '{save_path}'"
         print(f"{what} {num_samples * batch_size} generated images!")

@@ -1,14 +1,22 @@
-"""EMNIST training entry point (torch, one device).
+"""EMNIST training entry point (torch; one device, or one process per GPU).
 
 Counterpart of scripts/train.py of the JAX package: the same hard-coded
 recipe (EMNIST preset, batch 468, lr 1.6e-4, wd 1e-3, 1500 iterations, grad
 checkpointing, classifier-free null class), every hyperparameter
 overridable through the shared 'diff_train' CLI (utils/cli.py), and a
 synthetic dataset standing in when the EMNIST files are absent. It trains
-on the CUDA card unless ``--device`` says otherwise; there is no mesh code
-(multi-GPU training is ROADMAP work). Without ``--use_fp16`` the compute is
-f32 throughout: the script turns TF32 off in cuDNN and cuBLAS, as the
-hand-written kernels' f32 paths use none.
+on the CUDA card unless ``--device`` says otherwise. Without ``--use_fp16``
+the compute is f32 throughout: the script turns TF32 off in cuDNN and
+cuBLAS, as the hand-written kernels' f32 paths use none.
+
+Data-parallel over several GPUs, as the JAX script over every local device:
+launched by torchrun, it joins the process group first
+(parallel/multihost.py: NCCL for the gradients, gloo for host tensors) and
+trains on ``cuda:LOCAL_RANK`` with ``Trainer(distributed=True)``;
+``--batch_size`` stays the global batch, each process loads its
+``batch_size // world`` rows with its rank as the loader's seed, and rank 0
+alone writes checkpoints, metrics and samples. Without torchrun's
+environment nothing of this runs.
 
 NOTE on num_classes: the reference inconsistently trains with 28 classes
 (train.py:39-40 adds the null class to 27) but samples with 27
@@ -17,6 +25,8 @@ checkpoint needs num_classes=28.
 
 Usage: python -m nicediffusion_tpu_torch.scripts.train [--synthetic]
            [--iterations N] [--batch_size B] [--use_fp16] [--device cuda] ...
+       python -m torch.distributed.run --nproc_per_node N \\
+           -m nicediffusion_tpu_torch.scripts.train [same flags]
 """
 
 from __future__ import annotations
@@ -41,6 +51,11 @@ def main(argv: list[str] | None = None):
     import torch
 
     from ..models.unet import DiffusionModel
+    import torch.distributed
+
+    from ..parallel import backend_for, maybe_initialize_distributed, process_local_batch_size
+    from ..parallel import rank as dp_rank
+    from ..parallel import world as dp_world
     from ..training.data import emnist_batches, synthetic_batches
     from ..training.trainer import Trainer
     from ..utils.cli import make_argparser
@@ -82,7 +97,18 @@ def main(argv: list[str] | None = None):
     parser.add_argument("--samples_dir", type=str, default="samples")
     args = parser.parse_args(argv)
 
+    # under torchrun: join the group before the first device use
+    maybe_initialize_distributed()
+    distributed = torch.distributed.is_initialized()
+    rank, world = dp_rank(), dp_world()
     device = resolve_device(args.device, "--device")
+    if distributed and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())  # cuda:LOCAL_RANK
+    local_batch = process_local_batch_size(args.batch_size)
+    if distributed and args.wordy:
+        print(f"Data-parallel training: rank {rank} of {world} on {device}, {local_batch} of "
+              f"{args.batch_size} rows a step; backends: cuda {backend_for('cuda')}, "
+              f"cpu {backend_for('cpu')}")
     if not args.use_fp16:
         # f32 compute means f32 arithmetic throughout: the hand-written
         # kernels' f32 paths use no TF32, so cuDNN's convolutions and
@@ -123,13 +149,14 @@ def main(argv: list[str] | None = None):
         device=device,
     )
 
+    # each process loads its local share of the global batch, seeded by its rank
     def synthetic():
         return synthetic_batches(
-            batch_size=args.batch_size,
+            batch_size=local_batch,
             resolution=model_args["resolution"],
             channels=model_args["in_channels"],
             num_classes=model_args["num_classes"],
-            seed=0,
+            seed=rank,
         )
 
     if args.synthetic:
@@ -140,9 +167,9 @@ def main(argv: list[str] | None = None):
             from ..training.native_loader import is_available, native_emnist_batches
 
             if is_available():
-                loader = native_emnist_batches(args.batch_size, root=args.data_root, seed=0)
+                loader = native_emnist_batches(local_batch, root=args.data_root, seed=rank)
             else:
-                loader = emnist_batches(args.batch_size, root=args.data_root, seed=0)
+                loader = emnist_batches(local_batch, root=args.data_root, seed=rank)
         except FileNotFoundError as e:
             print(f"{e}\nFalling back to --synthetic data.")
             loader = synthetic()
@@ -173,6 +200,7 @@ def main(argv: list[str] | None = None):
         metrics_path=args.metrics_path,
         sample_callback=save_samples,
         device=device,
+        distributed=distributed,
     )
     trainer.train()
     return trainer

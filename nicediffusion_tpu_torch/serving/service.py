@@ -30,6 +30,30 @@ Threading: `submit()` is thread-safe and returns a
 the single worker thread. Grad mode, inference mode and the current stream
 are per thread in torch, and the first chain builds the kernels (nvcc), so
 that work too stays on the worker.
+
+Data parallelism (``distributed=True``, the counterpart of the JAX
+``SamplerService(mesh=)``): one process per GPU in a torch.distributed group
+(parallel/multihost.py), every rank holding the same weights (the serving
+entry point loads one checkpoint on each). One process per card, not one
+thread driving several: the served batch at 8 is already bound by the host.
+  * Rank 0 keeps the queue, the batcher, the worker thread and the HTTP front
+    end. For every chain, warmup included, its worker broadcasts a header
+    (kind, k, rows) and the global x_T and labels as CPU tensors (gloo).
+  * Every rank denoises its rows of the batch (``Diffusion.denoise``'s row
+    shard): step noise comes from the (rng_seed, k) generator, drawn at the
+    global shape, so the rows come out as a single process computes them.
+    `gather_rows` brings them to rank 0, which resolves the futures.
+  * A chain that raises on any rank fails that batch alone, as one process
+    fails it: before the gather the ranks agree on a status (one small
+    all-reduce), so every rank skips the gather together and rank 0 fails
+    the batch's futures; the ranks then take the next header. Only an error
+    of the collectives themselves (a rank gone) ends the group.
+  * The other ranks call `follow()`, which blocks until rank 0's `close()`
+    sends a stop header. While no request comes, rank 0 sends an idle header
+    every ``KEEPALIVE_S`` seconds, well inside the group's timeout: a
+    follower fails by that timeout only when rank 0 is gone.
+  * ``serve_batch`` must be a multiple of the world size; `stats()` is rank
+    0's.
 """
 
 from __future__ import annotations
@@ -37,14 +61,26 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import traceback
 from concurrent.futures import Future
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import gather_rows, shard_rows
 from ..utils.device import resolve_device
 
-__all__ = ["ServingConfig", "SamplerService"]
+__all__ = ["ServingConfig", "SamplerService", "KEEPALIVE_S"]
+
+# the header rank 0 broadcasts before each chain: (kind, k, rows)
+_STOP, _WARMUP, _BATCH, _IDLE = range(4)
+# longest a data-parallel follower waits for a header while rank 0 is idle
+KEEPALIVE_S = 30.0
+
+
+class _BatchFailed(RuntimeError):
+    """A data-parallel chain raised on some rank; every rank skipped the gather."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,13 +118,28 @@ class SamplerService:
     device:
         Where the chain runs; ``None`` means the CUDA card (and raises where
         there is none). It must be the diffusion's device.
+    distributed:
+        Serve data-parallel over the default process group (module
+        docstring): rank 0 takes requests, the other ranks `follow()`.
     """
 
-    def __init__(self, diffusion, config: ServingConfig | None = None, device=None):
+    def __init__(self, diffusion, config: ServingConfig | None = None, device=None,
+                 distributed: bool = False):
         self.diffusion = diffusion
         self.config = config or ServingConfig()
         if self.config.serve_batch < 1:
             raise ValueError("serve_batch must be >= 1")
+        self._rank, self._world = 0, 1
+        if distributed:
+            if not dist.is_initialized():
+                raise RuntimeError("distributed=True needs a process group: call "
+                                   "parallel.maybe_initialize_distributed() first")
+            self._rank, self._world = dist.get_rank(), dist.get_world_size()
+            if self.config.serve_batch % self._world:
+                raise ValueError(
+                    f"serve_batch={self.config.serve_batch} must be a multiple of the "
+                    f"'data' axis size {self._world} (the process count)"
+                )
         device = resolve_device(device)
         if diffusion.device.type != device.type or device.index not in (
                 None, diffusion.device.index):
@@ -110,8 +161,11 @@ class SamplerService:
             "sample_seconds": 0.0,
         }
 
-        self._worker = threading.Thread(target=self._run, name="sampler-service", daemon=True)
-        self._worker.start()
+        self._worker = None
+        if self._rank == 0:
+            self._worker = threading.Thread(target=self._run, name="sampler-service",
+                                            daemon=True)
+            self._worker.start()
 
     # ------------------------------------------------------------------
     # Public API
@@ -124,8 +178,11 @@ class SamplerService:
         The first chain builds the kernels (nvcc) and cuDNN's plans for the
         serve shape; call this at startup so the first request does not pay
         for them. It draws from a generator of its own and is not counted
-        in `stats()`.
+        in `stats()`. On a following rank it does nothing: that rank runs
+        rank 0's warmup chain inside `follow()`.
         """
+        if self._rank:
+            return self
         cap = self.config.serve_batch
         req = _Request(
             labels=np.zeros((cap,), np.int64) if self._conditional else None,
@@ -148,6 +205,8 @@ class SamplerService:
         ``seed``: per-request x_T seed: the same (seed, labels) starts from
         the same noise whatever the batching.
         """
+        if self._rank:
+            raise RuntimeError(f"rank {self._rank} follows rank 0: submit on rank 0")
         if self._conditional:
             if labels is None:
                 raise ValueError("model is class-conditional: pass labels")
@@ -204,14 +263,49 @@ class SamplerService:
         return s
 
     def close(self):
-        """Stop the worker; outstanding requests are failed."""
+        """Stop the worker; outstanding requests are failed. Data-parallel,
+        rank 0's worker then sends the stop header that ends `follow()` on
+        the other ranks."""
         with self._cond:
             self._closed = True
             pending, self._queue = self._queue, []
             self._cond.notify_all()
         for req in pending:
             req.future.set_exception(RuntimeError("service closed"))
-        self._worker.join(timeout=30)
+        if self._worker is not None:
+            self._worker.join(timeout=30)
+
+    def follow(self):
+        """On a rank > 0 of a data-parallel service: take part in every chain
+        rank 0 runs (denoise this rank's rows, send them to rank 0) until
+        rank 0 sends the stop header; then return. Blocks the calling thread,
+        which does the device work."""
+        if self._rank == 0:
+            raise RuntimeError("rank 0 serves; follow() is for the other ranks")
+        cap = self.config.serve_batch
+        while True:
+            header = torch.empty(3, dtype=torch.long)
+            dist.broadcast(header, src=0)
+            kind, k, _ = header.tolist()
+            if kind == _STOP:
+                with self._cond:
+                    self._closed = True
+                return
+            if kind == _IDLE:
+                continue
+            x = torch.empty((cap, *self._sample_shape), dtype=torch.float32)
+            dist.broadcast(x, src=0)
+            y = None
+            if self._conditional:
+                y = torch.empty((cap,), dtype=torch.long)
+                dist.broadcast(y, src=0)
+            try:
+                self._denoise(x, y, None if kind == _WARMUP else k)
+            except _BatchFailed:  # rank 0 fails the batch; take the next header
+                traceback.print_exc()
+                continue
+            with self._cond:
+                self._warm = True
 
     def __enter__(self):
         return self
@@ -239,13 +333,17 @@ class SamplerService:
     def _collect(self) -> list[_Request] | None:
         """Block until there is work, apply the linger window, and pack
         head-of-queue requests into <= serve_batch rows (FIFO: a request
-        that does not fit the remaining space waits for the next batch)."""
+        that does not fit the remaining space waits for the next batch).
+        Returns None once closed; data-parallel, an empty list after
+        KEEPALIVE_S with nothing queued."""
         cap = self.config.serve_batch
+        idle_s = KEEPALIVE_S if self._world > 1 else None
         with self._cond:
             while not self._queue and not self._closed:
-                self._cond.wait()
-            if not self._queue:
-                return None  # closed and drained
+                if not self._cond.wait(timeout=idle_s):
+                    return []
+            if self._closed:
+                return None  # close() failed what was queued
             deadline = self._queue[0].enqueued_at + self.config.linger_ms / 1e3
             while not self._closed:
                 rows = 0
@@ -258,6 +356,8 @@ class SamplerService:
                 if rows >= cap or remaining <= 0:
                     break
                 self._cond.wait(timeout=remaining)
+            if self._closed:
+                return None  # close() raced the linger wait and failed the queue
             batch, rows = [], 0
             while self._queue and rows + self._queue[0].n <= cap:
                 req = self._queue.pop(0)
@@ -265,20 +365,69 @@ class SamplerService:
                 rows += req.n
             return batch
 
+    def _send_header(self, kind: int, k: int = 0, rows: int = 0):
+        if self._world > 1:
+            dist.broadcast(torch.tensor([kind, k, rows], dtype=torch.long), src=0)
+
     def _run(self):
-        while True:
-            batch = self._collect()
-            if not batch:
-                # None: closed and drained. Empty list: close() raced the
-                # linger wait and failed the queued requests; do not run a
-                # chain of pure padding, just exit.
-                return
-            try:
-                self._serve_batch(batch)
-            except Exception as e:  # a CUDA or kernel error fails this batch's callers
-                for req in batch:
-                    if not req.future.done():
-                        req.future.set_exception(e)
+        try:
+            while True:
+                batch = self._collect()
+                if batch is None:
+                    self._send_header(_STOP)
+                    return
+                if not batch:  # idle: keep the followers inside the group's timeout
+                    self._send_header(_IDLE)
+                    continue
+                try:
+                    self._serve_batch(batch)
+                except Exception as e:  # a CUDA, kernel or collective error fails this batch
+                    for req in batch:
+                        if not req.future.done():
+                            req.future.set_exception(e)
+        except Exception as e:  # a header that could not be sent: the group is gone
+            traceback.print_exc()
+            with self._cond:
+                self._closed = True
+                pending, self._queue = self._queue, []
+            for req in pending:
+                req.future.set_exception(e)
+
+    def _denoise(self, x: torch.Tensor, y: torch.Tensor | None, k: int | None):
+        """The chain over a whole served batch (CPU x_T and labels) with the
+        k-th batch's step generator (``None``: warmup's); data-parallel, this
+        rank's rows of it. Returns the batch's f32 images as a CPU tensor on
+        rank 0 (gathered), None on the other ranks. Data-parallel, a chain
+        that raised on any rank raises `_BatchFailed` on every rank, and no
+        rank enters the gather."""
+        if self._world == 1:
+            return self._chain(x, y, k, None)
+        try:
+            out, failed = self._chain(x, y, k, (self._rank, self._world)), None
+        except Exception as e:  # told to every rank, then raised below
+            out, failed = None, e
+        status = torch.tensor([failed is not None], dtype=torch.long)
+        dist.all_reduce(status)  # the ranks whose chain raised
+        if status.item():
+            raise _BatchFailed(f"the chain raised on {status.item()} of {self._world} "
+                               f"ranks" + (f": {failed!r}" if failed else "")) from failed
+        return gather_rows(out)
+
+    def _chain(self, x, y, k, row_shard):
+        """``_denoise``'s chain on this rank's rows, to a CPU f32 tensor: the
+        batch's one host sync, so a device error raises here."""
+        cfg = self.config
+        if row_shard:
+            x = shard_rows(x, *row_shard)
+            y = None if y is None else shard_rows(y, *row_shard)
+        x = x.to(self.device)
+        y = y.to(self.device) if y is not None else None
+        out = self.diffusion.denoise(
+            self._step_generator(k), x=x, y=y, batch_size=cfg.serve_batch,
+            encoder_cache=cfg.encoder_cache, guidance_interval=cfg.guidance_interval,
+            row_shard=row_shard,
+        )
+        return out.float().cpu()
 
     def _serve_batch(self, batch: list[_Request]):
         cap = self.config.serve_batch
@@ -299,21 +448,18 @@ class SamplerService:
                 off += r.n
             y = torch.from_numpy(ys)
 
-        if warmup:
-            generator = self._step_generator(None)
-        else:
-            generator = self._step_generator(self._batch_counter)
+        k = None
+        if not warmup:
+            k = self._batch_counter
             self._batch_counter += 1
 
-        cfg = self.config
         t0 = time.monotonic()
-        x = x.to(self.device)
-        y = y.to(self.device) if y is not None else None
-        out = self.diffusion.denoise(
-            generator, x=x, y=y, batch_size=cap, encoder_cache=cfg.encoder_cache,
-            guidance_interval=cfg.guidance_interval,
-        )
-        out = out.float().cpu().numpy()  # the batch's one host sync
+        self._send_header(_WARMUP if warmup else _BATCH, -1 if warmup else k, rows)
+        if self._world > 1:
+            dist.broadcast(x, src=0)
+            if y is not None:
+                dist.broadcast(y, src=0)
+        out = self._denoise(x, y, k).numpy()
         elapsed = time.monotonic() - t0
 
         with self._cond:

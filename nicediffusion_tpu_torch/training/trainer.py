@@ -1,5 +1,6 @@
 """Training orchestration: train step, AdamW, EMA, gradient accumulation,
-checkpoint/resume, periodic sampling, metrics (torch, one device).
+checkpoint/resume, periodic sampling, metrics (torch; one device, or one
+process per GPU, data-parallel).
 
 Counterpart of nicediffusion_tpu/training/trainer.py, with the same surface
 (``train()``, ``sample()``, ``save()``, ``restore()``,
@@ -27,10 +28,34 @@ Every draw (t, label drop, noise, dropout masks, sampling) comes from one
 ``train_step`` also takes injected draws, so a test can feed this trainer
 and the JAX one the same numbers. Checkpoints are ``checkpoint_dir/step_{N}/
 state.pt`` written with ``torch.save``: model, EMA, optimizer state, pending
-accumulated gradients and step. Multi-GPU training is ROADMAP work. Reading
-the JAX trainer's orbax directories is not ported (orbax is built on jax):
-the JAX package's scripts/export.py turns one into a ``.pt``, and
-utils/convert.py::train_state_to_torch carries its optimizer state across.
+accumulated gradients and step. Reading the JAX trainer's orbax directories
+is not ported (orbax is built on jax): the JAX package's scripts/export.py
+turns one into a ``.pt``, and utils/convert.py::train_state_to_torch carries
+its optimizer state across.
+
+Data parallelism (``distributed=True``, the counterpart of the JAX
+``Trainer(mesh=)``): one process per GPU in a ``torch.distributed`` group
+(parallel/multihost.py), every rank holding the whole model.
+  * ``batch_size`` is the global batch; each rank's loader yields its share,
+    ``batch_size // world`` rows, and ``train_step`` takes that share (and
+    the rank's rows of any injected t, noise or drop).
+  * At construction the model is broadcast from rank 0, then copied into the
+    EMA, so every rank starts from rank 0's weights.
+  * Every micro-batch's gradients and loss are averaged over the ranks
+    (``parallel/mesh.py::all_reduce_mean_``, flat buckets) before the norm,
+    the accumulation and the update, as every jitted micro-step of the JAX
+    trainer all-reduces: ``loss`` and ``grad_norm`` are the global batch's on
+    every rank, and every rank takes the same update. The gradients are
+    taken with ``torch.autograd.grad``, which fires none of
+    DistributedDataParallel's hooks, so the reduce is explicit.
+  * Rank 0 draws from ``seed``, so a group of one draws what a single
+    process draws; rank r > 0 draws its t, label drop, noise and dropout
+    masks from a generator seeded from (seed, r).
+  * Rank 0 alone writes checkpoints and metrics, prints and calls
+    ``sample_callback``; ``save`` ends in a barrier. ``restore`` reads on
+    every rank; ``resume_step="auto"`` takes rank 0's newest step.
+  * ``sample()`` runs sharded over the ranks (``Diffusion.denoise``'s row
+    shard) from rank 0's generator state and gathers the images to rank 0.
 """
 
 from __future__ import annotations
@@ -43,8 +68,10 @@ from typing import Callable, Iterator, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..diffusion.process import Diffusion
+from ..parallel.mesh import all_reduce_mean_, broadcast_module_, gather_rows, shard_rows
 from ..utils.device import resolve_device
 
 __all__ = ["Trainer"]
@@ -77,11 +104,22 @@ class Trainer:
         metrics_path: str | None = None,
         sample_callback: Callable | None = None,
         device: torch.device | str | None = None,
+        distributed: bool = False,
     ):
         if device is None:
             device = next(model.parameters()).device
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.distributed = distributed
+        self.rank, self.world = 0, 1
+        if distributed:
+            if not dist.is_initialized():
+                raise RuntimeError("distributed=True needs a process group: call "
+                                   "parallel.maybe_initialize_distributed() first")
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            if batch_size % self.world:
+                raise ValueError(f"global batch {batch_size} must divide process count "
+                                 f"{self.world}")
         self.loader = dataloader
         self.iterations = iterations
         self.batch_size = batch_size
@@ -97,6 +135,8 @@ class Trainer:
 
         if init_params is not None:
             self.model.load_state_dict(init_params, strict=True)
+        if self.world > 1:
+            broadcast_module_(self.model)  # rank 0's weights on every rank
         # copy, not alias (reference trainer.py:55 aliases)
         self.ema_model = copy.deepcopy(self.model).eval().requires_grad_(False)
         self._params = list(self.model.parameters())
@@ -125,14 +165,27 @@ class Trainer:
         )
         # mean of the micro-batch gradients since the last optimizer step
         self._grad_accum: list[torch.Tensor] | None = None
+        # rank 0 keeps the seed; the other ranks draw their own t, drops,
+        # noise and dropout masks
+        if self.rank:
+            seed = int(np.random.SeedSequence([seed, self.rank]).generate_state(1)[0])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
 
         if resume_step == "auto":
             # crash-resume ergonomics: pick the newest checkpoint if any
-            resume_step = self.latest_checkpoint_step()
+            # (rank 0's, on every rank)
+            resume_step = self._from_rank0(self.latest_checkpoint_step())
         if resume_step is not None:
             self.restore(resume_step)
+
+    def _from_rank0(self, value: int | None) -> int | None:
+        """Rank 0's ``value`` (an int or None) on every rank."""
+        if self.world == 1:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
     # ------------------------------------------------------------------
 
@@ -140,8 +193,9 @@ class Trainer:
         """One micro-batch: loss, gradients, (every k-th call) the AdamW
         update, and the EMA update. ``t`` (B,), ``noise`` (like batch) and
         ``drop`` (B,) bool may be injected; else they are drawn from the
-        trainer's generator. Returns ``{"loss", "grad_norm"}`` as scalars
-        on the device."""
+        trainer's generator. Data-parallel, ``batch``, ``labels`` and the
+        injected draws are this rank's rows. Returns ``{"loss",
+        "grad_norm"}`` (of the global batch) as scalars on the device."""
         x0 = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         b = x0.shape[0]
         diffusion = self.train_diffusion
@@ -165,6 +219,7 @@ class Trainer:
         self.model.train()
         loss = diffusion.loss(x0, t, generator=self.generator, y=y, noise=noise).mean()
         grads = torch.autograd.grad(loss, self._params)
+        grads, loss = self._reduce(grads, loss.detach())
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
         k = self.grad_accumulation
@@ -188,14 +243,22 @@ class Trainer:
             torch._foreach_mul_(self._ema_params, self.ema_rate)
             torch._foreach_add_(self._ema_params, self._params, alpha=1.0 - self.ema_rate)
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    def _reduce(self, grads, loss):
+        """This micro-batch's gradients and loss averaged over the ranks, in
+        place, in flat buckets (data-parallel; in a group of one the
+        collective runs and changes nothing)."""
+        if self.distributed:
+            all_reduce_mean_([*grads, loss])
+        return grads, loss
 
     # ------------------------------------------------------------------
 
     def train(self):
         """Run the training loop (reference trainer.py:66-115)."""
         metrics_file = None
-        if self.metrics_path:
+        if self.metrics_path and self.rank == 0:
             os.makedirs(os.path.dirname(self.metrics_path) or ".", exist_ok=True)
             metrics_file = open(self.metrics_path, "a")
 
@@ -210,7 +273,7 @@ class Trainer:
                     labels = np.zeros((np.shape(batch)[0],), dtype=np.int64)
                 metrics = self.train_step(batch, labels)
 
-                log_every = self.print_every
+                log_every = self.print_every if self.rank == 0 else None
                 if log_every is None and metrics_file is not None:
                     log_every = 10  # JSONL sink works without stdout printing
                 if log_every is not None:
@@ -239,7 +302,7 @@ class Trainer:
 
                 # periodic sample/save skip step 0; None or 0 mean "never"
                 if self.sample_every and step > 0 and step % self.sample_every == 0:
-                    self.sample(4)
+                    self.sample(-(-4 // self.world) * self.world)  # 4, or a multiple of world
                 if self.save_every and step > 0 and step % self.save_every == 0:
                     self.save(start_step + step)
 
@@ -254,13 +317,34 @@ class Trainer:
         """Sample with EMA weights through the forced 250-step DDPM chain
         (reference trainer.py:117-134). Returns uint8 NHWC images as numpy;
         a ``sample_callback(images, labels)`` (e.g. save-to-png) replaces the
-        reference's blocking matplotlib display."""
+        reference's blocking matplotlib display.
+
+        Data-parallel, every rank calls it: each denoises its rows of the
+        ``num_samples`` (which the world size must divide) from rank 0's
+        generator state, the images are gathered to rank 0, which advances
+        its generator as a single process would, calls the callback and
+        returns them; the other ranks return None."""
+        generator = self.generator
+        if self.world > 1:
+            state = [self.generator.get_state() if self.rank == 0 else None]
+            dist.broadcast_object_list(state, src=0)
+            generator = torch.Generator(device=self.device)
+            generator.set_state(state[0])
         y = None
         if self.model.conditional:
             y = torch.randint(0, self.model.num_classes, (num_samples,),
-                              generator=self.generator, device=self.device)
-        out = self.sampling_diffusion.denoise(self.generator, y=y, batch_size=num_samples)
-        out = ((out + 1) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+                              generator=generator, device=self.device)
+        row_shard = (self.rank, self.world) if self.world > 1 else None
+        out = self.sampling_diffusion.denoise(
+            generator, y=None if y is None else shard_rows(y, self.rank, self.world),
+            batch_size=num_samples, row_shard=row_shard)
+        out = ((out + 1) * 127.5).clamp(0, 255).to(torch.uint8)
+        out = gather_rows(out) if self.world > 1 else out.cpu()
+        if self.rank:
+            return None
+        if generator is not self.generator:
+            self.generator.set_state(generator.get_state())
+        out = out.numpy()
         if self.sample_callback is not None:
             self.sample_callback(out, y.cpu().numpy() if y is not None else None)
         return out
@@ -285,18 +369,23 @@ class Trainer:
         """Write {model, ema, optimizer, grad_accum, step} to
         ``checkpoint_dir/step_{step}/state.pt`` (the reference wrote three
         .pt files, trainer.py:136-141). The file is written beside its final
-        name and renamed, so a reader never sees half a checkpoint."""
-        path = self._ckpt_path(step)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({
-            "step": self.step,
-            "model": self.model.state_dict(),
-            "ema": self.ema_model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "grad_accum": self._grad_accum,
-        }, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        print("Saved checkpoint!")
+        name and renamed, so a reader never sees half a checkpoint.
+        Data-parallel, rank 0 writes (every rank holds the same state) and
+        every rank waits for it at a barrier."""
+        if self.rank == 0:
+            path = self._ckpt_path(step)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save({
+                "step": self.step,
+                "model": self.model.state_dict(),
+                "ema": self.ema_model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "grad_accum": self._grad_accum,
+            }, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            print("Saved checkpoint!")
+        if self.world > 1:
+            dist.barrier()
 
     def restore(self, step: int) -> int:
         """Load a checkpoint written by save() into the model, the EMA, the

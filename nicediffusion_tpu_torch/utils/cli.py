@@ -354,14 +354,19 @@ def freeze_from_args(diffusion, calib_path: str | None, batch_size: int, seed: i
     """Freeze the quantized model of ``diffusion`` for static int8: load the
     calibration at ``calib_path`` if the file exists, otherwise draw one
     chain of min(batch_size, 8) through the dynamic path from a generator of
-    its own (seed + 1), record it, and save it at ``calib_path`` if given."""
+    its own (seed + 1), record it, and save it at ``calib_path`` if given.
+    In a data-parallel group every rank looks for the file before any writes
+    it, draws the same calibration where it is missing, and rank 0 saves it."""
     import torch
 
     from ..ops.quant import calibration_inputs, collect_calibration, freeze_int8
+    from ..parallel.mesh import barrier, rank
     from .checkpoint import load_calibration, save_calibration
 
     model, device = diffusion.model, diffusion.device
-    if calib_path and os.path.exists(calib_path):
+    found = bool(calib_path) and os.path.exists(calib_path)
+    barrier()  # every rank has looked before rank 0 may write
+    if found:
         if wordy:
             print(f"Loading int8 calibration from {calib_path}")
         calib = load_calibration(calib_path, device)
@@ -377,7 +382,7 @@ def freeze_from_args(diffusion, calib_path: str | None, batch_size: int, seed: i
             print("Calibrating int8 activation scales on one chain...")
         inputs = calibration_inputs(diffusion, calib_gen, y=calib_y, batch_size=calib_batch)
         calib = collect_calibration(model, inputs)
-        if calib_path:
+        if calib_path and rank() == 0:
             save_calibration(calib, calib_path)
             if wordy:
                 print(f"Saved int8 calibration to {calib_path}")

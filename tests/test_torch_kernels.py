@@ -551,6 +551,20 @@ def test_k3_forward_and_backward_at_every_model_shape(cuda, preset, index):
         _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
 
 
+@pytest.mark.parametrize("batch", [4, 8])
+@pytest.mark.parametrize("index", range(30))
+def test_k3_at_the_data_parallel_batches(cuda, batch, index):
+    """K3 and its backward at every ``openai_64`` GroupNorm shape at the
+    per-rank batches of chip_smoke.py's ``[dp]`` runs on two ranks: 4 (a
+    training step's global batch of 8) and 8 (a sampling or served batch of
+    16); K3's plan (slices, cluster, route) depends on the batch."""
+    (h, w, c), mode = _gn_keys("openai_64")[index]
+    for dtype in (torch.float32, torch.bfloat16):
+        args, cot = _k3_inputs(cuda, dtype, (batch, h, w, c), mode, seed=h + c + batch)
+        mean, rstd = _k3_check_forward(args, dtype, mode != "plain")
+        _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_re_read_route(cuda, backward, dtype):

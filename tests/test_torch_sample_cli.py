@@ -217,7 +217,18 @@ def test_unported_flags_name_their_roadmap_entry(flags, checkpoints, tmp_path, c
     ``--upsample`` is ported: without ``models/RealESRGAN_x4plus.pth`` under
     the working directory it prints the skip message and keeps the images;
     with random full-width ESRGAN weights there (basicsr names, inside
-    ``params_ema``) every saved image is 4x."""
+    ``params_ema``) every saved image is 4x. ``--data_parallel`` is ported: in
+    a world of one (no torchrun) it changes nothing, images and files alike
+    (tests/test_torch_distributed.py runs it on two ranks)."""
+    if flags[0] == "--data_parallel":
+        model_path, _ = checkpoints
+        runs = [main(_argv(model_path, str(tmp_path / out) + "/", *extra))
+                for out, extra in (("plain", ()), ("dp", flags))]
+        for a, b in zip(runs[0][0], runs[1][0]):
+            np.testing.assert_array_equal(a, b)
+        names = sorted(os.listdir(tmp_path / "dp"))
+        assert len(names) == 2 and names == sorted(os.listdir(tmp_path / "plain"))
+        return
     if flags[0] == "--upsample":
         from nicediffusion_tpu_torch.models.rrdb import RRDBNet
 

@@ -1,9 +1,10 @@
 """The port's serving daemon (nicediffusion_tpu_torch/serving/,
 scripts/serve.py) on the CPU, against the JAX package's.
 
-Every case of tests/test_serving.py but the mesh one (multi-GPU is not
-ported), on the port's service with ``device="cpu"`` and the same tiny
-configuration (8x8 one-channel UNet, 4 DDIM eta=0 steps). Then parity: the
+Every case of tests/test_serving.py but the mesh one (that one is in
+tests/test_torch_serving_dp.py), on the port's service with ``device="cpu"``
+and the same tiny configuration (8x8 one-channel UNet, 4 DDIM eta=0 steps).
+Then parity: the
 JAX and the port service on the same weights (seeded numpy values carried
 across by ``flax_params_to_torch_state_dict``), the same start noise
 injected into both through ``_draw_x``, several requests packed with
@@ -441,10 +442,20 @@ def test_int8_build_service_calibrates_then_loads(serve_npz, tmp_path):
     assert np.isfinite(outs[0]).all()
 
 
-def test_serve_data_parallel_is_refused_before_a_model_is_built():
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        serve.build_service(["--model_path", "no_such_file.npz", *SERVE_CUSTOM,
-                             "--serve_data_parallel"])
+def test_serve_data_parallel_is_refused_before_a_model_is_built(monkeypatch):
+    """``--serve_data_parallel`` is ported (tests/test_torch_serving_dp.py).
+    What stays refused before any model is built (the checkpoint does not
+    exist): a serve batch that the world size does not divide, and several
+    processes without the flag."""
+    from nicediffusion_tpu_torch import parallel
+
+    monkeypatch.setattr(parallel, "maybe_initialize_distributed", lambda: True)
+    monkeypatch.setattr(parallel, "world", lambda: 2)
+    argv = ["--model_path", "no_such_file.npz", *SERVE_CUSTOM, "--batch_size", "3"]
+    with pytest.raises(ValueError, match="serve_batch=3 must be a multiple of the 'data' axis"):
+        serve.build_service(argv + ["--serve_data_parallel"])
+    with pytest.raises(ValueError, match="pass --serve_data_parallel"):
+        serve.build_service(argv)
 
 
 def test_build_service_without_a_card_raises(serve_npz, monkeypatch):
