@@ -13,8 +13,10 @@ the super-resolution UNet at ``openai_256`` widths, the ESRGAN stage
 (``--upsample``), guided and progressive distillation at ``openai_64``, the
 serving daemon (HTTP requests micro-batched into one chain) at
 ``openai_64`` in bf16 and int8, and data-parallel training, sampling and
-serving at ``openai_64`` (two ranks sharing the card, one through torchrun).
-It checks every hand-written kernel on the way:
+serving at ``openai_64`` (two ranks sharing the card, one through torchrun),
+and tensor-parallel forwards and training at ``openai_64`` (two ranks
+sharing the card, each with half the paired layers' channels). It checks
+every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: K1 with K5, K2, K3 (forward and backward), K4 and the int8 conv
@@ -38,7 +40,10 @@ It checks every hand-written kernel on the way:
      256 channels on 256x256 maps, K1 at C = 512 and 1024, and of
      ``openai_64`` again at model batch 128, the daemon's batch at serve
      batch 64 under CFG, where K3's plan of clusters and waves differs, and
-     at batch 4, one of two data-parallel ranks' rows of a training step),
+     at batch 4, one of two data-parallel ranks' rows of a training step;
+     K3 also at a tensor-parallel rank's out_norm shapes, C/2 channels in 16
+     groups, its modulation rows views at an offset into the step
+     embedding),
      f32 and bf16, with the
      JAX package's tolerances; its time per call in the path's compute
      type, per shape and summed over one forward, beside the plain
@@ -93,9 +98,10 @@ It checks every hand-written kernel on the way:
      which the rstd handed over 5% high must fail at every shape, bit-equal
      across two runs) at every GroupNorm shape of an ``openai_64`` training
      step, of the EMNIST recipe, of an ``openai_128`` training step, of the
-     classifier's gradient and of one data-parallel rank's ``openai_64``
-     step at batch 4; its times summed over one ``openai_64`` training step
-     at batch 8, one guidance gradient at batch 4 and the rank's step, beside
+     classifier's gradient, of one data-parallel rank's ``openai_64``
+     step at batch 4 and of a tensor-parallel rank's step at batch 8 (16
+     groups on C/2); its times summed over one ``openai_64`` training step
+     at batch 8, one guidance gradient at batch 4 and the ranks' steps, beside
      the plain version, the library's autograd backward of F.group_norm, the
      modulation and F.silu (by torch.profiler) and the bound;
   7. loss and every parameter's gradient of the full-width f32 model, and
@@ -214,7 +220,20 @@ It checks every hand-written kernel on the way:
      HTTP request against the one-rank daemon (f32, DDIM-10, within 1e-3;
      bf16, DDIM-25, read) and samples/s of closed-loop clients for one rank
      and for two sharing the card. Each rank's K1, K2, K3 and K3 backward
-     launches are held to the structure.
+     launches are held to the structure;
+ 18. tensor parallelism (``[tp]``) at full-width ``openai_64`` on the weights
+     of ``64x64_diffusion.pt``: two gloo ranks sharing the card on a mesh of
+     1 x 2 (the Megatron-paired layers' channels halved): (a) the forward at
+     model batch 16, f32 held to one process at MODEL_TOL, bf16 read; (b)
+     three ``Trainer(mesh=)`` steps (remat, dropout 0, batch 8) in f32, each
+     held to a one-process Trainer on the same batch and draws (loss and grad
+     norm to LOSS_TOL, every gathered gradient to GRAD_TOL), and in bf16
+     (read); the replicated parameters and EMA bit-equal across the ranks;
+     the checkpoint gathered whole, loaded strict into one process; (c) each
+     rank's K1, K2, K3 and K3-backward launches held to the structure, the
+     K3 calls at 16 groups counted apart; (d) the step's wall and device
+     busy time and idle share, and the collectives' calls, bytes and seconds
+     per forward and per step, read.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -280,6 +299,7 @@ LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
 SEED = 0
 TRAIN_BATCH = 8
 DP_WORLD = 2  # [dp]'s ranks on the one card: a rank trains on TRAIN_BATCH // DP_WORLD rows
+TP_WORLD = 2  # [tp]'s model axis: two ranks sharing the card, each with half the channels
 EMNIST_BATCH = 468  # the train entry point's recipe
 GUIDED_BATCH = 4  # the classifier-guided openai_128 slice, and openai_128 training
 FAST_BATCH = 8  # labels a chain of the fast-sampling slice
@@ -656,13 +676,32 @@ class Tally:
                 f"({self.bound_by})")
 
 
-def library_group_norm(x, sc, bi, es, esh, mode):
+def library_group_norm(x, sc, bi, es, esh, mode, groups=32):
     """The PyTorch calls that compute K3's function: F.group_norm on the
     channels-last view, then F.silu (and the AdaGN modulation between)."""
-    y = F.group_norm(x.permute(0, 3, 1, 2), 32, sc, bi, 1e-5)
+    y = F.group_norm(x.permute(0, 3, 1, 2), groups, sc, bi, 1e-5)
     if mode == "ada":
         y = y * (1.0 + es[:, :, None, None]) + esh[:, :, None, None]
     return y if mode == "plain" else F.silu(y)
+
+
+def gn_key(key):
+    """(h, w, c, mode, groups) of a GroupNorm call key: ``("groupnorm", (h,
+    w, c), mode)`` at 32 groups, or with a fourth element, the groups of a
+    tensor-parallel shard (``tp_path_calls``)."""
+    _, (h, w, c), mode, *groups = key
+    return h, w, c, mode, groups[0] if groups else 32
+
+
+def modulation_rows(g, dev, dtype, b, c, groups):
+    """AdaGN's (B, C) scale and shift rows as the model hands them to K3:
+    the two halves of a (B, 2C) step embedding; for a shard at ``groups`` <
+    32 (a model axis of tp = 32 // groups), the last rank's channels of a
+    (B, 2 C tp) embedding, views at an offset into the rows."""
+    tp = 32 // groups
+    emb = (0.1 * torch.randn(b, 2, c * tp, generator=g, device=dev)).to(dtype)
+    emb = emb[..., (tp - 1) * c:]
+    return emb[:, 0], emb[:, 1]
 
 
 # where a kernel call comes from: (batch, the path's compute type, basis of the sums)
@@ -685,6 +724,13 @@ PATHS = {
     "dp_train": (TRAIN_BATCH // DP_WORLD, torch.bfloat16,
                  f"one forward of a data-parallel openai_64 training step on one of "
                  f"{DP_WORLD} ranks, {TRAIN_BATCH // DP_WORLD} rows a rank"),
+    "tp": (16, torch.bfloat16,
+           f"the channel-sharded out_norm calls of one openai_64 forward on one of {TP_WORLD} "
+           f"tensor-parallel ranks at model batch 16 (C/{TP_WORLD} channels, "
+           f"{32 // TP_WORLD} groups)"),
+    "tp_train": (TRAIN_BATCH, torch.bfloat16,
+                 f"the channel-sharded out_norm calls of a tensor-parallel openai_64 training "
+                 f"step on one of {TP_WORLD} ranks at batch {TRAIN_BATCH}"),
 }
 GUIDED_PATHS = ("unet128", "cls128")
 K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train")  # unet128: openai_128 training
@@ -760,20 +806,19 @@ def phase_kernels(dev, paths):
                 bound = attention_bound_ms(b, n, c, tensors=4, products=2, dtype=dtype)
                 name = f"K1 B={b} N={n} C={c} heads={heads}"
             else:
-                _, (h, w, c), mode = key
+                h, w, c, mode, groups = gn_key(key)
                 x = (2 * torch.randn(b, h, w, c, generator=g, device=dev) + 0.5).to(dtype)
                 sc = torch.randn(c, generator=g, device=dev)
                 bi = torch.randn(c, generator=g, device=dev)
-                emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
-                es, esh = emb.chunk(2, dim=-1)
+                es, esh = modulation_rows(g, dev, dtype, b, c, groups)
                 args = (x, sc, bi) + ((es, esh) if mode == "ada" else ())
-                kw = dict(silu=mode != "plain")
+                kw = dict(silu=mode != "plain", num_groups=groups)
                 runs = [((lambda: k3.group_norm_fused(*args, **kw)),
                          (lambda: k3.group_norm_fused_plain(*args, **kw)))]
-                lib_args = (x, sc.to(dtype), bi.to(dtype), es, esh, mode)
+                lib_args = (x, sc.to(dtype), bi.to(dtype), es, esh, mode, groups)
                 library = lambda: library_group_norm(*lib_args)  # noqa: E731
                 bound = groupnorm_bound_ms(b, h, w, c, dtype)
-                name = f"K3 {mode} {(b, h, w, c)}"
+                name = f"K3 {mode} {(b, h, w, c)}" + (f" {groups} groups" if groups != 32 else "")
             for kernel_fn, plain_fn in runs:
                 out = kernel_fn()
                 torch.cuda.synchronize()
@@ -802,7 +847,7 @@ def phase_kernels(dev, paths):
                 prof = (profiled_ms(runs[0][0]), profiled_ms(library))
                 tallies[kind, where].add(per_call, ms, plain, lib, bound, device, prof)
                 if kind == "groupnorm":
-                    plan = k3.group_norm_plan((b, h, w, c), dtype)
+                    plan = k3.group_norm_plan((b, h, w, c), dtype, num_groups=groups)
                     routes[where, plan["route"]] += per_call
                     log(f"[kernels] {name} {dtype}: route {plan['route']}, HBM "
                         f"{plan['hbm_bytes'] / 1e6:.3f} MB (x and the output once: "
@@ -1420,19 +1465,20 @@ def groupnorm_bwd_bound_ms(b, h, w, c, dtype=torch.bfloat16):
             25 * elems / F32_FLOPS * 1e3)
 
 
-def library_group_norm_grad(x, sc, bi, es, esh, mode, cot):
+def library_group_norm_grad(x, sc, bi, es, esh, mode, cot, groups=32):
     """The library's autograd backward of ``library_group_norm`` in x's dtype
     (F.group_norm, the modulation, F.silu), for every input, as a callable
     that reruns it on one recorded graph."""
     leaves = [t.detach().to(x.dtype).requires_grad_(True) for t in (x, sc, bi)]
     leaves += [t.detach().clone().requires_grad_(True) for t in (es, esh)] if mode == "ada" else []
-    out = library_group_norm(*leaves[:3], *(leaves[3:] or (None, None)), mode)
+    out = library_group_norm(*leaves[:3], *(leaves[3:] or (None, None)), mode, groups)
     lib_cot = cot.permute(0, 3, 1, 2)
     return lambda: torch.autograd.grad(out, leaves, lib_cot, retain_graph=True)
 
 
-K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128", "dp_train")  # unet128: openai_128 training
-K3_BWD_TIMED = ("train", "cls128", "dp_train")
+# unet128: openai_128 training
+K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128", "dp_train", "tp_train")
+K3_BWD_TIMED = ("train", "cls128", "dp_train", "tp_train")
 
 
 def phase_k3_bwd(dev, paths):
@@ -1461,21 +1507,23 @@ def phase_k3_bwd(dev, paths):
     for where in K3_BWD_PATHS:
         b, timed_dtype, _ = PATHS[where]
         keys = sorted((k, n) for k, n in paths[where].items() if k[0] == "groupnorm")
-        for (_, (h, w, c), mode), per_step in keys:
-            silu = mode != "plain"
-            name = f"K3 backward {mode} {(b, h, w, c)}"
+        for key, per_step in keys:
+            h, w, c, mode, groups = gn_key(key)
+            gk = dict(silu=mode != "plain", num_groups=groups)
+            name = f"K3 backward {mode} {(b, h, w, c)}" + (
+                f" {groups} groups" if groups != 32 else "")
             for dtype in (torch.float32, torch.bfloat16):
                 x = (2 * torch.randn(b, h, w, c, generator=g, device=dev) + 0.5).to(dtype)
                 sc = torch.randn(c, generator=g, device=dev)
                 bi = torch.randn(c, generator=g, device=dev)
-                emb = (0.1 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
-                es, esh = emb.chunk(2, dim=-1) if mode == "ada" else (None, None)
+                rows = modulation_rows(g, dev, dtype, b, c, groups)
+                es, esh = rows if mode == "ada" else (None, None)
                 cot = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
                 args = (x, sc, bi, es, esh, cot)
-                _, mean, rstd = k3.group_norm_fused_with_stats(*args[:5], silu=silu)
-                got = k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu)
-                again = k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu)
-                ref = k3.group_norm_fused_bwd_plain(*args, silu=silu)
+                _, mean, rstd = k3.group_norm_fused_with_stats(*args[:5], **gk)
+                got = k3.group_norm_fused_bwd(*args, mean, rstd, **gk)
+                again = k3.group_norm_fused_bwd(*args, mean, rstd, **gk)
+                ref = k3.group_norm_fused_bwd_plain(*args, **gk)
                 torch.cuda.synchronize()
                 for out_name, a, a2, r in zip(names, got, again, ref):
                     if r is None:
@@ -1497,7 +1545,7 @@ def phase_k3_bwd(dev, paths):
                         errs[dtype] = max(errs[dtype], err)
                         gates["max_rel_err_bf16"] = max(gates["max_rel_err_bf16"], rel)
                 if dtype == torch.bfloat16:
-                    bad = k3.group_norm_fused_bwd(*args, mean, rstd * 1.05, silu=silu)
+                    bad = k3.group_norm_fused_bwd(*args, mean, rstd * 1.05, **gk)
                     pairs = [(a, r) for a, r in zip(bad, ref) if r is not None]
                     bad_rel = max(k3_rel_err(a, r) for a, r in pairs)
                     if bad_rel <= K3_BF16_REL:
@@ -1509,16 +1557,16 @@ def phase_k3_bwd(dev, paths):
                         within(a, r, BF16_TOL["groupnorm"]) for a, r in pairs)
                 if dtype != timed_dtype or where not in K3_BWD_TIMED:
                     continue
-                fns = (lambda: k3.group_norm_fused_bwd(*args, mean, rstd, silu=silu),
-                       lambda: k3.group_norm_fused_bwd_plain(*args, silu=silu))
-                library = library_group_norm_grad(*args[:5], mode, cot)
+                fns = (lambda: k3.group_norm_fused_bwd(*args, mean, rstd, **gk),
+                       lambda: k3.group_norm_fused_bwd_plain(*args, **gk))
+                library = library_group_norm_grad(*args[:5], mode, cot, groups)
                 depth = dict(iters=10, rounds=3)
                 ms, plain, lib = (time_ms(fn, **depth) for fn in (*fns, library))
                 device = (graph_ms(fns[0]), graph_ms(fns[1]), profiled_ms(library))
                 prof = (profiled_ms(fns[0]), device[2])
                 bound = groupnorm_bwd_bound_ms(b, h, w, c, dtype)
                 tallies[where].add(per_step, ms, plain, lib, bound, device, prof)
-                plan = k3.group_norm_plan((b, h, w, c), dtype, backward=True)
+                plan = k3.group_norm_plan((b, h, w, c), dtype, num_groups=groups, backward=True)
                 routes[where, plan["route"]] += per_step
                 log(f"[k3-bwd] {name} {dtype}, {per_step} per step: device time "
                     f"{device[0]:.4f} ms by graph, {prof[0]:.4f} by torch.profiler, host-timed "
@@ -3957,6 +4005,403 @@ def phase_dp(dev, workdir, smi):
     return by_path, readings
 
 
+# ---------------------------------------------------------------------------
+# [tp]: tensor parallelism. Two gloo ranks share the one card, each holding
+# half of every paired layer's channels (a mesh of 1 x 2).
+# ---------------------------------------------------------------------------
+
+TP_FORWARD_BATCH = 16  # model batch: 8 requests under CFG
+TP_TRAIN_STEPS = 3
+TP_TIMEOUT_S = 300.0
+
+
+def tp_path_calls(model, dev, tp=TP_WORLD):
+    """The GroupNorm calls a tensor-parallel rank makes in place of the
+    unsharded ones: the out_norm of every residual block the sharding table
+    pairs, at C / tp channels and 32 / tp groups (key ``("groupnorm", (h, w,
+    c / tp), mode, groups)``), as a Counter of calls per forward. ``model``
+    runs unsharded with ``kernels=False``; no kernel launches."""
+    from nicediffusion_tpu_torch.models.unet import ResidualBlock
+    from nicediffusion_tpu_torch.parallel.sharding import unet_param_shard_dims
+
+    dims = unet_param_shard_dims(model, tp)
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        _, h, w, c = args[0].shape
+        calls[("groupnorm", (h, w, c // tp), mod.mode, mod.num_groups // tp)] += 1
+
+    hooks = [m.out_norm.register_forward_pre_hook(hook) for name, m in model.named_modules()
+             if isinstance(m, ResidualBlock) and dims[f"{name}.in_conv.weight"] == 0]
+    x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        model(x, zero, zero)
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def _state_digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        t = tensors[name].detach().float().contiguous().cpu()
+        h.update(name.encode() + t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _collectives(stats):
+    """The tensor-parallel collectives stats holds, as JSON."""
+    return {f"{k}.{ph}": {"calls": n, "bytes": stats.bytes[k, ph],
+                          "seconds": stats.seconds.get((k, ph), 0.0)}
+            for (k, ph), n in sorted(stats.counts.items())}
+
+
+def tp_forward_part(dev, cfg, state, mesh, r):
+    """(a) on one rank: the tensor-parallel forward at model batch
+    TP_FORWARD_BATCH in f32 (TF32 off) and bf16, the same inputs on both
+    ranks; on rank 0 the one-process forward on the same inputs beside it
+    (f32 gated at MODEL_TOL, bf16 read). This rank's launches, the K3 calls
+    at 32 / tp groups counted apart, then a second forward with the
+    collectives timed."""
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.models.unet import GroupNormOp
+    from nicediffusion_tpu_torch.parallel.tensor import stats
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    res, ch, b = cfg["resolution"], cfg["in_channels"], TP_FORWARD_BATCH
+    x = torch.randn(b, res, res, ch, generator=g, device=dev)
+    t = torch.randint(0, 1000, (b,), generator=g, device=dev)
+    y = torch.randint(0, cfg["num_classes"], (b,), generator=g, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        kw = {} if dtype == torch.float32 else {"dtype": dtype}
+        model = DiffusionModel(**cfg, device=dev, **kw).eval()
+        model.load_state_dict(state, strict=True)
+        model.shard_(mesh)
+        sharded = [0]
+        hooks = [m.register_forward_pre_hook(lambda *_: sharded.__setitem__(0, sharded[0] + 1))
+                 for m in model.modules() if isinstance(m, GroupNormOp) and m.num_groups != 32]
+        reset_launches()
+        with torch.inference_mode():
+            h = model(x, t, y)
+        torch.cuda.synchronize()
+        part = {"launches": read_launches(), "sharded_k3": sharded[0]}
+        for hk in hooks:
+            hk.remove()
+        stats.reset()
+        stats.timed = True
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model(x, t, y)
+        torch.cuda.synchronize()
+        part["wall_s"] = time.perf_counter() - t0
+        stats.timed = False
+        part["collectives"] = _collectives(stats)
+        if not (h.shape == (b, res, res, cfg["out_channels"]) and torch.isfinite(h).all()):
+            raise AssertionError(f"[tp] (a) {name} rank {r}: {tuple(h.shape)}, finite "
+                                 f"{bool(torch.isfinite(h).all())}")
+        if r == 0:
+            one = DiffusionModel(**cfg, device=dev, **kw).eval()
+            one.load_state_dict(state, strict=True)
+            with torch.inference_mode():
+                ref = one(x, t, y)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one(x, t, y)
+                torch.cuda.synchronize()
+            part["one_process_wall_s"] = time.perf_counter() - t0
+            part["max_abs"] = (h.float() - ref.float()).abs().max().item()
+            del one, ref
+            if dtype == torch.float32 and not part["max_abs"] <= MODEL_TOL:
+                raise AssertionError(f"[tp] (a) f32 forward on two ranks against one process: "
+                                     f"max abs {part['max_abs']} (gate {MODEL_TOL})")
+        out[name] = part
+        del model, h
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_part(dev, cfg, state, mesh, r, work):
+    """(b) on one rank: TP_TRAIN_STEPS steps of ``Trainer(mesh=)`` (remat,
+    dropout 0, batch TRAIN_BATCH, injected draws, the same on both ranks) in
+    f32 and bf16; on rank 0 each step beside a one-process Trainer on the
+    same batch and draws: loss and grad norm (LOSS_TOL) and every gathered
+    gradient (GRAD_TOL), gated in f32, read in bf16. Then, by dtype, the
+    digest of this rank's replicated parameters and EMA (the parent holds the
+    ranks' equal), one step with the collectives timed and one with rank 0's
+    device time traced; in f32 the checkpoint (gathered whole to rank 0, which
+    loads it strict into one process and holds it equal to the gathered
+    state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nicediffusion_tpu_torch import DiffusionModel, Trainer
+    from nicediffusion_tpu_torch.models.unet import GroupNormOp
+    from nicediffusion_tpu_torch.parallel.sharding import gather_params, gather_tensor
+    from nicediffusion_tpu_torch.parallel.tensor import stats
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+
+        def trainer(m):
+            model = DiffusionModel(**dict(cfg, dropout=0.0), use_remat=True, device=dev,
+                                   dtype=None if dtype == torch.float32 else dtype)
+            model.load_state_dict(state, strict=True)
+            tr = Trainer(model, dcfg, iter(()), iterations=0, batch_size=TRAIN_BATCH, lr=1e-4,
+                         weight_decay=1e-3, ema_rate=0.99, seed=SEED, mesh=m,
+                         checkpoint_dir=os.path.join(work, f"tp_ckpt_{name}"))
+            reduce, tr.record, tr.pre_reduce, tr.reduce_s = tr._reduce, True, None, []
+
+            def record(grads, loss):  # the gradients the update sees, gathered whole
+                if tr.tp is not None and tr.pre_reduce is None:  # the replicated ones, once
+                    tr.pre_reduce = {n: _state_digest({n: gr})[:12]
+                                     for n, gr in zip(tr._names, grads) if tr._dims[n] is None}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grads, loss = reduce(grads, loss)
+                torch.cuda.synchronize()
+                tr.reduce_s.append(time.perf_counter() - t0)
+                if tr.record:
+                    tr.grads = [gather_tensor(gr.detach(), tr._dims.get(n), tr.tp)
+                                if tr.tp else gr.detach().clone()
+                                for n, gr in zip(tr._names, grads)]
+                return grads, loss
+
+            tr._reduce = record
+            return tr
+
+        tp = trainer(mesh)
+        one = trainer(None) if r == 0 else None
+        sharded = [0]
+        hooks = [m.register_forward_pre_hook(lambda *_: sharded.__setitem__(0, sharded[0] + 1))
+                 for m in tp.model.modules() if isinstance(m, GroupNormOp) and m.num_groups != 32]
+        n_sharded = len(hooks)
+        launches = collections.Counter()
+        worst = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0, "grad_name": ""}
+        losses, step_s, one_s = [], [], []
+        steps = tp.train_diffusion.rescaled_num_steps
+        for i in range(TP_TRAIN_STEPS):
+            d = {k: v.to(dev) for k, v in dp_draws(i, cfg, steps).items()}
+            reset_launches()
+            t0 = time.perf_counter()
+            m = tp.train_step(**d)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            launches.update(read_launches())
+            loss, norm = m["loss"].item(), m["grad_norm"].item()
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                raise AssertionError(f"[tp] (b) rank {r} step {i}: loss {loss}, norm {norm}")
+            losses.append(loss)
+            if one is None:
+                continue
+            t0 = time.perf_counter()
+            m1 = one.train_step(**d)
+            loss1, norm1 = m1["loss"].item(), m1["grad_norm"].item()
+            one_s.append(time.perf_counter() - t0)
+            worst["loss"] = max(worst["loss"], abs(loss - loss1) / max(1.0, abs(loss1)))
+            worst["grad_norm"] = max(worst["grad_norm"], abs(norm - norm1) / max(1.0, abs(norm1)))
+            for pname, a, b in zip(tp._names, tp.grads, one.grads):
+                scale = b.abs().max().item()
+                rel = (a - b).abs().max().item() / scale if scale else float("inf")
+                if rel > worst["grad"]:
+                    worst["grad"], worst["grad_name"] = rel, pname
+        for hk in hooks:
+            hk.remove()
+        expect = expect_train_launches(tp.model, TP_TRAIN_STEPS)
+        part = {"worst": worst, "losses": losses, "launches": dict(launches), "expect": expect,
+                "sharded_k3": sharded[0],
+                "sharded_k3_expect": n_sharded * TP_TRAIN_STEPS * (2 if tp.model.use_remat else 1),
+                "step_s": step_s, "one_process_step_s": one_s, "reduce_s": tp.reduce_s}
+        if dict(launches) != expect or part["sharded_k3"] != part["sharded_k3_expect"]:
+            raise AssertionError(f"[tp] (b) {name} rank {r}: launches {dict(launches)} != "
+                                 f"{expect}, or K3 at 32/tp groups {part['sharded_k3']} != "
+                                 f"{part['sharded_k3_expect']}")
+        if one is not None and dtype == torch.float32 and not (
+                worst["loss"] <= LOSS_TOL and worst["grad_norm"] <= LOSS_TOL
+                and worst["grad"] <= GRAD_TOL):
+            raise AssertionError(f"[tp] (b) f32: two ranks against one process {worst} (gates: "
+                                 f"loss and norm {LOSS_TOL}, gradients {GRAD_TOL})")
+        del one
+        tp.record = False
+        tp.grads = None
+        rep = {f"model.{k}": v for k, v in tp.model.named_parameters() if tp._dims[k] is None}
+        rep.update({f"ema.{k}": v for k, v in tp.ema_model.named_parameters()
+                    if tp._dims[k] is None})
+        part["replicated_digests"] = {k: _state_digest({k: v})[:12] for k, v in rep.items()}
+        part["first_replicated_grads"] = tp.pre_reduce
+        # readings: one step with the collectives timed, one with the device traced
+        d = {k: v.to(dev) for k, v in dp_draws(TP_TRAIN_STEPS, cfg, steps).items()}
+        stats.reset()
+        stats.timed = True
+        t0 = time.perf_counter()
+        tp.train_step(**d)
+        torch.cuda.synchronize()
+        part["timed_step_s"] = time.perf_counter() - t0
+        stats.timed = False
+        part["collectives"] = _collectives(stats)
+        d = {k: v.to(dev) for k, v in dp_draws(TP_TRAIN_STEPS + 1, cfg, steps).items()}
+        t0 = time.perf_counter()
+        if r == 0:  # one try: a retry would leave the other rank's collectives waiting
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tp.train_step(**d)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)) / 1e6
+            part["traced_step"] = {"wall_s": wall, "busy_s": busy,
+                                   "idle_share": 1 - busy / wall if busy > 0 else None}
+        else:
+            tp.train_step(**d)
+            torch.cuda.synchronize()
+        if dtype == torch.float32:
+            tp.save(tp.step)
+            whole = gather_params(tp.model.state_dict(), mesh, tp._dims)
+            if r == 0:
+                saved = torch.load(tp._ckpt_path(tp.step), map_location=dev, weights_only=True)
+                check = DiffusionModel(**cfg, device=dev)
+                check.load_state_dict(saved["model"], strict=True)
+                check.load_state_dict(saved["ema"], strict=True)
+                diff = [k for k, v in saved["model"].items() if not torch.equal(v, whole[k])]
+                if diff or saved["step"] != tp.step:
+                    raise AssertionError(f"[tp] (b) checkpoint: {diff[:4]} differ from the "
+                                         f"gathered state, step {saved['step']}")
+                part["checkpoint"] = {"tensors": len(saved["model"]), "step": saved["step"]}
+                del check, saved
+            del whole
+        out[name] = part
+        del tp
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(work, model_path, cfg):
+    """One rank of ``[tp]``'s group (started by parallel/dryrun.py::spawn_ranks,
+    two ranks on one card over gloo, a mesh of 1 x TP_WORLD): parts (a) and
+    (b) on the card. A rank that sees no card raises: nothing of [tp] runs on
+    the CPU."""
+    from nicediffusion_tpu_torch.parallel import rank
+    from nicediffusion_tpu_torch.parallel.mesh import make_mesh
+
+    r = rank()
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"[tp] rank {r} sees no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state = torch.load(model_path, map_location=dev, weights_only=True)
+    mesh = make_mesh(1, TP_WORLD)
+    t0 = time.perf_counter()
+    out = {"forward": tp_forward_part(dev, cfg, state, mesh, r)}
+    t1 = time.perf_counter()
+    out["train"] = tp_train_part(dev, cfg, state, mesh, r, work)
+    out["seconds"] = {"a": t1 - t0, "b": time.perf_counter() - t1}
+    return out
+
+
+def _fmt_collectives(coll):
+    return ", ".join(f"{k} {v['calls']} x, {v['bytes'] / 1e9:.4f} GB, {v['seconds']:.4f} s"
+                     for k, v in coll.items())
+
+
+def phase_tp(dev, workdir, smi, n_sharded):
+    """``[tp]``: tensor parallelism at full-width ``openai_64``, the weights
+    of ``64x64_diffusion.pt``, two gloo ranks sharing the card on a mesh of
+    1 x 2 (tp_rank): (a) the forward at model batch 16, f32 held to one
+    process at MODEL_TOL, bf16 read; (b) three ``Trainer(mesh=)`` steps in f32
+    (held to one process at LOSS_TOL and GRAD_TOL) and bf16 (read), the
+    replicated parameters and EMA bit-equal across the ranks, the checkpoint
+    whole; (c) every rank's K1, K2, K3 and K3-backward launches against the
+    structure, the K3 calls at 16 groups apart (``n_sharded`` a forward);
+    (d) readings: the step's wall and device busy time and idle share, the
+    collectives' calls, bytes and seconds per forward and per step. Returns
+    the paths' launches (both ranks summed) and the readings."""
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.parallel.dryrun import spawn_ranks
+
+    cfg = model_config()
+    meta = DiffusionModel(**cfg, device="meta")
+    got = spawn_ranks("chip_smoke:tp_rank", TP_WORLD,
+                      dict(work=workdir, model_path=os.path.join(workdir, "64x64_diffusion.pt"),
+                           cfg=cfg),
+                      timeout_s=TP_TIMEOUT_S, one_device=True,
+                      pythonpath=(os.path.dirname(os.path.abspath(__file__)),))
+    log(f"[tp] two ranks on one card (gloo), tp={TP_WORLD}: seconds by part of rank 0 "
+        f"{ {k: round(v, 1) for k, v in got[0]['seconds'].items()} }")
+    readings = {"device": smi}
+    expect_fwd = serve_expect(meta, 1)
+    by_path = {"tp_forward_openai_64": collections.Counter(),
+               "tp_train_openai_64": collections.Counter()}
+    for dtype in ("float32", "bfloat16"):
+        a = got[0]["forward"][dtype]
+        runs = [g["forward"][dtype] for g in got]
+        for run in runs:
+            by_path["tp_forward_openai_64"].update(run["launches"])
+        if any(x["launches"] != expect_fwd or x["sharded_k3"] != n_sharded for x in runs):
+            raise AssertionError(f"[tp] (c) forward {dtype}: launches "
+                                 f"{[(x['launches'], x['sharded_k3']) for x in runs]}, expected "
+                                 f"{expect_fwd} with {n_sharded} K3 calls at 32/tp groups")
+        readings[f"forward_{dtype}"] = {k: a[k] for k in
+                                        ("max_abs", "wall_s", "one_process_wall_s", "collectives")}
+        log(f"[tp] (a) openai_64 forward {dtype}, model batch {TP_FORWARD_BATCH}, two ranks "
+            f"against one process: max abs {a['max_abs']:.6g}"
+            + (f" (gate {MODEL_TOL})" if dtype == "float32" else " (read)")
+            + f"; launches a rank {a['launches']['attention']} K1, {a['launches']['groupnorm']} "
+            f"K3 of which {a['sharded_k3']} at {32 // TP_WORLD} groups")
+        log(f"[tp] (d) forward {dtype} ({smi}): {a['wall_s']:.4f} s on rank 0 with the "
+            f"collectives timed, one process {a['one_process_wall_s']:.4f} s; collectives "
+            f"{_fmt_collectives(a['collectives'])}")
+    for dtype in ("float32", "bfloat16"):
+        t = got[0]["train"][dtype]
+        w = t["worst"]
+        runs = [g["train"][dtype] for g in got]
+        for run in runs:
+            by_path["tp_train_openai_64"].update(run["launches"])
+        first = [run["first_replicated_grads"] for run in runs]
+        apart = sorted(k for k in first[0] if first[0][k] != first[1][k])
+        log(f"[tp] (b) {dtype}: before the model-group mean of the first step, {len(apart)} of "
+            f"{len(first[0])} replicated gradients differ between the ranks bit for bit "
+            f"{apart[:8]}")
+        digests = [run["replicated_digests"] for run in runs]
+        differ = sorted(k for k in digests[0] if digests[0][k] != digests[1][k])
+        readings[f"train_{dtype}"] = {k: t[k] for k in (
+            "worst", "losses", "step_s", "one_process_step_s", "reduce_s", "timed_step_s",
+            "collectives", "traced_step")}
+        log(f"[tp] (b) openai_64 {dtype}, remat, dropout 0, batch {TRAIN_BATCH}, "
+            f"{TP_TRAIN_STEPS} steps, two ranks against one process: worst loss "
+            f"{w['loss']:.3g}, grad norm {w['grad_norm']:.3g} (relative), gradient "
+            f"{w['grad']:.3g} of its largest element ({w['grad_name']}); "
+            + (f"gated at LOSS_TOL {LOSS_TOL}, GRAD_TOL {GRAD_TOL}" if dtype == "float32"
+               else "read") + f"; losses {[round(x, 5) for x in t['losses']]}; replicated "
+            f"parameters and EMA differing between the ranks: {len(differ)}; launches a rank "
+            f"{[run['launches'] for run in runs]} (expected {t['expect']}), K3 at "
+            f"{32 // TP_WORLD} groups {t['sharded_k3']} (expected {t['sharded_k3_expect']})")
+        if differ:
+            raise AssertionError(f"[tp] (b) {dtype}: {len(differ)} replicated parameters and EMA "
+                                 f"differ between the ranks: {differ[:8]}")
+        if len({tuple(run["losses"]) for run in runs}) != 1:
+            raise AssertionError(f"[tp] (b) {dtype}: the ranks saw different losses")
+        tr = t["traced_step"]
+        log(f"[tp] (d) step {dtype} ({smi}): rank 0 {[round(x, 4) for x in t['step_s']]} s, one "
+            f"process on the same card {[round(x, 4) for x in t['one_process_step_s']]} s; the "
+            f"trainer's reduce (the replicated gradients' model-group mean) "
+            f"{[round(x, 4) for x in t['reduce_s'][:TP_TRAIN_STEPS]]} s; "
+            f"with the collectives timed {t['timed_step_s']:.4f} s: "
+            f"{_fmt_collectives(t['collectives'])}; traced step: wall {tr['wall_s']:.4f} s, "
+            f"rank 0's device busy {tr['busy_s']:.4f} s, idle share "
+            + (f"{tr['idle_share']:.4f}" if tr["idle_share"] is not None else "not measured"))
+    ck = got[0]["train"]["float32"]["checkpoint"]
+    log(f"[tp] (b) checkpoint at step {ck['step']}: {ck['tensors']} tensors gathered whole to "
+        f"rank 0, loaded strict into one process, equal to the gathered state")
+    return {k: dict(v) for k, v in by_path.items()}, readings
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -3995,9 +4440,11 @@ def main():
 
     sr256 = SuperResolutionModel(**sr_config(), kernels=False, device=dev).eval()
     randomize(sr256, SEED + 4)
+    tp_calls = tp_path_calls(reference, dev)
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev),
-             "sr256": main_path_calls(sr256, dev), "serve64": calls, "dp_train": calls}
+             "sr256": main_path_calls(sr256, dev), "serve64": calls, "dp_train": calls,
+             "tp": tp_calls, "tp_train": tp_calls}
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
@@ -4063,6 +4510,10 @@ def main():
         by_path.update(dp_paths)
         log(f"[dp] readings {json.dumps(dp_readings)}")
         phase_done("[dp]")
+        tp_paths, tp_readings = phase_tp(dev, workdir, smi, sum(tp_calls.values()))
+        by_path.update(tp_paths)
+        log(f"[tp] readings {json.dumps(tp_readings)}")
+        phase_done("[tp]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -4104,7 +4555,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
               tallies["groupnorm", "forward"], forward,
-              {w: tallies["groupnorm", w] for w in forward_others},
+              {w: tallies["groupnorm", w] for w in (*forward_others, "tp")},
               {"bfloat16": "CUDA cores; thread-block clusters, the tile in shared memory",
                "float32": "the same kernel in f32"}, **k3_gates),
         # the backward of K3's custom VJP (a jnp recompute under jax.vjp in the
@@ -4115,7 +4566,7 @@ def main():
               k3b_errs[torch.float32], k3b_errs[torch.bfloat16], k3b_tallies["train"],
               f"sum over one openai_64 training step's GroupNorm backwards, bf16, batch "
               f"{TRAIN_BATCH}, the forward's mean and rstd handed over",
-              {w: k3b_tallies[w] for w in ("cls128", "dp_train")},
+              {w: k3b_tallies[w] for w in ("cls128", "dp_train", "tp_train")},
               {"bfloat16": "CUDA cores; thread-block clusters, x and dy in shared memory",
                "float32": "the same kernel in f32"}, **k3b_gates),
         # no model calls K5: its launches are phase_mha_direct's direct calls

@@ -50,6 +50,22 @@ its input; after ``model.freeze_int8(calib)`` the static path (its
 the int8 conv kernel; otherwise the dynamic path (ops/quant.py). Winograd is
 an ablation the port leaves out. ``device=None`` means the CUDA card
 (utils/device.py); the CPU has to be asked for.
+
+Tensor parallelism (``shard_module_(model, mesh)`` or ``model.shard_(mesh)``,
+with a mesh of parallel/mesh.py ``make_mesh(num_data, num_model)``): the
+parameters are cut in place to the rank's shards by the Megatron-paired
+table of parallel/sharding.py, and each block runs the collectives of
+parallel/tensor.py over the model group. A paired ResidualBlock: ``in_norm``
+(K3, 32 groups) on the replicated input, the column-parallel ``in_conv``,
+the AdaGN ``out_norm`` (K3 at ``32 // tp`` groups on the rank's channels,
+its scale and shift the rank's slice of the replicated step embedding),
+dropout drawn at the whole channel count and sliced, the row-parallel
+``out_conv``, one all-reduce, its bias, the skip. An AttentionBlock: the
+column-parallel ``qkv_nin``, a gather of the (B, N, 3C) activation, K1 on
+every head, the row-parallel ``proj_out``, one all-reduce. The timestep
+MLP's Linear layers are column-parallel, each followed by a gather. A block
+whose dimensions the table leaves replicated runs as without a mesh.
+Construction and parameter names do not change.
 """
 
 from __future__ import annotations
@@ -76,9 +92,11 @@ from ..ops.quant import (
     static_quant_triple,
 )
 from ..ops.resize import avg_pool_2x, resize_bilinear, upsample_nearest_2x
+from ..parallel.sharding import shard_params, shard_tensor, unet_param_shard_dims
+from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model, scatter_to_model
 from ..utils.device import resolve_device
 
-__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense"]
+__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense", "shard_module_"]
 
 
 class Conv2d(nn.Module):
@@ -96,11 +114,11 @@ class Conv2d(nn.Module):
         else:
             nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_ch * k * k))
 
-    def forward(self, x):
+    def forward(self, x, add_bias: bool = True):
         dt = self.dtype or x.dtype
         y = F.conv2d(
-            x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), self.bias.to(dt),
-            stride=self.stride, padding=self.padding,
+            x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
+            self.bias.to(dt) if add_bias else None, stride=self.stride, padding=self.padding,
         )
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -121,10 +139,10 @@ class Linear(nn.Module):
         else:
             nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_features))
 
-    def forward(self, x):
+    def forward(self, x, add_bias: bool = True):
         dt = self.dtype or x.dtype
         w = self.weight if self.weight.ndim == 2 else self.weight[:, :, 0]
-        return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), w.to(dt), self.bias.to(dt) if add_bias else None)
 
 
 class _Int8State:
@@ -271,6 +289,8 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.upsample, self.downsample = upsample, downsample
         self.use_adaptive_gn, self.dropout = use_adaptive_gn, dropout
+        self.out_channels = out_ch
+        self.tp = None  # the mesh, once shard_module_ pairs the block
         conv = functools.partial(_conv, dtype=dtype, device=device, quantized=quantized,
                                  kernels=kernels)
         self.in_norm = GroupNormOp(in_ch, "silu", kernels=kernels, device=device)
@@ -285,26 +305,36 @@ class ResidualBlock(nn.Module):
         self.skip = None if out_ch == in_ch else conv(in_ch, out_ch, 1)
 
     def forward(self, x, emb, generator=None):
+        tp = self.tp
         h = self.in_norm(x)
         if self.upsample:
             h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
         elif self.downsample:
             h, x = avg_pool_2x(h), avg_pool_2x(x)
-        h = self.in_conv(h)
+        h = self.in_conv(copy_to_model(h, tp))
 
         emb = self.step_embedding(F.silu(emb))
         if self.use_adaptive_gn:
-            emb_scale, emb_shift = emb.chunk(2, dim=-1)
-            h = self.out_norm(h, emb_scale, emb_shift)
+            # (B, 2, C): the rank's channels of the scale half and the shift half
+            emb = scatter_to_model(emb.unflatten(-1, (2, -1)), tp)
+            h = self.out_norm(h, emb[:, 0], emb[:, 1])
         else:
+            emb = scatter_to_model(emb, tp)
             h = self.out_norm(h + emb[:, None, None, :].to(h.dtype))
 
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("dropout in train() mode needs the caller's torch.Generator")
-            keep = torch.rand(h.shape, generator=generator, device=h.device) >= self.dropout
+            # drawn at the whole channel count, the rank's channels kept
+            keep = torch.rand((*h.shape[:-1], self.out_channels), generator=generator,
+                              device=h.device) >= self.dropout
+            keep = shard_tensor(keep, -1 if tp else None, tp)
             h = h * keep / (1.0 - self.dropout)
-        h = self.out_conv(h)
+        if tp is None:
+            h = self.out_conv(h)
+        else:
+            h = reduce_from_model(self.out_conv(h, add_bias=False), tp)
+            h = h + self.out_conv.bias.to(h.dtype)
         return h + (x if self.skip is None else self.skip(x))
 
 
@@ -327,6 +357,8 @@ class AttentionBlock(nn.Module):
                 )
             self.heads = channels // num_head_channels
         self.split_qkv_first, self.kernels = split_qkv_first, kernels
+        # set by shard_module_: the mesh, and which projections are sharded
+        self.tp, self.tp_qkv, self.tp_proj = None, False, False
         self.norm = GroupNormOp(channels, "plain", kernels=kernels, device=device)
         dense = functools.partial(Int8Dense, kernels=kernels) if quantized else Linear
         self.qkv_nin = dense(channels, 3 * channels, conv1d_weight=True,
@@ -336,9 +368,18 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         b, hh, ww, c = x.shape
-        qkv = self.qkv_nin(self.norm(x).reshape(b, hh * ww, c))
+        h = self.norm(x).reshape(b, hh * ww, c)
+        if self.tp_qkv:  # column-parallel, then the (B, N, 3C) activation gathered
+            qkv = gather_from_model(self.qkv_nin(copy_to_model(h, self.tp)), self.tp)
+        else:
+            qkv = self.qkv_nin(h)
         h = qkv_attention(qkv, self.heads, self.split_qkv_first, kernels=self.kernels)
-        return x + self.proj_out(h).reshape(b, hh, ww, c)
+        if self.tp_proj:  # row-parallel on the rank's channels, one all-reduce
+            h = self.proj_out(scatter_to_model(h, self.tp), add_bias=False)
+            h = reduce_from_model(h, self.tp) + self.proj_out.bias.to(h.dtype)
+        else:
+            h = self.proj_out(h)
+        return x + h.reshape(b, hh, ww, c)
 
 
 def _replay_generator(generator):
@@ -396,6 +437,16 @@ class EmbedMLP(nn.Sequential):
             nn.SiLU(),
             Linear(features, features, dtype=dtype, device=device),
         )
+        self.tp, self.tp_layers = None, ()  # set by shard_module_
+
+    def forward(self, x):
+        for i, layer in enumerate(self):
+            if i in self.tp_layers:  # column-parallel, gathered, then the bias
+                x = gather_from_model(layer(copy_to_model(x, self.tp), add_bias=False), self.tp)
+                x = x + layer.bias.to(x.dtype)
+            else:
+                x = layer(x)
+        return x
 
 
 class OutHead(nn.Sequential):
@@ -523,6 +574,11 @@ class DiffusionModel(nn.Module):
     def conditional(self) -> bool:
         return self.num_classes is not None
 
+    def shard_(self, mesh):
+        """Tensor parallelism over ``mesh``'s model axis: see
+        :func:`shard_module_`. Returns the model."""
+        return shard_module_(self, mesh)
+
     # ---- static int8 (JAX ops/quant.py's calibrate -> freeze -> serve) ----
 
     def int8_layers(self) -> dict[str, nn.Module]:
@@ -613,6 +669,42 @@ class DiffusionModel(nn.Module):
         emb = self.embed(timestep, y)
         h, xs = self.encode(x, emb, generator)
         return self.decode(h, xs, emb, generator)
+
+
+def shard_module_(model: nn.Module, mesh) -> nn.Module:
+    """Cut ``model``'s parameters in place to this rank's shards over
+    ``mesh``'s model axis (parallel/sharding.py's table over its full
+    shapes) and set the blocks the table pairs to run tensor-parallel; keep
+    the table as ``model.tp_dims`` and the mesh as ``model.tp_mesh``. Every
+    rank of the model group starts from the same whole weights (the
+    parameter objects stay, so make an optimizer afterwards). A model axis
+    of one changes nothing. Raises ValueError for a quantized model: no
+    entry point combines int8 with a model axis."""
+    tp = mesh.num_model
+    model.tp_mesh, model.tp_dims = mesh, unet_param_shard_dims(model, tp)
+    if tp == 1:
+        return model
+    if any(isinstance(m, _Int8State) for m in model.modules()):
+        raise ValueError("quantized=True with tensor parallelism (a model axis of "
+                         f"{tp}): static int8 runs unsharded")
+    dims = model.tp_dims
+    local = shard_params({n: p.data for n, p in model.named_parameters()}, mesh, dims)
+    for name, p in model.named_parameters():
+        p.data = local[name]
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, ResidualBlock) and dims[pre + "in_conv.weight"] == 0:
+            m.tp = mesh  # the table shards out_norm and out_conv with it
+            m.out_norm.num_groups //= tp
+        elif isinstance(m, AttentionBlock):
+            m.tp = mesh
+            m.tp_qkv = dims[pre + "qkv_nin.weight"] == 0
+            m.tp_proj = dims[pre + "proj_out.weight"] == 1
+        elif isinstance(m, EmbedMLP):
+            m.tp = mesh
+            m.tp_layers = tuple(i for i, layer in enumerate(m) if isinstance(layer, Linear)
+                                and dims[f"{pre}{i}.weight"] == 0)
+    return model
 
 
 class SuperResolutionModel(DiffusionModel):

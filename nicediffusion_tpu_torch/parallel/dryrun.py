@@ -1,12 +1,15 @@
-"""Data-parallel dry run over several CPU processes, and the launcher it uses.
+"""Multi-process dry run over several CPU processes, and the launcher it uses.
 
 :func:`dryrun_multigpu` is the port's counterpart of the JAX package's
 ``__graft_entry__.py::dryrun_multichip``: it starts ``n`` processes on the
-CPU, joined by gloo through a ``file://`` rendezvous, and prints the three
-data-parallel lines that dry run prints: one data-parallel training step,
-the data-parallel sampling chain and the sharded serving daemon, each held
-to the same work done by one process (the tensor-parallel lines wait for
-the port's tensor parallelism).
+CPU, joined by gloo through a ``file://`` rendezvous, and prints the lines
+that dry run prints: one data-parallel training step, the data-parallel
+sampling chain and the sharded serving daemon, each held to the same work
+done by one process; then, for an even ``n`` of at least 4 (as in the JAX
+dry run), on a mesh of dp = n/2 x tp = 2 (tensor parallelism over a model
+axis of two), a forward held to one process and one training step with
+the sharding of the ``in_conv`` weight, its EMA and its AdamW moments
+asserted.
 
 :func:`spawn_ranks` starts the processes: each runs
 ``python -m nicediffusion_tpu_torch.parallel.dryrun``, which joins the group
@@ -119,6 +122,20 @@ def _tiny_model():
     return DiffusionModel(**TINY_MODEL, device="cpu")
 
 
+def _randomized(model, seed: int):
+    """``model`` with every parameter drawn from a generator seeded by
+    ``seed`` (fan-in scaled; the zero-initialised output convs too, so a
+    forward has something to compare)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            fan = p[0].numel() if p.ndim > 1 else 25
+            p.copy_(torch.randn(p.shape, generator=g) / fan ** 0.5)
+    return model
+
+
 def _max_diff(a, b) -> float:
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
@@ -185,24 +202,78 @@ def _dryrun_rank() -> list[str]:
     svc = SamplerService(serve_diff, cfg, device="cpu", distributed=True)
     if r:
         svc.follow()
-        return lines
-    labels = [i % 4 for i in range(n)]
-    with svc:
-        images = svc.sample(labels=labels, seed=0, timeout=600)
-    with SamplerService(serve_diff, cfg, device="cpu") as alone:
-        ref = alone.sample(labels=labels, seed=0, timeout=600)
-    err = float(abs(images - ref).max())
-    if images.shape != (n, 8, 8, 1) or not np.isfinite(images).all() or err > 1e-5:
-        raise AssertionError(f"sharded daemon: {images.shape}, max abs {err} off one process")
-    lines.append(f"dryrun_multigpu({n}): sharded serving daemon OK (serve batch {n} over "
-                 f"{n} processes, within {err:.1e} of one process)")
+    else:
+        labels = [i % 4 for i in range(n)]
+        with svc:
+            images = svc.sample(labels=labels, seed=0, timeout=600)
+        with SamplerService(serve_diff, cfg, device="cpu") as alone:
+            ref = alone.sample(labels=labels, seed=0, timeout=600)
+        err = float(abs(images - ref).max())
+        if images.shape != (n, 8, 8, 1) or not np.isfinite(images).all() or err > 1e-5:
+            raise AssertionError(f"sharded daemon: {images.shape}, max abs {err} off one process")
+        lines.append(f"dryrun_multigpu({n}): sharded serving daemon OK (serve batch {n} over "
+                     f"{n} processes, within {err:.1e} of one process)")
+    if n >= 4 and n % 2 == 0:  # as the JAX dry run
+        lines += _tensor_parallel_lines(r, n, draws, trainer)
+    return lines
+
+
+def _tensor_parallel_lines(r, n, draws, one_process) -> list[str]:
+    """The dp = n/2 x tp = 2 forward and training step of the dry run."""
+    import numpy as np
+    import torch
+
+    from ..training.trainer import Trainer
+    from .mesh import make_mesh, shard_rows
+
+    mesh = make_mesh(n // 2, 2)
+    d, nd = mesh.data_rank, mesh.num_data
+    lines = []
+    model = _randomized(_tiny_model(), 3).eval()
+    whole = _randomized(_tiny_model(), 3).eval()
+    model.shard_(mesh)
+    g = np.random.default_rng(5)
+    x = torch.from_numpy(g.normal(size=(n, 8, 8, 1)).astype(np.float32))
+    t, y = torch.arange(n) * 7 % 50, torch.arange(n) % 4
+    rows = [shard_rows(v, d, nd) for v in (x, t, y)]
+    with torch.no_grad():
+        out, ref = model(*rows), whole(*rows)
+    err = (out - ref).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= 1e-5):
+        raise AssertionError(f"dp x tp forward: max abs {err} off one process")
+    if r == 0:
+        lines.append(f"dryrun_multigpu({n}): dp={nd} x tp=2 forward OK (within {err:.1e} of "
+                     f"one process)")
+
+    tp = Trainer(_tiny_model(), DIFF_ARGS, iter(()), iterations=0, batch_size=len(draws["t"]),
+                 lr=1e-3, weight_decay=1e-4, device="cpu", mesh=mesh)
+    m = tp.train_step(**{k: shard_rows(torch.from_numpy(np.asarray(v)), d, nd)
+                         for k, v in draws.items()})
+    name = "downsampling.1.0.in_conv.weight"
+    full = dict(whole.named_parameters())[name].shape
+    shard = (full[0] // 2, *full[1:])
+    ema = dict(tp.ema_model.named_parameters())[name]
+    param = dict(tp.model.named_parameters())[name]
+    moments = tp.optimizer.state[param]
+    got = [tuple(t.shape) for t in (param, ema, moments["exp_avg"], moments["exp_avg_sq"])]
+    if got != [shard] * 4:
+        raise AssertionError(f"dp x tp step: {name} of shapes {got}, its shard is {shard}")
+    if r == 0:
+        m1 = one_process(False).train_step(**draws)
+        dloss = abs(m["loss"].item() - m1["loss"].item())
+        if not (np.isfinite(m["loss"].item()) and dloss <= 1e-5 * abs(m1["loss"].item())):
+            raise AssertionError(f"dp x tp step: loss {dloss} off one process")
+        lines.append(f"dryrun_multigpu({n}): dp={nd} x tp=2 TRAIN step OK, "
+                     f"loss={m['loss'].item():.4f} ({name}, its EMA and AdamW moments sharded "
+                     f"{tuple(full)} -> {shard})")
     return lines
 
 
 def dryrun_multigpu(n: int = 2, timeout_s: float = 300.0) -> list[str]:
-    """Run the data-parallel dry run on ``n`` CPU processes and print its
-    three lines (see the module docstring); returns them. Raises if a rank
-    fails, disagrees with one process or outlasts ``timeout_s``."""
+    """Run the dry run on ``n`` CPU processes and print its lines, three
+    data-parallel ones and, for an even ``n`` of at least 4, two
+    tensor-parallel ones (see the module docstring); returns them. Raises
+    if a rank fails, disagrees with one process or outlasts ``timeout_s``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # the CPU, whatever the machine has
     lines = spawn_ranks(f"{__name__}:_dryrun_rank", n, timeout_s=timeout_s, env=env)[0]
     for line in lines:

@@ -56,6 +56,35 @@ Data parallelism (``distributed=True``, the counterpart of the JAX
     every rank; ``resume_step="auto"`` takes rank 0's newest step.
   * ``sample()`` runs sharded over the ranks (``Diffusion.denoise``'s row
     shard) from rank 0's generator state and gathers the images to rank 0.
+
+Tensor parallelism (``mesh=make_mesh(num_data, num_model)`` with
+``num_model > 1``, the counterpart of the JAX ``Trainer(mesh=)`` with a
+'model' axis; ``distributed=True`` is ``mesh=make_mesh(world, 1)``):
+  * the model is broadcast whole from rank 0, then sharded by the
+    Megatron-paired table (models/unet.py ``shard_module_``); parameters,
+    EMA and AdamW's moments are the rank's shards (the moments are
+    elementwise, so the placement is exact);
+  * everything data-parallel above goes by the **data coordinate**, not the
+    global rank: the rows (``batch_size // num_data`` a rank; model peers
+    feed the same rows, so a loader is seeded by the data coordinate), the
+    draws (model peers draw the same t, drops, noise and dropout masks), the
+    gradient mean (over the data group only) and the sample's row shard;
+  * a replicated parameter's gradient is the same on model peers by
+    construction (parallel/tensor.py), up to the card's kernels that are not
+    bit-reproducible (a weight gradient summed with atomics): so the
+    replicated gradients are also averaged over the model group, and model
+    peers keep the same replicated parameters bit for bit (at ``openai_64``,
+    37.8M of the 295.9M parameters); ``grad_norm`` sums the squares of the
+    sharded gradients over the model group and counts the replicated ones
+    once: the unsharded norm;
+  * ``save`` gathers a full checkpoint to rank 0 (model, EMA, AdamW's
+    moments, pending accumulated gradients, step): a one-process Trainer
+    restores it, and the JAX package's export reads its model; ``restore``
+    reads a full checkpoint and keeps the rank's slices, each checked
+    against its parameter's shape;
+  * ``sample()`` runs the chain on every model peer with the sharded EMA
+    model and the same draws; the data group shards the rows and rank 0
+    writes.
 """
 
 from __future__ import annotations
@@ -71,7 +100,15 @@ import torch
 import torch.distributed as dist
 
 from ..diffusion.process import Diffusion
-from ..parallel.mesh import all_reduce_mean_, broadcast_module_, gather_rows, shard_rows
+from ..models.unet import shard_module_
+from ..parallel.mesh import (
+    all_reduce_mean_,
+    broadcast_module_,
+    gather_rows,
+    make_mesh,
+    shard_rows,
+)
+from ..parallel.sharding import gather_tensor, shard_tensor
 from ..utils.device import resolve_device
 
 __all__ = ["Trainer"]
@@ -105,21 +142,28 @@ class Trainer:
         sample_callback: Callable | None = None,
         device: torch.device | str | None = None,
         distributed: bool = False,
+        mesh=None,
     ):
         if device is None:
             device = next(model.parameters()).device
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.distributed = distributed
+        self.distributed = distributed or mesh is not None
         self.rank, self.world = 0, 1
-        if distributed:
+        if self.distributed:
             if not dist.is_initialized():
-                raise RuntimeError("distributed=True needs a process group: call "
+                raise RuntimeError("distributed=True or a mesh needs a process group: call "
                                    "parallel.maybe_initialize_distributed() first")
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
-            if batch_size % self.world:
-                raise ValueError(f"global batch {batch_size} must divide process count "
-                                 f"{self.world}")
+            if mesh is None:
+                mesh = make_mesh(self.world, 1)
+        self.mesh = mesh
+        # the data coordinate and the data axis's size: what rows and draws go by
+        self.data_rank, self.num_data = (mesh.data_rank, mesh.num_data) if mesh else (0, 1)
+        self.tp = mesh if mesh is not None and mesh.num_model > 1 else None
+        if batch_size % self.num_data:
+            raise ValueError(f"global batch {batch_size} must divide the data axis "
+                             f"{self.num_data}")
         self.loader = dataloader
         self.iterations = iterations
         self.batch_size = batch_size
@@ -137,8 +181,13 @@ class Trainer:
             self.model.load_state_dict(init_params, strict=True)
         if self.world > 1:
             broadcast_module_(self.model)  # rank 0's weights on every rank
+        self._dims = {}  # parameter name -> its sharded dimension (None: replicated)
+        if self.tp is not None:
+            shard_module_(self.model, self.tp)
+            self._dims = self.model.tp_dims
         # copy, not alias (reference trainer.py:55 aliases)
         self.ema_model = copy.deepcopy(self.model).eval().requires_grad_(False)
+        self._names = [n for n, _ in self.model.named_parameters()]
         self._params = list(self.model.parameters())
         self._ema_params = list(self.ema_model.parameters())
 
@@ -165,10 +214,10 @@ class Trainer:
         )
         # mean of the micro-batch gradients since the last optimizer step
         self._grad_accum: list[torch.Tensor] | None = None
-        # rank 0 keeps the seed; the other ranks draw their own t, drops,
-        # noise and dropout masks
-        if self.rank:
-            seed = int(np.random.SeedSequence([seed, self.rank]).generate_state(1)[0])
+        # data coordinate 0 keeps the seed; the others draw their own t,
+        # drops, noise and dropout masks (model peers draw the same)
+        if self.data_rank:
+            seed = int(np.random.SeedSequence([seed, self.data_rank]).generate_state(1)[0])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
 
@@ -194,7 +243,7 @@ class Trainer:
         update, and the EMA update. ``t`` (B,), ``noise`` (like batch) and
         ``drop`` (B,) bool may be injected; else they are drawn from the
         trainer's generator. Data-parallel, ``batch``, ``labels`` and the
-        injected draws are this rank's rows. Returns ``{"loss",
+        injected draws are this data coordinate's rows. Returns ``{"loss",
         "grad_norm"}`` (of the global batch) as scalars on the device."""
         x0 = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         b = x0.shape[0]
@@ -220,7 +269,7 @@ class Trainer:
         loss = diffusion.loss(x0, t, generator=self.generator, y=y, noise=noise).mean()
         grads = torch.autograd.grad(loss, self._params)
         grads, loss = self._reduce(grads, loss.detach())
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grad_norm = self._grad_norm(grads)
 
         k = self.grad_accumulation
         if k > 1:
@@ -246,12 +295,33 @@ class Trainer:
         return {"loss": loss, "grad_norm": grad_norm}
 
     def _reduce(self, grads, loss):
-        """This micro-batch's gradients and loss averaged over the ranks, in
-        place, in flat buckets (data-parallel; in a group of one the
-        collective runs and changes nothing)."""
-        if self.distributed:
-            all_reduce_mean_([*grads, loss])
+        """This micro-batch's gradients and loss averaged over the data
+        group, in place, in flat buckets (data-parallel; in a group of one
+        the collective runs and changes nothing); tensor-parallel, the
+        replicated gradients then over the model group too."""
+        if self.distributed and self.mesh.data_group is not None:
+            all_reduce_mean_([*grads, loss], group=self.mesh.data_group)
+        if self.tp is not None:
+            all_reduce_mean_([g for n, g in zip(self._names, grads) if self._dims[n] is None],
+                             group=self.mesh.model_group)
         return grads, loss
+
+    def _grad_norm(self, grads):
+        """The global norm of the gradients; under tensor parallelism the
+        sharded ones' squares summed over the model group, the replicated
+        ones counted once."""
+        def squares(gs):
+            if not gs:
+                return torch.zeros((), device=self.device)
+            return torch.stack(torch._foreach_norm(gs)).square().sum()
+
+        if self.tp is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        sharded = [g for n, g in zip(self._names, grads) if self._dims[n] is not None]
+        replicated = [g for n, g in zip(self._names, grads) if self._dims[n] is None]
+        total = squares(sharded)
+        dist.all_reduce(total, group=self.mesh.model_group)
+        return (total + squares(replicated)).sqrt()
 
     # ------------------------------------------------------------------
 
@@ -302,7 +372,8 @@ class Trainer:
 
                 # periodic sample/save skip step 0; None or 0 mean "never"
                 if self.sample_every and step > 0 and step % self.sample_every == 0:
-                    self.sample(-(-4 // self.world) * self.world)  # 4, or a multiple of world
+                    # 4, or a multiple of the data axis
+                    self.sample(-(-4 // self.num_data) * self.num_data)
                 if self.save_every and step > 0 and step % self.save_every == 0:
                     self.save(start_step + step)
 
@@ -319,11 +390,12 @@ class Trainer:
         a ``sample_callback(images, labels)`` (e.g. save-to-png) replaces the
         reference's blocking matplotlib display.
 
-        Data-parallel, every rank calls it: each denoises its rows of the
-        ``num_samples`` (which the world size must divide) from rank 0's
-        generator state, the images are gathered to rank 0, which advances
-        its generator as a single process would, calls the callback and
-        returns them; the other ranks return None."""
+        Data-parallel, every rank calls it: each denoises its data
+        coordinate's rows of the ``num_samples`` (which the data axis must
+        divide) from rank 0's generator state (model peers the same rows,
+        with their shards of the EMA model), the images are gathered to rank
+        0, which advances its generator as a single process would, calls the
+        callback and returns them; the other ranks return None."""
         generator = self.generator
         if self.world > 1:
             state = [self.generator.get_state() if self.rank == 0 else None]
@@ -334,12 +406,15 @@ class Trainer:
         if self.model.conditional:
             y = torch.randint(0, self.model.num_classes, (num_samples,),
                               generator=generator, device=self.device)
-        row_shard = (self.rank, self.world) if self.world > 1 else None
+        d, n = self.data_rank, self.num_data
         out = self.sampling_diffusion.denoise(
-            generator, y=None if y is None else shard_rows(y, self.rank, self.world),
-            batch_size=num_samples, row_shard=row_shard)
+            generator, y=None if y is None else shard_rows(y, d, n),
+            batch_size=num_samples, row_shard=(d, n) if n > 1 else None)
         out = ((out + 1) * 127.5).clamp(0, 255).to(torch.uint8)
-        out = gather_rows(out) if self.world > 1 else out.cpu()
+        if n == 1:
+            out = out.cpu()
+        elif self.mesh.model_rank == 0:  # the data group that holds rank 0
+            out = gather_rows(out, group=self.mesh.data_group)
         if self.rank:
             return None
         if generator is not self.generator:
@@ -371,30 +446,64 @@ class Trainer:
         .pt files, trainer.py:136-141). The file is written beside its final
         name and renamed, so a reader never sees half a checkpoint.
         Data-parallel, rank 0 writes (every rank holds the same state) and
-        every rank waits for it at a barrier."""
+        every rank waits for it at a barrier. Tensor-parallel, rank 0's
+        model group first gathers the whole state, so the file is what one
+        process would write."""
+        state = None
+        if self.tp is None:
+            state = self._state()
+        elif self.data_rank == 0:  # the model group that holds rank 0
+            state = self._each_tensor(self._state(), lambda t, d: gather_tensor(t, d, self.tp))
         if self.rank == 0:
             path = self._ckpt_path(step)
             os.makedirs(os.path.dirname(path), exist_ok=True)
-            torch.save({
-                "step": self.step,
-                "model": self.model.state_dict(),
-                "ema": self.ema_model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "grad_accum": self._grad_accum,
-            }, path + ".tmp")
+            torch.save(state, path + ".tmp")
             os.replace(path + ".tmp", path)
             print("Saved checkpoint!")
         if self.world > 1:
             dist.barrier()
 
+    def _state(self) -> dict:
+        """{step, model, ema, optimizer, grad_accum}: what ``save`` writes."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "ema": self.ema_model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "grad_accum": self._grad_accum}
+
+    def _each_tensor(self, state: dict, fn) -> dict:
+        """``state`` (as ``_state`` gives it) with ``fn(tensor, dim)`` in
+        place of every tensor of one parameter's shape: the model's and the
+        EMA's by name, AdamW's moments and the accumulated gradients by
+        position; ``dim`` is the parameter's sharded dimension or None."""
+        names, dims = self._names, self._dims
+
+        def by_name(sd):
+            return {n: fn(v, dims.get(n)) for n, v in sd.items()}
+
+        adamw = {i: {k: v if k == "step" else fn(v, dims[names[int(i)]]) for k, v in s.items()}
+                 for i, s in state["optimizer"]["state"].items()}
+        accum = state["grad_accum"]
+        if accum is not None:
+            accum = [fn(a, dims[n]) for n, a in zip(names, accum)]
+        return dict(state, model=by_name(state["model"]), ema=by_name(state["ema"]),
+                    optimizer=dict(state["optimizer"], state=adamw), grad_accum=accum)
+
     def restore(self, step: int) -> int:
         """Load a checkpoint written by save() into the model, the EMA, the
         optimizer and the step count (reference trainer.py:45-52); returns
-        the restored step count."""
+        the restored step count. Tensor-parallel, each whole tensor of the
+        checkpoint is cut to this rank's slice by the table."""
         state = torch.load(self._ckpt_path(step), map_location=self.device, weights_only=True)
-        self.load_train_state(state["model"], state["ema"], state["optimizer"]["state"],
-                              state["step"])
-        self._grad_accum = state["grad_accum"]
+        if self.tp is not None:
+            state = self._each_tensor(state, lambda t, d: shard_tensor(t, d, self.tp))
+        model, ema, adamw, accum = (state["model"], state["ema"], state["optimizer"]["state"],
+                                    state["grad_accum"])
+        self.load_train_state(model, ema, adamw, state["step"])
+        if accum is not None:
+            for n, p, a in zip(self._names, self._params, accum):
+                if a.shape != p.shape:
+                    raise ValueError(f"checkpoint's accumulated gradient of {n} has shape "
+                                     f"{tuple(a.shape)}, the parameter {tuple(p.shape)}")
+        self._grad_accum = accum
         return self.step
 
     def load_train_state(self, model_state, ema_state, adamw_state, step: int):
@@ -412,7 +521,12 @@ class Trainer:
         self.model.load_state_dict(tensors(model_state), strict=True)
         self.ema_model.load_state_dict(tensors(ema_state), strict=True)
         state = {i: tensors(s) for i, s in adamw_state.items()}
-        for s in state.values():
+        for i, s in state.items():
+            shape = self._params[int(i)].shape
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in s and s[k].shape != shape:
+                    raise ValueError(f"AdamW's {k} of {self._names[int(i)]} has shape "
+                                     f"{tuple(s[k].shape)}, the parameter {tuple(shape)}")
             # AdamW reads its step count on the host at every update; a count
             # on the card would make each parameter's update wait for it
             s["step"] = s["step"].cpu()

@@ -565,6 +565,37 @@ def test_k3_at_the_data_parallel_batches(cuda, batch, index):
         _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
 
 
+@functools.lru_cache(maxsize=None)
+def _tp_gn_keys():
+    """The ((H, W, C / 2), mode, groups) keys of a tensor-parallel rank's
+    channel-sharded out_norm calls in an ``openai_64`` forward at tp = 2
+    (chip_smoke.tp_path_calls on the meta device)."""
+    from chip_smoke import model_config, tp_path_calls
+
+    meta = torch.device("meta")
+    model = DiffusionModel(**model_config(), kernels=False, device=meta).eval()
+    return sorted((k[1], k[2], k[3]) for k in tp_path_calls(model, meta, tp=2))
+
+
+@pytest.mark.parametrize("batch", [8, 16])
+@pytest.mark.parametrize("index", range(10))
+def test_k3_at_the_tensor_parallel_shards(cuda, batch, index):
+    """K3 and its backward at a tensor-parallel rank's out_norm shapes
+    (``openai_64``, tp = 2: C / 2 channels in 16 groups) at chip_smoke.py's
+    ``[tp]`` batches, the modulation rows strided views at rank 1's offset
+    into a (B, 2C) step embedding, as the model hands them over."""
+    (h, w, c), mode, groups = _tp_gn_keys()[index]
+    assert groups == 16 and mode == "ada"
+    for dtype in (torch.float32, torch.bfloat16):
+        (x, sc, bi, _, _), cot = _k3_inputs(cuda, dtype, (batch, h, w, c), mode, seed=c + batch)
+        g = torch.Generator(device=cuda).manual_seed(c)
+        emb = (0.1 * torch.randn(batch, 2, 2 * c, generator=g, device=cuda)).to(dtype)[..., c:]
+        args = (x, sc, bi, emb[:, 0], emb[:, 1])
+        assert args[3].stride() == (4 * c, 1) and args[4].storage_offset() == 3 * c
+        mean, rstd = _k3_check_forward(args, dtype, True, groups)
+        _k3_check_backward(args, cot, mean, rstd, dtype, True, groups)
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_re_read_route(cuda, backward, dtype):
