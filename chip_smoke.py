@@ -233,7 +233,28 @@ every hand-written kernel on the way:
      rank's K1, K2, K3 and K3-backward launches held to the structure, the
      K3 calls at 16 groups counted apart; (d) the step's wall and device
      busy time and idle share, and the collectives' calls, bytes and seconds
-     per forward and per step, read.
+     per forward and per step, read;
+ 19. the evaluation tools (``[tools]``), each through its entry point's
+     ``main`` on the card: (a) ``eval_nll`` on a full-width ``openai_64``
+     checkpoint of seeded random weights written as ``64x64_diffusion.pt``
+     (the preset's model: 1000 classes, guidance off), bf16, 2 batches of 8:
+     finite numbers, 25 chain steps, 16 images, 50 forwards' K1 and K3
+     launches; its evaluation again in f32 with injected noise, kernels on
+     against ``kernels=False``, total and prior bits/dim within 1e-3
+     relative; (b) ``verify_checkpoint`` on that file: every executed check
+     passes, 295,904,454 parameters, exit 0, the 2-step smoke sample's
+     launches; the file with one tensor dropped: exit 1, "missing 1"; (c)
+     ``quality_eval`` at its EMNIST harness in bf16 (100 + 20 training
+     steps, 128 images a mode in two chunks, a 50-step chain, modes enc, gi,
+     int8 and their max stack): every mode's line with the JAX tool's keys,
+     finite, exact 0 from itself and every lever above 0, and K1, K2, K3,
+     K3's backward and the int8 conv launched as the UNet's and the
+     classifier's structure gives (training steps, every chain's encoder and
+     decoder calls, the calibration, the classifier's logits). Steps 3, 6,
+     6b and 12a also hold the kernels at the harness's shapes: its UNet at
+     batch 256 in bf16 (and its int8 convs at model batch 256), its
+     classifier at batch 256 in f32, whose GroupNorms hold 1 and 2 channels
+     a group.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -249,6 +270,7 @@ so does a machine without a CUDA card. Imports nothing of JAX.
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -305,6 +327,10 @@ GUIDED_BATCH = 4  # the classifier-guided openai_128 slice, and openai_128 train
 FAST_BATCH = 8  # labels a chain of the fast-sampling slice
 SR_BATCH = 2  # the super-resolution slice: images a chain
 SR_LOW = 64  # its low-res input, upsampled 4x to openai_256's 256
+# tools/quality_eval.py's batch: its training steps (the UNet's and the
+# classifier's), its classifier's logits, and its sampling chunks of 128
+# labels doubled by CFG
+QE_BATCH = 256
 HBM_BYTES_PER_S = 3.35e12
 PROFILER_TRIES = 8  # profiled_ms: tries before a run with no device time fails
 BF16_FLOPS = 989e12
@@ -731,9 +757,36 @@ PATHS = {
     "tp_train": (TRAIN_BATCH, torch.bfloat16,
                  f"the channel-sharded out_norm calls of a tensor-parallel openai_64 training "
                  f"step on one of {TP_WORLD} ranks at batch {TRAIN_BATCH}"),
+    "qe_unet": (QE_BATCH, torch.bfloat16,
+                f"one forward of quality_eval's UNet (EMNIST widths, 28 classes) at batch "
+                f"{QE_BATCH}: a training step's, or a sampling step's at model batch {QE_BATCH} "
+                f"under CFG"),
+    "qe_cls": (QE_BATCH, torch.float32,
+               f"one forward of quality_eval's classifier (f32; 32 and 64 channels in 32 "
+               f"groups) at batch {QE_BATCH}"),
+    "qe_int8": (QE_BATCH, torch.bfloat16,
+                f"one int8 forward of quality_eval's UNet at model batch {QE_BATCH} (int8 "
+                f"convs only)"),
+    "verify64": (1, torch.float32,
+                 "one openai_64 forward of verify_checkpoint's 2-step smoke sample at batch 1 "
+                 "(guidance off)"),
+    "qe_calib": (16, torch.bfloat16,
+                 "one forward of quality_eval's UNet in its int8 calibration (8 labels under "
+                 "CFG: model batch 16)"),
+    "qe_gi": (QE_BATCH // 2, torch.bfloat16,
+              f"one forward of quality_eval's UNet outside the guidance interval (a chunk of "
+              f"{QE_BATCH // 2} labels, unguided)"),
+    "qe_int8_gi": (QE_BATCH // 2, torch.bfloat16,
+                   f"one int8 forward of quality_eval's UNet outside the guidance interval of "
+                   f"its max stack at model batch {QE_BATCH // 2} (int8 convs only)"),
 }
+# paths held against the plain version at their shapes and batch, not timed:
+# the batches the tools give a model beside those of the timed paths (K3 and
+# the int8 conv plan their tiles from the batch)
+CHECKED_PATHS = ("verify64", "qe_calib", "qe_gi", "qe_int8_gi")
 GUIDED_PATHS = ("unet128", "cls128")
-K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train")  # unet128: openai_128 training
+# unet128: openai_128 training
+K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train", "qe_unet", "qe_cls")
 
 
 def rate(key, b, ms, bound):
@@ -771,8 +824,10 @@ def phase_kernels(dev, paths):
     training at batch 8; the entry point's EMNIST recipe at batch 468, whose
     N = 49 and 196 and 7x7 maps are ragged for the tiles; ``openai_128`` and
     its classifier at batch 4; the serving daemon at model batch 128; one
-    rank's rows of a data-parallel ``openai_64`` training step, 4), in f32
-    and bf16; times in each path's compute
+    rank's rows of a data-parallel ``openai_64`` training step, 4; the
+    tools' models at their batches: quality_eval's UNet at 256, 128 and 16,
+    its classifier at 256, verify_checkpoint's ``openai_64`` at 1), in f32
+    and bf16; times (CHECKED_PATHS: none) in each path's compute
     type per shape and summed per forward, beside the plain version, the
     library call and the bound. K5 runs at the attention shapes of the
     ``openai_128`` paths and at D = 16, N = 49."""
@@ -841,18 +896,20 @@ def phase_kernels(dev, paths):
                         k3_gates["scale_high_min_rel_err"], bad_rel)
                     k3_gates["scale_high_cases"] += 1
                     k3_gates["scale_high_passing_abs_gate"] += within(bad, ref, tol)
-            if dtype == timed_dtype:
-                ms, plain, lib = time_ms(runs[0][0]), time_ms(runs[0][1]), time_ms(library)
+            if dtype == timed_dtype and kind == "groupnorm":
+                plan = k3.group_norm_plan((b, h, w, c), dtype, num_groups=groups)
+                routes[where, plan["route"]] += per_call
+                log(f"[kernels] {name} {dtype}: route {plan['route']}, HBM "
+                    f"{plan['hbm_bytes'] / 1e6:.3f} MB (x and the output once: "
+                    f"{2 * x.numel() * x.element_size() / 1e6:.3f}); "
+                    + ", ".join(f"{k} {plan[k]}" for k in k3.PLAN_FIELDS))
+            if dtype == timed_dtype and where not in CHECKED_PATHS:
+                # host-timed: the main path's calls at full depth, the others' at K2's
+                depth = {} if where == "forward" else dict(iters=10, rounds=3)
+                ms, plain, lib = (time_ms(fn, **depth) for fn in (*runs[0], library))
                 device = tuple(graph_ms(fn) for fn in (runs[0][0], runs[0][1], library))
                 prof = (profiled_ms(runs[0][0]), profiled_ms(library))
                 tallies[kind, where].add(per_call, ms, plain, lib, bound, device, prof)
-                if kind == "groupnorm":
-                    plan = k3.group_norm_plan((b, h, w, c), dtype, num_groups=groups)
-                    routes[where, plan["route"]] += per_call
-                    log(f"[kernels] {name} {dtype}: route {plan['route']}, HBM "
-                        f"{plan['hbm_bytes'] / 1e6:.3f} MB (x and the output once: "
-                        f"{2 * x.numel() * x.element_size() / 1e6:.3f}); "
-                        + ", ".join(f"{k} {plan[k]}" for k in k3.PLAN_FIELDS))
                 log(f"[kernels] {name} {dtype}, {per_call} per forward: {ms:.4f} ms"
                     f"{rate(key, b, ms, bound)}, plain {plain:.4f} ms, library {lib:.4f} ms; "
                     f"device time {device[0]:.4f} ms{rate(key, b, device[0], bound)}, plain "
@@ -908,7 +965,8 @@ def phase_kernels(dev, paths):
     log(f"[kernels] K3 calls per forward by route: "
         + ", ".join(f"{where} {route} {n}" for (where, route), n in sorted(routes.items())))
     for (kind, where), tally in tallies.items():
-        if kind == "mha" and where not in GUIDED_PATHS:
+        if ((kind == "mha" and where not in GUIDED_PATHS) or where not in paths
+                or where in CHECKED_PATHS):
             continue
         _, dtype, basis = PATHS[where]
         log(f"[kernels] {kind}, {dtype} calls of {basis}, each timed back to back: {tally}")
@@ -1477,8 +1535,9 @@ def library_group_norm_grad(x, sc, bi, es, esh, mode, cot, groups=32):
 
 
 # unet128: openai_128 training
-K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128", "dp_train", "tp_train")
-K3_BWD_TIMED = ("train", "cls128", "dp_train", "tp_train")
+K3_BWD_PATHS = ("train", "cls128", "emnist", "unet128", "dp_train", "tp_train", "qe_unet",
+                "qe_cls")
+K3_BWD_TIMED = ("train", "cls128", "dp_train", "tp_train", "qe_unet", "qe_cls")
 
 
 def phase_k3_bwd(dev, paths):
@@ -2469,22 +2528,28 @@ def int8_inputs(g, dev, b, h, w, c, f, k, xdtype):
     return x, kq, inv_act, deq, bias
 
 
-def phase_int8_kernel(dev, calls64, calls_emnist):
+def phase_int8_kernel(dev, calls64, calls_emnist, calls_qe):
     """The int8 conv against its plain version (exact float64 sums) at every
     (H, W, C, F, k, stride) one int8 forward of ``openai_64`` and of the
-    EMNIST model gives it, at model batch 16, f32 and bf16 input: the s32
-    sums and the outputs bit-equal. bf16 times of the ``openai_64`` calls
-    (host-timed, by CUDA graph and by torch.profiler) beside the plain
-    version, the bf16 F.conv2d the int8 path replaces and the bound, summed
-    over one forward; TOPS per call."""
+    EMNIST model gives it, at model batch 16, and one int8 forward of
+    quality_eval's UNet (``calls_qe``) at model batch ``QE_BATCH`` and at
+    half of it (checked, not timed), f32 and bf16 input: the s32 sums and the outputs bit-equal. bf16 times of the
+    ``openai_64`` calls and of quality_eval's (host-timed, by CUDA graph and
+    by torch.profiler) beside the plain version, the bf16 F.conv2d the int8
+    path replaces and the bound, summed over one forward; TOPS per call.
+    Returns (the ``openai_64`` tally, quality_eval's tally, cases, errors)."""
     from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
 
-    b = PATHS["forward"][0]
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    tally = Tally()
+    tallies = {"forward": Tally(), "qe_int8": Tally()}
     checked = 0
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}  # max |out - plain| by input type
-    for key in sorted(set(calls64) | set(calls_emnist)):
+    cases = [(PATHS["forward"][0], key, "forward", calls64.get(key, 0))
+             for key in sorted(set(calls64) | set(calls_emnist))]
+    cases += [(PATHS["qe_int8"][0], key, "qe_int8", n) for key, n in sorted(calls_qe.items())]
+    # checked, not timed: the max stack's unguided steps at half the batch
+    cases += [(PATHS["qe_int8_gi"][0], key, "qe_int8_gi", 0) for key in sorted(calls_qe)]
+    for b, key, where, per_forward in cases:
         h, w, c, f, k, stride = key
         for xdtype in (torch.float32, torch.bfloat16):
             x, kq, inv_act, deq, bias = int8_inputs(g, dev, b, h, w, c, f, k, xdtype)
@@ -2494,13 +2559,13 @@ def phase_int8_kernel(dev, calls64, calls_emnist):
                                                raw=True)
             if not torch.equal(sums, ref_sums):
                 bad = (sums != ref_sums).sum().item()
-                raise AssertionError(f"int8 conv {key} {xdtype}: {bad} s32 sums differ")
+                raise AssertionError(f"int8 conv {key} batch {b} {xdtype}: {bad} s32 sums "
+                                     f"differ")
             errs[xdtype] = max(errs[xdtype], (out.float() - ref.float()).abs().max().item())
             if not torch.equal(out, ref):
-                raise AssertionError(f"int8 conv {key} {xdtype}: outputs differ by "
+                raise AssertionError(f"int8 conv {key} batch {b} {xdtype}: outputs differ by "
                                      f"{errs[xdtype]:.3g}")
             checked += 1
-        per_forward = calls64.get(key, 0)
         if not per_forward:
             continue
         del out, sums, ref, ref_sums
@@ -2515,7 +2580,7 @@ def phase_int8_kernel(dev, calls64, calls_emnist):
         device = (graph_ms(fns[0]), graph_ms(fns[1], iters=2, rounds=1), graph_ms(fns[2]))
         prof = (profiled_ms(fns[0]), profiled_ms(fns[2]))
         bound = int8_bound_ms(b, h, w, c, f, k, stride)
-        tally.add(per_forward, ms, plain, lib, bound, device, prof)
+        tallies[where].add(per_forward, ms, plain, lib, bound, device, prof)
         ops = 2 * b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * f * k * k * c
         log(f"[int8] conv {(b, h, w, c)} -> {f}, {k}x{k}, stride {stride}, bf16, {per_forward} "
             f"per forward: device time {device[0]:.4f} ms by graph "
@@ -2524,14 +2589,19 @@ def phase_int8_kernel(dev, calls64, calls_emnist):
             f"(host {plain:.4f}); bf16 F.conv2d {device[2]:.4f} by graph, {prof[1]:.4f} by "
             f"torch.profiler (host {lib:.4f}); bound {max(bound):.4f} ms "
             f"({'bytes' if bound[0] >= bound[1] else 'operations'})")
-    log(f"[int8] the int8 conv at {checked} (shape, input type) cases of one openai_64 and one "
-        f"EMNIST int8 forward at model batch {b}: s32 sums and outputs bit-equal to the plain "
-        f"version (exact float64 sums, the same f32 epilogue)")
-    log(f"[int8] bf16 calls of {PATHS['forward'][2]}'s {sum(calls64.values())} int8 convs, "
-        f"each timed back to back: {tally}; "
-        f"{2 * sum(n * b * ((h - 1) // s + 1) * ((w - 1) // s + 1) * f * k * k * c for (h, w, c, f, k, s), n in calls64.items()) / tally.profiler_ms / 1e9:.1f} "
-        f"TOPS by torch.profiler")
-    return tally, checked, errs
+    log(f"[int8] the int8 conv at {checked} (shape, batch, input type) cases of one openai_64 "
+        f"and one EMNIST int8 forward at model batch {PATHS['forward'][0]} and one int8 "
+        f"forward of quality_eval's UNet at model batch {PATHS['qe_int8'][0]} and "
+        f"{PATHS['qe_int8_gi'][0]}: s32 sums and "
+        f"outputs bit-equal to the plain version (exact float64 sums, the same f32 epilogue)")
+    for where, calls in (("forward", calls64), ("qe_int8", calls_qe)):
+        b = PATHS[where][0]
+        ops = 2 * sum(n * b * ((h - 1) // s + 1) * ((w - 1) // s + 1) * f * k * k * c
+                      for (h, w, c, f, k, s), n in calls.items())
+        log(f"[int8] bf16 calls of {PATHS[where][2]}'s {sum(calls.values())} int8 convs, "
+            f"each timed back to back: {tallies[where]}; "
+            f"{ops / tallies[where].profiler_ms / 1e9:.1f} TOPS by torch.profiler")
+    return tallies["forward"], tallies["qe_int8"], checked, errs
 
 
 def phase_int8(dev, state, workdir, n_int8):
@@ -4402,6 +4472,313 @@ def phase_tp(dev, workdir, smi, n_sharded):
     return {k: dict(v) for k, v in by_path.items()}, readings
 
 
+# ---------------------------------------------------------------------------
+# [tools]: the evaluation tools (nicediffusion_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+TOOLS_NLL_BATCH, TOOLS_NLL_BATCHES = 8, 2
+OPENAI_64_PARAMS = 295_904_454  # the published count verify_checkpoint holds the file to
+TOOLS_NLL_TOL = 1e-3  # total_bpd and prior_bpd, kernels on against off, relative
+# tools/quality_eval.py's knobs for [tools] (c): its EMNIST harness at 100
+# UNet and 20 classifier steps (the gates read keys, finiteness and the
+# levers' deviations from the exact chain, not quality; the EMA, at 0.9999,
+# must move far enough from the zero-initialised output layers for the
+# guidance interval to move a sample in f32), 128 images a mode in two chunks of 64 for the
+# statistics, a 50-step DDPM chain, the encoder cache, the guidance interval,
+# int8 and their max stack
+QE_SMOKE_ENV = {"QE_TRAIN_STEPS": "100", "QE_CLS_STEPS": "20", "QE_EVAL_N": "128",
+                "QE_CHUNK": "64", "QE_SAMPLE_STEPS": "50", "QE_MODES": "enc,gi,int8",
+                "QE_BATCH": str(QE_BATCH)}
+QE_MODE_KEYS = ("classifier_acc", "classifier_acc_se", "proto_acc", "proto_acc_se",
+                "logit_frechet_vs_real", "logit_frechet_se", "max_pixel_dev_vs_exact",
+                "mean_pixel_dev_vs_exact")
+# the modes QE_SMOKE_ENV gives: (name, encoder cache k, the int8 model?)
+QE_SMOKE_MODES = (("exact", 1, False), ("enc2", 2, False), ("enc3", 3, False),
+                  ("gi_0.1-0.7", 1, False), ("gi_0.15-0.55", 1, False), ("int8", 1, True),
+                  ("stack_int8_enc2_gi", 2, True))
+
+
+@contextlib.contextmanager
+def environ(values):
+    """``os.environ`` updated with ``values`` inside the block; restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_captured(fn, *args):
+    """(fn(*args), the lines it printed), its output logged as it is."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    {line}")
+    return rc, lines
+
+
+def encoder_decoder_calls(steps, k):
+    """(encoder calls, decoder calls) of one ``Diffusion.denoise`` chain of
+    ``steps`` with ``encoder_cache=k``: groups of k from the noisy end, one
+    encoder call a group, the last ``steps % k`` steps uncached; the decoder
+    runs every step (k = 1: every step a whole forward)."""
+    k = max(1, min(k, steps))
+    head = steps - steps % k if k > 1 else 0
+    return head // k + (steps - head), steps
+
+
+def part_counts(cfg):
+    """{kind: (in the encoder, in the decoder)} of the K1, K3 and int8 conv
+    calls of one forward of ``cfg``'s UNet: its AttentionBlocks, GroupNormOps
+    and (built quantized) int8 layers in ``downsampling`` against the rest
+    (middle, decoder, head). Built on the meta device."""
+    from nicediffusion_tpu_torch import DiffusionModel
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+
+    model = DiffusionModel(**cfg, device="meta")
+
+    def count(kind):
+        enc = sum(isinstance(m, kind) for m in model.downsampling.modules())
+        return enc, sum(isinstance(m, kind) for m in model.modules()) - enc
+
+    int8 = list(DiffusionModel(**cfg, quantized=True, device="meta").int8_layers())
+    n_enc = sum(name.startswith("downsampling.") for name in int8)
+    return {"attention": count(AttentionBlock), "groupnorm": count(GroupNormOp),
+            "int8conv": (n_enc, len(int8) - n_enc)}
+
+
+def expect_quality_eval(unet_cfg, cls_cfg, env):
+    """The launches of tools/quality_eval.py's ``main`` under ``env``'s knobs
+    (QE_SMOKE_ENV's modes), from the two models' structure: the UNet's
+    training steps (no remat: one K1, K3 per block and norm forward, one K2
+    and K3 backward each), the classifier's, every mode's chain (encoder and
+    decoder calls as the cache groups them; the guidance interval changes
+    batches, not calls), the int8 model's calibration chain through its
+    dynamic int8 path (every int8 layer through the kernel) and its 6
+    calibration forwards (float: no int8 conv), and one classifier forward a
+    mode and one for the real data (eval_n <= 256: one padded chunk)."""
+    from nicediffusion_tpu_torch import EncoderUNet
+
+    parts = part_counts(unet_cfg)
+    n_attn, gn_in, gn_out = block_counts(EncoderUNet(**cls_cfg, device="meta"))
+    n_gn_cls = gn_in + gn_out
+    train, cls_steps = int(env["QE_TRAIN_STEPS"]), int(env["QE_CLS_STEPS"])
+    steps, eval_n = int(env["QE_SAMPLE_STEPS"]), int(env["QE_EVAL_N"])
+    chunks = math.ceil(eval_n / min(eval_n, 128))
+    unet_attn, unet_gn = sum(parts["attention"]), sum(parts["groupnorm"])
+    out = {"attention": train * unet_attn + cls_steps * n_attn,
+           "attention_bwd": train * unet_attn + cls_steps * n_attn,
+           "groupnorm": train * unet_gn + cls_steps * n_gn_cls,
+           "groupnorm_bwd": train * unet_gn + cls_steps * n_gn_cls,
+           "mha": 0, "resblock": 0, "int8conv": 0}
+
+    def chain(k, int8, n_chunks):
+        enc, dec = encoder_decoder_calls(steps, k)
+        for kind in ("attention", "groupnorm") + (("int8conv",) if int8 else ()):
+            out[kind] += n_chunks * (enc * parts[kind][0] + dec * parts[kind][1])
+
+    for _, k, int8 in QE_SMOKE_MODES:
+        chain(k, int8, chunks)
+    chain(1, True, 1)  # the calibration chain: 8 labels, the dynamic int8 path
+    calib_points = len({round(i * (steps - 1) / 5) for i in range(6)})
+    out["attention"] += calib_points * unet_attn
+    out["groupnorm"] += calib_points * unet_gn
+    logit_calls = len(QE_SMOKE_MODES) + 1
+    out["attention"] += logit_calls * n_attn
+    out["groupnorm"] += logit_calls * n_gn_cls
+    return out
+
+
+def phase_tools(dev, workdir):
+    """``[tools]``: the three evaluation tools through their entry points'
+    ``main`` on the card. (a) ``eval_nll`` on a full-width ``openai_64``
+    checkpoint of seeded random weights, as the preset builds the model
+    (1000 classes, guidance off), at batch 8 x 2 in bf16: finite numbers, 25
+    chain steps, 16 images; the same evaluation in f32 with the same
+    injected noise, kernels on against ``kernels=False``, total and prior
+    bits/dim within TOOLS_NLL_TOL relative. (b) ``verify_checkpoint`` on that
+    file: every executed check passes, exit 0, 295,904,454 parameters; the
+    file with one tensor dropped: exit 1, "missing 1"; the caller's TF32
+    flags as they were. (c) ``quality_eval``
+    under QE_SMOKE_ENV in bf16: every mode's line with the JAX tool's keys,
+    finite; ``exact`` 0 from itself, every lever above 0 (its samples' max
+    deviation, unrounded: the lines round to 1e-4). The launch counts
+    of each part are held to the structure. Returns the parts' launches."""
+    import numpy as np
+
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.tools import eval_nll, quality_eval, verify_checkpoint
+    from nicediffusion_tpu_torch.utils.config import preset_for_path
+
+    tools_dir = os.path.join(workdir, "tools")
+    os.makedirs(tools_dir)
+    model_path = os.path.join(tools_dir, "64x64_diffusion.pt")
+    model_args, diff_args = preset_for_path(model_path)
+    model = DiffusionModel(**model_args, kernels=False, device=dev).eval()
+    randomize(model, SEED + 11)
+    state = model.state_dict()
+    torch.save(state, model_path)
+    n_attn, gn_in, gn_out = block_counts(model)
+    by_path, seconds = {}, {}
+
+    # (a) eval_nll in bf16 through its entry point
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, lines = run_captured(eval_nll.main, [
+        "--model_path", model_path, "--batch_size", str(TOOLS_NLL_BATCH),
+        "--num_batches", str(TOOLS_NLL_BATCHES)])
+    torch.cuda.synchronize()
+    seconds["eval_nll"] = time.perf_counter() - t0
+    launches = read_launches()
+    result = json.loads(lines[-1])
+    steps = diff_args["rescaled_num_steps"]
+    forwards = steps * TOOLS_NLL_BATCHES
+    expect = {"attention": forwards * n_attn, "attention_bwd": 0,
+              "groupnorm": forwards * (gn_in + gn_out), "groupnorm_bwd": 0, "mha": 0,
+              "resblock": 0, "int8conv": 0}
+    if (rc != 0 or result["chain_steps"] != steps
+            or result["num_images"] != TOOLS_NLL_BATCH * TOOLS_NLL_BATCHES
+            or not all(math.isfinite(result[k])
+                       for k in ("total_bpd", "prior_bpd", "eps_mse_mean"))):
+        raise AssertionError(f"[tools] eval_nll: rc {rc}, {result}")
+    if launches != expect:
+        raise AssertionError(f"[tools] eval_nll launches {launches} != {expect}")
+    by_path["tools_eval_nll_openai_64"] = launches
+    log(f"[tools] (a) eval_nll, openai_64 bf16, {forwards} forwards at batch {TOOLS_NLL_BATCH}: "
+        f"{result}; launches as the structure gives ({forwards} x {n_attn} K1, x "
+        f"{gn_in + gn_out} K3); {seconds['eval_nll']:.2f} s")
+
+    # (a) kernels on against off: the same images, labels and noise, in f32
+    on = DiffusionModel(**model_args, device=dev).eval()
+    on.load_state_dict(state, strict=True)
+    unguided = dict(diff_args, guidance_method=None, guidance_strength=None)
+    rng = np.random.default_rng(0)
+    n = TOOLS_NLL_BATCH * TOOLS_NLL_BATCHES
+    images, labels = eval_nll.synthetic_images(rng, n, model_args["resolution"],
+                                               model_args["in_channels"],
+                                               model_args["num_classes"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    noises = [torch.randn((steps, TOOLS_NLL_BATCH) + images.shape[1:], generator=g,
+                          device=dev) for _ in range(TOOLS_NLL_BATCHES)]
+    got = {which: eval_nll.evaluate(Diffusion(model=m, **unguided), images, labels,
+                                    TOOLS_NLL_BATCH, TOOLS_NLL_BATCHES, noises=noises)
+           for which, m in (("on", on), ("off", model))}
+    rel = {k: abs(got["on"][k] - got["off"][k]) / abs(got["off"][k])
+           for k in ("total_bpd", "prior_bpd")}
+    log(f"[tools] (a) eval_nll's evaluation in f32 with injected noise, kernels on "
+        f"{got['on']} against off {got['off']}: relative {rel} (gate {TOOLS_NLL_TOL})")
+    if not all(v <= TOOLS_NLL_TOL for v in rel.values()):
+        raise AssertionError(f"[tools] eval_nll kernels on against off: {rel}")
+    del on, model, noises
+    torch.cuda.empty_cache()
+
+    # (b) verify_checkpoint on the sound file, then on one with a tensor dropped
+    reset_launches()
+    t0 = time.perf_counter()
+    # the tool runs in f32 with TF32 off and hands its caller's setting back
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        rc, lines = run_captured(verify_checkpoint.main, ["--pt", model_path])
+        kept_tf32 = torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    seconds["verify_checkpoint"] = time.perf_counter() - t0
+    launches = read_launches()
+    if not kept_tf32:
+        raise AssertionError("[tools] verify_checkpoint did not restore its caller's TF32 flags")
+    fails = [line for line in lines if line.startswith("[FAIL]")]
+    count_line = [line for line in lines if line.startswith("[PASS] param count")]
+    if rc != 0 or fails or not count_line or f"{OPENAI_64_PARAMS:,} vs" not in count_line[0]:
+        raise AssertionError(f"[tools] verify_checkpoint: rc {rc}, {lines}")
+    expect = {"attention": 2 * n_attn, "attention_bwd": 0, "groupnorm": 2 * (gn_in + gn_out),
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+    if launches != expect:
+        raise AssertionError(f"[tools] verify_checkpoint launches {launches} != {expect}")
+    by_path["tools_verify_openai_64"] = launches
+    dropped = dict(state)
+    gone = sorted(dropped)[-1]
+    del dropped[gone]
+    bad_path = os.path.join(tools_dir, "64x64_missing.pt")
+    torch.save(dropped, bad_path)
+    del dropped, state
+    rc_bad, bad_lines = run_captured(verify_checkpoint.main, ["--pt", bad_path])
+    structural = [line for line in bad_lines if "structural match" in line]
+    if rc_bad != 1 or not structural or not structural[0].startswith("[FAIL]") \
+            or "missing 1 " not in structural[0]:
+        raise AssertionError(f"[tools] verify_checkpoint missed the dropped {gone}: "
+                             f"rc {rc_bad}, {bad_lines}")
+    log(f"[tools] (b) verify_checkpoint: exit 0, every executed check passed, launches as "
+        f"the 2-step smoke sample gives ({launches}), the caller's TF32 flags restored; "
+        f"{gone} dropped: exit 1, "
+        f"{structural[0]!r}; {seconds['verify_checkpoint']:.2f} s")
+
+    # (c) quality_eval at its EMNIST harness, bf16
+    _, qe_cfg, cls_cfg = quality_eval.arch_config("emnist")
+    expect = expect_quality_eval(qe_cfg, cls_cfg, QE_SMOKE_ENV)
+    # the samples of every mode as the tool hands them to its report: the
+    # deviations from the exact chain unrounded (its lines round to 1e-4)
+    report, samples = quality_eval.report, {}
+
+    def keep_samples(modes, *args):
+        samples.update(modes)
+        return report(modes, *args)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    quality_eval.report = keep_samples
+    try:
+        with environ(dict(QE_SMOKE_ENV, QE_DEVICE="cuda")):
+            rc, lines = run_captured(quality_eval.main, [])
+    finally:
+        quality_eval.report = report
+    torch.cuda.synchronize()
+    seconds["quality_eval"] = time.perf_counter() - t0
+    launches = read_launches()
+    deviation = {name: float(np.abs(x - samples["exact"]).max()) for name, x in samples.items()}
+    rows = {}
+    for line in lines:
+        if line.startswith("{"):
+            row = json.loads(line)
+            if "mode" in row:
+                rows[row.pop("mode")] = row
+    want = [name for name, _, _ in QE_SMOKE_MODES]
+    problems = [f"rc {rc}"] if rc != 0 else []
+    for name in want:
+        row = rows.get(name)
+        if row is None or tuple(row) != QE_MODE_KEYS:
+            problems.append(f"{name}: {row}")
+        elif not all(v is not None and math.isfinite(v) for v in row.values()):
+            problems.append(f"{name} not finite: {row}")
+        elif (deviation[name] == 0) != (name == "exact"):
+            problems.append(f"{name}: max pixel deviation from exact {deviation[name]}")
+    if "real_data" not in rows:
+        problems.append("no real_data line")
+    if problems:
+        raise AssertionError(f"[tools] quality_eval: {problems}")
+    if launches != expect:
+        raise AssertionError(f"[tools] quality_eval launches {launches} != {expect}")
+    by_path["tools_quality_eval_emnist"] = launches
+    log(f"[tools] (c) quality_eval, EMNIST harness, bf16, {QE_SMOKE_ENV}: the {len(want)} "
+        f"modes' lines present, finite; max pixel deviation from exact, unrounded: "
+        f"{json.dumps(deviation)} (exact 0, each lever above 0); launches {launches}, as the "
+        f"structure gives; {seconds['quality_eval']:.2f} s")
+    for path, counts in by_path.items():
+        for kind in ("attention", "attention_bwd", "groupnorm", "groupnorm_bwd", "int8conv"):
+            runs = kind in ("attention", "groupnorm") or path == "tools_quality_eval_emnist"
+            if runs and not counts[kind]:
+                raise AssertionError(f"[tools] {path}: no {kind} launch")
+    log(f"[tools] seconds by tool {json.dumps(seconds)}")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -4441,13 +4818,24 @@ def main():
     sr256 = SuperResolutionModel(**sr_config(), kernels=False, device=dev).eval()
     randomize(sr256, SEED + 4)
     tp_calls = tp_path_calls(reference, dev)
+    # tools/quality_eval.py's UNet and classifier: their shapes only
+    from nicediffusion_tpu_torch.tools.quality_eval import arch_config
+
+    meta = torch.device("meta")
+    _, qe_cfg, qe_cls_cfg = arch_config("emnist")
+    qe_unet = DiffusionModel(**qe_cfg, kernels=False, device=meta).eval()
     paths = {"forward": calls, "train": calls, "emnist": emnist_calls,
              "unet128": main_path_calls(unet128, dev), "cls128": main_path_calls(cls128, dev),
              "sr256": main_path_calls(sr256, dev), "serve64": calls, "dp_train": calls,
-             "tp": tp_calls, "tp_train": tp_calls}
+             "tp": tp_calls, "tp_train": tp_calls, "qe_unet": main_path_calls(qe_unet, meta),
+             "qe_cls": main_path_calls(
+                 EncoderUNet(**qe_cls_cfg, kernels=False, device=meta).eval(), meta),
+             "verify64": calls}
+    paths["qe_calib"] = paths["qe_gi"] = paths["qe_unet"]
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
+    qe_int8_calls = int8_conv_calls(qe_unet, qe_cfg, meta)
     phase_done("models made, their kernel calls found")
     errs, tallies, k3_gates = phase_kernels(dev, paths)
     phase_done("[kernels]")
@@ -4459,7 +4847,8 @@ def main():
     k4_launches = phase_resblock_direct(dev, reference, torch.float32)
     k4_launches_bf16 = phase_resblock_direct(dev, reference, torch.bfloat16)
     phase_done("[k4]")
-    int8_tally, int8_cases, int8_errs = phase_int8_kernel(dev, int8_calls, int8_calls_emnist)
+    int8_tally, qe_int8_tally, int8_cases, int8_errs = phase_int8_kernel(
+        dev, int8_calls, int8_calls_emnist, qe_int8_calls)
     phase_done("[int8] kernel")
     mha_launches = phase_mha_direct(dev, paths)
     phase_model_128(dev, unet128, cls128)
@@ -4514,6 +4903,8 @@ def main():
         by_path.update(tp_paths)
         log(f"[tp] readings {json.dumps(tp_readings)}")
         phase_done("[tp]")
+        by_path.update(phase_tools(dev, workdir))
+        phase_done("[tools]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -4531,7 +4922,8 @@ def main():
                                 t.fields() for where, t in others.items()}}
 
     forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
-    forward_others = ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64", "dp_train")
+    forward_others = ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64", "dp_train",
+                      "qe_unet", "qe_cls")
     # K1, K2 and K5: one kernel per input type
     attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging",
                         "float32": "FMA: CUDA cores"}
@@ -4547,7 +4939,8 @@ def main():
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
               f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}, "
               f"K1's row log-sum-exp handed over",
-              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128", "dp_train")},
+              {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128", "dp_train",
+                                          "qe_unet", "qe_cls")},
               attention_routes,
               # the same step's sums read by CUDA graph and by torch.profiler
               device_yardsticks=k2_yard),
@@ -4566,7 +4959,8 @@ def main():
               k3b_errs[torch.float32], k3b_errs[torch.bfloat16], k3b_tallies["train"],
               f"sum over one openai_64 training step's GroupNorm backwards, bf16, batch "
               f"{TRAIN_BATCH}, the forward's mean and rstd handed over",
-              {w: k3b_tallies[w] for w in ("cls128", "dp_train", "tp_train")},
+              {w: k3b_tallies[w] for w in ("cls128", "dp_train", "tp_train", "qe_unet",
+                                           "qe_cls")},
               {"bfloat16": "CUDA cores; thread-block clusters, x and dy in shared memory",
                "float32": "the same kernel in f32"}, **k3b_gates),
         # no model calls K5: its launches are phase_mha_direct's direct calls
@@ -4594,7 +4988,8 @@ def main():
               int8_errs[torch.bfloat16], int8_tally,
               f"sum over the {sum(int8_calls.values())} int8 conv calls of one openai_64 int8 "
               f"sampling forward, bf16 in and out, model batch {PATHS['forward'][0]}; the "
-              f"library call is the bf16 F.conv2d that int8 serving replaces", {},
+              f"library call is the bf16 F.conv2d that int8 serving replaces",
+              {"qe_int8": qe_int8_tally},
               {"bfloat16": "wgmma s8 x s8 -> s32: tensor cores, x quantized by a launch "
                             "before it, A and B by cp.async",
                "float32": "the same kernel", "int8": "the same kernel, x already quantized "

@@ -15,7 +15,9 @@ points ``python -m nicediffusion_tpu_torch.scripts.sample`` (with
 ``python -m nicediffusion_tpu_torch.scripts.distill``,
 ``python -m nicediffusion_tpu_torch.scripts.serve`` (the daemon) and
 ``python -m nicediffusion_tpu_torch.scripts.export`` (``.pt`` <-> ``.npz``
-and the Trainer's checkpoints), and six kernels
+and the Trainer's checkpoints), the evaluation tools
+``python -m nicediffusion_tpu_torch.tools.eval_nll``, ``.verify_checkpoint``
+and ``.quality_eval``, and six kernels
 written by hand for Hopper (K1, K2 and K5, attention forward and backward in
 CUDA C++; K3, fused GroupNorm and its backward in CUDA C++; K4, fused
 GroupNorm+SiLU+3x3 conv in CUDA C++, reached directly as in the JAX package;

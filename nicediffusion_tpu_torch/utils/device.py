@@ -13,15 +13,18 @@ import torch
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device: torch.device | str | None, argument: str = "device") -> torch.device:
+def resolve_device(device: torch.device | str | None, argument: str = "device",
+                   ask: str | None = None) -> torch.device:
     """``None`` -> ``torch.device("cuda")``, raising RuntimeError naming
-    ``argument`` when no CUDA card is available; anything else ("cpu",
+    ``argument`` when no CUDA card is available (``ask`` says how to ask for
+    the CPU, by default ``pass <argument>="cpu"``); anything else ("cpu",
     "meta", "cuda:1", a torch.device) is honoured as given."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
+        ask = ask or f'pass {argument}="cpu"'
         raise RuntimeError(
             f"{argument}=None means the CUDA card, and torch.cuda.is_available() "
-            f'is False; pass {argument}="cpu" to run on the CPU'
+            f"is False; {ask} to run on the CPU"
         )
     return torch.device("cuda")

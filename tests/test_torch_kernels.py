@@ -526,11 +526,18 @@ def _gn_keys(preset):
     from nicediffusion_tpu_torch import EncoderUNet
     from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
 
+    from nicediffusion_tpu_torch.tools.quality_eval import arch_config
+
     meta = torch.device("meta")
+    _, qe_unet, qe_cls = arch_config("emnist")
     if preset == "classifier":
         model = EncoderUNet(**classifier_config(), kernels=False, device=meta)
     elif preset == "sr256":  # the super-resolution UNet at openai_256 widths
         model = SuperResolutionModel(**sr_config(), kernels=False, device=meta)
+    elif preset == "qe_cls":  # tools/quality_eval.py's classifier: 1 and 2 channels a group
+        model = EncoderUNet(**qe_cls, kernels=False, device=meta)
+    elif preset == "qe_unet":  # tools/quality_eval.py's UNet
+        model = DiffusionModel(**qe_unet, kernels=False, device=meta)
     else:
         model = DiffusionModel(**model_config(preset), kernels=False, device=meta)
     return sorted((k[1], k[2]) for k in main_path_calls(model.eval(), meta)
@@ -563,6 +570,69 @@ def test_k3_at_the_data_parallel_batches(cuda, batch, index):
         args, cot = _k3_inputs(cuda, dtype, (batch, h, w, c), mode, seed=h + c + batch)
         mean, rstd = _k3_check_forward(args, dtype, mode != "plain")
         _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
+
+
+@pytest.mark.parametrize("preset,index", [
+    (p, i) for p, n in (("qe_unet", 21), ("qe_cls", 4)) for i in range(n)])
+def test_k3_at_the_quality_eval_shapes(cuda, preset, index):
+    """K3 and its backward at every GroupNorm shape of tools/quality_eval.py's
+    UNet and classifier at its batch of 256 (the classifier's 32 and 64
+    channels in 32 groups: 1 and 2 channels a group), f32 and bf16, with the
+    gates and planted faults of the two checks."""
+    (h, w, c), mode = _gn_keys(preset)[index]
+    for dtype in (torch.float32, torch.bfloat16):
+        args, cot = _k3_inputs(cuda, dtype, (256, h, w, c), mode, seed=h + c + index)
+        mean, rstd = _k3_check_forward(args, dtype, mode != "plain")
+        _k3_check_backward(args, cot, mean, rstd, dtype, mode != "plain")
+
+
+@pytest.mark.parametrize("preset,batch,index", [
+    (p, b, i) for p, b, n in (("qe_unet", 16, 21), ("qe_unet", 128, 21), ("openai_64", 1, 30))
+    for i in range(n)])
+def test_k3_at_the_tools_other_batches(cuda, preset, batch, index):
+    """K3 at the batches the tools give a model beside the timed paths'
+    (K3's plan depends on the batch): tools/quality_eval.py's UNet at model
+    batch 16 (its int8 calibration, 8 labels under CFG) and 128 (a chunk
+    outside the guidance interval), and verify_checkpoint's ``openai_64`` at
+    batch 1 (its smoke sample); f32 and bf16, with the forward's gates and
+    planted fault."""
+    (h, w, c), mode = _gn_keys(preset)[index]
+    for dtype in (torch.float32, torch.bfloat16):
+        args, _ = _k3_inputs(cuda, dtype, (batch, h, w, c), mode, seed=h + c + batch)
+        _k3_check_forward(args, dtype, mode != "plain")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hc,heads,split_first", [
+    (196, 32, 2, False),  # quality_eval's classifier (its middle block)
+    (196, 32, 4, True), (49, 64, 4, True),  # quality_eval's UNet at 14x14 and 7x7
+])
+def test_k1_k2_at_the_quality_eval_shapes(cuda, dtype, n, hc, heads, split_first):
+    """K1 and K2 (K1's lse handed over) at tools/quality_eval.py's attention
+    shapes at its batch of 256: every element written, within the gates of
+    the plain versions; bf16 K2 also within K2_BF16_REL, which an lse 0.05
+    too high must fail."""
+    g = torch.Generator(device=cuda).manual_seed(n + hc + heads)
+    b = 256
+    qkv = torch.randn(b, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
+    cot = (2 * torch.rand(b, n, heads * hc, generator=g, device=cuda) - 1).to(dtype)
+    lse = torch.empty(b, heads, n, device=cuda)
+    o = torch.full((b, n, heads * hc), float("nan"), dtype=dtype, device=cuda)
+    k1.fused_qkv_attention(qkv, heads, split_first, lse=lse, out=o)
+    torch.cuda.synchronize()
+    assert not torch.isnan(o).any()
+    torch.testing.assert_close(o.float(), k1.fused_qkv_attention_plain(
+        qkv, heads, split_first).float(), **TOL[dtype, "k1"])
+    out = torch.full_like(qkv, float("nan"))
+    k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first, lse=lse, out=out)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k2"])
+    if dtype == torch.bfloat16:
+        assert _k2_rel_err(out, ref, heads, split_first) <= K2_BF16_REL
+        bad = k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first, lse=lse + 0.05)
+        assert _k2_rel_err(bad, ref, heads, split_first) > K2_BF16_REL
 
 
 @functools.lru_cache(maxsize=None)
