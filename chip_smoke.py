@@ -140,21 +140,25 @@ every hand-written kernel on the way:
      3 ``Trainer.train_step`` calls in bf16 with remat at batch 4, with the
      launch counts the structure gives, steps/s and peak memory;
  12. static int8 (``[int8]``): (a) the int8 conv (s8 x s8 -> s32 wgmma,
-     the quantize in its prologue) against its plain version (exact float64
-     sums) at every (H, W, C, F, k, stride) one int8 forward of
-     ``openai_64`` and of the EMNIST model gives it (found by hooks), model
-     batch 16, f32 and bf16 input: s32 sums and outputs bit-equal; its bf16
-     times per call (host-timed, by CUDA graph, by torch.profiler), in TOPS,
-     beside the plain version, the bf16 F.conv2d it replaces and the bound
-     (bytes over 3.35 TB/s or 2 MACs over 1,979 TOPS), summed over one
-     forward; (b) the sampling entry point on ``64x64_diffusion.pt`` with
+     one launch a call, the quantize folded into its stagers) against its
+     plain version (exact float64 sums) at every (H, W, C, F, k, stride) one
+     int8 forward of ``openai_64`` and of the EMNIST model gives it (found by
+     hooks), model batch 16, f32 and bf16 input: s32 sums and outputs
+     bit-equal; its bf16 times per call (host-timed, by CUDA graph, by
+     torch.profiler), in TOPS, beside the plain version, the bf16 F.conv2d it
+     replaces and the bound (bytes over 3.35 TB/s or 2 MACs over 1,979 TOPS),
+     summed over one forward, each call's route and tiles logged; the
+     ``openai_64`` calls again at model batch 128, bf16, bit-equal and timed
+     but for the plain version; (b) the sampling entry point on ``64x64_diffusion.pt`` with
      ``--dtype int8``, CFG 0.8, 25 DDIM steps, 2 requests of 8 labels,
      ``--int8_calibration`` first writing the file (the calibration chain
      drawn through the dynamic path), then reading it: the two runs' images
      bit-equal, the launch counts what the structure gives (every int8 conv
      call through the kernel, K1 and K3 as before); (c) int8 against bf16
      samples/s and the device's idle share at batch 8 and at batch 64
-     (model batch 128), kernels on, in turns; (d) the max stack (frozen
+     (model batch 128), kernels on, in turns, and torch.profiler over one
+     int8 forward at each must see exactly one int8conv.cu kernel per int8
+     conv call (no quantize launch); (d) the max stack (frozen
      int8, encoder_cache 2, guidance_interval (0.1, 0.7)) finite and
      correlated above 0.9 with the exact bf16 chain;
  13. super-resolution (``[sr]``): the SuperResolutionModel at ``openai_256``
@@ -501,8 +505,8 @@ NO_SPILL_LIBS = {"groupnorm": "K3"}
 _ENTRY = re.compile(
     r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
-    r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_wgmma|quantize)"
-    r"_kernelI(\S+)'")
+    r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
+    r"int8_conv_row_wgmma)_kernelI(\S+)'")
 _INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
 
@@ -524,10 +528,9 @@ def build_report(name, nvcc_log):
             wgmma = m.group(1).endswith("wgmma")
             dt = "bf16" if wgmma or "bfloat16" in m.group(2) else "f32"
             dims = re.findall(r"Li(\d+)E", m.group(2))  # head dim, f32 own-tile rows; K4's NB
-            if m.group(1) == "int8_conv_wgmma":
-                entry = f"{m.group(1)} s8 out={_INT8_TYPES.get(dims[0], dims[0])}"
-            elif m.group(1) == "quantize":  # the int8 conv's quantize launch
-                entry = f"{m.group(1)} {dt}"
+            if m.group(1).startswith("int8_conv"):  # <x type, 64-filter blocks>
+                entry = (f"{m.group(1)} s8 x={_INT8_TYPES.get(dims[0], dims[0])}"
+                         + (f" filters={64 * int(dims[1])}" if len(dims) > 1 else ""))
             elif m.group(1) == "gn_silu_conv3x3_wgmma":
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1).startswith("group_norm"):
@@ -559,6 +562,22 @@ def build_report(name, nvcc_log):
     return lines
 
 
+def int8_sass_by_instance(sass):
+    """The integer warpgroup multiplies in the machine code of each int8 conv
+    instance (cuobjdump -sass prints a "Function : <mangled>" line before
+    each), by route, input type and filter tile."""
+    counts, current = collections.Counter(), None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(int8_conv_(?:halo|row)_wgmma)_kernelILi(\d)ELi(\d)E", line)
+        if m:
+            current = (f"{m.group(1)} s8 x={_INT8_TYPES.get(m.group(2), m.group(2))} "
+                       f"filters={64 * int(m.group(3))}")
+            counts[current] += 0
+        elif current and re.search(rf"\b({GMMA_SASS['int8conv']})\.", line):
+            counts[current] += 1
+    return counts
+
+
 def phase_build():
     from nicediffusion_tpu_torch.ops.kernels import _build
 
@@ -583,6 +602,9 @@ def phase_build():
         found = collections.Counter(re.findall(rf"\b({GMMA_SASS[name]})\.", sass))
         log(f"[build] {name} library: {sum(found.values())} warpgroup multiplies in its SASS "
             f"{dict(found)}")
+        if name == "int8conv":
+            for instance, count in int8_sass_by_instance(sass).items():
+                log(f"[build]   {instance}: {count} IGMMA")
         if not found:
             raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
                                  f"{kernels} is off the tensor cores")
@@ -686,9 +708,12 @@ class Tally:
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
     def fields(self):
-        return {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": self.bound_by, "library_ms": self.library_ms,
-                "device_ms": self.device_ms, "device_plain_ms": self.device_plain_ms,
+        # a path whose plain version was not timed (its sums stay 0) reads null
+        timed = self.plain_ms > 0 or self.device_plain_ms > 0
+        return {"ms": self.ms, "plain_ms": self.plain_ms if timed else None,
+                "bound_ms": self.bound_ms, "bound_by": self.bound_by,
+                "library_ms": self.library_ms, "device_ms": self.device_ms,
+                "device_plain_ms": self.device_plain_ms if timed else None,
                 "device_library_ms": self.device_library_ms,
                 "device_profiler_ms": self.profiler_ms,
                 "device_profiler_library_ms": self.profiler_library_ms}
@@ -779,6 +804,9 @@ PATHS = {
     "qe_int8_gi": (QE_BATCH // 2, torch.bfloat16,
                    f"one int8 forward of quality_eval's UNet outside the guidance interval of "
                    f"its max stack at model batch {QE_BATCH // 2} (int8 convs only)"),
+    "int8_serve": (128, torch.bfloat16,
+                   "one openai_64 int8 sampling forward at batch 64 (model batch 128 under CFG; "
+                   "int8 convs only)"),
 }
 # paths held against the plain version at their shapes and batch, not timed:
 # the batches the tools give a model beside those of the timed paths (K3 and
@@ -2537,11 +2565,16 @@ def phase_int8_kernel(dev, calls64, calls_emnist, calls_qe):
     ``openai_64`` calls and of quality_eval's (host-timed, by CUDA graph and
     by torch.profiler) beside the plain version, the bf16 F.conv2d the int8
     path replaces and the bound, summed over one forward; TOPS per call.
-    Returns (the ``openai_64`` tally, quality_eval's tally, cases, errors)."""
+    The ``openai_64`` calls again at model batch 128 (``int8_serve``: serve
+    batch 64 under CFG, the int8 served path's batch), bf16 x only, bit-equal
+    and timed the same ways but for the plain version (float64 sums at that
+    batch would take most of the phase). Each line names the route and tiles
+    ``int8_conv_plan`` gives the call. Returns (the ``openai_64`` tally,
+    quality_eval's tally, the serve batch's tally, cases, errors)."""
     from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
 
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    tallies = {"forward": Tally(), "qe_int8": Tally()}
+    tallies = {"forward": Tally(), "qe_int8": Tally(), "int8_serve": Tally()}
     checked = 0
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}  # max |out - plain| by input type
     cases = [(PATHS["forward"][0], key, "forward", calls64.get(key, 0))
@@ -2549,9 +2582,11 @@ def phase_int8_kernel(dev, calls64, calls_emnist, calls_qe):
     cases += [(PATHS["qe_int8"][0], key, "qe_int8", n) for key, n in sorted(calls_qe.items())]
     # checked, not timed: the max stack's unguided steps at half the batch
     cases += [(PATHS["qe_int8_gi"][0], key, "qe_int8_gi", 0) for key in sorted(calls_qe)]
+    cases += [(PATHS["int8_serve"][0], key, "int8_serve", n) for key, n in sorted(calls64.items())]
     for b, key, where, per_forward in cases:
         h, w, c, f, k, stride = key
-        for xdtype in (torch.float32, torch.bfloat16):
+        serve = where == "int8_serve"
+        for xdtype in (torch.bfloat16,) if serve else (torch.float32, torch.bfloat16):
             x, kq, inv_act, deq, bias = int8_inputs(g, dev, b, h, w, c, f, k, xdtype)
             out, sums = k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride, xdtype, raw=True)
             torch.cuda.synchronize()
@@ -2575,33 +2610,70 @@ def phase_int8_kernel(dev, calls64, calls_emnist, calls_qe):
                lambda: k8.int8_conv_plain(x, kq, inv_act, deq, bias, stride),
                lambda: library_conv_bf16(x, weight, lib_bias, stride))
         ms = time_ms(fns[0], iters=10, rounds=3)
-        plain = time_ms(fns[1], iters=2, rounds=1)
+        plain = 0.0 if serve else time_ms(fns[1], iters=2, rounds=1)
         lib = time_ms(fns[2], iters=10, rounds=3)
-        device = (graph_ms(fns[0]), graph_ms(fns[1], iters=2, rounds=1), graph_ms(fns[2]))
+        device = (graph_ms(fns[0]), 0.0 if serve else graph_ms(fns[1], iters=2, rounds=1),
+                  graph_ms(fns[2]))
         prof = (profiled_ms(fns[0]), profiled_ms(fns[2]))
         bound = int8_bound_ms(b, h, w, c, f, k, stride)
         tallies[where].add(per_forward, ms, plain, lib, bound, device, prof)
         ops = 2 * b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * f * k * k * c
+        route, tile, step = k8.int8_conv_plan(b, h, w, c, f, k, stride, torch.bfloat16)
         log(f"[int8] conv {(b, h, w, c)} -> {f}, {k}x{k}, stride {stride}, bf16, {per_forward} "
-            f"per forward: device time {device[0]:.4f} ms by graph "
-            f"({ops / device[0] / 1e9:.1f} TOPS), {prof[0]:.4f} by torch.profiler "
-            f"({ops / prof[0] / 1e9:.1f} TOPS), host-timed {ms:.4f}; plain {device[1]:.4f} "
-            f"(host {plain:.4f}); bf16 F.conv2d {device[2]:.4f} by graph, {prof[1]:.4f} by "
-            f"torch.profiler (host {lib:.4f}); bound {max(bound):.4f} ms "
+            f"per forward, {route} route, {tile} filters x {step} channels a step: device time "
+            f"{device[0]:.4f} ms by graph ({ops / device[0] / 1e9:.1f} TOPS), {prof[0]:.4f} by "
+            f"torch.profiler ({ops / prof[0] / 1e9:.1f} TOPS), host-timed {ms:.4f}; "
+            + ("plain not timed at this batch; " if serve else
+               f"plain {device[1]:.4f} (host {plain:.4f}); ")
+            + f"bf16 F.conv2d {device[2]:.4f} by graph, {prof[1]:.4f} by torch.profiler (host "
+            f"{lib:.4f}); bound {max(bound):.4f} ms "
             f"({'bytes' if bound[0] >= bound[1] else 'operations'})")
     log(f"[int8] the int8 conv at {checked} (shape, batch, input type) cases of one openai_64 "
         f"and one EMNIST int8 forward at model batch {PATHS['forward'][0]} and one int8 "
         f"forward of quality_eval's UNet at model batch {PATHS['qe_int8'][0]} and "
         f"{PATHS['qe_int8_gi'][0]}: s32 sums and "
         f"outputs bit-equal to the plain version (exact float64 sums, the same f32 epilogue)")
-    for where, calls in (("forward", calls64), ("qe_int8", calls_qe)):
+    for where, calls in (("forward", calls64), ("qe_int8", calls_qe), ("int8_serve", calls64)):
         b = PATHS[where][0]
         ops = 2 * sum(n * b * ((h - 1) // s + 1) * ((w - 1) // s + 1) * f * k * k * c
                       for (h, w, c, f, k, s), n in calls.items())
+        t = tallies[where]
         log(f"[int8] bf16 calls of {PATHS[where][2]}'s {sum(calls.values())} int8 convs, "
-            f"each timed back to back: {tallies[where]}; "
-            f"{ops / tallies[where].profiler_ms / 1e9:.1f} TOPS by torch.profiler")
-    return tallies["forward"], tallies["qe_int8"], checked, errs
+            f"each timed back to back: {t}"
+            + (" (plain not timed at this batch)" if where == "int8_serve" else "")
+            + f"; {ops / t.profiler_ms / 1e9:.1f} TOPS by torch.profiler, "
+            f"{ops / t.device_ms / 1e9:.1f} by graph; the kernel at "
+            f"{t.bound_ms / t.device_ms:.3f} of its bound by graph; cuDNN bf16 / int8 conv "
+            f"{t.device_library_ms / t.device_ms:.3f} by graph, "
+            f"{t.profiler_library_ms / t.profiler_ms:.3f} by torch.profiler")
+    return tallies["forward"], tallies["qe_int8"], tallies["int8_serve"], checked, errs
+
+
+def int8_forward_kernels(forward, n_int8, model_batch):
+    """The gate that the int8 conv is one launch a call: torch.profiler over
+    one int8 forward must see exactly ``n_int8`` kernels of int8conv.cu (any
+    kernel named for the int8 conv or a quantize pass), each one of the two
+    routes' convs, and no other launch of that library."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(PROFILER_TRIES):  # a profiled run now and then records no device activity
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    ours = [n for n in names if "int8_conv" in n or "quantize" in n]
+    routes = collections.Counter("halo" if "int8_conv_halo_wgmma" in n else
+                                 "row" if "int8_conv_row_wgmma" in n else n[:60] for n in ours)
+    log(f"[int8] torch.profiler over one int8 forward at model batch {model_batch}: "
+        f"{len(names)} kernels, {len(ours)} of int8conv.cu ({dict(routes)}) for {n_int8} int8 "
+        f"conv calls")
+    if len(ours) != n_int8 or set(routes) - {"halo", "row"}:
+        raise AssertionError(f"one int8 forward launched {dict(routes)} from int8conv.cu for "
+                             f"{n_int8} int8 convs: not one conv kernel a call")
 
 
 def phase_int8(dev, state, workdir, n_int8):
@@ -2734,6 +2806,8 @@ def phase_int8(dev, state, workdir, n_int8):
                 walls.append((time.perf_counter() - t0) * 1e3)
             profile_steps(forward, f"openai_64 {which} sampling forward (model batch {2 * b})",
                           min(walls[1:]), steps=2, detail=b == INT8_SERVE_BATCH)
+            if which == "int8":
+                int8_forward_kernels(forward, n_int8, 2 * b)
         if b == batch:
             # one forward, int8 against bf16: the correlation bar of the JAX
             # package's quantized-forward tests (tests/test_quant.py); their
@@ -4847,7 +4921,7 @@ def main():
     k4_launches = phase_resblock_direct(dev, reference, torch.float32)
     k4_launches_bf16 = phase_resblock_direct(dev, reference, torch.bfloat16)
     phase_done("[k4]")
-    int8_tally, qe_int8_tally, int8_cases, int8_errs = phase_int8_kernel(
+    int8_tally, qe_int8_tally, int8_serve_tally, int8_cases, int8_errs = phase_int8_kernel(
         dev, int8_calls, int8_calls_emnist, qe_int8_calls)
     phase_done("[int8] kernel")
     mha_launches = phase_mha_direct(dev, paths)
@@ -4989,10 +5063,12 @@ def main():
               f"sum over the {sum(int8_calls.values())} int8 conv calls of one openai_64 int8 "
               f"sampling forward, bf16 in and out, model batch {PATHS['forward'][0]}; the "
               f"library call is the bf16 F.conv2d that int8 serving replaces",
-              {"qe_int8": qe_int8_tally},
-              {"bfloat16": "wgmma s8 x s8 -> s32: tensor cores, x quantized by a launch "
-                            "before it, A and B by cp.async",
-               "float32": "the same kernel", "int8": "the same kernel, x already quantized "
+              {"qe_int8": qe_int8_tally, "int8_serve": int8_serve_tally},
+              {"bfloat16": "wgmma s8 x s8 -> s32, one launch a call: k = 3 stride 1 on the "
+                            "halo route (halo quantized in shared memory, A by ldmatrix from "
+                            "it), the rest on the row route (A quantized in shared memory, "
+                            "read by descriptor); weights by cp.async, 64-channel steps",
+               "float32": "the row route", "int8": "the same routes, x already quantized "
                "(the dynamic path)"},
               bit_equal_cases=int8_cases,
               samples_per_s={f"batch {b}": r for b, r in int8_rates.items()}),

@@ -1,6 +1,6 @@
 // The int8 convolution of static int8 serving: s8 x s8 -> s32 on the tensor
-// cores (wgmma), the activation quantized by a launch before it and the
-// dequantization in its epilogue.
+// cores (wgmma), the activation quantized on its way into shared memory and
+// the dequantization in the epilogue: one launch a call.
 //
 // Replaces XLA's int8 convolution in nicediffusion_tpu/ops/quant.py ::
 // int8_conv_static (:87; lax.conv_general_dilated on int8 operands with
@@ -15,50 +15,91 @@
 // of 1 or 2, k of 1 or 3. x is f32 or bf16; or s8, taken as already
 // quantized (the dynamic path quantizes by division in torch, as the JAX
 // package does, and x * (1 / s) can round differently from x / s). rint is
-// round-half-to-even, jnp.round's rule. The sums are exact; the f32 product
-// and sum of the epilogue are each rounded once (no FMA contraction), as XLA
-// rounds them. An optional raw output receives the s32 sums themselves.
+// round-half-to-even, jnp.round's rule. The sums are exact, so any tiling
+// gives the same ones; the f32 product and sum of the epilogue are each
+// rounded once (no FMA contraction), as XLA rounds them. An optional raw
+// output receives the s32 sums themselves.
 //
 // What bounds it. Operations: 2 k^2 C F per output pixel against (C + F)
 // bytes of int8 per pixel, hundreds to thousands of operations a byte at the
 // UNets' widths, above the card's ~590 for int8 at 1,979 TOPS and 3.35 TB/s:
-// the tensor cores' int8 rate, twice the bf16 one.
+// the tensor cores' int8 rate, twice the bf16 one. Inside the card the
+// work the warps do besides the products holds it back (the end of this note).
 //
-// Design.
-//   * quantize_kernel: x_q = clip(rint(x * inv_act)) into an s8 scratch
-//     tensor, 16 elements a thread and turn (one 16-byte store). A float x
-//     costs this one extra pass over it (read 2 or 4 bytes, write 1 an
-//     element); in exchange the conv stages A by cp.async like B. XLA fuses
-//     the quantize into the GroupNorm before each conv; doing the same in
-//     K3's epilogue would remove the pass (ROADMAP queue B).
-//   * The conv is an implicit GEMM: M is output pixels, all examples in one
-//     sequence (B * Ho * Wo rows: a tile may span two examples), N filters, K
-//     the k^2 taps x C channels, walked 128 channels (one 128-byte row a
-//     pixel) at a time. A block is two warpgroups (256 threads) and owns 128
-//     pixels (64 a warpgroup: one wgmma row block) x 128 filters.
-//   * 8-bit wgmma takes only K-major A and B. So the weights are frozen as
-//     (F, k, k, C), channels innermost per filter: a (tap, channel step)
-//     slab is 128 filters x 128 bytes. The A tile is 128 im2col rows, each
-//     pixel's 128 channels of the tap's shifted input. Both are staged by
-//     16-byte cp.async into the 128-byte swizzle (byte loads where C is no
-//     multiple of 16) and read by descriptor. Channels past C, filters past
-//     F, pixels past the map or the last row are zeros (cp.async zero
-//     fill); C, F, H and W are anything.
-//   * A ring of 3 (tap, step) stages: two pairs load while one is
-//     multiplied. 96 KB of ring and at most 128 registers a thread (64 s32
-//     sums) let two blocks share a multiprocessor, so one block's barrier
-//     and epilogue overlap the other's products.
-//   * Every product is wgmma m64n128k32 (s8 in, s32 sums), four a step. A
-//     step's last 32-channel groups past C are multiplied as zeros (C of
-//     192 costs two full steps); skipping them would put wgmma under control
-//     flow the compiler may serialise.
-//   * Epilogue through shared memory (the ring is free by then): the s32
-//     tile, then rows written by consecutive threads, float(s) * deq plus
-//     the bias, one rounding to the output type; the raw sums if asked for.
-//     Holding the 32 columns' deq and bias in registers instead cost the
-//     bf16 instance a spill under the 128-register cap.
-// Each A element is read once per tap (k^2 times for a 3 x 3 conv, mostly
-// from L2); a halo tile as in resblock.cu would read it once.
+// Shared by both routes. An implicit GEMM: M output pixels, N filters, K the
+// k^2 taps x C channels walked 64 channels (one 64-byte s8 row a pixel or a
+// filter) a step, so no C that is a multiple of 64 (every openai_64 conv)
+// multiplies a zero. A block is two warpgroups (256 threads), 64 output
+// pixels each (one wgmma row block), sharing a filter tile of 64 NB (NB = 1,
+// 2 or 3; int8_conv_plan in ops/kernels/int8conv.py picks the route and NB,
+// by waves among the widths that divide F when one does). The filter tiles
+// of one pixel tile are consecutive blocks, so they run together and read x
+// from device memory once. The weights of one (tap, 64-channel step), 64 NB
+// filters x 64 bytes, K-major as they are frozen, land by 16-byte cp.async
+// in the 64-byte swizzle in a ring of 4 stages (three pairs in flight while
+// one is multiplied) and are read by descriptor; every product is one wgmma
+// m64n(64 NB)k32 per 32 channels. Channels past C, filters past F and pixels
+// past the map are zeros (zero fill, or masked byte loads where C or the
+// pointers allow no 16-byte copy); C, F, H and W are anything.
+//
+// The halo route (int8_conv_halo_wgmma_kernel): stride 1, k = 3, bf16 or s8 x,
+// 96% of an openai_64 int8 forward's operations. Built as K4
+// (resblock.cu). Each warpgroup owns an 8 x 8 tile of output pixels and its
+// 10 x 10 halo; the tiles of all examples are numbered in one sequence, so
+// at 8 x 8 maps a block's two warpgroups may serve two examples.
+//   * A halo's channel step lands raw (bf16 or s8, zeros outside the map)
+//     by 16-byte cp.async (each thread's chunks and their offsets fixed
+//     once) into a raw buffer, and is quantized from there into an s8
+//     buffer by clip(rint(x * inv_act)) (an s8 x is copied): a pixel is a
+//     64-byte row whose 16-byte chunk c lies at chunk c ^ ((pixel / 2) % 4),
+//     so the eight pixels of an ldmatrix 8 x 8 read fall on eight bank
+//     groups. No separate quantize pass and no s8 copy of x in device memory.
+//   * A from registers: tap (dy, dx) is the halo shifted by (dy, dx), its
+//     m64k32 fragments two ldmatrix.x4 a thread straight into the wgmma
+//     register layout; each input element is read from L2 once a step, not
+//     once a tap. A shifted window is no swizzle-atom-aligned descriptor
+//     operand, which is why A is not read by descriptor.
+//   * A pair is one kernel row: a ring stage holds its three taps' slabs,
+//     and one barrier starts six wgmma a warpgroup (one tap a barrier, as
+//     K4 does, measured slower here: PERF.md).
+//   * Overlap: two raw and two s8 buffers. While step s multiplies, the raw
+//     halo of step s + 2 lands (staged at the step's first row) and each
+//     thread quantizes its (at most four) 16-channel chunks of step s + 1,
+//     two after each of the other rows' products start; then it waits for
+//     the products.
+//   * Operations per byte from L2: a step brings 9 slabs of 64 NB x 64 bytes
+//     and two raw halos (100 pixels x 128 bytes in bf16) for 2 x 9 x 64 x
+//     64 NB x 64 x 2 operations: 208 a byte at NB = 3, against 128 for the
+//     im2col design this replaced.
+//   * Shared memory at NB = 3: 144 KB of ring, 50 KB of raw, 25 KB of s8
+//     halos (bf16 x): one block a multiprocessor (so at every NB).
+// The row route (int8_conv_row_wgmma_kernel): k = 1, stride 2, f32 x and the
+// (1, 1, M, C) view of a dense layer: 4% of the openai_64 work, and the f32
+// test path. M is linear: 128 output pixels a block, all examples in one
+// sequence. A ring stage holds the slab and the raw im2col A tile (128
+// pixels x 64 channels of the tap's shifted input as x lies, by cp.async);
+// each thread stages half a row and quantizes that same half into one of
+// two s8 A tiles (64-byte swizzle, read by descriptor) once its own copies
+// are in, so it needs no barrier for it. f32 x takes this route at any
+// shape: it is the tests' path, not the served one, and its raw halo would
+// double the halo route's shared memory.
+// Epilogue (both): from the accumulators, float(s) * deq plus the bias, one
+// rounding to the output type, the four lanes of a quad storing eight
+// consecutive filters of a pixel (16 bytes in bf16) as pairs; the raw sums
+// the same way.
+// Registers and spills: ptxas's report for each instance (chip_smoke.py
+// [build]; CUDA 12.8: 224 a thread for bf16 x at NB = 3, no spill).
+//
+// What holds it back (tools/ablate_int8conv.py, PERF.md): the halo loop
+// with its products left out takes most of the loop's time, and the raw
+// staging, the slab staging, the quantize and the barrier each take a
+// tenth or more: the warps that multiply also stage and quantize, in
+// lockstep with the products. The INT8CONV_SKIP_* macros below leave one of
+// them out for that tool (the sums are then wrong); the package's build
+// never defines them. Tried in the redesign and not kept, being slower: two
+// tiles a warpgroup at one tap a barrier; one wgmma group kept in flight
+// across the barrier (ptxas serialises the register-A products); two
+// row-route blocks a multiprocessor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,274 +113,646 @@ namespace {
 
 namespace sm90 = nd::sm90;
 
-constexpr int kThreads = 256;           // two warpgroups
-constexpr int kBM = 128;                // output pixels a block, 64 a warpgroup
-constexpr int kBN = 128;                // filters a block
-constexpr int kBK = 128;                // channels a step: one 128-byte row
-constexpr int kTileBytes = 128 * 128;   // the A or the B tile of a stage
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kStages = 3;              // the cp.async ring
-constexpr size_t kSmem = kStages * kStageBytes + 1024;
-constexpr int kLd = kBN + 8;            // row stride of the epilogue's s32 tile, in words
-static_assert(kBM * kLd * 4 <= kStages * kStageBytes, "the epilogue tile fits in the ring");
-constexpr uint32_t kSbo = 8 * 128;      // 8 rows of 128 bytes: one swizzle atom
-constexpr int kChunks = kBM * 8 / kThreads;  // 16-byte chunks of A (and of B) a thread stages
-constexpr int kQuantThreads = 256;
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kWgThreads = 128;
+constexpr int kKStep = 64;        // channels a step: one 64-byte s8 row
+constexpr int kStages = 4;        // the ring: one stage multiplied, three landing
+constexpr int kAhead = kStages - 1;  // pairs staged ahead of the one multiplied
+constexpr int kSlabBytes = 64 * kKStep;  // 64 filters of a step: one NB unit of a slab
+constexpr int kSide = 8;          // halo route: output tile side
+constexpr int kHSide = kSide + 2;
+constexpr int kHPx = kHSide * kHSide;    // halo pixels
+constexpr int kQHalo = kHPx * kKStep;    // an s8 halo buffer
+constexpr int kQTasks = kHPx * 4;        // (pixel, 16-channel chunk) quantize tasks of a step
+constexpr int kQSlots = (kQTasks + kWgThreads - 1) / kWgThreads;  // a thread's, at most
+static_assert(kQSlots <= 4, "a step's quantize runs two tasks after each of kernel rows 1 and 2");
+constexpr int kBM = 2 * 64;       // row route: output pixels a block
+constexpr int kATile = kBM * kKStep;
 
 enum { kF32 = 0, kBF16 = 1, kS8 = 2 };
 
 struct Args {
-  const int8_t* x;  // the quantized input
+  const void* x;
+  const float* inv_act;  // null for an s8 x
   const int8_t* wq;
   const float* deq;
-  const float* bias;  // null: no bias
-  void* out;          // null: no dequantized output
-  int* raw;           // null: no raw sums
+  const float* bias;     // null: no bias
+  void* out;             // null: no dequantized output
+  int* raw;              // null: no raw sums
+  int otype;
   int h, w, c, f, k, stride, pad, ho, wo, taps, steps;
-  long long m;  // output pixels, batch * ho * wo
-  int vec_x, vec_w;
+  long long m;           // output pixels, batch * ho * wo
+  int tiles;             // halo route: 8 x 8 output tiles over all examples
+  int vec_x, vec_w;      // x and the weights allow 16-byte copies
 };
 
-// the input pixel a staged A row reads at tap (0, 0), and whether the row is
-// an output pixel at all
-struct Row {
-  int img, iy, ix;
+template <int XT>
+struct XType;
+template <>
+struct XType<kF32> {
+  using T = float;
+};
+template <>
+struct XType<kBF16> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct XType<kS8> {
+  using T = int8_t;
+};
+
+// rint(v * inv) clipped to [-127, 127], as an s32: the f32 product rounded
+// once, then round-half-to-even. Clipping the product to +-127 first gives
+// the same integer (the bounds are integers, both steps monotone).
+__device__ __forceinline__ int quant8(float v, float inv) {
+  return __float2int_rn(fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f));
+}
+
+// four values in [-127, 127] packed into one word, the first in the low byte
+// (cvt.pack: d = {c[15:0], a[7:0], b[7:0]}, each of a and b saturated to s8)
+__device__ __forceinline__ uint32_t pack4(int v0, int v1, int v2, int v3) {
+  uint32_t hi, d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;" : "=r"(hi) : "r"(v3), "r"(v2));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(v1), "r"(v0), "r"(hi));
+  return d;
+}
+
+// 16 bytes of s8 from 32 bytes of bf16 (eight values a word pair). The
+// product's upper clip is left to cvt.pack's saturation: rint of a product
+// over 127 is at least 127.
+__device__ __forceinline__ uint4 quant_bf16x16(uint4 lo, uint4 hi, float inv) {
+  const uint32_t in[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int q[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    q[2 * i] = __float2int_rn(fmaxf(__fmul_rn(sm90::bf16_lo(in[i]), inv), -127.f));
+    q[2 * i + 1] = __float2int_rn(fmaxf(__fmul_rn(sm90::bf16_hi(in[i]), inv), -127.f));
+  }
+  return make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                    pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+}
+
+// n (0 to 16) bytes from p, packed in four words, the rest zero
+__device__ __forceinline__ uint4 load_bytes(const int8_t* p, int n) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < n) v[j / 4] |= (uint32_t)(uint8_t)p[j] << (8 * (j % 4));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <int NB>
+__device__ __forceinline__ void wgmma_rs(int (&d)[NB * 32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (NB == 1) sm90::wgmma_rs_m64n64k32_s8(d, a, b, 1);
+  if constexpr (NB == 2) sm90::wgmma_rs_m64n128k32_s8(d, a, b, 1);
+  if constexpr (NB == 3) sm90::wgmma_rs_m64n192k32_s8(d, a, b, 1);
+}
+
+template <int NB>
+__device__ __forceinline__ void wgmma_ss(int (&d)[NB * 32], uint64_t a, uint64_t b) {
+  if constexpr (NB == 1) sm90::wgmma_ss_m64n64k32_s8(d, a, b, 1);
+  if constexpr (NB == 2) sm90::wgmma_ss_m64n128k32_s8(d, a, b, 1);
+  if constexpr (NB == 3) sm90::wgmma_ss_m64n192k32_s8(d, a, b, 1);
+}
+
+// The weight slab of a block: its 64 NB filters from f0 on, 64 bytes each of
+// one (tap, channel step). A thread copies NB 16-byte chunks of it, chunk id
+// tid + 256 i (filter f0 + id / 4, channels 16 (id % 4) on); their offsets in
+// the ring stage and into kernel_q are computed once.
+template <int NB>
+struct Slab {
+  uint32_t smem[NB];
+  int gmem[NB];  // from (filter 0, tap 0, channel 0)
+  int f0, tid;
+  bool whole;    // every chunk whole and aligned: C a multiple of 64, the filters inside F
+
+  __device__ __forceinline__ void init(const Args& a, int f0_, int tid_) {
+    f0 = f0_, tid = tid_;
+    whole = a.vec_w && a.c % kKStep == 0 && a.f - f0 >= 64 * NB;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int id = tid + kThreads * i, r = id >> 2, q = id & 3;
+      smem[i] = sm90::sw64_offset(r, q);
+      gmem[i] = whole ? (f0 + r) * a.taps * a.c + 16 * q : 0;
+    }
+  }
+
+  // slab (tap, step) into the ring stage at dst; the caller commits. A
+  // ragged slab masks filters past F and channels past C, by byte loads
+  // where no 16-byte copy is aligned.
+  __device__ __forceinline__ void stage(uint32_t dst, const Args& a, int tap, int step) const {
+    const int base = tap * a.c + step * kKStep;
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) sm90::cp_async_16(dst + smem[i], a.wq + gmem[i] + base, 16);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int id = tid + kThreads * i, fl = f0 + (id >> 2), c = step * kKStep + 16 * (id & 3);
+      const int valid = fl < a.f ? min(max(a.c - c, 0), 16) : 0;
+      const int8_t* p = valid > 0 ? a.wq + ((long long)fl * a.taps + tap) * a.c + c : a.wq;
+      if (a.vec_w) {
+        sm90::cp_async_16(dst + smem[i], p, valid);
+      } else {
+        const uint4 v = load_bytes(p, valid);
+        sm90::st_shared_16(dst + smem[i], v.x, v.y, v.z, v.w);
+      }
+    }
+  }
+};
+
+// s = float(sum) * deq (+ bias), one rounding to the output type; two
+// filters at a time where both exist and F is even (aligned pairs)
+__device__ __forceinline__ float dequant(const Args& a, int s, float deq, float bias) {
+  float v = __fmul_rn(__int2float_rn(s), deq);
+  return a.bias != nullptr ? __fadd_rn(v, bias) : v;
+}
+
+// The epilogue of a warpgroup's m64 x 64 NB tile. acc[32 cb + 4j + 2 half + e]
+// is row 16 warp + lane / 4 + 8 half of the warpgroup, filter f0 + 64 cb + 8j
+// + 2 (lane % 4) + e; pix[half] is that row's output pixel (its index over
+// all examples), or -1 for a row that stores nothing.
+template <int NB>
+__device__ __forceinline__ void store_tile(const Args& a, const int (&acc)[NB * 32],
+                                           const long long (&pix)[2], int f0, int lane) {
+  const bool pairs = a.f % 2 == 0;
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f0 + 64 * cb + 8 * j + 2 * (lane % 4);
+      if (col >= a.f) continue;
+      const bool two = col + 1 < a.f;
+      const float d0 = __ldg(a.deq + col), d1 = two ? __ldg(a.deq + col + 1) : 0.f;
+      const float b0 = a.bias != nullptr ? __ldg(a.bias + col) : 0.f;
+      const float b1 = a.bias != nullptr && two ? __ldg(a.bias + col + 1) : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (pix[half] < 0) continue;
+        const int s0 = acc[32 * cb + 4 * j + 2 * half], s1 = acc[32 * cb + 4 * j + 2 * half + 1];
+        const size_t o = (size_t)pix[half] * a.f + col;
+        if (a.raw != nullptr) {
+          if (two && pairs) {
+            *reinterpret_cast<int2*>(a.raw + o) = make_int2(s0, s1);
+          } else {
+            a.raw[o] = s0;
+            if (two) a.raw[o + 1] = s1;
+          }
+        }
+        if (a.out == nullptr) continue;
+        const float v0 = dequant(a, s0, d0, b0), v1 = dequant(a, s1, d1, b1);
+        if (a.otype == kF32) {
+          float* dst = static_cast<float*>(a.out) + o;
+          if (two && pairs) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (two) dst[1] = v1;
+          }
+        } else {
+          __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + o;
+          if (two && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            dst[0] = __float2bfloat16_rn(v0);
+            if (two) dst[1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+}
+
+// ------------------------------------------------------------- halo route
+
+// a warpgroup's 8 x 8 output tile: example, top-left pixel, and whether it
+// exists (a block's second warpgroup past the last tile computes the last
+// tile again and stores nothing)
+struct Tile8 {
+  int b, y0, x0;
   bool live;
 };
 
-__device__ __forceinline__ int quant8(float v, float inv) {
-  return min(max(__float2int_rn(__fmul_rn(v, inv)), -127), 127);
+__device__ __forceinline__ Tile8 tile_of(int s, const Args& a) {
+  Tile8 t;
+  t.live = s < a.tiles;
+  s = min(s, a.tiles - 1);
+  const int tx = (a.w + kSide - 1) / kSide;
+  const int per = tx * ((a.h + kSide - 1) / kSide);
+  t.b = s / per;
+  const int r = s - t.b * per;
+  t.y0 = (r / tx) * kSide;
+  t.x0 = (r % tx) * kSide;
+  return t;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+template <int XT>
+struct HaloTile {
+  using T = typename XType<XT>::T;
+  static constexpr int kRawPx = kKStep * sizeof(T);  // raw bytes a pixel and step
+  static constexpr int kRaw = kHPx * kRawPx;
+  static constexpr int kEpc = 16 / sizeof(T);        // elements a 16-byte chunk
+};
 
-// 16 consecutive elements from a 16-byte-aligned address, as floats
-__device__ __forceinline__ void load16(float (&f)[16], const float* p) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p) + q);
-    f[4 * q] = t.x, f[4 * q + 1] = t.y, f[4 * q + 2] = t.z, f[4 * q + 3] = t.w;
-  }
-}
+template <int XT, int NB>
+struct HaloSmem {
+  static constexpr int kStage = 3 * NB * kSlabBytes;  // the three taps of a kernel row
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kRaws = 2 * 2 * HaloTile<XT>::kRaw;  // two steps x two warpgroups
+  static constexpr int kQs = 2 * 2 * kQHalo;
+  static constexpr size_t kSmem = kRing + kRaws + kQs + 1024;
+  static_assert(kSmem <= 232448, "over a block's shared memory");
+};
 
-__device__ __forceinline__ void load16(float (&f)[16], const __nv_bfloat16* p) {
+// A thread's share of a warpgroup's raw halo: chunk ids wtid + 128 j of
+// the 100 pixels x kChunks 16-byte chunks of a step (pixel id / kChunks,
+// chunk id % kChunks, stored at byte 16 id of the raw buffer), with the
+// offset of each into the tile's example at channel 0 and whether its pixel
+// lies in the map, computed once
+template <int XT>
+struct RawHalo {
+  using H = HaloTile<XT>;
+  using T = typename H::T;
+  static constexpr int kChunks = H::kRawPx / 16;
+  static constexpr int kSlots = (kHPx * kChunks + kWgThreads - 1) / kWgThreads;
+  const T* xb;     // the tile's example
+  int goff[kSlots];
+  uint32_t in;     // bit j: slot j is a chunk of a pixel in the map
+  int wtid;
+
+  __device__ __forceinline__ void init(const Args& a, const Tile8& t, int wtid_) {
+    wtid = wtid_;
+    xb = static_cast<const T*>(a.x) + (size_t)t.b * a.h * a.w * a.c;
+    in = 0u;
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + q);
-    const uint32_t wds[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[8 * q + 2 * i] = sm90::bf16_lo(wds[i]);
-      f[8 * q + 2 * i + 1] = sm90::bf16_hi(wds[i]);
+    for (int j = 0; j < kSlots; ++j) {
+      const int id = wtid + kWgThreads * j, p = id / kChunks, chunk = id % kChunks;
+      const int yy = t.y0 + p / kHSide - 1, xx = t.x0 + p % kHSide - 1;
+      const bool inside = id < kHPx * kChunks && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
+      in |= (uint32_t)inside << j;
+      goff[j] = inside ? (yy * a.w + xx) * a.c + chunk * H::kEpc : 0;
     }
   }
-}
 
-// x_q = clip(rint(x * inv_act), -127, 127) over n elements; vec: 16 elements
-// a thread and turn from 16-byte-aligned x and x_q (n a multiple of 16)
-template <typename T>
-__global__ void __launch_bounds__(kQuantThreads) quantize_kernel(const T* __restrict__ x,
-                                                                 const float* __restrict__ inv_act,
-                                                                 int8_t* __restrict__ xq,
-                                                                 long long n, int vec) {
-  const float inv = __ldg(inv_act);
-  const long long step = (long long)gridDim.x * kQuantThreads;
-  long long i = (long long)blockIdx.x * kQuantThreads + threadIdx.x;
-  if (vec) {
-    for (; i < n / 16; i += step) {
-      float f[16];
-      load16(f, x + 16 * i);
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
+  // channel step `step` into the raw buffer at raw; zeros outside the map
+  // and past C
+  __device__ __forceinline__ void stage(uint32_t raw, const Args& a, int step) const {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) v[j / 4] |= ((uint32_t)quant8(f[j], inv) & 0xFFu) << (8 * (j % 4));
-      *reinterpret_cast<uint4*>(xq + 16 * i) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-    return;
-  }
-  for (; i < n; i += step) xq[i] = (int8_t)quant8(load_f32(x + i), inv);
-}
-
-// n (1 to 16) bytes from p, packed in four words, the rest zero
-__device__ __forceinline__ void load_bytes(uint32_t (&v)[4], const int8_t* p, int n) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    if (j < n) v[j / 4] |= ((uint32_t)(uint8_t)p[j]) << (8 * (j % 4));
-}
-
-// the A tile of (tap, channels c0 on): row r is output pixel m0 + r, its 128
-// channels of the tap's input pixel, zeros outside the map; by cp.async
-// where every chunk is whole and aligned (the caller commits), else by byte
-// loads
-__device__ __forceinline__ void stage_a(uint32_t dst, const Args& a, const Row (&rows)[kChunks],
-                                        int tap, int c0, int tid) {
-  const int dy = tap / a.k, dx = tap - dy * a.k;
-  const int chunk = tid & 7, c = c0 + chunk * 16;
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int r = (tid >> 3) + 32 * i;
-    const uint32_t at = dst + sm90::sw128_offset(r, chunk, kBM);
-    const int iy = rows[i].iy + dy, ix = rows[i].ix + dx;
-    const bool in = rows[i].live && iy >= 0 && iy < a.h && ix >= 0 && ix < a.w && c < a.c;
-    const int8_t* p = in ? a.x + ((((long long)rows[i].img * a.h + iy) * a.w + ix) * a.c + c) : a.x;
-    if (a.vec_x) {
-      sm90::cp_async_16(at, p, in ? 16 : 0);
-    } else {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (in) load_bytes(v, p, min(a.c - c, 16));
-      sm90::st_shared_16(at, v[0], v[1], v[2], v[3]);
+    for (int j = 0; j < kSlots; ++j) {
+      const int id = wtid + kWgThreads * j;
+      if (id >= kHPx * kChunks) break;
+      const int ch = step * kKStep + (id % kChunks) * H::kEpc;
+      const int valid = (in >> j) & 1u ? min(max(a.c - ch, 0), H::kEpc) : 0;  // elements
+      const T* src = valid > 0 ? xb + goff[j] + step * kKStep : xb;
+      const uint32_t at = raw + (uint32_t)(16 * id);
+      if (a.vec_x) {
+        sm90::cp_async_16(at, src, valid * (int)sizeof(T));
+      } else {
+        const uint4 v = load_bytes(reinterpret_cast<const int8_t*>(src), valid * (int)sizeof(T));
+        sm90::st_shared_16(at, v.x, v.y, v.z, v.w);
+      }
     }
   }
-}
+};
 
-// the B tile of (tap, channels c0 on): row r is filter f0 + r, its 128
-// channels at the tap, the same two ways
-__device__ __forceinline__ void stage_b(uint32_t dst, const Args& a, int f0, int tap, int c0,
-                                        int tid) {
-  const int chunk = tid & 7, c = c0 + chunk * 16;
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int r = (tid >> 3) + 32 * i, fl = f0 + r;
-    const uint32_t at = dst + sm90::sw128_offset(r, chunk, kBN);
-    const bool in = fl < a.f && c < a.c;
-    const int8_t* p = in ? a.wq + (((long long)fl * a.taps + tap) * a.c + c) : a.wq;
-    if (a.vec_w) {
-      sm90::cp_async_16(at, p, in ? 16 : 0);
-    } else {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (in) load_bytes(v, p, min(a.c - c, 16));
-      sm90::st_shared_16(at, v[0], v[1], v[2], v[3]);
-    }
+// quantize task `task` of a step: pixel task / 4, channels 16 (task % 4) on,
+// from the raw buffer into the swizzled s8 buffer (a copy for an s8 x)
+template <int XT>
+__device__ __forceinline__ void quantize_task(uint32_t q, uint32_t raw, int task, float inv) {
+  const int p = task >> 2, chunk = task & 3;
+  uint4 v;
+  if constexpr (XT == kS8) {
+    v = sm90::ld_shared_16(raw + (uint32_t)(p * kKStep + chunk * 16));
+  } else {
+    const uint32_t at = raw + (uint32_t)(p * HaloTile<XT>::kRawPx + chunk * 32);
+    v = quant_bf16x16(sm90::ld_shared_16(at), sm90::ld_shared_16(at + 16), inv);
   }
+  sm90::st_shared_16(q + sm90::sw64_offset(p, chunk), v.x, v.y, v.z, v.w);
 }
 
-// (tap, channel step) pair it into ring stage it % kStages
-__device__ __forceinline__ void stage_pair(uint32_t base, const Args& a, const Row (&rows)[kChunks],
-                                           int f0, int it, int tid) {
-  const int tap = it / a.steps, c0 = (it - tap * a.steps) * kBK;
-  const uint32_t st = base + (uint32_t)((it % kStages) * kStageBytes);
-  stage_b(st + kTileBytes, a, f0, tap, c0, tid);
-  stage_a(st, a, rows, tap, c0, tid);
-}
-
-template <int OT>
-__device__ __forceinline__ void store_out(const Args& a, size_t o, int f, int s) {
-  float v = __fmul_rn(__int2float_rn(s), a.deq[f]);
-  if (a.bias != nullptr) v = __fadd_rn(v, a.bias[f]);
-  if (OT == kF32)
-    static_cast<float*>(a.out)[o] = v;
-  else
-    static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(v);
-}
-
-template <int OT>
-__global__ void __launch_bounds__(kThreads, 2) int8_conv_wgmma_kernel(
-    const __grid_constant__ Args a) {
+template <int XT, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_conv_halo_wgmma_kernel(const __grid_constant__ Args a) {
+  using Sm = HaloSmem<XT, NB>;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int f0 = blockIdx.y * kBN;
-
-  Row rows[kChunks];
-  const long long per_img = (long long)a.ho * a.wo;
+  const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wtid = tid % kWgThreads;
+  const int wg = tid / kWgThreads, warp = wtid / 32, lane = tid % 32;
+  const uint32_t raw0 = ring + Sm::kRing + wg * HaloTile<XT>::kRaw;
+  const uint32_t q0 = ring + Sm::kRing + Sm::kRaws + wg * kQHalo;
+  auto raw_buf = [&](int s) { return raw0 + (uint32_t)((s & 1) * 2 * HaloTile<XT>::kRaw); };
+  auto q_buf = [&](int s) { return q0 + (uint32_t)((s & 1) * 2 * kQHalo); };
+  // the filter tiles of one pair of pixel tiles are consecutive blocks, so
+  // that they run together and x's halo comes from device memory once
+  const int ftiles = (a.f + 64 * NB - 1) / (64 * NB);
+  const Tile8 t = tile_of((int)(blockIdx.x / ftiles) * 2 + wg, a);
+  const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
+  const int steps = a.steps, iters = 3 * steps;  // (step, kernel row) pairs, rows fastest
+  const float inv = XT == kS8 ? 0.f : __ldg(a.inv_act);
+  Slab<NB> slab;
+  slab.init(a, f0, tid);
+  RawHalo<XT> halo;
+  halo.init(a, t, wtid);
+  // the slabs of pair it, taps (dy, 0 to 2), into ring stage it % kStages
+  auto stage_slabs = [&](int it) {
+    if (it >= iters) return;
+    const int step = it / 3, dy = it - 3 * step;
+    const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const long long m = m0 + (tid >> 3) + 32 * i;
-    rows[i].live = m < a.m;
-    const long long mm = rows[i].live ? m : 0;
-    const long long img = mm / per_img;
-    const int rem = (int)(mm - img * per_img), oy = rem / a.wo, ox = rem - oy * a.wo;
-    rows[i].img = (int)img;
-    rows[i].iy = oy * a.stride - a.pad;
-    rows[i].ix = ox * a.stride - a.pad;
-  }
+    for (int dx = 0; dx < 3; ++dx)
+      slab.stage(st + (uint32_t)(dx * NB * kSlabBytes), a, 3 * dy + dx, step);
+  };
+  // this lane's ldmatrix row: matrix j = lane / 8 holds rows 8 (j % 2) to
+  // 8 (j % 2) + 7 of the warp's 16 (tile row 2 warp + j % 2, columns 0 to 7)
+  // at bytes 16 (j / 2) to 16 (j / 2) + 15 of each k32 half
+  const int mrow = 2 * warp + ((lane >> 3) & 1), mcol = lane & 7, khalf = lane >> 4;
 
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-
-  // (tap, channel step) pairs, steps fastest; the first kStages - 1 in flight
-  // before the loop, one commit group each (empty past the last pair)
-  const int iters = a.taps * a.steps;
+  // prologue: the raw halos of steps 0 and 1 (one group), the slabs of the
+  // first kAhead pairs (a group each); then step 0 quantized
+  halo.stage(raw_buf(0), a, 0);
+  if (steps > 1) halo.stage(raw_buf(1), a, 1);
+  sm90::cp_async_commit();
 #pragma unroll 1
-  for (int it = 0; it < kStages - 1; ++it) {
-    if (it < iters) stage_pair(base, a, rows, f0, it, tid);
+  for (int it = 0; it < kAhead; ++it) {
+    stage_slabs(it);
     sm90::cp_async_commit();
   }
+  sm90::cp_async_wait<kAhead>();
+  __syncthreads();
+#pragma unroll 1
+  for (int j = 0; j < kQSlots; ++j) {
+    const int task = wtid + kWgThreads * j;
+    if (task < kQTasks) quantize_task<XT>(q_buf(0), raw_buf(0), task, inv);
+  }
+
+  int acc[NB * 32];
+#pragma unroll
+  for (int i = 0; i < NB * 32; ++i) acc[i] = 0;
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    // pair it landed (this thread's copies; its stores are done); the barrier
-    // makes everyone's visible and says that both warpgroups waited for the
-    // products of pair it - 1, whose stage the loads below overwrite
-    sm90::cp_async_wait<kStages - 2>();
+    const int step = it / 3, dy = it - 3 * step;
+    // this pair's slabs landed (this thread's copies); the barrier makes
+    // everyone's visible, says that the stage the loads below overwrite is
+    // free and that this step's s8 halo is written
+    sm90::cp_async_wait<kAhead - 1>();
     sm90::fence_proxy_async();
+#ifndef INT8CONV_SKIP_BARRIER
     __syncthreads();
-    uint32_t st = base + (uint32_t)((it % kStages) * kStageBytes);
-    asm volatile("" : "+r"(st));
+#endif
+    // the A fragments of taps (dy, 0 to 2): the halo shifted by (dy, dx)
+    uint32_t frag[3][2][4];
+    const uint32_t qb = q_buf(step);
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int p = (mrow + dy) * kHSide + mcol + dx;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        sm90::ldmatrix_x4(frag[dx][kk], qb + (uint32_t)(p * kKStep) +
+                                            (uint32_t)(((2 * kk + khalf) ^ ((p >> 1) & 3)) << 4));
+    }
+    // the stage base, opaque to the compiler, so that it rebuilds each
+    // descriptor with an add instead of holding them in registers
+    uint32_t wst = ring + (uint32_t)((it % kStages) * Sm::kStage);
+    asm volatile("" : "+r"(wst));
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_ss_m64n128k32_s8(
-          acc, sm90::sw128_desc(st + wg * 64 * 128 + kk * 32, 16, kSbo),
-          sm90::sw128_desc(st + kTileBytes + kk * 32, 16, kSbo), 1);
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#ifndef INT8CONV_SKIP_PRODUCTS
+        wgmma_rs<NB>(acc, frag[dx][kk], sm90::sw64_desc(wst + dx * NB * kSlabBytes + kk * 32));
+#else
+        acc[2 * dx + kk] += (int)frag[dx][kk][0];
+#endif
     sm90::wgmma_commit();
-    if (it + kStages - 1 < iters) stage_pair(base, a, rows, f0, it + kStages - 1, tid);
+    // a step's first row: the raw halo of step + 2 into the raw buffer step
+    // was quantized from; every pair: the slabs of it + kAhead
+#ifndef INT8CONV_SKIP_RAW
+    if (dy == 0 && step + 2 < steps) halo.stage(raw_buf(step), a, step + 2);
+#endif
+#ifndef INT8CONV_SKIP_SLABS
+    stage_slabs(it + kAhead);
+#endif
     sm90::cp_async_commit();
+    // kernel rows 1 and 2: quantize tasks 2 dy - 2 and 2 dy - 1 of step + 1
+    // (its raw halo landed: its group is older than the one waited for
+    // above); row 0 staged a raw halo
+#ifndef INT8CONV_SKIP_QUANTIZE
+    if (dy > 0 && step + 1 < steps)
+#else
+    if (false)
+#endif
+#pragma unroll
+      for (int j = 2 * dy - 2; j < 2 * dy; ++j) {
+        const int task = wtid + kWgThreads * j;
+        if (task < kQTasks) quantize_task<XT>(q_buf(step + 1), raw_buf(step + 1), task, inv);
+      }
     sm90::wgmma_wait<0>();
   }
   sm90::fence_regs(acc);
 
-  // Epilogue through shared memory, free once both warpgroups are past their
-  // last products: the 128 x 128 s32 tile, then rows of it written out by
-  // consecutive threads (coalesced stores, and no per-thread column
-  // constants held in registers). acc[4j + 2 half + e] is warpgroup row
-  // 16 warp + lane / 4 + 8 half, filter 8j + 2 (lane % 4) + e of the block's 128.
-  __syncthreads();
-  int* tile = reinterpret_cast<int*>(smem_raw + (base - sm90::smem_addr(smem_raw)));
-  const int row = 64 * wg + 16 * warp + lane / 4;
+  if (!t.live) return;
+  long long pix[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        tile[(row + 8 * half) * kLd + 8 * j + 2 * (lane % 4) + e] = acc[4 * j + 2 * half + e];
-  __syncthreads();
-#pragma unroll 4
-  for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
-    const int r = idx / kBN, col = idx % kBN;
-    const long long m = m0 + r;
-    const int f = f0 + col;
-    if (m >= a.m || f >= a.f) continue;
-    const int s = tile[r * kLd + col];
-    const size_t o = (size_t)m * a.f + f;
-    if (a.raw != nullptr) a.raw[o] = s;
-    if (a.out != nullptr) store_out<OT>(a, o, f, s);
+  for (int half = 0; half < 2; ++half) {
+    const int yy = t.y0 + 2 * warp + half, xx = t.x0 + lane / 4;
+    pix[half] = yy < a.h && xx < a.w ? ((long long)t.b * a.h + yy) * a.w + xx : -1;
   }
+  store_tile<NB>(a, acc, pix, f0, lane);
 }
 
-template <int OT>
-cudaError_t launch_conv(const Args& a, cudaStream_t stream) {
-  auto kernel = int8_conv_wgmma_kernel<OT>;
+// -------------------------------------------------------------- row route
+
+template <int XT, int NB>
+struct RowSmem {
+  using T = typename XType<XT>::T;
+  static constexpr int kRawRow = kKStep * sizeof(T);  // raw bytes of a pixel's step
+  static constexpr int kRawChunks = kRawRow / 16;
+  static constexpr int kStage = NB * kSlabBytes + kBM * kRawRow;  // the slab, then raw A
+  static constexpr size_t kSmem = kStages * kStage + 2 * kATile + 1024;
+  static_assert(kSmem <= 232448, "over a block's shared memory");
+};
+
+// byte offset of raw chunk `chunk` of A row r: the chunk index XORed with
+// the row's low bits, so that the threads of a quarter warp, each on its own
+// row, read different bank groups
+template <int XT, int NB>
+__device__ __forceinline__ uint32_t raw_offset(int r, int chunk) {
+  using Sm = RowSmem<XT, NB>;
+  return (uint32_t)(r * Sm::kRawRow + ((chunk ^ (r & (Sm::kRawChunks - 1) & 7)) << 4));
+}
+
+template <int XT, int NB>
+__global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
+    int8_conv_row_wgmma_kernel(const __grid_constant__ Args a) {
+  using Sm = RowSmem<XT, NB>;
+  using T = typename Sm::T;
+  constexpr int kEpc = 16 / sizeof(T);           // elements a 16-byte chunk
+  constexpr int kHalfChunks = Sm::kRawChunks / 2;  // a thread's chunks of its row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qa = ring + kStages * Sm::kStage;  // two s8 A tiles
+  const int tid = threadIdx.x, wg = tid / kWgThreads, warp = (tid % kWgThreads) / 32;
+  const int lane = tid % 32;
+  // the filter tiles of one pixel tile are consecutive blocks (as above)
+  const int ftiles = (a.f + 64 * NB - 1) / (64 * NB);
+  const long long m0 = (long long)(blockIdx.x / ftiles) * kBM;
+  const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
+  const float inv = XT == kS8 ? 0.f : __ldg(a.inv_act);
+  Slab<NB> slab;
+  slab.init(a, f0, tid);
+
+  // this thread's A row r (output pixel m0 + r) and half hf of its channels:
+  // it stages that half raw and quantizes it itself, so it reads only its
+  // own copies
+  const int r = tid >> 1, hf = tid & 1;
+  const long long m = m0 + r;
+  const bool live = m < a.m;
+  int img, iy, ix;
+  {
+    const long long per_img = (long long)a.ho * a.wo, mm = live ? m : 0;
+    const long long b = mm / per_img;
+    const int rem = (int)(mm - b * per_img), oy = rem / a.wo, ox = rem - oy * a.wo;
+    img = (int)b;
+    iy = oy * a.stride - a.pad;
+    ix = ox * a.stride - a.pad;
+  }
+
+  // (tap, step) pairs, steps fastest
+  const int iters = a.taps * a.steps;
+  auto stage_pair = [&](int it) {
+    if (it >= iters) return;
+    const int tap = it / a.steps, step = it - tap * a.steps;
+    const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
+    slab.stage(st, a, tap, step);
+    const int dy = tap / a.k, dx = tap - dy * a.k, yy = iy + dy, xx = ix + dx;
+    const bool in = live && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
+    const int c0 = step * kKStep + hf * (kKStep / 2);
+    const T* src = static_cast<const T*>(a.x) +
+                   (in ? (((size_t)img * a.h + yy) * a.w + xx) * a.c : 0);
+    const uint32_t raw = st + NB * kSlabBytes;
+#pragma unroll
+    for (int j = 0; j < kHalfChunks; ++j) {
+      const int c = c0 + j * kEpc;
+      const int valid = in ? min(max(a.c - c, 0), kEpc) : 0;
+      const T* p = valid > 0 ? src + c : static_cast<const T*>(a.x);
+      const uint32_t at = raw + raw_offset<XT, NB>(r, hf * kHalfChunks + j);
+      if (a.vec_x) {
+        sm90::cp_async_16(at, p, valid * (int)sizeof(T));
+      } else {
+        const uint4 v = load_bytes(reinterpret_cast<const int8_t*>(p), valid * (int)sizeof(T));
+        sm90::st_shared_16(at, v.x, v.y, v.z, v.w);
+      }
+    }
+  };
+  // pair it's raw A half, quantized into s8 A tile it % 2: channels 16 j of
+  // the step for j = 2 hf, 2 hf + 1
+  auto quantize_a = [&](int it) {
+    if (it >= iters) return;
+    const uint32_t raw = ring + (uint32_t)((it % kStages) * Sm::kStage) + NB * kSlabBytes;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = 2 * hf + jj;  // the s8 chunk: raw chunks j * 16 / kEpc on
+      uint4 v;
+      if constexpr (XT == kS8) {
+        v = sm90::ld_shared_16(raw + raw_offset<XT, NB>(r, j));
+      } else if constexpr (XT == kBF16) {
+        v = quant_bf16x16(sm90::ld_shared_16(raw + raw_offset<XT, NB>(r, 2 * j)),
+                          sm90::ld_shared_16(raw + raw_offset<XT, NB>(r, 2 * j + 1)), inv);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 f = sm90::ld_shared_16(raw + raw_offset<XT, NB>(r, 4 * j + q));
+          w[q] = pack4(quant8(__uint_as_float(f.x), inv), quant8(__uint_as_float(f.y), inv),
+                       quant8(__uint_as_float(f.z), inv), quant8(__uint_as_float(f.w), inv));
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      sm90::st_shared_16(qa + (uint32_t)((it & 1) * kATile) + sm90::sw64_offset(r, j), v.x, v.y,
+                         v.z, v.w);
+    }
+  };
+
+  // prologue: the first kAhead pairs (a group each); pair 0's A quantized
+#pragma unroll 1
+  for (int it = 0; it < kAhead; ++it) {
+    stage_pair(it);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<kAhead - 1>();
+  quantize_a(0);
+
+  int acc[NB * 32];
+#pragma unroll
+  for (int i = 0; i < NB * 32; ++i) acc[i] = 0;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    // every thread's s8 A of pair it is stored and its slab landed (each
+    // waited for its own copies of it in pair it - 1); the barrier makes them
+    // visible and says that the stage pair it - 1 read is free
+    sm90::fence_proxy_async();
+    __syncthreads();
+    uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
+    uint32_t at = qa + (uint32_t)((it & 1) * kATile + wg * 64 * kKStep);
+    asm volatile("" : "+r"(st), "+r"(at));
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_ss<NB>(acc, sm90::sw64_desc(at + kk * 32), sm90::sw64_desc(st + kk * 32));
+    sm90::wgmma_commit();
+    // pair it + kAhead into the stage pair it - 1 read; then this thread's
+    // copies of pair it + 1 (the oldest group in flight) are in, and its A
+    // half is quantized into the s8 tile pair it - 1 read
+    stage_pair(it + kAhead);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<kAhead - 1>();
+    quantize_a(it + 1);
+    sm90::wgmma_wait<0>();
+  }
+  sm90::fence_regs(acc);
+
+  long long pix[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long mo = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * half;
+    pix[half] = mo < a.m ? mo : -1;
+  }
+  store_tile<NB>(a, acc, pix, f0, lane);
+}
+
+// ---------------------------------------------------------------- launch
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((a.m + kBM - 1) / kBM), (unsigned)((a.f + kBN - 1) / kBN));
-  kernel<<<grid, kThreads, kSmem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_quantize(const void* x, const void* inv_act, int8_t* xq, long long n,
-                            cudaStream_t stream) {
-  const int vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(xq) % 16 == 0;
-  const long long work = vec ? n / 16 : n;
-  const long long blocks = (work + kQuantThreads - 1) / kQuantThreads;
-  quantize_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), kQuantThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(inv_act), xq, n, vec);
-  return cudaGetLastError();
+template <int XT, int NB>
+cudaError_t launch_halo(const Args& a, cudaStream_t stream) {
+  const dim3 grid((unsigned)((long long)(a.tiles + 1) / 2 * ((a.f + 64 * NB - 1) / (64 * NB))));
+  return launch(int8_conv_halo_wgmma_kernel<XT, NB>, HaloSmem<XT, NB>::kSmem, grid, a, stream);
+}
+
+template <int XT, int NB>
+cudaError_t launch_row(const Args& a, cudaStream_t stream) {
+  const dim3 grid((unsigned)((a.m + kBM - 1) / kBM * ((a.f + 64 * NB - 1) / (64 * NB))));
+  return launch(int8_conv_row_wgmma_kernel<XT, NB>, RowSmem<XT, NB>::kSmem, grid, a, stream);
+}
+
+template <int NB>
+cudaError_t launch_nb(const Args& a, int xtype, int route, cudaStream_t stream) {
+  if (route == 1) return xtype == kS8 ? launch_halo<kS8, NB>(a, stream)
+                                      : launch_halo<kBF16, NB>(a, stream);
+  switch (xtype) {
+    case kF32: return launch_row<kF32, NB>(a, stream);
+    case kBF16: return launch_row<kBF16, NB>(a, stream);
+    default: return launch_row<kS8, NB>(a, stream);
+  }
 }
 
 }  // namespace
@@ -347,45 +760,57 @@ cudaError_t launch_quantize(const void* x, const void* inv_act, int8_t* xq, long
 extern "C" {
 
 // x (batch, h, w, c) NHWC of type xtype (0 float32, 1 bfloat16: quantized
-// first by a launch of its own into xq, (batch, h, w, c) int8 scratch, with
-// the one f32 inv_act; 2 int8: already quantized, inv_act and xq unused);
-// wq (f, k, k, c) int8; deq (f,) f32; bias (f,) f32 or null; out
-// (batch, ho, wo, f) of type otype (0 float32, 1 bfloat16) or null; raw
+// in the kernel with the one f32 inv_act; 2 int8: already quantized,
+// inv_act unused); wq (f, k, k, c) int8; deq (f,) f32; bias (f,) f32 or null;
+// out (batch, ho, wo, f) of type otype (0 float32, 1 bfloat16) or null; raw
 // (batch, ho, wo, f) int32 or null; ho = (h - 1) / stride + 1, the same for
-// wo (padding k / 2). All on the current device. Returns the CUDA error code
-// of the launches (0 on success).
-int nd_int8_conv(const void* x, int xtype, const void* inv_act, void* xq, const void* wq,
-                 const void* deq, const void* bias, void* out, int otype, void* raw, int batch,
-                 int h, int w, int c, int f, int k, int stride, void* stream) {
+// wo (padding k / 2). route 0 is the row route, 1 the halo route (k = 3,
+// stride 1, xtype 1 or 2); filter_tile 64, 128 or 192; channel_step 64.
+// All on the current device. Returns the CUDA error code of the launch (0 on
+// success).
+int nd_int8_conv(const void* x, int xtype, const void* inv_act, const void* wq, const void* deq,
+                 const void* bias, void* out, int otype, void* raw, int batch, int h, int w,
+                 int c, int f, int k, int stride, int route, int filter_tile, int channel_step,
+                 void* stream) {
+  const int nb = filter_tile / 64;
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || f <= 0 || (k != 1 && k != 3) ||
       (stride != 1 && stride != 2) || xtype < 0 || xtype > 2 || otype < 0 || otype > 1 ||
-      (out == nullptr && raw == nullptr) ||
-      (xtype != kS8 && (inv_act == nullptr || xq == nullptr)) || (f + kBN - 1) / kBN > 65535)
+      (out == nullptr && raw == nullptr) || (xtype != kS8 && inv_act == nullptr) ||
+      filter_tile % 64 != 0 || nb < 1 || nb > 3 || channel_step != kKStep || route < 0 ||
+      route > 1 || (route == 1 && (k != 3 || stride != 1 || xtype == kF32)) ||
+      (long long)f * k * k * c > INT_MAX)
     return (int)cudaErrorInvalidValue;
   Args a;
+  a.x = x;
+  a.inv_act = static_cast<const float*>(inv_act);
   a.wq = static_cast<const int8_t*>(wq);
   a.deq = static_cast<const float*>(deq);
   a.bias = static_cast<const float*>(bias);
   a.out = out;
   a.raw = static_cast<int*>(raw);
+  a.otype = otype;
   a.h = h, a.w = w, a.c = c, a.f = f, a.k = k, a.stride = stride, a.pad = k / 2;
   a.ho = (h + 2 * a.pad - k) / stride + 1;
   a.wo = (w + 2 * a.pad - k) / stride + 1;
   a.taps = k * k;
-  a.steps = (c + kBK - 1) / kBK;
+  a.steps = (c + kKStep - 1) / kKStep;
   a.m = (long long)batch * a.ho * a.wo;
-  if ((a.m + kBM - 1) / kBM > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)batch * h * w * c;
-  cudaError_t err = cudaSuccess;
-  if (xtype == kF32) err = launch_quantize<float>(x, inv_act, static_cast<int8_t*>(xq), n, s);
-  if (xtype == kBF16)
-    err = launch_quantize<__nv_bfloat16>(x, inv_act, static_cast<int8_t*>(xq), n, s);
-  if (err != cudaSuccess) return (int)err;
-  a.x = static_cast<const int8_t*>(xtype == kS8 ? x : xq);
-  a.vec_x = c % 16 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  const long long tiles = (long long)batch * ((h + kSide - 1) / kSide) * ((w + kSide - 1) / kSide);
+  const long long ftiles = (f + filter_tile - 1) / filter_tile;
+  if ((a.m + kBM - 1) / kBM * ftiles > INT_MAX || tiles > INT_MAX - 1 ||
+      (tiles + 1) / 2 * ftiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  // a 16-byte copy holds whole elements from a 16-byte boundary
+  const int xbytes = xtype == kF32 ? 4 : xtype == kBF16 ? 2 : 1;
+  a.vec_x = c % (16 / xbytes) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.vec_w = c % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
-  return (int)(otype == kF32 ? launch_conv<kF32>(a, s) : launch_conv<kBF16>(a, s));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb) {
+    case 1: return (int)launch_nb<1>(a, xtype, route, s);
+    case 2: return (int)launch_nb<2>(a, xtype, route, s);
+    default: return (int)launch_nb<3>(a, xtype, route, s);
+  }
 }
 
 const char* nd_cuda_error_string(int err) {

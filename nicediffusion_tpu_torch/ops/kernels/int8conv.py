@@ -4,8 +4,8 @@ Replaces XLA's int8 convolution in nicediffusion_tpu/ops/quant.py ::
 int8_conv_static (``:87``; ``lax.conv_general_dilated`` on int8 operands with
 int32 sums: the JAX package has no Pallas kernel for it), and the products of
 the dynamic path and of the dense layers. ``csrc/int8conv.cu`` runs it on the
-tensor cores (wgmma, s8 in, s32 sums), a float x quantized by a launch of its
-own before the conv; its note says what bounds it and how.
+tensor cores (wgmma, s8 in, s32 sums), one launch a call, a float x quantized
+on its way into shared memory; its note says what bounds it and how.
 
 Semantics, the JAX package's operation for operation:
 ``x_q = clip(round(x * inv_act), -127, 127)`` in f32 with round-half-to-even
@@ -19,22 +19,28 @@ layout; utils/convert.py transposes the JAX package's HWIO into it.
 
 Dispatch: a CPU tensor goes to :func:`int8_conv_plain`; a CUDA tensor
 launches the kernel or raises (``NotImplementedError`` for a kernel size or
-stride it does not take). ``int8_conv_nhwc.launches`` counts the launches.
+stride it does not take). :func:`int8_conv_plan` picks the kernel's route and
+tiles from the call's shape and input type alone; nothing falls back to
+another route. ``int8_conv_nhwc.launches`` counts the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["int8_conv_nhwc", "int8_conv_plain", "quantize_static"]
+__all__ = ["int8_conv_nhwc", "int8_conv_plain", "int8_conv_plan", "quantize_static"]
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("row", "halo")  # the kernel's route codes, in order
+CHANNEL_STEP = 64  # channels a K step: one 64-byte s8 row a pixel or a filter
+H100_SMS = 132
 
 
 def quantize_static(x: torch.Tensor, inv_act: torch.Tensor) -> torch.Tensor:
@@ -67,12 +73,47 @@ def int8_conv_plain(x, kernel_q, inv_act, deq, bias=None, stride: int = 1,
     return (o, sums) if raw else o
 
 
+def int8_conv_plan(b: int, h: int, w: int, c: int, f: int, k: int, stride: int,
+                   xdtype: torch.dtype, sms: int = H100_SMS) -> tuple[str, int, int]:
+    """(route, filter tile, channel step) of the kernel for one call, from its
+    shape and input type alone.
+
+    The halo route takes stride 1, k = 3 and a bf16 or int8 x: a block is two
+    warpgroups of one 8 x 8 output tile each (the tiles of all examples in
+    one sequence) with the halo quantized in shared memory. Everything else
+    (k = 1, stride 2, the dense view, and an f32 x, the tests' path) takes
+    the row route: 128 output pixels a block in one linear sequence. The
+    filter tile is 64, 128 or 192: among the widths that divide F (no zero
+    products) when one does, the one whose whole waves of blocks over
+    ``sms`` multiprocessors cost least, a block costing its filters plus 64
+    for its A work (resblock.cu's ``pick_nb`` rule); a tie goes to the
+    wider, which brings fewer bytes from L2 an operation. The channel step
+    is always 64."""
+    halo = k == 3 and stride == 1 and xdtype in (torch.bfloat16, torch.int8)
+    if halo:
+        units = -(-b * -(-h // 8) * -(-w // 8) // 2)
+    else:
+        units = -(-b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) // 128)
+    widths = [nb for nb in (3, 2, 1) if f % (64 * nb) == 0] or [3, 2, 1]
+    best, best_cost = widths[0], None
+    for nb in widths:
+        cost = -(-units * -(-f // (64 * nb)) // sms) * (64 * nb + 64)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = nb, cost
+    return ROUTES[halo], 64 * best, CHANNEL_STEP
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("int8conv")
     fn = lib.nd_int8_conv
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, i, p, *[i] * 10, p]
         fn.restype = ctypes.c_int
         lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nd_cuda_error_string.restype = ctypes.c_char_p
@@ -108,13 +149,14 @@ def _check(x, kernel_q, inv_act, deq, bias, stride, out_dtype):
 def int8_conv_nhwc(x, kernel_q, inv_act, deq, bias=None, stride: int = 1,
                    out_dtype: torch.dtype | None = None, raw: bool = False):
     """The int8 conv: x (B, H, W, C) f32 or bf16, quantized with the static
-    scale ``inv_act`` (a 0-dim f32 tensor) into an int8 scratch tensor by a
-    first launch, or int8 already quantized;
+    scale ``inv_act`` (a 0-dim f32 tensor) inside the kernel, or int8
+    already quantized;
     ``kernel_q`` (F, k, k, C) int8, k 1 or 3; ``deq`` (F,) f32; ``bias`` (F,)
     or None; stride 1 or 2, padding k // 2. Returns (B, Ho, Wo, F) in
     ``out_dtype`` (default x's float type), or with ``raw`` (output, int32
     sums). CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream."""
+    kernel once on the current stream, on the route and tiles of
+    :func:`int8_conv_plan`."""
     if out_dtype is None:
         if x.dtype == torch.int8:
             raise ValueError("an int8 x needs an out_dtype")
@@ -128,28 +170,29 @@ def int8_conv_nhwc(x, kernel_q, inv_act, deq, bias=None, stride: int = 1,
     deq = deq.detach().float().contiguous()
     if bias is not None:
         bias = bias.detach().float().contiguous()
-    # read by the kernel on the device: no host synchronisation per call;
-    # a float x is quantized into x_q by a launch of its own
+    # read by the kernel on the device: no host synchronisation per call
     quantized = x.dtype == torch.int8
     inv = None if quantized else inv_act.detach().float().reshape(1).contiguous()
-    x_q = None if quantized else torch.empty(x.shape, dtype=torch.int8, device=x.device)
     shape = _out_shape(x, kernel_q, stride)
     out = torch.empty(shape, dtype=out_dtype, device=x.device)
     sums = torch.empty(shape, dtype=torch.int32, device=x.device) if raw else None
     b, h, w, c = x.shape
+    f, k = kernel_q.shape[0], kernel_q.shape[1]
+    route, tile, step = int8_conv_plan(b, h, w, c, f, k, stride, x.dtype, _sms(x.device.index))
     with torch.cuda.device(x.device):
         lib = _library()
         err = lib.nd_int8_conv(
             x.data_ptr(), _X_CODES[x.dtype], None if quantized else inv.data_ptr(),
-            None if quantized else x_q.data_ptr(), kernel_q.data_ptr(), deq.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), _OUT_CODES[out_dtype],
-            None if sums is None else sums.data_ptr(), b, h, w, c, kernel_q.shape[0],
-            kernel_q.shape[1], stride, torch.cuda.current_stream(x.device).cuda_stream,
+            kernel_q.data_ptr(), deq.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), _OUT_CODES[out_dtype], None if sums is None else sums.data_ptr(),
+            b, h, w, c, f, k, stride, ROUTES.index(route), tile, step,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(
             f"int8 conv launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(x {tuple(x.shape)} {x.dtype}, kernel_q {tuple(kernel_q.shape)}, stride {stride})"
+            f"(x {tuple(x.shape)} {x.dtype}, kernel_q {tuple(kernel_q.shape)}, stride {stride}, "
+            f"{route} route, {tile} filters a block)"
         )
     int8_conv_nhwc.launches += 1
     return (out, sums) if raw else out

@@ -130,9 +130,10 @@ def test_build_report_refuses_a_k3_build(log, match):
         build_report("groupnorm", log)
 
 
-def _ptxas_int8(out_type, spill_bytes):
-    mangled = ("_ZN44_GLOBAL__N__56394114_11_int8conv_cu_4548ab4222int8_conv_wgmma_kernelILi"
-               f"{out_type}EEEvNS_4ArgsE")
+def _ptxas_int8(route, x_type, nb, spill_bytes):
+    name = f"int8_conv_{route}_wgmma_kernel"
+    mangled = (f"_ZN44_GLOBAL__N__56394114_11_int8conv_cu_4548ab42{len(name)}{name}ILi"
+               f"{x_type}ELi{nb}EEEvNS_4ArgsE")
     return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
             f"ptxas info    : Function properties for {mangled}\n"
             f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
@@ -140,32 +141,23 @@ def _ptxas_int8(out_type, spill_bytes):
             "ptxas info    : Used 122 registers, used 1 barriers\n")
 
 
-def _ptxas_quantize(dtype):
-    mangled = (f"_ZN44_GLOBAL__N__56394114_11_int8conv_cu_4548ab4215quantize_kernelI{dtype}EEvPKT_"
-               "PKfPalli")
-    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
-            f"ptxas info    : Function properties for {mangled}\n"
-            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-            "ptxas info    : Used 26 registers, used 0 barriers\n")
-
-
 def test_build_report_passes_a_clean_int8_conv():
-    """The int8 conv's instances (out bf16 or f32) and its two quantize
-    launches (f32, bf16 in), named as nvcc 12.8 mangles them: each a line,
-    the conv's spills gated."""
+    """The int8 conv's instances (halo and row route, by input type and
+    filter tile), named as nvcc 12.8 mangles them: each a line, every
+    instance's spills gated."""
     from chip_smoke import build_report
 
-    lines = build_report("int8conv", _ptxas_int8(1, 0) + _ptxas_int8(0, 0)
-                         + _ptxas_quantize("13__nv_bfloat16") + _ptxas_quantize("f"))
+    lines = build_report("int8conv", _ptxas_int8("halo", 1, 3, 0) + _ptxas_int8("halo", 2, 1, 0)
+                         + _ptxas_int8("row", 0, 2, 0))
     assert [line.split(":")[0] for line in lines] == [
-        "int8_conv_wgmma s8 out=bf16", "int8_conv_wgmma s8 out=f32", "quantize bf16",
-        "quantize f32"]
+        "int8_conv_halo_wgmma s8 x=bf16 filters=192", "int8_conv_halo_wgmma s8 x=s8 filters=64",
+        "int8_conv_row_wgmma s8 x=f32 filters=128"]
     assert lines[0].endswith("0 bytes spill loads") and "Used 122 registers" in lines[0]
 
 
 @pytest.mark.parametrize("log,match", [
-    (_ptxas_int8(1, 0) + _ptxas_int8(0, 24), "spills"),
-    (_ptxas_quantize("f"), "names no wgmma"),
+    (_ptxas_int8("halo", 1, 3, 0) + _ptxas_int8("row", 1, 3, 24), "spills"),
+    ("ptxas info    : 0 bytes gmem\n", "names no wgmma"),
 ], ids=["spilling", "no_wgmma_entry"])
 def test_build_report_refuses_an_int8_conv_build(log, match):
     from chip_smoke import build_report

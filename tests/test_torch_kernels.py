@@ -894,6 +894,11 @@ def _int8_inputs(dev, shape, f, k, xdtype, seed=0):
     ((2, 6, 6, 200), 130, 3, 1),
     # a dense layer as the model calls it: a 1x1 conv over (1, 1, M, C)
     ((1, 1, 2 * 256, 384), 3 * 384, 1, 1),
+    # the halo route's edges: a 5 x 11 map, C = 3 and 64, F = 192 and 576 on
+    # an odd tile count (a block's second warpgroup has no tile), a ragged F
+    # past 128 at 28 x 28
+    ((2, 5, 11, 64), 192, 3, 1), ((2, 16, 16, 3), 192, 3, 1), ((3, 8, 8, 192), 576, 3, 1),
+    ((1, 28, 28, 128), 130, 3, 1),
 ])
 def test_int8_conv_matches_plain(cuda, xdtype, shape, f, k, stride):
     """s32 sums bit-equal to the plain version's exact ones (float64), the
@@ -912,6 +917,67 @@ def test_int8_conv_matches_plain(cuda, xdtype, shape, f, k, stride):
     assert ref_sums.abs().max() > 0
     if xdtype != torch.int8:  # some activations clip at +-127
         assert (x.float() * inv_act).abs().max() > 127
+
+
+@pytest.mark.parametrize("k", [3, 1], ids=["halo", "row"])
+def test_int8_conv_rounds_ties_to_even(cuda, k):
+    """bf16 x on exact .5 ties of x * inv_act (inv_act 2, x = (n + 0.5) / 2),
+    quantized in the kernel's halo (k = 3) and row (k = 1) stagers: round
+    half to even, as torch.round and jnp.round, so the sums stay bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = torch.randint(-60, 60, (2, 12, 12, 64), generator=g, device=cuda).float()
+    x = ((n + 0.5) / 2).to(torch.bfloat16)
+    assert torch.equal(x.float() * 2, n + 0.5)
+    kq = torch.randint(-127, 128, (64, k, k, 64), generator=g, device=cuda, dtype=torch.int8)
+    inv_act = torch.tensor(2.0, device=cuda)
+    deq = torch.full((64,), 1e-3, device=cuda)
+    out, sums = k8.int8_conv_nhwc(x, kq, inv_act, deq, None, raw=True)
+    ref, ref_sums = k8.int8_conv_plain(x, kq, inv_act, deq, None, raw=True)
+    assert torch.equal(sums, ref_sums) and torch.equal(out, ref)
+    away = torch.trunc(n + 0.5 + torch.sign(n + 0.5) * 0.5)  # half away from zero differs
+    assert not torch.equal(away, torch.round(n + 0.5))
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.int8, torch.float32],
+                         ids=["bf16", "s8", "f32"])
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1), (3, 2)], ids=["halo", "row", "row_s2"])
+def test_int8_conv_on_a_misaligned_view(cuda, xdtype, k, stride):
+    """x a contiguous view one element into its storage (no 16-byte copy is
+    aligned) and C = 72: the stagers' masked element loads, bit-equal."""
+    x, kq, inv_act, deq, bias = _int8_inputs(cuda, (2, 9, 10, 72), 80, k, xdtype, seed=11)
+    flat = torch.empty(x.numel() + 1, dtype=xdtype, device=cuda)
+    xv = flat[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    out, sums = k8.int8_conv_nhwc(xv, kq, inv_act, deq, bias, stride, torch.bfloat16, raw=True)
+    ref, ref_sums = k8.int8_conv_plain(x, kq, inv_act, deq, bias, stride, torch.bfloat16,
+                                       raw=True)
+    assert torch.equal(sums, ref_sums) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "s8"])
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1), (3, 2)], ids=["halo", "row", "row_s2"])
+def test_int8_conv_is_one_cuda_kernel(cuda, xdtype, k, stride):
+    """A call launches exactly one CUDA kernel, of the route int8_conv_plan
+    names: no quantize pass, no scratch copy (torch.profiler's kernel count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, kq, inv_act, deq, bias = _int8_inputs(cuda, (2, 16, 16, 128), 192, k, xdtype)
+    out_dtype = torch.bfloat16
+    k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride, out_dtype)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(8):  # a profiled run now and then records no device activity
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k8.int8_conv_nhwc(x, kq, inv_act, deq, bias, stride, out_dtype)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        if kernels:
+            break
+    route = k8.int8_conv_plan(2, 16, 16, 128, 192, k, stride, xdtype)[0]
+    assert len(kernels) == 1 and f"int8_conv_{route}_wgmma" in kernels[0].name, [
+        e.name for e in kernels]
 
 
 def test_int8_conv_without_bias_and_on_strided_views(cuda):
