@@ -19,17 +19,18 @@ sharing the card, each with half the paired layers' channels). It checks
 every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: K1 with K5, K2, K3 (forward and backward), K4 and the int8 conv
-     (CUDA C++, one nvcc for sm_90a per source, started together) from the
+  2. build: K1 with K5, K2, K3 (forward and backward), K4, the int8 conv and
+     the bf16 conv (CUDA C++, one nvcc for sm_90a per source, started
+     together) from the
      sources in this checkout; the registers and spills ptxas reports for
      each kernel (kept beside a cached build; a tensor-core instantiation
-     that spills fails, and so does a library of K1/K5, K2, K4 or the int8
-     conv whose log names none; K3 has no wgmma, and any of its
-     instantiations that spills fails), and the count of warpgroup
-     multiplies in the machine code of those four libraries (cuobjdump
+     that spills fails, and so does a library of K1/K5, K2, K4, the int8
+     conv or the bf16 conv whose log names none; K3 has no wgmma, and any of
+     its instantiations that spills fails), and the count of warpgroup
+     multiplies in the machine code of those five libraries (cuobjdump
      -sass: HGMMA for the bf16 ones, any integer mnemonic, IGMMA, for the
      int8 conv), which must not be 0 in any: bf16 K1, K2, K4 and K5 and the
-     int8 conv run on the tensor cores (wgmma), f32 on the CUDA cores;
+     two convs run on the tensor cores (wgmma), f32 on the CUDA cores;
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
@@ -62,7 +63,9 @@ every hand-written kernel on the way:
      ``openai_128`` shapes as strided views of a projection and as separate
      contiguous tensors, and at D = 16, N = 49; then, with the counts reset,
      it is called directly at those shapes and held bit for bit against K1
-     (no model calls K5: these are the launches its entry reports);
+     (no model calls K5: these are the launches its entry reports); K1 (and
+     in step 6 K2) also at head dims 24, 48 and 96, each on the build for
+     the next one up;
   4. the full-width f32 model with kernels on against ``kernels=False``
      on one CFG forward (max abs <= 1e-3, the repo's parity bar);
   5. the slice: bf16, CFG w=0.8, DDPM with learned-interpolation variance
@@ -161,6 +164,19 @@ every hand-written kernel on the way:
      conv call (no quantize launch); (d) the max stack (frozen
      int8, encoder_cache 2, guidance_interval (0.1, 0.7)) finite and
      correlated above 0.9 with the exact bf16 chain;
+ 12b. the bf16 conv (``[conv]``, csrc/bf16conv.cu: bf16 wgmma, one launch
+     a call, a fixed order of sums), the conv of every bf16 forward with grad
+     mode off (sampling, serving, a teacher's forwards), which replaces cuDNN
+     there so that a row's output does not depend on its batch: against its
+     plain version within BF16_CONV_TOL at every conv shape and batch of the
+     CONV_PATHS (``openai_64`` at model batch 16 and 128, ``openai_128``,
+     ``sr256``, a tensor-parallel rank's shards, quality_eval's UNet at its
+     three batches), with and without the bias; one example's output bit
+     for bit alone and at rows of batches of 8 and 16; the filter tiles' bits
+     equal; its times at model batch 16 and 128 beside the plain version,
+     cuDNN's bf16 F.conv2d and the bound. Every phase's launch counts hold
+     its calls too (``conv``: each Conv2d of a bf16 forward with grad mode
+     off);
  13. super-resolution (``[sr]``): the SuperResolutionModel at ``openai_256``
      widths (in_channels 6) with a 64x64 ``low_res``: its f32 forward at
      batch 2, kernels on against ``kernels=False`` (1e-3), then a bf16
@@ -193,12 +209,13 @@ every hand-written kernel on the way:
      requests of 1 to 3 labels in both encodings (packing, padding, requests
      that wait for a later batch), /stats and a bad request (400); K1 and K3
      launched (batches + warmup) x 25 x their count a forward, the plain
-     versions refused while it runs; (b) in f32 (TF32 off), DDIM-10, a
-     request alone and in the last row of a full batch to 1e-5, that batch
-     bit-equal to ``Diffusion.denoise`` on its start noise and step generator
-     and within 1e-3 of ``kernels=False``; the same in bf16, read; (c)
-     ``--dtype int8 --int8_calibration`` on ``[int8]``'s file, one batch of 8,
-     the int8 conv 25 x 91 a batch; (d) samples/s, occupancy and p50/p95
+     versions (and cuDNN's conv) refused while it runs; (b) in f32 (TF32
+     off), DDIM-10, a request alone and in the last row of a full batch to
+     1e-5, that batch bit-equal to ``Diffusion.denoise`` on its start noise
+     and step generator and within 1e-3 of ``kernels=False``; the same in
+     bf16, bit for bit (max abs 0); (c) ``--dtype int8 --int8_calibration``
+     on ``[int8]``'s file, one batch of 8, the int8 conv 25 x 91 a batch, and
+     (b)'s position check on that int8 model, bit for bit; (d) samples/s, occupancy and p50/p95
      latency with 8 and 64 closed-loop HTTP clients at serve batch 8 and 64
      (at 64 three repeats, and first one full batch held bit for bit to
      ``Diffusion.denoise``), the counts reset before the clients and read
@@ -218,11 +235,11 @@ every hand-written kernel on the way:
      LOSS_TOL, every parameter's reduced gradient to GRAD_TOL; f32 gated, bf16
      read); (c) ``scripts/sample.py --data_parallel`` at batch 16, DDIM-10 and
      DDPM-10, f32 and bf16, against the one-rank run at the same seed (f32:
-     the saved uint8 images within 1 count; bf16 read), and each rank's f32
+     the saved uint8 images within 1 count; bf16 bit-equal), and each rank's f32
      forward at its model batch of 16 kernels on against ``kernels=False``;
      (d) ``scripts/serve.py --serve_data_parallel`` at serve batch 16: one
      HTTP request against the one-rank daemon (f32, DDIM-10, within 1e-3;
-     bf16, DDIM-25, read) and samples/s of closed-loop clients for one rank
+     bf16, DDIM-25, bit-equal) and samples/s of closed-loop clients for one rank
      and for two sharing the card. Each rank's K1, K2, K3 and K3 backward
      launches are held to the structure;
  18. tensor parallelism (``[tp]``) at full-width ``openai_64`` on the weights
@@ -258,7 +275,10 @@ every hand-written kernel on the way:
      6b and 12a also hold the kernels at the harness's shapes: its UNet at
      batch 256 in bf16 (and its int8 convs at model batch 256), its
      classifier at batch 256 in f32, whose GroupNorms hold 1 and 2 channels
-     a group.
+     a group;
+ 20. ``[conv-cover]``: every (shape, batch, bias) the bf16 conv launched at
+     in the run, the ``[dp]`` and ``[tp]`` ranks' included, that ``[conv]``
+     did not hold, against its plain version at BF16_CONV_TOL.
 
 Each kernel's time stands beside its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the card's peak for their type
@@ -274,6 +294,7 @@ so does a machine without a CUDA card. Imports nothing of JAX.
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import math
@@ -319,6 +340,13 @@ K4_BF16_REL = 1e-2
 # the parameters' gradients as one) (k3_rel_err). The scale handed over 5% high
 # (the forward) and the rstd handed over 5% high (the backward) must fail it
 K3_BF16_REL = 1e-2
+# the bf16 conv against its plain version: the same exact products summed in
+# f32 in another order, each side rounded to bf16 before and after the bias,
+# so an element may differ by a bf16 ulp of the sum and one of the output: at
+# most two ulps of the output's largest magnitude, 2^-6 of it
+BF16_CONV_TOL = 2.0 ** -6
+# K1 and K2 at head dims between two builds (each runs on the next one up)
+BETWEEN_BUILDS = (24, 48, 96)
 MODEL_TOL = 1e-3
 GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
 LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
@@ -493,12 +521,12 @@ def phase_device():
 # name a wgmma instantiation, none may spill, and the machine code must hold
 # warpgroup multiplies (HGMMA)
 WGMMA_LIBS = {"attention": "K1/K5", "attention_bwd": "K2", "resblock": "K4",
-              "int8conv": "the int8 conv"}
+              "int8conv": "the int8 conv", "bf16conv": "the bf16 conv"}
 # the warpgroup multiplies each library must hold in its machine code: bf16
 # ones (HGMMA), or for the int8 conv any integer one, whatever mnemonic
 # cuobjdump prints for it (IGMMA on CUDA 12.8)
 GMMA_SASS = {"attention": r"HGMMA", "attention_bwd": r"HGMMA", "resblock": r"HGMMA",
-             "int8conv": r"(?!HGMMA|QGMMA)[A-Z]*GMMA"}
+             "int8conv": r"(?!HGMMA|QGMMA)[A-Z]*GMMA", "bf16conv": r"HGMMA"}
 # libraries with no tensor-core kernel, none of whose instantiations may spill
 # (no HGMMA gate applies to them)
 NO_SPILL_LIBS = {"groupnorm": "K3"}
@@ -506,7 +534,7 @@ _ENTRY = re.compile(
     r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
     r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
-    r"int8_conv_row_wgmma)_kernelI(\S+)'")
+    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma)_kernelI(\S+)'")
 _INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
 
@@ -531,6 +559,8 @@ def build_report(name, nvcc_log):
             if m.group(1).startswith("int8_conv"):  # <x type, 64-filter blocks>
                 entry = (f"{m.group(1)} s8 x={_INT8_TYPES.get(dims[0], dims[0])}"
                          + (f" filters={64 * int(dims[1])}" if len(dims) > 1 else ""))
+            elif m.group(1).startswith("bf16_conv"):  # <64-filter blocks>
+                entry = f"{m.group(1)} bf16" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1) == "gn_silu_conv3x3_wgmma":
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1).startswith("group_norm"):
@@ -538,6 +568,9 @@ def build_report(name, nvcc_log):
             else:
                 entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
                     f" rows={dims[1]}" if len(dims) > 1 else "")
+            exact = re.search(r"Lb([01])E", m.group(2))  # K2: the head dim is hc
+            if m.group(1).startswith("attention_bwd") and exact:
+                entry += " exact" if exact.group(1) == "1" else " (head dim below hc)"
             if m.group(1) == "attention_bwd_dkv_wgmma" and dims and int(dims[0]) > 128:
                 entry += " (dV and dK in separate blocks)"
         elif "spill" in line:
@@ -608,7 +641,8 @@ def phase_build():
         if not found:
             raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
                                  f"{kernels} is off the tensor cores")
-    log(f"[build] K1, K2, K3, K4 and the int8 conv ready in {cuda_s:.2f} s (built side by side)")
+    log(f"[build] K1, K2, K3, K4, the int8 conv and the bf16 conv ready in {cuda_s:.2f} s "
+        f"(built side by side)")
 
 
 def main_path_calls(model, dev):
@@ -809,8 +843,8 @@ PATHS = {
                    "int8 convs only)"),
 }
 # paths held against the plain version at their shapes and batch, not timed:
-# the batches the tools give a model beside those of the timed paths (K3 and
-# the int8 conv plan their tiles from the batch)
+# the batches the tools give a model beside those of the timed paths (the
+# int8 conv plans its tiles from the batch)
 CHECKED_PATHS = ("verify64", "qe_calib", "qe_gi", "qe_int8_gi")
 GUIDED_PATHS = ("unet128", "cls128")
 # unet128: openai_128 training
@@ -858,7 +892,8 @@ def phase_kernels(dev, paths):
     and bf16; times (CHECKED_PATHS: none) in each path's compute
     type per shape and summed per forward, beside the plain version, the
     library call and the bound. K5 runs at the attention shapes of the
-    ``openai_128`` paths and at D = 16, N = 49."""
+    ``openai_128`` paths and at D = 16, N = 49; K1 also at head dims 24, 48
+    and 96, on the builds for 32, 64 and 128."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
@@ -965,6 +1000,26 @@ def phase_kernels(dev, paths):
         tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["attention"]
         err, _ = check_mha("K5 B=2 H=2 N=49 D=16", qkv, 2, True, dtype, tol)
         errs["mha", dtype] = max(errs["mha", dtype], err)
+    # K1 at head dims 24, 48 and 96 (--model_channels 96 --num_heads 4), each
+    # on the build for the next one up, both layouts, the output pre-filled
+    # with NaN (K2 at the same head dims: [k2])
+    for n, hc in zip((256, 64, 100), BETWEEN_BUILDS):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["attention"]
+            qkv = torch.randn(2, n, 3 * 4 * hc, generator=g, device=dev).to(dtype)
+            for split_first in (True, False):
+                out = torch.full((2, n, 4 * hc), float("nan"), dtype=dtype, device=dev)
+                k1.fused_qkv_attention(qkv, 4, split_first, out=out)
+                torch.cuda.synchronize()
+                if torch.isnan(out).any():
+                    raise AssertionError(f"K1 head dim {hc} {dtype}: elements left unwritten")
+                err = check(f"K1 B=2 N={n} head dim {hc} (build {k1.head_dim_build(hc)}) "
+                            f"{dtype}", out, k1.fused_qkv_attention_plain(qkv, 4, split_first),
+                            tol)
+                errs["attention", dtype] = max(errs["attention", dtype], err)
+                log(f"[kernels] K1 B=2 N={n} 4 heads of {hc} on the build for "
+                    f"{k1.head_dim_build(hc)}, {dtype}, split_first={split_first}: max abs err "
+                    f"{err:.3g} vs plain (gate {tol})")
     # head dims 64 to 256 at one N and 4 heads, beside the paths' own
     # shapes: the rate per operation of each build
     for hc in (64, 128, 192, 256):
@@ -1138,7 +1193,8 @@ def phase_slice(dev, state):
     launches = read_launches()
     calls = steps * len(requests)
     expect = {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
-              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
+              "conv": conv_per_call(models[True][0]) * calls}
     log(f"[slice] {calls} model calls at batch 16; launches {launches}, "
         f"expected {expect} ({n_attn} attention blocks, {n_gn} GroupNorm ops per call)")
     if launches != expect:
@@ -1308,9 +1364,10 @@ def phase_sample_cli(dev, unet_state, cls_state, workdir):
     calls = steps * len(labels_arg)
     n_attn = (count(unet, AttentionBlock), count(cls, AttentionBlock, AttentionPool))
     n_gn = (count(unet, GroupNormOp), count(cls, GroupNormOp))
+    # the classifier's forward takes its gradient (grad mode on): cuDNN's convs
     expect = {"attention": sum(n_attn) * calls, "attention_bwd": n_attn[1] * calls,
               "groupnorm": sum(n_gn) * calls, "groupnorm_bwd": n_gn[1] * calls, "mha": 0,
-              "resblock": 0, "int8conv": 0}
+              "resblock": 0, "int8conv": 0, "conv": conv_per_call(unet) * calls}
     log(f"[guided] entry point, openai_128 + classifier, bf16, {steps} DDIM steps, "
         f"{len(labels_arg)} samples of {batch}: {images} files of 128x128 in {cli_s:.2f} s "
         f"(models built, checkpoints loaded and images saved inside that time); launches "
@@ -1413,7 +1470,8 @@ def phase_kernels_bwd(dev, paths):
     ragged N = 196 and 49) and of one guidance gradient through the
     ``openai_128`` classifier (batch 4, the interleaved layout, the pool's
     N = 65), of one ``openai_128`` training step (batch 4: head dims 128, 192
-    and 256), and at N = 100 with head dims 128 and 192; both layouts,
+    and 256), at N = 100 with head dims 128 and 192, and at head dims 24, 48
+    and 96 (between two builds: each on the next one up); both layouts,
     f32 and bf16, random cotangent with |g| <= 1, output pre-filled with
     NaN. The forward output and the row log-sum-exp come from K1, and K2 runs
     with that lse handed over (as the autograd Function runs it) and without
@@ -1439,9 +1497,12 @@ def phase_kernels_bwd(dev, paths):
     yard = {where: collections.Counter() for where in K2_PATHS}
     cases = [(key, n, where) for where in K2_PATHS
              for key, n in sorted(paths[where].items(), key=str) if key[0] == "attention"]
-    # a ragged N at head dims 128 and 192, which no model has
+    # a ragged N at head dims 128 and 192, which no model has; head dims 24,
+    # 48 and 96 (--model_channels 96 --num_heads 4), between two builds
     cases += [(("attention", 100, 256, 2, True), 0, None),
               (("attention", 100, 384, 2, True), 0, None)]
+    cases += [(("attention", n, 4 * hc, 4, True), 0, None)
+              for n, hc in zip((256, 64, 100), BETWEEN_BUILDS)]
     for (_, n, c, heads, split_first), per_step, where in cases:
         b, timed_dtype, _ = PATHS[where] if where else (4, None, None)
         name = f"K2 B={b} N={n} C={c} heads={heads}"
@@ -1742,6 +1803,7 @@ def block_counts(model):
 
 def kernel_counters():
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
+    from nicediffusion_tpu_torch.ops.kernels import conv as kc
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
     from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
     from nicediffusion_tpu_torch.ops.kernels import resblock as k4
@@ -1749,7 +1811,8 @@ def kernel_counters():
     return {"attention": k1.fused_qkv_attention, "attention_bwd": k1.fused_qkv_attention_bwd,
             "groupnorm": k3.group_norm_fused, "groupnorm_bwd": k3.group_norm_fused_bwd,
             "mha": k1.mha_attention,
-            "resblock": k4.gn_silu_conv3x3, "int8conv": k8.int8_conv_nhwc}
+            "resblock": k4.gn_silu_conv3x3, "int8conv": k8.int8_conv_nhwc,
+            "conv": kc.conv_nhwc}
 
 
 def reset_launches():
@@ -1761,16 +1824,34 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
+def conv_per_call(model, dtype=None, part=None, recording=False):
+    """bf16 conv launches of one forward of ``model`` (or of ``part``, a
+    module or tuple of modules of it) with grad mode off: each Conv2d once
+    in a bf16 (``dtype``, default the model's) ``kernels=True`` model, the
+    int8 convs only while they record their calibration (else their own
+    kernel or the dynamic path); 0 otherwise."""
+    from nicediffusion_tpu_torch.models.unet import Conv2d, Int8Conv
+
+    if (dtype or model.dtype) != torch.bfloat16 or not model.kernels:
+        return 0
+    parts = part if isinstance(part, tuple) else (part or model,)
+    return sum(isinstance(m, Conv2d) and (recording or not isinstance(m, Int8Conv))
+               for p in parts for m in p.modules())
+
+
 def expect_train_launches(model, steps, sample_calls=0):
     """Launches the structure gives: with remat every block's forward runs
     twice in a step (forward and recompute) and its backward once; every
-    GroupNorm's backward runs once a step."""
+    GroupNorm's backward runs once a step. The training steps take cuDNN's
+    convs (grad mode on), the ``sample_calls`` forwards (grad mode off) the
+    bf16 conv."""
     n_attn, gn_in, gn_out = block_counts(model)
     twice = 2 if model.use_remat else 1
     return {"attention": n_attn * (steps * twice + sample_calls),
             "attention_bwd": n_attn * steps,
             "groupnorm": steps * (gn_in * twice + gn_out) + (gn_in + gn_out) * sample_calls,
-            "groupnorm_bwd": steps * (gn_in + gn_out), "mha": 0, "resblock": 0, "int8conv": 0}
+            "groupnorm_bwd": steps * (gn_in + gn_out), "mha": 0, "resblock": 0, "int8conv": 0,
+            "conv": conv_per_call(model) * sample_calls}
 
 
 def metrics_rows(path):
@@ -1791,6 +1872,7 @@ KERNEL_GROUPS = (
     ("K3 GroupNorm backward", ("group_norm_bwd",)),
     ("K3 GroupNorm forward", ("group_norm_fwd",)),
     ("int8 conv", ("int8_conv",)),
+    ("bf16 conv", ("bf16_conv",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
     ("matrix products (dense layers)", ("gemm", "cutlass", "cublas")),
@@ -2360,9 +2442,12 @@ def phase_fast(dev, state, workdir):
             sum(count(p, AttentionBlock) for p in decoder))
     gn = (count(model.downsampling, GroupNormOp), sum(count(p, GroupNormOp) for p in decoder))
     n = len(labels_arg)
+    conv = (conv_per_call(model, part=model.downsampling),
+            conv_per_call(model, part=decoder))
     expect = {"attention": n * (len(enc) * attn[0] + len(dec) * attn[1]), "attention_bwd": 0,
               "groupnorm": n * (len(enc) * gn[0] + len(dec) * gn[1]), "groupnorm_bwd": 0,
-              "mha": 0, "resblock": 0, "int8conv": 0}
+              "mha": 0, "resblock": 0, "int8conv": 0,
+              "conv": n * (len(enc) * conv[0] + len(dec) * conv[1])}
     log(f"[fast] entry point, openai_64, bf16, CFG, DPM++ {steps} steps, dynamic thresholding, "
         f"encoder cache {k}, guidance in {interval}: {len(expect_files)} files of 64x64 in "
         f"{cli_s:.2f} s (model built, checkpoint loaded, images saved inside that time); per "
@@ -2649,6 +2734,243 @@ def phase_int8_kernel(dev, calls64, calls_emnist, calls_qe):
     return tallies["forward"], tallies["qe_int8"], tallies["int8_serve"], checked, errs
 
 
+def conv_calls(model, dev, tp=1):
+    """Every Conv2d call of one forward of ``model`` (kernels=False; shapes
+    only), as a Counter of (H, W, C, F, k, stride) -> calls per forward. With
+    ``tp`` > 1, the calls of one tensor-parallel rank in their place: a
+    weight the sharding table cuts on dim 0 (column-parallel, ``in_conv``)
+    has F / tp filters, on dim 1 (row-parallel, ``out_conv``) C / tp
+    channels; ``model`` runs unsharded."""
+    from nicediffusion_tpu_torch.models.unet import Conv2d, SuperResolutionModel
+    from nicediffusion_tpu_torch.parallel.sharding import unet_param_shard_dims
+
+    calls = collections.Counter()
+    dims = unet_param_shard_dims(model, tp)
+
+    def hook(name, mod, args):
+        _, h, w, c = args[0].shape
+        f, _, k, _ = mod.weight.shape
+        cut = dims[f"{name}.weight"]
+        f, c = (f // tp if cut == 0 else f), (c // tp if cut == 1 else c)
+        calls[(h, w, c, f, k, mod.stride)] += 1
+
+    hooks = [m.register_forward_pre_hook(functools.partial(hook, name))
+             for name, m in model.named_modules() if isinstance(m, Conv2d)]
+    x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        if isinstance(model, SuperResolutionModel):
+            x = x[..., :model.in_channels // 2]
+            model(x, zero, low_res=torch.zeros(1, SR_LOW, SR_LOW, x.shape[-1], device=dev),
+                  y=zero)
+        else:
+            model(x, zero, zero)
+    for h in hooks:
+        h.remove()
+    if sum(calls.values()) != len(hooks):
+        raise AssertionError(f"{sum(calls.values())} conv calls for {len(hooks)} Conv2d layers")
+    return calls
+
+
+# every (B, H, W, C, F, k, stride, bias or not) the bf16 conv launched at in
+# this run: this process's and the [dp] and [tp] ranks'. [conv-cover] holds
+# each that [conv] did not against the plain version.
+CONV_SHAPES = set()
+
+
+def record_conv_shapes():
+    """Make the bf16 conv's launch add each call's shape to CONV_SHAPES (its
+    launch count stays the wrapper's own), once per process."""
+    from nicediffusion_tpu_torch.ops.kernels import conv as kc
+
+    launch = kc._launch
+    if getattr(launch, "records", False):
+        return
+
+    def recording(x, weight, bias, stride, filter_tile):
+        CONV_SHAPES.add((*x.shape, weight.shape[0], weight.shape[-1], stride, bias is not None))
+        return launch(x, weight, bias, stride, filter_tile)
+
+    recording.records = True
+    kc._launch = recording
+
+
+def bf16_conv_bound_ms(b, h, w, c, f, k, stride):
+    """(bytes ms, operations ms) of the bf16 conv: x, the bf16 weights and
+    the bias read once, the output written once; 2 k^2 C F operations an
+    output pixel at the bf16 tensor-core peak."""
+    pixels = b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    bytes_moved = 2 * (b * h * w * c + f * k * k * c + pixels * f + f)
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, 2 * pixels * f * k * k * c / BF16_FLOPS * 1e3
+
+
+def conv_inputs(g, dev, b, h, w, c, f, k):
+    """bf16 x, a fan-in-scaled f32 (F, C, k, k) weight (the model's
+    parameter; the wrapper casts it) and a bias."""
+    x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    weight = torch.randn(f, c, k, k, generator=g, device=dev) / (c * k * k) ** 0.5
+    return x, weight, 0.1 * torch.randn(f, generator=g, device=dev)
+
+
+# the paths whose bf16 forwards [conv] holds the bf16 conv at, each at its
+# own batch: openai_64 sampling at model batch 16 and serving at 128, the
+# guided openai_128 and SR slices, a tensor-parallel rank's forward (its
+# shards), and quality_eval's UNet at its three batches
+CONV_PATHS = ("forward", "serve64", "unet128", "sr256", "tp", "qe_unet", "qe_calib", "qe_gi")
+
+
+def phase_conv(dev, calls):
+    """``[conv]``: the bf16 conv (csrc/bf16conv.cu) against its plain version
+    at every conv shape and batch of the CONV_PATHS (``calls``: path ->
+    conv_calls; a shape two paths share at one batch once), with the bias
+    and without (the row-parallel half of a tensor-parallel block): within
+    BF16_CONV_TOL of the output's largest magnitude. At every ``openai_64``
+    shape one example's output bit-identical alone, in rows 3 and 7 of a
+    batch of 8 and rows 0 and 15 of a batch of 16, among random batch mates
+    and among zeros; where F takes more than one filter tile, the tiles' bits
+    equal. Times of the ``openai_64`` convs at model batch 16 and 128
+    (host-timed, by CUDA graph, by torch.profiler; the weight's cast into the
+    kernel's layout inside the call, as the model calls it) beside the plain
+    version (at 16), cuDNN's bf16 F.conv2d, the conv the kernel replaces, and
+    the bound, summed over one forward. Returns (tallies by batch, max abs
+    error, max error relative to the output's largest magnitude, the gates'
+    counts, the (B, H, W, C, F, k, stride, bias) cases held)."""
+    from nicediffusion_tpu_torch.ops.kernels import conv as kc
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    err = rel = 0.0
+    invariant = tiles_equal = 0
+    held = set()
+    for where in CONV_PATHS:
+        b = PATHS[where][0]
+        new = 0
+        for (h, w, c, f, k, stride) in sorted(calls[where]):
+            if (b, h, w, c, f, k, stride, True) in held:
+                continue
+            for with_bias in (True, False):
+                e, scale = conv_against_plain(g, dev, (b, h, w, c, f, k, stride, with_bias),
+                                              f"[conv] {where}")
+                err, rel = max(err, e), max(rel, e / scale)
+                held.add((b, h, w, c, f, k, stride, with_bias))
+                new += 1
+        log(f"[conv] {where} ({PATHS[where][2]}): {new} new (shape, bias) cases within "
+            f"{BF16_CONV_TOL} of the output's largest magnitude")
+    log(f"[conv] the bf16 conv at {len(held)} cases (every conv shape and batch of "
+        f"{', '.join(CONV_PATHS)}, with and without the bias) against its plain version (f32 "
+        f"sums of the exact products, example by example): max abs err {err:.3g}, at most "
+        f"{rel:.3g} of the output's largest magnitude (gate {BF16_CONV_TOL})")
+
+    for (h, w, c, f, k, stride) in sorted(calls["forward"]):
+        x0, weight, bias = conv_inputs(g, dev, 1, h, w, c, f, k)
+        ref = kc.conv_nhwc(x0, weight, bias, stride)[0]
+        for batch, row, mates in ((8, 3, "random"), (8, 7, "zeros"), (16, 0, "zeros"),
+                                  (16, 15, "random")):
+            x = (torch.randn(batch, h, w, c, generator=g, device=dev).bfloat16()
+                 if mates == "random" else
+                 torch.zeros(batch, h, w, c, dtype=torch.bfloat16, device=dev))
+            x[row] = x0[0]
+            if not torch.equal(kc.conv_nhwc(x, weight, bias, stride)[row], ref):
+                raise AssertionError(f"[conv] {(h, w, c)} -> {f}, {k}x{k} stride {stride}: one "
+                                     f"example's output moves at row {row} of {batch} among "
+                                     f"{mates}")
+            invariant += 1
+        tiles = [t for t in kc.FILTER_TILES if f % t == 0]
+        if len(tiles) > 1:
+            x = torch.randn(16, h, w, c, generator=g, device=dev).bfloat16()
+            outs = [kc.conv_nhwc(x, weight, bias, stride, filter_tile=t) for t in tiles]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"[conv] {(h, w, c)} -> {f}: filter tiles {tiles} give "
+                                     f"other bits")
+            tiles_equal += 1
+    log(f"[conv] one example's output bit-identical alone and in {invariant} (batch, row, "
+        f"mates) cases at the {len(calls['forward'])} openai_64 conv shapes; the filter tiles "
+        f"(wgmma m64n64, m64n128, m64n192) give the same bits at the {tiles_equal} shapes whose F "
+        f"takes more than one")
+
+    tallies = {}
+    for b in (PATHS["forward"][0], PATHS["serve64"][0]):
+        tally = tallies[b] = Tally()
+        plain_timed = b == PATHS["forward"][0]
+        for (h, w, c, f, k, stride), per_forward in sorted(calls["forward"].items()):
+            x, weight, bias = conv_inputs(g, dev, b, h, w, c, f, k)
+            lib_w, lib_b = weight.bfloat16(), bias.bfloat16()
+            fns = (lambda: kc.conv_nhwc(x, weight, bias, stride),
+                   lambda: kc.conv_nhwc_plain(x, weight, bias, stride),
+                   lambda: library_conv_bf16(x, lib_w, lib_b, stride))
+            ms = time_ms(fns[0], iters=10, rounds=3)
+            plain = time_ms(fns[1], iters=2, rounds=1) if plain_timed else 0.0
+            lib = time_ms(fns[2], iters=10, rounds=3)
+            device = (graph_ms(fns[0]), graph_ms(fns[1], iters=2, rounds=1) if plain_timed
+                      else 0.0, graph_ms(fns[2]))
+            prof = (profiled_ms(fns[0]), profiled_ms(fns[2]))
+            bound = bf16_conv_bound_ms(b, h, w, c, f, k, stride)
+            tally.add(per_forward, ms, plain, lib, bound, device, prof)
+            ops = 2 * b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * f * k * k * c
+            route, tile = kc.conv_nhwc_plan(k, stride, f)
+            log(f"[conv] {(b, h, w, c)} -> {f}, {k}x{k}, stride {stride}, {per_forward} per "
+                f"forward, {route} route, {tile} filters a block: device time {device[0]:.4f} ms "
+                f"by graph ({ops / device[0] / 1e9:.1f} TFLOP/s), {prof[0]:.4f} by "
+                f"torch.profiler, host-timed {ms:.4f}; "
+                + (f"plain {device[1]:.4f} (host {plain:.4f}); " if plain_timed else "")
+                + f"cuDNN bf16 F.conv2d {device[2]:.4f} by graph, {prof[1]:.4f} by "
+                f"torch.profiler (host {lib:.4f}); bound {max(bound):.4f} ms "
+                f"({'bytes' if bound[0] >= bound[1] else 'operations'})")
+            del x
+        ops = 2 * sum(n * b * ((h - 1) // s + 1) * ((w - 1) // s + 1) * f * k * k * c
+                      for (h, w, c, f, k, s), n in calls["forward"].items())
+        log(f"[conv] bf16 conv, the {sum(calls['forward'].values())} convs of one openai_64 "
+            f"forward at model batch {b}, each timed back to back: {tally}"
+            + ("" if plain_timed else " (plain not timed at this batch)")
+            + f"; {ops / tally.device_ms / 1e9:.1f} TFLOP/s by graph; the kernel at "
+            f"{tally.bound_ms / tally.device_ms:.3f} of its bound by graph; cuDNN / bf16 conv "
+            f"{tally.device_library_ms / tally.device_ms:.3f} by graph, "
+            f"{tally.profiler_library_ms / tally.profiler_ms:.3f} by torch.profiler")
+    return tallies, err, rel, {"batch_invariant_cases": invariant,
+                               "filter_tile_shapes_bit_equal": tiles_equal}, held
+
+
+def conv_against_plain(g, dev, case, what):
+    """The bf16 conv against its plain version at ``case`` = (B, H, W, C, F,
+    k, stride, bias or not) on seeded inputs; raises past BF16_CONV_TOL of
+    the output's largest magnitude. Returns (max abs err, that magnitude)."""
+    from nicediffusion_tpu_torch.ops.kernels import conv as kc
+
+    b, h, w, c, f, k, stride, with_bias = case
+    x, weight, bias = conv_inputs(g, dev, b, h, w, c, f, k)
+    bias = bias if with_bias else None
+    out = kc.conv_nhwc(x, weight, bias, stride)
+    torch.cuda.synchronize()
+    ref = kc.conv_nhwc_plain(x, weight, bias, stride)
+    e = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not e <= BF16_CONV_TOL * scale:
+        raise AssertionError(f"{what} {(b, h, w, c)} -> {f}, {k}x{k} stride {stride}, "
+                             f"{'with' if with_bias else 'no'} bias: max abs err {e:.3g} over "
+                             f"{BF16_CONV_TOL} x {scale:.3g}")
+    return e, scale
+
+
+def phase_conv_cover(dev, held):
+    """``[conv-cover]``: every (shape, batch, bias) the bf16 conv launched at
+    in this run (CONV_SHAPES: this process's paths and the [dp] and [tp]
+    ranks') that [conv] did not hold (``held``), against its plain version at
+    the same gate. Returns (cases launched, cases held here, max abs err, max
+    relative err)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    err = rel = 0.0
+    todo = sorted(CONV_SHAPES - held)
+    for case in todo:
+        e, scale = conv_against_plain(g, dev, case, "[conv-cover]")
+        err, rel = max(err, e), max(rel, e / scale)
+    log(f"[conv-cover] the bf16 conv launched at {len(CONV_SHAPES)} (B, H, W, C, F, k, stride, "
+        f"bias) cases in this run; [conv] held {len(CONV_SHAPES & held)} of them, the other "
+        f"{len(todo)} held now against the plain version: "
+        + (f"max abs err {err:.3g}, at most {rel:.3g} of the output's largest magnitude "
+           f"(gate {BF16_CONV_TOL})" if todo else "none left")
+        + f"; batches {sorted({case[0] for case in CONV_SHAPES})}")
+    return len(CONV_SHAPES), len(todo), err, rel
+
+
 def int8_forward_kernels(forward, n_int8, model_batch):
     """The gate that the int8 conv is one launch a call: torch.profiler over
     one int8 forward must see exactly ``n_int8`` kernels of int8conv.cu (any
@@ -2730,7 +3052,11 @@ def phase_int8(dev, state, workdir, n_int8):
         recorded = points if i == 0 else 0  # float forwards that record the absmax
         expect = {"attention": n_attn * (served + drawn + recorded), "attention_bwd": 0,
                   "groupnorm": n_gn * (served + drawn + recorded), "groupnorm_bwd": 0,
-                  "mha": 0, "resblock": 0, "int8conv": n_int8 * (served + drawn)}
+                  "mha": 0, "resblock": 0, "int8conv": n_int8 * (served + drawn),
+                  # the float convs (stem, head) of every call, and while the
+                  # calibration records, the int8 layers' float convs too
+                  "conv": conv_per_call(model) * (served + drawn)
+                  + conv_per_call(model, recording=True) * recorded}
         files = sorted(os.listdir(out_dir))
         expect_files = sorted(f"{lab}_sample{j}.jpg" for lab in labels_arg for j in range(batch))
         log(f"[int8] entry point, openai_64 --dtype int8, CFG 0.8, {steps} DDIM steps, "
@@ -2893,7 +3219,8 @@ def phase_sr(dev, off):
     steps = diff.rescaled_num_steps
     n_attn, gn_in, gn_out = block_counts(model)
     expect = {"attention": n_attn * steps, "attention_bwd": 0, "groupnorm": (gn_in + gn_out) * steps,
-              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
+              "conv": conv_per_call(model) * steps}
     secs = []
     for i in range(2):  # the first chain warms cuDNN's plans up
         start = torch.randn(SR_BATCH, res, res, 3, generator=g, device=dev)
@@ -2991,7 +3318,8 @@ def phase_esrgan(dev, workdir):
     n_attn, gn_in, gn_out = block_counts(model)
     steps = 25  # the openai_64 preset's chain
     expect = {"attention": n_attn * steps, "attention_bwd": 0, "groupnorm": (gn_in + gn_out) * steps,
-              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
+              "conv": conv_per_call(model, torch.bfloat16) * steps}
     if launches != expect:
         raise AssertionError(f"--upsample launch counts {launches} != {expect}")
     log(f"[esrgan] entry point with --upsample, openai_64 bf16 DDIM {steps}, 4 labels, ESRGAN at "
@@ -3245,14 +3573,16 @@ def check_reply(payload, n, what):
 @contextlib.contextmanager
 def plain_versions_refused():
     """While the block runs, the plain versions the model would take with
-    kernels=False (attention, GroupNorm, the int8 conv) raise."""
+    kernels=False (attention, GroupNorm, the int8 conv, cuDNN's conv) and the
+    bf16 conv's plain version raise."""
     from nicediffusion_tpu_torch.ops import attention, groupnorm, quant
+    from nicediffusion_tpu_torch.ops.kernels import conv
 
     def refuse(*args, **kw):
         raise AssertionError("a plain version ran on the served path")
 
     saved = [(attention, "fused_qkv_attention_plain"), (groupnorm, "_plain_group_norm"),
-             (quant, "int8_conv_plain")]
+             (quant, "int8_conv_plain"), (conv, "conv_nhwc_plain"), (F, "conv2d")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     for mod, name, _ in saved:
         setattr(mod, name, refuse)
@@ -3327,14 +3657,17 @@ def traced_busy_ms(fn, logdir):
     raise AssertionError(f"torch.profiler recorded no device time in {PROFILER_TRIES} tries")
 
 
-def serve_expect(model, calls, int8=False):
+def serve_expect(model, calls, int8=False, dtype=None):
+    """The launches of ``calls`` forwards of ``model`` (computing in
+    ``dtype``, default its own) with grad mode off; ``int8``: frozen."""
     from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
 
     n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
     n_gn = sum(isinstance(m, GroupNormOp) for m in model.modules())
     n_int8 = len(model.int8_layers()) if int8 else 0
     return {"attention": n_attn * calls, "attention_bwd": 0, "groupnorm": n_gn * calls,
-            "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": n_int8 * calls}
+            "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": n_int8 * calls,
+            "conv": conv_per_call(model, dtype) * calls}
 
 
 def library_rates(diffusion, dev, batch, chains):
@@ -3445,13 +3778,15 @@ def phase_serve(dev, state, workdir, smi):
     by its warmup), behind ``make_server(port=0)``: /healthz, 8 concurrent
     /sample POSTs of 1 to 3 labels (17 rows, both encodings: packing,
     padding, requests that wait for a later batch), /stats, one bad request
-    (400); K1 and K3 launched (batches + warmup) x 25 x their count a
-    forward, the plain versions refused. (b) f32 (TF32 off), DDIM-10: a
-    request served alone and again in the last row of a full batch, held to
-    1e-5; that batch equal bit for bit to ``Diffusion.denoise`` on its x_T and
-    step generator, and within 1e-3 of the kernels=False model; bf16 the
-    same, read. (c) ``--dtype int8 --int8_calibration`` on the file ``[int8]``
-    wrote: one batch of 8, the int8 conv 25 x 91 a batch. (d) samples/s,
+    (400); K1, K3 and the bf16 conv launched (batches + warmup) x 25 x their
+    count a forward, the plain versions (and cuDNN's conv) refused. (b) f32
+    (TF32 off), DDIM-10: a request served alone and again in the last row of
+    a full batch, held to 1e-5; that batch equal bit for bit to
+    ``Diffusion.denoise`` on its x_T and step generator, and within 1e-3 of
+    the kernels=False model; bf16 the same, bit for bit (max abs 0), the
+    plain versions refused. (c) ``--dtype int8 --int8_calibration`` on the
+    file ``[int8]`` wrote: one batch of 8, the int8 conv 25 x 91 a batch; then
+    (b)'s position check on that frozen int8 model, bit for bit. (d) samples/s,
     occupancy, p50/p95 latency with closed-loop HTTP clients at serve batch 8
     and 64 (three repeats at 64), with the launches counted over the clients'
     requests and held to the structure, beside ``Diffusion.denoise`` in a
@@ -3585,12 +3920,23 @@ def phase_serve(dev, state, workdir, smi):
         m = DiffusionModel(**cfg, dtype=dtype, device=dev).eval()
         m.load_state_dict(state, strict=True)
         diff = Diffusion(model=m, **dcfg)
-        pos, rerun, served, x, y, again = serve_positions(diff, dev)
         if dtype == torch.bfloat16:
+            # every conv through the bf16 conv (its plain version and cuDNN's
+            # refused), K1 and K3 at the served batch's one shape
+            with plain_versions_refused():
+                pos, rerun, served, x, y, again = serve_positions(diff, dev)
+            bit = torch.equal(served, again)
+            readings["position_bf16"] = {"alone_against_full_batch": pos, "alone_again": rerun,
+                                         "served_equals_denoise": bit}
             log(f"[serve] {name}, DDIM-10, CFG 0.8: one request alone (a padded batch) against "
                 f"the same (seed, label) in the last row of a full batch: max abs diff "
-                f"{pos:.6g}; alone against alone again: {rerun:.6g} (read, not gated)")
+                f"{pos:.6g} (gate 0); alone against alone again: {rerun:.6g} (gate 0); the "
+                f"served batch against Diffusion.denoise on its x_T and step generator: "
+                f"{'bit-equal' if bit else 'DIFFERENT'}")
+            if pos != 0 or rerun != 0 or not bit:
+                raise AssertionError("[serve] bf16 serving is not batch-position independent")
             break
+        pos, rerun, served, x, y, again = serve_positions(diff, dev)
         off = DiffusionModel(**cfg, kernels=False, device=dev).eval()
         off.load_state_dict(state, strict=True)
         plain = Diffusion(model=off, **dcfg).denoise(
@@ -3631,6 +3977,21 @@ def phase_serve(dev, state, workdir, smi):
     for o, n in zip(outs, (3, 3, 2)):
         if o.shape != (n, 64, 64, 3) or not (abs(o).max() <= 1.0):
             raise AssertionError(f"[serve] int8 reply {o.shape}")
+    # the int8 daemon's batch-position reading beside bf16's: the same chain
+    # as (b) on the frozen int8 model (exact s32 sums, the float convs on the
+    # bf16 conv)
+    with plain_versions_refused():
+        pos, rerun, served, x, y, again = serve_positions(
+            Diffusion(model=svc.diffusion.model, **dcfg), dev)
+    bit = torch.equal(served, again)
+    readings["position_int8"] = {"alone_against_full_batch": pos, "alone_again": rerun,
+                                 "served_equals_denoise": bit}
+    log(f"[serve] int8 (frozen, the calibration read), DDIM-10, CFG 0.8: one request alone "
+        f"against the same (seed, label) in the last row of a full batch: max abs diff "
+        f"{pos:.6g} (gate 0); alone against alone again: {rerun:.6g} (gate 0); the served batch "
+        f"against Diffusion.denoise: {'bit-equal' if bit else 'DIFFERENT'}")
+    if pos != 0 or rerun != 0 or not bit:
+        raise AssertionError("[serve] int8 serving is not batch-position independent")
     by_path["serve_openai_64_int8"] = launches
     del svc
     torch.cuda.empty_cache()
@@ -3707,6 +4068,10 @@ DP_TORCHRUN_TIMEOUT_S = 240.0
 # the repo's parity bar
 DP_IMAGE_TOL = 1
 DP_SERVE_TOL = MODEL_TOL
+# bf16 two ranks against one: the same bits (no bf16 kernel's order of sums
+# reads the batch: the bf16 conv, K1, K3's forward; cuBLAS's dense products
+# move no row, tools/find_batch_variance.py)
+DP_BF16_TOL = 0
 # the train entry point's EMNIST recipe at openai_64's widths (its images
 # keep EMNIST's one channel)
 OPENAI_64_WIDTHS = ["--resolution", "64", "--model_channels", "192", "--channel_mult",
@@ -3926,6 +4291,7 @@ def dp_rank(work, model_path, cfg, model_flags):
     r, n = rank(), world()
     if not torch.cuda.is_available():
         raise RuntimeError(f"[dp] rank {r} sees no CUDA device")
+    record_conv_shapes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3940,6 +4306,7 @@ def dp_rank(work, model_path, cfg, model_flags):
     out["serve"] = dp_serve_part(dev, work, model_flags, cfg, r)
     times["d"] = time.perf_counter() - t0 - times["a"] - times["c"]
     out["seconds"] = times
+    out["conv_shapes"] = sorted(CONV_SHAPES)
     return out
 
 
@@ -4053,6 +4420,7 @@ def phase_dp(dev, workdir, smi):
                       dict(work=workdir, model_path=model_path, cfg=cfg, model_flags=model_flags),
                       timeout_s=DP_TIMEOUT_S, one_device=True,
                       pythonpath=(os.path.dirname(os.path.abspath(__file__)),))
+    CONV_SHAPES.update(tuple(case) for res in got for case in res["conv_shapes"])
     log(f"[dp] two ranks on one card (gloo): seconds by part of rank 0 "
         f"{ {k: round(v, 1) for k, v in got[0]['seconds'].items()} }")
     part_done("(a), (c), (d) on two ranks")
@@ -4094,8 +4462,9 @@ def phase_dp(dev, workdir, smi):
             f"one rank's at the same seed, max {diff} counts, "
             f"{float((dp != ref).mean()):.4%} of values differ; {len(names)} files, names "
             f"{'the same' if same else 'DIFFERENT'}"
-            + (f" (gate {DP_IMAGE_TOL})" if dtype == "float32" else " (read)"))
-        if not same or dp.shape != ref.shape or (dtype == "float32" and diff > DP_IMAGE_TOL):
+            + f" (gate {DP_IMAGE_TOL if dtype == 'float32' else DP_BF16_TOL})")
+        if not same or dp.shape != ref.shape or diff > (DP_IMAGE_TOL if dtype == "float32"
+                                                        else DP_BF16_TOL):
             raise AssertionError(f"[dp] (c) {sampler} {dtype}: {diff} counts, names {same}")
     log(f"[dp] (c) each rank's f32 forward at model batch {got[0]['sample']['model_batch']}, "
         f"kernels on against off: max abs {[g['sample']['forward_err'] for g in got]} (gate "
@@ -4109,9 +4478,9 @@ def phase_dp(dev, workdir, smi):
         log(f"[dp] (d) --serve_data_parallel, serve batch {DP_SAMPLE_BATCH}, {dtype}, DDIM-"
             f"{got[0]['serve'][dtype]['steps']}: one HTTP request of {DP_SAMPLE_BATCH} labels "
             f"against the one-rank daemon, max abs {err:.6g}"
-            + (f" (gate {DP_SERVE_TOL})" if dtype == "float32" else " (read)"))
-        if dtype == "float32" and not err <= DP_SERVE_TOL:
-            raise AssertionError(f"[dp] (d) f32 two ranks against one: {err}")
+            + f" (gate {DP_SERVE_TOL if dtype == 'float32' else DP_BF16_TOL})")
+        if not err <= (DP_SERVE_TOL if dtype == "float32" else DP_BF16_TOL):
+            raise AssertionError(f"[dp] (d) {dtype} two ranks against one: {err}")
     two, single = got[0]["serve"]["bfloat16"], serve_one["load"]
     readings["serve_load"] = {"one_rank": single, "two_ranks": {
         k: two[k] for k in ("samples_per_s", "p50_s", "occupancy", "load_batches")}}
@@ -4128,8 +4497,10 @@ def phase_dp(dev, workdir, smi):
             ("dp_train_openai_64", [g["train"][d]["launches"] for g in got
                                     for d in ("float32", "bfloat16")],
              got[0]["train"]["float32"]["expect"]),
+            # DDIM and DDPM in f32, then in bf16 (the bf16 conv)
             ("dp_sample_openai_64", [g["sample"]["launches"] for g in got],
-             serve_expect(meta, 4 * DP_SAMPLE_STEPS)),
+             dict(serve_expect(meta, 4 * DP_SAMPLE_STEPS),
+                  conv=serve_expect(meta, 2 * DP_SAMPLE_STEPS, dtype=torch.bfloat16)["conv"])),
             ("dp_serve_openai_64", [g["serve"][d]["launches"] for g in got
                                     for d in ("float32", "bfloat16")], None)):
         total = collections.Counter()
@@ -4140,7 +4511,7 @@ def phase_dp(dev, workdir, smi):
             raise AssertionError(f"[dp] {path}: launches {per_rank}, expected {expect} a run")
     for dtype in ("float32", "bfloat16"):
         s = got[0]["serve"][dtype]
-        expect = serve_expect(meta, (s["batches"] + 1) * s["steps"])
+        expect = serve_expect(meta, (s["batches"] + 1) * s["steps"], dtype=getattr(torch, dtype))
         runs = [g["serve"][dtype]["launches"] for g in got]
         log(f"[dp] (d) {dtype}: {s['batches']} served batches and the warmup a rank; launches "
             f"a rank {runs}, expected {expect}")
@@ -4436,6 +4807,7 @@ def tp_rank(work, model_path, cfg):
     r = rank()
     if not torch.cuda.is_available():
         raise RuntimeError(f"[tp] rank {r} sees no CUDA device")
+    record_conv_shapes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4446,6 +4818,7 @@ def tp_rank(work, model_path, cfg):
     t1 = time.perf_counter()
     out["train"] = tp_train_part(dev, cfg, state, mesh, r, work)
     out["seconds"] = {"a": t1 - t0, "b": time.perf_counter() - t1}
+    out["conv_shapes"] = sorted(CONV_SHAPES)
     return out
 
 
@@ -4476,13 +4849,14 @@ def phase_tp(dev, workdir, smi, n_sharded):
                            cfg=cfg),
                       timeout_s=TP_TIMEOUT_S, one_device=True,
                       pythonpath=(os.path.dirname(os.path.abspath(__file__)),))
+    CONV_SHAPES.update(tuple(case) for res in got for case in res["conv_shapes"])
     log(f"[tp] two ranks on one card (gloo), tp={TP_WORLD}: seconds by part of rank 0 "
         f"{ {k: round(v, 1) for k, v in got[0]['seconds'].items()} }")
     readings = {"device": smi}
-    expect_fwd = serve_expect(meta, 1)
     by_path = {"tp_forward_openai_64": collections.Counter(),
                "tp_train_openai_64": collections.Counter()}
     for dtype in ("float32", "bfloat16"):
+        expect_fwd = serve_expect(meta, 1, dtype=getattr(torch, dtype))
         a = got[0]["forward"][dtype]
         runs = [g["forward"][dtype] for g in got]
         for run in runs:
@@ -4612,20 +4986,29 @@ def part_counts(cfg):
     """{kind: (in the encoder, in the decoder)} of the K1, K3 and int8 conv
     calls of one forward of ``cfg``'s UNet: its AttentionBlocks, GroupNormOps
     and (built quantized) int8 layers in ``downsampling`` against the rest
-    (middle, decoder, head). Built on the meta device."""
+    (middle, decoder, head); and of the bf16 conv's calls of a bf16 forward
+    of the float model (``conv``), of the quantized one (``conv_int8``: its
+    float convs) and of the quantized one recording its calibration
+    (``conv_recording``). Built on the meta device."""
     from nicediffusion_tpu_torch import DiffusionModel
     from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
 
     model = DiffusionModel(**cfg, device="meta")
+    quantized = DiffusionModel(**cfg, quantized=True, device="meta")
 
     def count(kind):
         enc = sum(isinstance(m, kind) for m in model.downsampling.modules())
         return enc, sum(isinstance(m, kind) for m in model.modules()) - enc
 
-    int8 = list(DiffusionModel(**cfg, quantized=True, device="meta").int8_layers())
+    def convs(m, **kw):
+        enc = conv_per_call(m, torch.bfloat16, part=m.downsampling, **kw)
+        return enc, conv_per_call(m, torch.bfloat16, **kw) - enc
+
+    int8 = list(quantized.int8_layers())
     n_enc = sum(name.startswith("downsampling.") for name in int8)
     return {"attention": count(AttentionBlock), "groupnorm": count(GroupNormOp),
-            "int8conv": (n_enc, len(int8) - n_enc)}
+            "int8conv": (n_enc, len(int8) - n_enc), "conv": convs(model),
+            "conv_int8": convs(quantized), "conv_recording": convs(quantized, recording=True)}
 
 
 def expect_quality_eval(unet_cfg, cls_cfg, env):
@@ -4637,7 +5020,10 @@ def expect_quality_eval(unet_cfg, cls_cfg, env):
     batches, not calls), the int8 model's calibration chain through its
     dynamic int8 path (every int8 layer through the kernel) and its 6
     calibration forwards (float: no int8 conv), and one classifier forward a
-    mode and one for the real data (eval_n <= 256: one padded chunk)."""
+    mode and one for the real data (eval_n <= 256: one padded chunk). The
+    bf16 conv: every UNet conv of the chains and the calibration (the int8
+    model's float convs alone where its int8 layers run), none of the
+    training steps (grad mode on) or of the f32 classifier."""
     from nicediffusion_tpu_torch import EncoderUNet
 
     parts = part_counts(unet_cfg)
@@ -4651,12 +5037,14 @@ def expect_quality_eval(unet_cfg, cls_cfg, env):
            "attention_bwd": train * unet_attn + cls_steps * n_attn,
            "groupnorm": train * unet_gn + cls_steps * n_gn_cls,
            "groupnorm_bwd": train * unet_gn + cls_steps * n_gn_cls,
-           "mha": 0, "resblock": 0, "int8conv": 0}
+           "mha": 0, "resblock": 0, "int8conv": 0, "conv": 0}
 
     def chain(k, int8, n_chunks):
         enc, dec = encoder_decoder_calls(steps, k)
         for kind in ("attention", "groupnorm") + (("int8conv",) if int8 else ()):
             out[kind] += n_chunks * (enc * parts[kind][0] + dec * parts[kind][1])
+        conv = parts["conv_int8" if int8 else "conv"]
+        out["conv"] += n_chunks * (enc * conv[0] + dec * conv[1])
 
     for _, k, int8 in QE_SMOKE_MODES:
         chain(k, int8, chunks)
@@ -4664,6 +5052,7 @@ def expect_quality_eval(unet_cfg, cls_cfg, env):
     calib_points = len({round(i * (steps - 1) / 5) for i in range(6)})
     out["attention"] += calib_points * unet_attn
     out["groupnorm"] += calib_points * unet_gn
+    out["conv"] += calib_points * sum(parts["conv_recording"])
     logit_calls = len(QE_SMOKE_MODES) + 1
     out["attention"] += logit_calls * n_attn
     out["groupnorm"] += logit_calls * n_gn_cls
@@ -4716,7 +5105,9 @@ def phase_tools(dev, workdir):
     forwards = steps * TOOLS_NLL_BATCHES
     expect = {"attention": forwards * n_attn, "attention_bwd": 0,
               "groupnorm": forwards * (gn_in + gn_out), "groupnorm_bwd": 0, "mha": 0,
-              "resblock": 0, "int8conv": 0}
+              "resblock": 0, "int8conv": 0,
+              "conv": forwards * conv_per_call(DiffusionModel(**model_args, device="meta"),
+                                               torch.bfloat16)}
     if (rc != 0 or result["chain_steps"] != steps
             or result["num_images"] != TOOLS_NLL_BATCH * TOOLS_NLL_BATCHES
             or not all(math.isfinite(result[k])
@@ -4773,7 +5164,7 @@ def phase_tools(dev, workdir):
     if rc != 0 or fails or not count_line or f"{OPENAI_64_PARAMS:,} vs" not in count_line[0]:
         raise AssertionError(f"[tools] verify_checkpoint: rc {rc}, {lines}")
     expect = {"attention": 2 * n_attn, "attention_bwd": 0, "groupnorm": 2 * (gn_in + gn_out),
-              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0}
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0, "conv": 0}
     if launches != expect:
         raise AssertionError(f"[tools] verify_checkpoint launches {launches} != {expect}")
     by_path["tools_verify_openai_64"] = launches
@@ -4858,6 +5249,7 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
     import nicediffusion_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    record_conv_shapes()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4910,6 +5302,11 @@ def main():
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
     qe_int8_calls = int8_conv_calls(qe_unet, qe_cfg, meta)
+    conv_paths = {"forward": conv_calls(reference, dev), "unet128": conv_calls(unet128, dev),
+                  "sr256": conv_calls(sr256, dev), "tp": conv_calls(reference, dev, TP_WORLD),
+                  "qe_unet": conv_calls(qe_unet, meta)}
+    conv_paths["serve64"] = conv_paths["forward"]
+    conv_paths["qe_calib"] = conv_paths["qe_gi"] = conv_paths["qe_unet"]
     phase_done("models made, their kernel calls found")
     errs, tallies, k3_gates = phase_kernels(dev, paths)
     phase_done("[kernels]")
@@ -4924,6 +5321,8 @@ def main():
     int8_tally, qe_int8_tally, int8_serve_tally, int8_cases, int8_errs = phase_int8_kernel(
         dev, int8_calls, int8_calls_emnist, qe_int8_calls)
     phase_done("[int8] kernel")
+    conv_tallies, conv_err, conv_rel, conv_gates, conv_held = phase_conv(dev, conv_paths)
+    phase_done("[conv]")
     mha_launches = phase_mha_direct(dev, paths)
     phase_model_128(dev, unet128, cls128)
     phase_done("[k5], [model-128]")
@@ -4979,6 +5378,10 @@ def main():
         phase_done("[tp]")
         by_path.update(phase_tools(dev, workdir))
         phase_done("[tools]")
+    conv_launched, conv_late, conv_late_err, conv_late_rel = phase_conv_cover(dev, conv_held)
+    conv_gates.update(cases_launched=conv_launched, cases_held=len(conv_held) + conv_late,
+                      max_rel_err=max(conv_rel, conv_late_rel))
+    phase_done("[conv-cover]")
 
     def entry(name, route, source, replaces, counter, err, err_bf16, tally, basis, others,
               routes=None, **extra):
@@ -5072,6 +5475,22 @@ def main():
                "(the dynamic path)"},
               bit_equal_cases=int8_cases,
               samples_per_s={f"batch {b}": r for b, r in int8_rates.items()}),
+        # no TPU kernel: flax nn.Conv in XLA in the JAX package; the conv of
+        # every bf16 forward with grad mode off, in place of cuDNN; bf16
+        # only, so max_abs_err is the bf16 one
+        entry("conv_nhwc", "cuda", "nicediffusion_tpu_torch/csrc/bf16conv.cu",
+              "nicediffusion_tpu/models/unet.py:243", "conv", max(conv_err, conv_late_err),
+              max(conv_err, conv_late_err),
+              conv_tallies[PATHS["forward"][0]],
+              f"sum over the {sum(conv_paths['forward'].values())} convs of one openai_64 "
+              f"sampling forward, bf16, model batch {PATHS['forward'][0]}; the library call "
+              f"is the bf16 F.conv2d (cuDNN) it replaces",
+              {"serve64": conv_tallies[PATHS["serve64"][0]]},
+              {"bfloat16": "wgmma bf16 x bf16 -> f32, one launch a call, a fixed order of sums "
+                           "(taps, then 32-channel steps; no split K): k = 3 stride 1 on the "
+                           "halo route (A by ldmatrix from the halo), the rest on the row route "
+                           "(A by descriptor); weights by cp.async"},
+              **conv_gates),
     ]
     for k in kernels:
         if k["launches"] <= 0:

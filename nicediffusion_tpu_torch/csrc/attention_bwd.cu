@@ -80,6 +80,13 @@
 // kernel's. At head dims 192 and 256 four 64-row f32 tiles of HC + 1 words do
 // not fit a block's 232,448 B, so there the tile a block owns has 32 rows
 // while the tiles it walks keep 64.
+//
+// Head dims. Each kernel is built for HC = 32, 64, 128, 192 and 256 and runs
+// any head dim D up to HC: q, k, v, g and o land zero past D and nothing
+// past D is stored. Every build has two instances: the exact one (D = HC,
+// and in bf16 rows that allow 16-byte copies) folds D to the constant HC,
+// as the kernels were before other head dims ran, and the other reads D at
+// run time and masks its loads and stores.
 
 #include "attention_common.cuh"
 #include "sm90.cuh"
@@ -110,23 +117,25 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (size_t)(2 * (BN + kBM) * (HC + 1) + 2 * kBM * (BN + 4) + 2 * kBM);
 }
 
-// rows [row0, row0 + ROWS) of one head's hc channels -> a shared tile of row
-// stride HC + 1, zero past row n
+// rows [row0, row0 + ROWS) of one head's dv channels -> a shared tile of row
+// stride HC + 1, zero past row n and past column dv
 template <int HC, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, size_t row_stride,
-                                          int row0, int n, int tid) {
+                                          int row0, int n, int dv, int tid) {
   for (int i = tid; i < ROWS * HC; i += kThreads) {
     const int r = i / HC, d = i % HC, row = row0 + r;
-    dst[r * (HC + 1) + d] = row < n ? src[(size_t)row * row_stride + d] : 0.f;
+    dst[r * (HC + 1) + d] = row < n && d < dv ? src[(size_t)row * row_stride + d] : 0.f;
   }
 }
 
-template <int HC, int BM>
+// EXACT: the head dim is HC, so dv folds to it and no column is masked
+template <int HC, int BM, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                         const float* __restrict__ o, const float* __restrict__ lse,
                         float* __restrict__ dqkv, float* __restrict__ delta, int n, int c,
-                        int split_first, float scale) {
+                        int head_dim, int split_first, float scale) {
+  const int dv = EXACT ? HC : head_dim;
   constexpr int kS = HC + 1;
   constexpr int kOC = HC / 16;  // dq columns per thread
   constexpr int TR = BM / 16;   // query rows per thread: ty * TR + i
@@ -144,13 +153,13 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__
   const int ty = tid / 16;
   const int tx = tid % 16;
   const int c3 = 3 * c;
-  const QkvOffsets off = qkv_offsets(head, HC, c, split_first);
+  const QkvOffsets off = qkv_offsets(head, dv, c, split_first);
   const float* base = qkv + (size_t)b * n * c3;
-  const float* gbase = g + (size_t)b * n * c + head * HC;
-  const float* obase = o + (size_t)b * n * c + head * HC;
+  const float* gbase = g + (size_t)b * n * c + head * dv;
+  const float* obase = o + (size_t)b * n * c + head * dv;
 
-  load_tile<HC, BM>(qs, base + off.q, c3, q0, n, tid);
-  load_tile<HC, BM>(gs, gbase, c, q0, n, tid);
+  load_tile<HC, BM>(qs, base + off.q, c3, q0, n, dv, tid);
+  load_tile<HC, BM>(gs, gbase, c, q0, n, dv, tid);
   __syncthreads();
 
   // the log-sum-exp of this thread's rows, and delta = rowsum(g * o)
@@ -165,7 +174,7 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__
 #pragma unroll
       for (int j = 0; j < kOC; ++j) {
         const int d = tx + 16 * j;
-        acc = fmaf(gs[r * kS + d], obase[(size_t)row * c + d], acc);
+        if (d < dv) acc = fmaf(gs[r * kS + d], obase[(size_t)row * c + d], acc);
       }
     }
     row_delta[i] = row_sum16(acc);
@@ -181,8 +190,8 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__
 
   for (int k0 = 0; k0 < n; k0 += kBN) {
     __syncthreads();  // the previous tile's readers are done with ks/vs/dss
-    load_tile<HC>(ks, base + off.k, c3, k0, n, tid);
-    load_tile<HC>(vs, base + off.v, c3, k0, n, tid);
+    load_tile<HC>(ks, base + off.k, c3, k0, n, dv, tid);
+    load_tile<HC>(vs, base + off.v, c3, k0, n, dv, tid);
     __syncthreads();
     float s[TR][kTC], dp[TR][kTC];
     tile_dot_nt<HC, TR>(qs, ks, ty, tx, s);
@@ -216,15 +225,18 @@ attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__
     if (row >= n) continue;
     float* dst = dqkv + ((size_t)b * n + row) * c3 + off.q;
 #pragma unroll
-    for (int j = 0; j < kOC; ++j) dst[tx + 16 * j] = dq[i][j];
+    for (int j = 0; j < kOC; ++j)
+      if (tx + 16 * j < dv) dst[tx + 16 * j] = dq[i][j];
   }
 }
 
-template <int HC, int BN>
+template <int HC, int BN, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dqkv, int n, int c, int split_first, float scale) {
+                         float* __restrict__ dqkv, int n, int c, int head_dim, int split_first,
+                         float scale) {
+  const int dv = EXACT ? HC : head_dim;
   constexpr int kS = HC + 1;
   constexpr int kOC = HC / 16;  // dk and dv columns per thread
   constexpr int TC = BN / 16;   // score columns per thread: tx + 16 * j
@@ -247,28 +259,28 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict_
   const int ty = tid / 16;
   const int tx = tid % 16;
   const int c3 = 3 * c;
-  const QkvOffsets off = qkv_offsets(head, HC, c, split_first);
+  const QkvOffsets off = qkv_offsets(head, dv, c, split_first);
   const float* base = qkv + (size_t)b * n * c3;
-  const float* gbase = g + (size_t)b * n * c + head * HC;
+  const float* gbase = g + (size_t)b * n * c + head * dv;
   const size_t stat_base = ((size_t)b * gridDim.y + head) * n;
 
-  load_tile<HC, BN>(ks, base + off.k, c3, k0, n, tid);
-  load_tile<HC, BN>(vs, base + off.v, c3, k0, n, tid);
+  load_tile<HC, BN>(ks, base + off.k, c3, k0, n, dv, tid);
+  load_tile<HC, BN>(vs, base + off.v, c3, k0, n, dv, tid);
 
   // this thread's keys are ty * KR + i, its channels tx + 16 * j
-  float dk[KR][kOC], dv[KR][kOC];
+  float dk[KR][kOC], dv_acc[KR][kOC];
 #pragma unroll
   for (int i = 0; i < KR; ++i)
 #pragma unroll
     for (int j = 0; j < kOC; ++j) {
       dk[i][j] = 0.f;
-      dv[i][j] = 0.f;
+      dv_acc[i][j] = 0.f;
     }
 
   for (int q0 = 0; q0 < n; q0 += kBM) {
     __syncthreads();  // the previous tile's readers are done with qs/gs/ps/dss
-    load_tile<HC>(qs, base + off.q, c3, q0, n, tid);
-    load_tile<HC>(gs, gbase, c, q0, n, tid);
+    load_tile<HC>(qs, base + off.q, c3, q0, n, dv, tid);
+    load_tile<HC>(gs, gbase, c, q0, n, dv, tid);
     if (tid < kBM) {
       const int row = q0 + tid;
       lse_s[tid] = row < n ? lse[stat_base + row] : 0.f;
@@ -312,7 +324,7 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict_
       for (int i = 0; i < KR; ++i)
 #pragma unroll
         for (int j = 0; j < kOC; ++j) {
-          dv[i][j] = fmaf(pk[i], gv[j], dv[i][j]);
+          dv_acc[i][j] = fmaf(pk[i], gv[j], dv_acc[i][j]);
           dk[i][j] = fmaf(dsk[i], qv[j], dk[i][j]);
         }
     }
@@ -325,19 +337,20 @@ attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict_
     float* dst = dqkv + ((size_t)b * n + key) * c3;
 #pragma unroll
     for (int j = 0; j < kOC; ++j) {
+      if (tx + 16 * j >= dv) continue;
       dst[off.k + tx + 16 * j] = dk[i][j];
-      dst[off.v + tx + 16 * j] = dv[i][j];
+      dst[off.v + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
-template <int HC>
+template <int HC, bool EXACT>
 cudaError_t launch_f32(const float* qkv, const float* g, const float* o, const float* lse,
                        float* dqkv, float* delta, int batch, int n, int c, int num_heads,
-                       int split_first, float scale, cudaStream_t stream) {
+                       int dv, int split_first, float scale, cudaStream_t stream) {
   constexpr int kOwn = own_rows<HC>();  // BM of the dq kernel, BN of the dk/dv kernel
-  auto dq_kernel = attention_bwd_dq_kernel<HC, kOwn>;
-  auto dkv_kernel = attention_bwd_dkv_kernel<HC, kOwn>;
+  auto dq_kernel = attention_bwd_dq_kernel<HC, kOwn, EXACT>;
+  auto dkv_kernel = attention_bwd_dkv_kernel<HC, kOwn, EXACT>;
   constexpr size_t dq_smem = dq_smem_bytes<HC, kOwn>();
   constexpr size_t dkv_smem = dkv_smem_bytes<HC, kOwn>();
   static_assert(dq_smem <= 232448 && dkv_smem <= 232448, "over a block's shared memory");
@@ -348,11 +361,11 @@ cudaError_t launch_f32(const float* qkv, const float* g, const float* o, const f
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kOwn - 1) / kOwn, num_heads, batch);
-  dq_kernel<<<grid, kThreads, dq_smem, stream>>>(qkv, g, o, lse, dqkv, delta, n, c,
+  dq_kernel<<<grid, kThreads, dq_smem, stream>>>(qkv, g, o, lse, dqkv, delta, n, c, dv,
                                                  split_first, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<grid, kThreads, dkv_smem, stream>>>(qkv, g, lse, delta, dqkv, n, c,
+  dkv_kernel<<<grid, kThreads, dkv_smem, stream>>>(qkv, g, lse, delta, dqkv, n, c, dv,
                                                    split_first, scale);
   return cudaGetLastError();
 }
@@ -370,6 +383,8 @@ struct BwdArgs {
   float* delta;      // (B, H, N) scratch: written by the dq kernel, read by dk/dv
   bf16* dqkv;
   int n, c, split_first;
+  int d;      // the head dim, at most HC: columns past it are zeros and not stored
+  int vec16;  // q, k, v and g allow 16-byte copies (d and c multiples of 8)
   float scale;
 };
 
@@ -437,11 +452,12 @@ __device__ __forceinline__ void fence_all(float (&acc)[CB][32]) {
 }
 
 // rows r and r + 8 of a warpgroup's 64 x (64 CB) f32 accumulator, rounded to
-// bf16, into rows of device memory (row stride ld) at columns below HC;
-// rows past n are not stored
-template <int HC, int CB>
-__device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int r, int n,
+// bf16, into rows of device memory (row stride ld, 3c) at columns below dv
+// (in pairs where dv, and so c and ld, are even); rows past n are not stored
+template <int CB>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int r, int n, int dv,
                                            const float (&acc)[CB][32], int col_lane) {
+  const bool pairs = dv % 2 == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r + 8 * half;
@@ -452,9 +468,13 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int r, int n,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * cb + 8 * j + col_lane;
-        if (col < HC)
-          *reinterpret_cast<__nv_bfloat162*>(d + col) = __floats2bfloat162_rn(
-              acc[cb][4 * j + 2 * half], acc[cb][4 * j + 2 * half + 1]);
+        const float v0 = acc[cb][4 * j + 2 * half], v1 = acc[cb][4 * j + 2 * half + 1];
+        if (pairs && col < dv) {
+          *reinterpret_cast<__nv_bfloat162*>(d + col) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < dv) d[col] = __float2bfloat16(v0);
+          if (col + 1 < dv) d[col + 1] = __float2bfloat16(v1);
+        }
       }
   }
 }
@@ -463,7 +483,9 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int r, int n,
 // tile are row g + 8 (r % 2), columns 16 kk + 8 (r / 2) + 2 (l % 4) + {0, 1}
 // (sm90.cuh), and packed they are register r of the A fragment of step kk.
 
-template <int HC>
+// EXACT: the head dim is HC and q, k, v, g and o allow 16-byte (o 4-byte)
+// loads, so dv and vec fold to constants and no column is masked
+template <int HC, bool EXACT>
 __global__ void __launch_bounds__(BwdTile<HC>::kThreads, 1)
 attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
   using P = BwdTile<HC>;
@@ -479,18 +501,19 @@ attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
   const int tid = threadIdx.x;
   const int wg = tid / kWgThreads;  // owns query rows q0 + 64 wg to q0 + 64 wg + 63
   const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
-  const int n = a.n, c = a.c, c3 = 3 * c;
-  const QkvOffsets off = qkv_offsets(head, HC, c, a.split_first);
+  const int n = a.n, c = a.c, c3 = 3 * c, dv = EXACT ? HC : a.d;
+  const bool vec = EXACT || a.vec16;
+  const QkvOffsets off = qkv_offsets(head, dv, c, a.split_first);
   const bf16* base = a.qkv + (size_t)b * n * c3;
-  const bf16* gb = a.g + (size_t)b * n * c + head * HC;
-  const bf16* ob = a.o + (size_t)b * n * c + head * HC;
+  const bf16* gb = a.g + (size_t)b * n * c + head * dv;
+  const bf16* ob = a.o + (size_t)b * n * c + head * dv;
   const size_t stat = ((size_t)b * gridDim.y + head) * n;
 
   using sm90::stage_tile;
-  stage_tile<P::kOwn, P::kDP, P::kThreads>(q_s, base + off.q, c3, q0, n, HC, true, tid);
-  stage_tile<P::kOwn, P::kDP, P::kThreads>(g_s, gb, c, q0, n, HC, true, tid);
-  stage_tile<64, P::kDP, P::kThreads>(kv_s, base + off.k, c3, 0, n, HC, true, tid);
-  stage_tile<64, P::kDP, P::kThreads>(kv_s + kT, base + off.v, c3, 0, n, HC, true, tid);
+  stage_tile<P::kOwn, P::kDP, P::kThreads>(q_s, base + off.q, c3, q0, n, dv, vec, tid);
+  stage_tile<P::kOwn, P::kDP, P::kThreads>(g_s, gb, c, q0, n, dv, vec, tid);
+  stage_tile<64, P::kDP, P::kThreads>(kv_s, base + off.k, c3, 0, n, dv, vec, tid);
+  stage_tile<64, P::kDP, P::kThreads>(kv_s + kT, base + off.v, c3, 0, n, dv, vec, tid);
   sm90::cp_async_commit();
 
   // this thread's rows r0 and r0 + 8: their lse in log2 units, and delta =
@@ -506,10 +529,19 @@ attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
     if (row < n) {
       const bf16* gr = gb + (size_t)row * c;
       const bf16* orow = ob + (size_t)row * c;
-      for (int d = col_lane; d < HC; d += 8) {
-        const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gr + d));
-        const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + d));
-        acc = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, acc));
+      if constexpr (EXACT) {
+        for (int d = col_lane; d < HC; d += 8) {
+          const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gr + d));
+          const float2 ov =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + d));
+          acc = fmaf(gv.x, ov.x, fmaf(gv.y, ov.y, acc));
+        }
+      } else {
+        for (int d = col_lane; d < dv; d += 8) {
+          const float g1 = d + 1 < dv ? __bfloat162float(gr[d + 1]) : 0.f;
+          const float o1 = d + 1 < dv ? __bfloat162float(orow[d + 1]) : 0.f;
+          acc = fmaf(__bfloat162float(gr[d]), __bfloat162float(orow[d]), fmaf(g1, o1, acc));
+        }
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -548,8 +580,8 @@ attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
     // tile t + 1 loads into the other stage while S (and dP) multiply
     if (t + 1 < tiles) {
       const uint32_t next = kv_s + 2 * ((t + 1) & 1) * kT;
-      stage_tile<64, P::kDP, P::kThreads>(next, base + off.k, c3, (t + 1) * 64, n, HC, true, tid);
-      stage_tile<64, P::kDP, P::kThreads>(next + kT, base + off.v, c3, (t + 1) * 64, n, HC, true,
+      stage_tile<64, P::kDP, P::kThreads>(next, base + off.k, c3, (t + 1) * 64, n, dv, vec, tid);
+      stage_tile<64, P::kDP, P::kThreads>(next + kT, base + off.v, c3, (t + 1) * 64, n, dv, vec,
                                           tid);
       sm90::cp_async_commit();
     }
@@ -602,11 +634,11 @@ attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
     fence_all(dq);
   }
 
-  store_rows<HC>(a.dqkv + (size_t)b * n * c3 + off.q, c3, r0, n, dq, col_lane);
+  store_rows(a.dqkv + (size_t)b * n * c3 + off.q, c3, r0, n, dv, dq, col_lane);
 }
 
 // One 64-key tile of a warpgroup: dV (kDV) and dK (kDK) over the query tiles.
-template <int HC, bool kDV, bool kDK>
+template <int HC, bool EXACT, bool kDV, bool kDK>
 __device__ __forceinline__ void dkv_body(const BwdArgs& a, int key_tile) {
   using P = BwdTile<HC>;
   constexpr int kT = P::kTileBytes;
@@ -625,10 +657,11 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, int key_tile) {
   const int tid = threadIdx.x;
   const int wg = tid / kWgThreads;  // owns keys k0 + 64 wg to k0 + 64 wg + 63
   const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
-  const int n = a.n, c = a.c, c3 = 3 * c;
-  const QkvOffsets off = qkv_offsets(head, HC, c, a.split_first);
+  const int n = a.n, c = a.c, c3 = 3 * c, hd = EXACT ? HC : a.d;
+  const bool vec = EXACT || a.vec16;
+  const QkvOffsets off = qkv_offsets(head, hd, c, a.split_first);
   const bf16* base = a.qkv + (size_t)b * n * c3;
-  const bf16* gb = a.g + (size_t)b * n * c + head * HC;
+  const bf16* gb = a.g + (size_t)b * n * c + head * hd;
   const size_t stat = ((size_t)b * gridDim.y + head) * n;
   const int col_lane = 2 * (lane % 4);
   const float scale = a.scale, scale_log2 = scale * kLog2e;
@@ -637,8 +670,8 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, int key_tile) {
   // delta (plain loads and stores; rows past n get lse = inf, so p = 0)
   auto stage_queries = [&](int st, int q0) {
     const uint32_t at = qg_s + 2 * st * kT;
-    sm90::stage_tile<64, P::kDP, P::kThreads>(at, base + off.q, c3, q0, n, HC, true, tid);
-    sm90::stage_tile<64, P::kDP, P::kThreads>(at + kT, gb, c, q0, n, HC, true, tid);
+    sm90::stage_tile<64, P::kDP, P::kThreads>(at, base + off.q, c3, q0, n, hd, vec, tid);
+    sm90::stage_tile<64, P::kDP, P::kThreads>(at + kT, gb, c, q0, n, hd, vec, tid);
     sm90::cp_async_commit();
     for (int i = tid; i < 128; i += P::kThreads) {
       const int row = q0 + i % 64;
@@ -649,9 +682,9 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, int key_tile) {
     }
   };
 
-  sm90::stage_tile<P::kOwn, P::kDP, P::kThreads>(k_s, base + off.k, c3, k0, n, HC, true, tid);
+  sm90::stage_tile<P::kOwn, P::kDP, P::kThreads>(k_s, base + off.k, c3, k0, n, hd, vec, tid);
   if constexpr (kDK)
-    sm90::stage_tile<P::kOwn, P::kDP, P::kThreads>(v_s, base + off.v, c3, k0, n, HC, true, tid);
+    sm90::stage_tile<P::kOwn, P::kDP, P::kThreads>(v_s, base + off.v, c3, k0, n, hd, vec, tid);
   stage_queries(0, 0);
 
   float dv[kDV ? P::kCB : 1][32], dk[kDK ? P::kCB : 1][32];
@@ -732,28 +765,28 @@ __device__ __forceinline__ void dkv_body(const BwdArgs& a, int key_tile) {
 
   const int r0 = k0 + 64 * wg + 16 * warp + lane / 4;
   bf16* dst = a.dqkv + (size_t)b * n * c3;
-  if constexpr (kDK) store_rows<HC>(dst + off.k, c3, r0, n, dk, col_lane);
-  if constexpr (kDV) store_rows<HC>(dst + off.v, c3, r0, n, dv, col_lane);
+  if constexpr (kDK) store_rows(dst + off.k, c3, r0, n, hd, dk, col_lane);
+  if constexpr (kDV) store_rows(dst + off.v, c3, r0, n, hd, dv, col_lane);
 }
 
 // dk and dv; with BwdTile::kSplit, the even x indices of a key tile make dV
 // and the odd ones dK
-template <int HC>
+template <int HC, bool EXACT>
 __global__ void __launch_bounds__(BwdTile<HC>::kThreads, 1)
 attention_bwd_dkv_wgmma_kernel(const BwdArgs a) {
   if constexpr (BwdTile<HC>::kSplit) {
-    if (blockIdx.x & 1) dkv_body<HC, false, true>(a, blockIdx.x >> 1);
-    else dkv_body<HC, true, false>(a, blockIdx.x >> 1);
+    if (blockIdx.x & 1) dkv_body<HC, EXACT, false, true>(a, blockIdx.x >> 1);
+    else dkv_body<HC, EXACT, true, false>(a, blockIdx.x >> 1);
   } else {
-    dkv_body<HC, true, true>(a, blockIdx.x);
+    dkv_body<HC, EXACT, true, true>(a, blockIdx.x);
   }
 }
 
-template <int HC>
+template <int HC, bool EXACT>
 cudaError_t launch_bf16(const BwdArgs& a, int batch, int num_heads, cudaStream_t stream) {
   using P = BwdTile<HC>;
-  auto dq_kernel = attention_bwd_dq_wgmma_kernel<HC>;
-  auto dkv_kernel = attention_bwd_dkv_wgmma_kernel<HC>;
+  auto dq_kernel = attention_bwd_dq_wgmma_kernel<HC, EXACT>;
+  auto dkv_kernel = attention_bwd_dkv_wgmma_kernel<HC, EXACT>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kSmem);
   if (err != cudaSuccess) return err;
@@ -780,16 +813,18 @@ extern "C" {
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). qkv and dqkv
 // are (batch, n, 3c), g and o (batch, n, c), lse the f32 (batch, num_heads,
 // n) row log-sum-exp K1 wrote (natural log), delta f32 (batch, num_heads, n)
-// scratch; all contiguous on the current device, and for bf16 qkv and g on
-// 16 bytes, o and dqkv on 4. Returns the CUDA error code of the launches (0
-// on success).
+// scratch; all contiguous on the current device, and for bf16 dqkv on 4
+// bytes. A head dim c / num_heads up to 256 runs on the build for the next
+// of 32, 64, 128, 192 and 256 up. Returns the CUDA error code of the
+// launches (0 on success).
 int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o,
                                    const void* lse, void* dqkv, void* delta, int batch, int n,
                                    int c, int num_heads, int split_first, int dtype, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0)
+  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0 || c / num_heads > 256)
     return (int)cudaErrorInvalidValue;
+  const int hd = c / num_heads;
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   if (dtype == 0) {
@@ -797,33 +832,36 @@ int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o
     const float* gf = static_cast<const float*>(g);
     const float* of = static_cast<const float*>(o);
     float* d = static_cast<float*>(dqkv);
-#define ND_LAUNCH(HC)                                                                     \
-  return (int)launch_f32<HC>(q, gf, of, lse_f, d, delta_f, batch, n, c, num_heads,        \
-                             split_first, scale, s)
-    switch (c / num_heads) {
-      case 32: ND_LAUNCH(32);
-      case 64: ND_LAUNCH(64);
-      case 128: ND_LAUNCH(128);
-      case 192: ND_LAUNCH(192);
-      case 256: ND_LAUNCH(256);
-      default: return (int)cudaErrorInvalidValue;
-    }
+#define ND_LAUNCH(HC)                                                                        \
+  return (int)(hd == HC ? launch_f32<HC, true>(q, gf, of, lse_f, d, delta_f, batch, n, c,     \
+                                               num_heads, hd, split_first, scale, s)          \
+                        : launch_f32<HC, false>(q, gf, of, lse_f, d, delta_f, batch, n, c,    \
+                                                num_heads, hd, split_first, scale, s))
+    if (hd <= 32) ND_LAUNCH(32);
+    if (hd <= 64) ND_LAUNCH(64);
+    if (hd <= 128) ND_LAUNCH(128);
+    if (hd <= 192) ND_LAUNCH(192);
+    ND_LAUNCH(256);
 #undef ND_LAUNCH
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!aligned(qkv, 16) || !aligned(g, 16) || !aligned(o, 4) || !aligned(dqkv, 4))
-    return (int)cudaErrorInvalidValue;
+  if (!aligned(dqkv, 4)) return (int)cudaErrorInvalidValue;
+  const int vec16 = hd % 8 == 0 && c % 8 == 0 && aligned(qkv, 16) && aligned(g, 16);
   const BwdArgs a = {static_cast<const bf16*>(qkv), static_cast<const bf16*>(g),
                      static_cast<const bf16*>(o), lse_f, delta_f, static_cast<bf16*>(dqkv),
-                     n, c, split_first, scale};
-  switch (c / num_heads) {
-    case 32: return (int)launch_bf16<32>(a, batch, num_heads, s);
-    case 64: return (int)launch_bf16<64>(a, batch, num_heads, s);
-    case 128: return (int)launch_bf16<128>(a, batch, num_heads, s);
-    case 192: return (int)launch_bf16<192>(a, batch, num_heads, s);
-    case 256: return (int)launch_bf16<256>(a, batch, num_heads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                     n, c, split_first, hd, vec16, scale};
+  // the build for the smallest head dim that holds hd; at that head dim
+  // itself, with aligned rows, its exact instance
+  const bool exact = vec16 && aligned(o, 4);
+#define ND_LAUNCH(HC)                                                                  \
+  return (int)(exact && hd == HC ? launch_bf16<HC, true>(a, batch, num_heads, s)     \
+                                 : launch_bf16<HC, false>(a, batch, num_heads, s))
+  if (hd <= 32) ND_LAUNCH(32);
+  if (hd <= 64) ND_LAUNCH(64);
+  if (hd <= 128) ND_LAUNCH(128);
+  if (hd <= 192) ND_LAUNCH(192);
+  ND_LAUNCH(256);
+#undef ND_LAUNCH
 }
 
 const char* nd_cuda_error_string(int err) {

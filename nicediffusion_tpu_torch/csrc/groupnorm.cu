@@ -59,6 +59,11 @@
 //     128 x 128 maps, the resident one elsewhere. HBM bytes: resident,
 //     2 |x| (forward) or 3 |x| (backward); re-read, the streamed share of
 //     the inputs once more, less what L2 serves.
+//   * The split sets the order of a group's sums, so the forward's is chosen
+//     for a batch of 16 (kPlanBatch) whatever the call's batch: an example
+//     normalises to the same bits in any batch, as sampling and serving
+//     promise. Past 65,535 (example, slice) pairs the forward launches once
+//     a share of the batch. The backward's split fits the call's batch.
 //   * The arithmetic per element is one FMA for normalise, affine and
 //     modulation together (the per-channel scale and shift are fetched into
 //     shared memory while the tile lands) and, for SiLU, ex2.approx and a
@@ -99,6 +104,8 @@ constexpr int kMaxCluster = 16;     // non-portable above 8
 constexpr int kSmemMax = 232448;    // a block's shared memory on sm_90
 constexpr int kMaxSliceVecs = kMaxThreads;  // vectors in a slice's row: one a thread
 constexpr int kMinRunBytes = 128;   // the shortest row of a channel slice
+constexpr int kPlanBatch = 16;      // the forward's plan: the batch it is chosen for
+constexpr int kMaxGridY = 65535;    // (example, slice) pairs a launch
 
 struct GnArgs {
   const void* x;    // (B, hw, c)
@@ -766,7 +773,7 @@ cudaError_t make_plan(Kernel kernel, const PlanKey& k, Plan* out, int force_s = 
     const int nvs = cs / k.vec;
     if (nvs > kMaxSliceVecs) continue;
     if (s > 1 && cs * k.esize < kMinRunBytes) continue;
-    if ((long long)k.batch * s > 65535 || (force_s && s != force_s)) continue;
+    if ((long long)k.batch * s > kMaxGridY || (force_s && s != force_s)) continue;
     for (int cl = 1; cl <= kMaxCluster; cl *= 2) {
       const int rpb = (k.hw + cl - 1) / cl;
       if (cl > 1 && (k.hw + cl / 2 - 1) / (cl / 2) == rpb) break;  // no fewer rows a block
@@ -892,7 +899,10 @@ cudaError_t plan_call(int dtype, int backward, int batch, int hw, int c, int gro
   k.backward = backward;
   k.esize = esize;
   k.vec = vector_width(c, esize, align);
-  k.batch = batch;
+  // the forward's split, and so the order of its sums, never reads the
+  // batch: an example's output is the same bits in any batch (the sampling
+  // and serving promise). The backward, a training step's, fits its batch.
+  k.batch = backward ? batch : kPlanBatch;
   k.hw = hw;
   k.c = c;
   k.groups = groups;
@@ -965,7 +975,24 @@ int nd_group_norm_fwd(const void* x, void* out, const void* scale, const void* b
   a.eps = eps;
   a.ada = ada;
   a.silu = silu;
-  return (int)launch(kernel, plan, a, batch, static_cast<cudaStream_t>(stream));
+  // the batch in launches of at most kMaxGridY (example, slice) pairs
+  const int per = kMaxGridY / plan.slices;
+  const size_t esize = dtype == 0 ? 4 : 2, emb_esize = emb_f32 ? 4 : esize;
+  for (int b0 = 0; b0 < batch; b0 += per) {
+    GnArgs part = a;
+    const size_t x_at = (size_t)b0 * hw * c * esize;
+    part.x = static_cast<const char*>(x) + x_at;
+    part.out = static_cast<char*>(out) + x_at;
+    if (ada) {
+      part.es = static_cast<const char*>(es) + (size_t)b0 * emb_stride * emb_esize;
+      part.eb = static_cast<const char*>(eb) + (size_t)b0 * emb_stride * emb_esize;
+    }
+    if (mean != nullptr) part.mean += (size_t)b0 * groups;
+    if (rstd != nullptr) part.rstd += (size_t)b0 * groups;
+    err = launch(kernel, plan, part, std::min(per, batch - b0), static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // The backward of nd_group_norm_fwd: dy the cotangent (x's type and layout),

@@ -40,7 +40,10 @@
 // one is multiplied) and are read by descriptor; every product is one wgmma
 // m64n(64 NB)k32 per 32 channels. Channels past C, filters past F and pixels
 // past the map are zeros (zero fill, or masked byte loads where C or the
-// pointers allow no 16-byte copy); C, F, H and W are anything.
+// pointers allow no 16-byte copy); C, F, H and W are anything. The bf16
+// conv (bf16conv.cu) has the same design: what does not depend on the
+// operand type (the geometry, the tile numbering, the weight slab, the
+// launch) is in conv_common.cuh.
 //
 // The halo route (int8_conv_halo_wgmma_kernel): stride 1, k = 3, bf16 or s8 x,
 // 96% of an openai_64 int8 forward's operations. Built as K4
@@ -104,34 +107,26 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
+#include "conv_common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 namespace sm90 = nd::sm90;
+using namespace nd::conv;
 
-constexpr int kThreads = 256;     // two warpgroups
-constexpr int kWgThreads = 128;
-constexpr int kKStep = 64;        // channels a step: one 64-byte s8 row
-constexpr int kStages = 4;        // the ring: one stage multiplied, three landing
-constexpr int kAhead = kStages - 1;  // pairs staged ahead of the one multiplied
-constexpr int kSlabBytes = 64 * kKStep;  // 64 filters of a step: one NB unit of a slab
-constexpr int kSide = 8;          // halo route: output tile side
-constexpr int kHSide = kSide + 2;
-constexpr int kHPx = kHSide * kHSide;    // halo pixels
+constexpr int kKStep = kRowBytes;        // channels a step: one 64-byte s8 row
 constexpr int kQHalo = kHPx * kKStep;    // an s8 halo buffer
 constexpr int kQTasks = kHPx * 4;        // (pixel, 16-channel chunk) quantize tasks of a step
 constexpr int kQSlots = (kQTasks + kWgThreads - 1) / kWgThreads;  // a thread's, at most
 static_assert(kQSlots <= 4, "a step's quantize runs two tasks after each of kernel rows 1 and 2");
-constexpr int kBM = 2 * 64;       // row route: output pixels a block
 constexpr int kATile = kBM * kKStep;
 
 enum { kF32 = 0, kBF16 = 1, kS8 = 2 };
 
-struct Args {
+struct Args : Shape {
   const void* x;
   const float* inv_act;  // null for an s8 x
   const int8_t* wq;
@@ -140,10 +135,6 @@ struct Args {
   void* out;             // null: no dequantized output
   int* raw;              // null: no raw sums
   int otype;
-  int h, w, c, f, k, stride, pad, ho, wo, taps, steps;
-  long long m;           // output pixels, batch * ho * wo
-  int tiles;             // halo route: 8 x 8 output tiles over all examples
-  int vec_x, vec_w;      // x and the weights allow 16-byte copies
 };
 
 template <int XT>
@@ -192,15 +183,6 @@ __device__ __forceinline__ uint4 quant_bf16x16(uint4 lo, uint4 hi, float inv) {
                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
 }
 
-// n (0 to 16) bytes from p, packed in four words, the rest zero
-__device__ __forceinline__ uint4 load_bytes(const int8_t* p, int n) {
-  uint32_t v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    if (j < n) v[j / 4] |= (uint32_t)(uint8_t)p[j] << (8 * (j % 4));
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
 template <int NB>
 __device__ __forceinline__ void wgmma_rs(int (&d)[NB * 32], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (NB == 1) sm90::wgmma_rs_m64n64k32_s8(d, a, b, 1);
@@ -214,53 +196,6 @@ __device__ __forceinline__ void wgmma_ss(int (&d)[NB * 32], uint64_t a, uint64_t
   if constexpr (NB == 2) sm90::wgmma_ss_m64n128k32_s8(d, a, b, 1);
   if constexpr (NB == 3) sm90::wgmma_ss_m64n192k32_s8(d, a, b, 1);
 }
-
-// The weight slab of a block: its 64 NB filters from f0 on, 64 bytes each of
-// one (tap, channel step). A thread copies NB 16-byte chunks of it, chunk id
-// tid + 256 i (filter f0 + id / 4, channels 16 (id % 4) on); their offsets in
-// the ring stage and into kernel_q are computed once.
-template <int NB>
-struct Slab {
-  uint32_t smem[NB];
-  int gmem[NB];  // from (filter 0, tap 0, channel 0)
-  int f0, tid;
-  bool whole;    // every chunk whole and aligned: C a multiple of 64, the filters inside F
-
-  __device__ __forceinline__ void init(const Args& a, int f0_, int tid_) {
-    f0 = f0_, tid = tid_;
-    whole = a.vec_w && a.c % kKStep == 0 && a.f - f0 >= 64 * NB;
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int id = tid + kThreads * i, r = id >> 2, q = id & 3;
-      smem[i] = sm90::sw64_offset(r, q);
-      gmem[i] = whole ? (f0 + r) * a.taps * a.c + 16 * q : 0;
-    }
-  }
-
-  // slab (tap, step) into the ring stage at dst; the caller commits. A
-  // ragged slab masks filters past F and channels past C, by byte loads
-  // where no 16-byte copy is aligned.
-  __device__ __forceinline__ void stage(uint32_t dst, const Args& a, int tap, int step) const {
-    const int base = tap * a.c + step * kKStep;
-    if (whole) {
-#pragma unroll
-      for (int i = 0; i < NB; ++i) sm90::cp_async_16(dst + smem[i], a.wq + gmem[i] + base, 16);
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int id = tid + kThreads * i, fl = f0 + (id >> 2), c = step * kKStep + 16 * (id & 3);
-      const int valid = fl < a.f ? min(max(a.c - c, 0), 16) : 0;
-      const int8_t* p = valid > 0 ? a.wq + ((long long)fl * a.taps + tap) * a.c + c : a.wq;
-      if (a.vec_w) {
-        sm90::cp_async_16(dst + smem[i], p, valid);
-      } else {
-        const uint4 v = load_bytes(p, valid);
-        sm90::st_shared_16(dst + smem[i], v.x, v.y, v.z, v.w);
-      }
-    }
-  }
-};
 
 // s = float(sum) * deq (+ bias), one rounding to the output type; two
 // filters at a time where both exist and F is even (aligned pairs)
@@ -325,27 +260,6 @@ __device__ __forceinline__ void store_tile(const Args& a, const int (&acc)[NB * 
 
 // ------------------------------------------------------------- halo route
 
-// a warpgroup's 8 x 8 output tile: example, top-left pixel, and whether it
-// exists (a block's second warpgroup past the last tile computes the last
-// tile again and stores nothing)
-struct Tile8 {
-  int b, y0, x0;
-  bool live;
-};
-
-__device__ __forceinline__ Tile8 tile_of(int s, const Args& a) {
-  Tile8 t;
-  t.live = s < a.tiles;
-  s = min(s, a.tiles - 1);
-  const int tx = (a.w + kSide - 1) / kSide;
-  const int per = tx * ((a.h + kSide - 1) / kSide);
-  t.b = s / per;
-  const int r = s - t.b * per;
-  t.y0 = (r / tx) * kSide;
-  t.x0 = (r % tx) * kSide;
-  return t;
-}
-
 template <int XT>
 struct HaloTile {
   using T = typename XType<XT>::T;
@@ -404,13 +318,7 @@ struct RawHalo {
       const int ch = step * kKStep + (id % kChunks) * H::kEpc;
       const int valid = (in >> j) & 1u ? min(max(a.c - ch, 0), H::kEpc) : 0;  // elements
       const T* src = valid > 0 ? xb + goff[j] + step * kKStep : xb;
-      const uint32_t at = raw + (uint32_t)(16 * id);
-      if (a.vec_x) {
-        sm90::cp_async_16(at, src, valid * (int)sizeof(T));
-      } else {
-        const uint4 v = load_bytes(reinterpret_cast<const int8_t*>(src), valid * (int)sizeof(T));
-        sm90::st_shared_16(at, v.x, v.y, v.z, v.w);
-      }
+      copy_chunk(raw + (uint32_t)(16 * id), src, valid * (int)sizeof(T), a.vec_x);
     }
   }
 };
@@ -449,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
   const int steps = a.steps, iters = 3 * steps;  // (step, kernel row) pairs, rows fastest
   const float inv = XT == kS8 ? 0.f : __ldg(a.inv_act);
-  Slab<NB> slab;
+  Slab<int8_t, NB> slab;
   slab.init(a, f0, tid);
   RawHalo<XT> halo;
   halo.init(a, t, wtid);
@@ -460,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx)
-      slab.stage(st + (uint32_t)(dx * NB * kSlabBytes), a, 3 * dy + dx, step);
+      slab.stage(st + (uint32_t)(dx * NB * kSlabBytes), a, a.wq, 3 * dy + dx, step);
   };
   // this lane's ldmatrix row: matrix j = lane / 8 holds rows 8 (j % 2) to
   // 8 (j % 2) + 7 of the warp's 16 (tile row 2 warp + j % 2, columns 0 to 7)
@@ -599,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
   const long long m0 = (long long)(blockIdx.x / ftiles) * kBM;
   const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
   const float inv = XT == kS8 ? 0.f : __ldg(a.inv_act);
-  Slab<NB> slab;
+  Slab<int8_t, NB> slab;
   slab.init(a, f0, tid);
 
   // this thread's A row r (output pixel m0 + r) and half hf of its channels:
@@ -624,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
     if (it >= iters) return;
     const int tap = it / a.steps, step = it - tap * a.steps;
     const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
-    slab.stage(st, a, tap, step);
+    slab.stage(st, a, a.wq, tap, step);
     const int dy = tap / a.k, dx = tap - dy * a.k, yy = iy + dy, xx = ix + dx;
     const bool in = live && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
     const int c0 = step * kKStep + hf * (kKStep / 2);
@@ -636,13 +544,8 @@ __global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
       const int c = c0 + j * kEpc;
       const int valid = in ? min(max(a.c - c, 0), kEpc) : 0;
       const T* p = valid > 0 ? src + c : static_cast<const T*>(a.x);
-      const uint32_t at = raw + raw_offset<XT, NB>(r, hf * kHalfChunks + j);
-      if (a.vec_x) {
-        sm90::cp_async_16(at, p, valid * (int)sizeof(T));
-      } else {
-        const uint4 v = load_bytes(reinterpret_cast<const int8_t*>(p), valid * (int)sizeof(T));
-        sm90::st_shared_16(at, v.x, v.y, v.z, v.w);
-      }
+      copy_chunk(raw + raw_offset<XT, NB>(r, hf * kHalfChunks + j), p, valid * (int)sizeof(T),
+                 a.vec_x);
     }
   };
   // pair it's raw A half, quantized into s8 A tile it % 2: channels 16 j of
@@ -723,25 +626,16 @@ __global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
 
 // ---------------------------------------------------------------- launch
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Args& a, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <int XT, int NB>
 cudaError_t launch_halo(const Args& a, cudaStream_t stream) {
-  const dim3 grid((unsigned)((long long)(a.tiles + 1) / 2 * ((a.f + 64 * NB - 1) / (64 * NB))));
-  return launch(int8_conv_halo_wgmma_kernel<XT, NB>, HaloSmem<XT, NB>::kSmem, grid, a, stream);
+  return launch(int8_conv_halo_wgmma_kernel<XT, NB>, HaloSmem<XT, NB>::kSmem, grid_of<NB>(a, 1),
+                a, stream);
 }
 
 template <int XT, int NB>
 cudaError_t launch_row(const Args& a, cudaStream_t stream) {
-  const dim3 grid((unsigned)((a.m + kBM - 1) / kBM * ((a.f + 64 * NB - 1) / (64 * NB))));
-  return launch(int8_conv_row_wgmma_kernel<XT, NB>, RowSmem<XT, NB>::kSmem, grid, a, stream);
+  return launch(int8_conv_row_wgmma_kernel<XT, NB>, RowSmem<XT, NB>::kSmem, grid_of<NB>(a, 0),
+                a, stream);
 }
 
 template <int NB>
@@ -772,15 +666,13 @@ int nd_int8_conv(const void* x, int xtype, const void* inv_act, const void* wq, 
                  const void* bias, void* out, int otype, void* raw, int batch, int h, int w,
                  int c, int f, int k, int stride, int route, int filter_tile, int channel_step,
                  void* stream) {
-  const int nb = filter_tile / 64;
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || f <= 0 || (k != 1 && k != 3) ||
-      (stride != 1 && stride != 2) || xtype < 0 || xtype > 2 || otype < 0 || otype > 1 ||
-      (out == nullptr && raw == nullptr) || (xtype != kS8 && inv_act == nullptr) ||
-      filter_tile % 64 != 0 || nb < 1 || nb > 3 || channel_step != kKStep || route < 0 ||
-      route > 1 || (route == 1 && (k != 3 || stride != 1 || xtype == kF32)) ||
-      (long long)f * k * k * c > INT_MAX)
-    return (int)cudaErrorInvalidValue;
   Args a;
+  const int xbytes = xtype == kF32 ? 4 : xtype == kBF16 ? 2 : 1;
+  if (xtype < 0 || xtype > 2 || otype < 0 || otype > 1 || (out == nullptr && raw == nullptr) ||
+      (xtype != kS8 && inv_act == nullptr) || channel_step != kKStep ||
+      (route == 1 && xtype == kF32) ||
+      !make_shape(a, batch, h, w, c, f, k, stride, route, filter_tile, x, xbytes, wq, 1))
+    return (int)cudaErrorInvalidValue;
   a.x = x;
   a.inv_act = static_cast<const float*>(inv_act);
   a.wq = static_cast<const int8_t*>(wq);
@@ -789,24 +681,8 @@ int nd_int8_conv(const void* x, int xtype, const void* inv_act, const void* wq, 
   a.out = out;
   a.raw = static_cast<int*>(raw);
   a.otype = otype;
-  a.h = h, a.w = w, a.c = c, a.f = f, a.k = k, a.stride = stride, a.pad = k / 2;
-  a.ho = (h + 2 * a.pad - k) / stride + 1;
-  a.wo = (w + 2 * a.pad - k) / stride + 1;
-  a.taps = k * k;
-  a.steps = (c + kKStep - 1) / kKStep;
-  a.m = (long long)batch * a.ho * a.wo;
-  const long long tiles = (long long)batch * ((h + kSide - 1) / kSide) * ((w + kSide - 1) / kSide);
-  const long long ftiles = (f + filter_tile - 1) / filter_tile;
-  if ((a.m + kBM - 1) / kBM * ftiles > INT_MAX || tiles > INT_MAX - 1 ||
-      (tiles + 1) / 2 * ftiles > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  a.tiles = (int)tiles;
-  // a 16-byte copy holds whole elements from a 16-byte boundary
-  const int xbytes = xtype == kF32 ? 4 : xtype == kBF16 ? 2 : 1;
-  a.vec_x = c % (16 / xbytes) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  a.vec_w = c % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nb) {
+  switch (filter_tile / 64) {
     case 1: return (int)launch_nb<1>(a, xtype, route, s);
     case 2: return (int)launch_nb<2>(a, xtype, route, s);
     default: return (int)launch_nb<3>(a, xtype, route, s);

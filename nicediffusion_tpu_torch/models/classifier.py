@@ -126,7 +126,8 @@ def _adaptive_pool_head(features, out_features, dtype, kernels, device):
         GroupNormOp(features, "silu", kernels=kernels, device=device),
         nn.Identity(),
         _AdaptivePool(),
-        Conv2d(features, out_features, 1, zero_init=True, dtype=dtype, device=device),
+        Conv2d(features, out_features, 1, zero_init=True, dtype=dtype, device=device,
+               kernels=kernels),
         _Squeeze(),
     )
 
@@ -185,7 +186,7 @@ class EncoderUNet(nn.Module):
         # model.py:363-412) without the skip bookkeeping
         ch = int(model_channels * channel_mult[0])
         curr_res = resolution
-        down = [StepSequential([Conv2d(in_channels, ch, 3, **kw)])]
+        down = [StepSequential([Conv2d(in_channels, ch, 3, kernels=kernels, **kw)])]
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
                 layers = [res(ch, int(model_channels * mult))]
@@ -197,7 +198,8 @@ class EncoderUNet(nn.Module):
                 if resblock_updown:
                     down.append(StepSequential([res(ch, ch, down=True)]))
                 else:
-                    down.append(StepSequential([Downsample(ch, conv_resample, **kw)]))
+                    down.append(StepSequential([Downsample(ch, conv_resample, kernels=kernels,
+                                                           **kw)]))
                 curr_res //= 2
         self.downsampling = nn.ModuleList(down)
         self.middle_block = StepSequential([res(ch, ch), attn(ch), res(ch, ch)])

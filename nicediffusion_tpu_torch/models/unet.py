@@ -22,9 +22,11 @@ in f32 and cast to the compute ``dtype`` at each call (flax ``dtype=``);
 the class embedding is never cast; GroupNorm statistics and the softmax are
 f32; ``decode`` returns f32.
 
-``kernels=True`` routes every GroupNorm through K3 and every attention
-through K1; ``kernels=False`` takes the plain torch versions, for comparing
-the two on the card. On CPU tensors the kernels' wrappers take their plain
+``kernels=True`` routes every GroupNorm through K3, every attention through
+K1 and, in bf16 with grad mode off, every conv through the bf16 conv (whose
+sums for a row do not depend on the batch: the serving daemon's promise);
+``kernels=False`` takes the plain torch versions (cuDNN for the convs), for
+comparing the two on the card. On CPU tensors the kernels' wrappers take their plain
 versions either way.
 
 Training. Dropout sits between ``out_norm`` and ``out_conv`` of every
@@ -82,6 +84,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import qkv_attention
 from ..ops.groupnorm import ada_group_norm_silu, group_norm, group_norm_silu
+from ..ops.kernels.conv import conv_nhwc
 from ..ops.math import timestep_embedding
 from ..ops.quant import (
     int8_conv,
@@ -100,13 +103,19 @@ __all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense", "s
 
 
 class Conv2d(nn.Module):
-    """k x k conv with symmetric k//2 padding on NHWC tensors; OIHW weight."""
+    """k x k conv with symmetric k//2 padding on NHWC tensors; OIHW weight.
+    With ``kernels`` (the model's) a bf16 call with grad mode off
+    (sampling, serving, a distiller's teacher) runs the bf16 conv kernel
+    (ops/kernels/conv.py), whose output row does not depend on its batch;
+    with grad mode on (training, the classifier's guidance gradient), in f32
+    and with ``kernels=False`` it stays with cuDNN."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 zero_init: bool = False, dtype=None, device=None):
+                 zero_init: bool = False, dtype=None, device=None, kernels: bool = True):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, k // 2, dtype
+        self.kernels = kernels
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
         if zero_init:
@@ -116,6 +125,8 @@ class Conv2d(nn.Module):
 
     def forward(self, x, add_bias: bool = True):
         dt = self.dtype or x.dtype
+        if self.kernels and dt == torch.bfloat16 and not torch.is_grad_enabled():
+            return conv_nhwc(x.to(dt), self.weight, self.bias if add_bias else None, self.stride)
         y = F.conv2d(
             x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
             self.bias.to(dt) if add_bias else None, stride=self.stride, padding=self.padding,
@@ -175,7 +186,7 @@ class Int8Conv(_Int8State, Conv2d):
     int8 conv kernel."""
 
     def __init__(self, *args, kernels: bool = True, **kw):
-        super().__init__(*args, **kw)
+        super().__init__(*args, kernels=kernels, **kw)
         self._init_int8(kernels)
 
     def forward(self, x):
@@ -214,7 +225,7 @@ def _conv(in_ch, out_ch, k, stride=1, zero_init=False, dtype=None, device=None,
     """JAX unet.py ``_conv``: an Int8Conv when quantized, else a Conv2d."""
     if quantized:
         return Int8Conv(in_ch, out_ch, k, stride, zero_init, dtype, device, kernels=kernels)
-    return Conv2d(in_ch, out_ch, k, stride, zero_init, dtype, device)
+    return Conv2d(in_ch, out_ch, k, stride, zero_init, dtype, device, kernels=kernels)
 
 
 class GroupNormOp(nn.Module):
@@ -458,7 +469,8 @@ class OutHead(nn.Sequential):
         super().__init__(
             GroupNormOp(features, "silu", kernels=kernels, device=device),
             nn.Identity(),
-            Conv2d(features, out_channels, 3, zero_init=True, dtype=dtype, device=device),
+            Conv2d(features, out_channels, 3, zero_init=True, dtype=dtype, device=device,
+                   kernels=kernels),
         )
 
 
@@ -527,7 +539,7 @@ class DiffusionModel(nn.Module):
         # ---- encoder (reference model.py:363-402) ----
         ch = input_ch = int(model_channels * channel_mult[0])
         curr_res = resolution
-        down = [seq([Conv2d(in_channels, ch, 3, **kw)])]
+        down = [seq([Conv2d(in_channels, ch, 3, kernels=kernels, **kw)])]
         skip_chs = [ch]
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):

@@ -24,7 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "build", "build_all", "load_library", "build_logs"]
+__all__ = ["BuildError", "build", "build_all", "load_library", "bind", "set_signatures",
+           "launch_error", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -102,8 +103,34 @@ def load_library(name: str, built: tuple[Path, str, float] | None = None) -> cty
     return _LIBS[name][0]
 
 
+def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """:func:`load_library` of ``name`` with :func:`set_signatures`."""
+    return set_signatures(load_library(name), signatures)
+
+
+def set_signatures(lib: ctypes.CDLL, signatures: dict[str, list]) -> ctypes.CDLL:
+    """Set the argument types of ``lib``'s C functions once: ``signatures``
+    maps each name to its ctypes argument types (each returns an int, the
+    CUDA error code), and ``nd_cuda_error_string`` (every source has it)
+    maps a code to its text."""
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.nd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch_error(lib: ctypes.CDLL, err: int, what: str, detail: str) -> RuntimeError:
+    """The error a wrapper raises for a launch that returned CUDA error
+    ``err``: what failed, the CUDA text, and the call's shapes."""
+    return RuntimeError(f"{what} launch failed: {lib.nd_cuda_error_string(err).decode()} "
+                        f"({detail})")
+
+
 def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock",
-                                         "groupnorm", "int8conv")) -> None:
+                                         "groupnorm", "int8conv", "bf16conv")) -> None:
     """Build several sources, one nvcc process per source, all started
     together (nvcc is a subprocess, so threads are enough), and load each
     through :func:`load_library`."""

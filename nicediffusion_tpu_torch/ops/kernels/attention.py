@@ -24,9 +24,12 @@ The row log-sum-exp. Called for a gradient, K1 also writes the f32
 (B, H, N) log-sum-exp of each row's scaled logits, and K2 takes it: K2 then
 recomputes p = exp(logits - lse) without a pass of its own over the keys.
 
-Head dims. K1 and K2 take 32, 64, 128, 192 and 256. K5 takes any D up to
-256: the kernel built for the next head dim up zero-fills the columns past
-D in shared memory.
+Head dims. K1, K2 and K5 take any head dim D up to 256
+(:func:`head_dim_build`): the kernel built for the next of 32, 64, 128, 192
+and 256 up zero-fills the columns of q, k and v (and K2's g and o) past D as
+they land in shared memory and stores no column past D; the scale stays
+D^-1/2. A head dim above 256 needs another schedule (S summed over chunks
+of D, the output written in chunks: ROADMAP queue C) and raises.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
 (:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
@@ -50,6 +53,7 @@ from . import _build
 
 __all__ = [
     "SUPPORTED_HEAD_DIMS",
+    "head_dim_build",
     "mha_attention",
     "mha_attention_plain",
     "split_qkv",
@@ -59,8 +63,20 @@ __all__ = [
     "fused_qkv_attention_bwd_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # K1's and K2's builds; K5 rounds D up to one
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # the builds; a head dim runs on the next one up
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def head_dim_build(d: int) -> int:
+    """The build a head dim ``d`` runs on: the smallest of
+    :data:`SUPPORTED_HEAD_DIMS` that holds it (24 -> 32, 96 -> 128). Raises
+    ``NotImplementedError`` above 256."""
+    for build in SUPPORTED_HEAD_DIMS:
+        if d <= build:
+            return build
+    raise NotImplementedError(
+        f"head dim {d}: K1, K2 and K5 take head dims up to {SUPPORTED_HEAD_DIMS[-1]}, a whole "
+        f"head row in one tile (ROADMAP queue C, 'K1/K2 at head dims above 256')")
 
 
 def split_qkv(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool):
@@ -144,49 +160,23 @@ def fused_qkv_attention_bwd_plain(
     return d.reshape(b, n, c3).to(qkv.dtype)
 
 
-def _set_error_string(lib: ctypes.CDLL) -> None:
-    lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.nd_cuda_error_string.restype = ctypes.c_char_p
-
-
 _STRIDES = ctypes.c_longlong * 3
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("attention")
-    fn = lib.nd_fused_qkv_attention_lse
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.nd_mha_attention.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_longlong),
-            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.nd_mha_attention.restype = ctypes.c_int
-        _set_error_string(lib)
-    return lib
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    return _build.bind("attention", {
+        "nd_fused_qkv_attention_lse": [_P, _P, _P, *[_I] * 6, _F, _P],
+        "nd_mha_attention": [_P, _P, _P, _P, *[_I] * 4, strides, strides, strides, _I, _F, _P],
+    })
 
 
 def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load_library("attention_bwd")
-    fn = lib.nd_fused_qkv_attention_bwd_lse
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _set_error_string(lib)
-    return lib
+    return _build.bind("attention_bwd",
+                       {"nd_fused_qkv_attention_bwd_lse": [*[_P] * 6, *[_I] * 6, _F, _P]})
 
 
 def _check(qkv: torch.Tensor, num_heads: int, kernel: str = "K1") -> None:
@@ -199,12 +189,7 @@ def _check(qkv: torch.Tensor, num_heads: int, kernel: str = "K1") -> None:
     c = qkv.shape[2] // 3
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
-    hc = c // num_heads
-    if hc not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{kernel} has no build for head dim {hc} (qkv {tuple(qkv.shape)}, "
-            f"{num_heads} heads); it supports {SUPPORTED_HEAD_DIMS}."
-        )
+    head_dim_build(c // num_heads)
 
 
 def _check_out(kernel: str, out: torch.Tensor, shape, like: torch.Tensor) -> None:
@@ -256,10 +241,8 @@ def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads)"
-        )
+        raise _build.launch_error(lib, err, "K1",
+                                  f"qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads")
     fused_qkv_attention.launches += 1
     return out
 
@@ -325,10 +308,8 @@ def fused_qkv_attention_bwd(
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"K2 launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads)"
-        )
+        raise _build.launch_error(lib, err, "K2",
+                                  f"qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads")
     fused_qkv_attention_bwd.launches += 1
     return dqkv
 
@@ -427,11 +408,9 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("K5 has no backward (the JAX function has no VJP)")
     b, h, n, d = q.shape
-    if d > SUPPORTED_HEAD_DIMS[-1] or 0 in q.shape:
-        raise NotImplementedError(
-            f"K5 takes non-empty tensors with D up to {SUPPORTED_HEAD_DIMS[-1]}, "
-            f"got {tuple(q.shape)}"
-        )
+    if 0 in q.shape:
+        raise ValueError(f"K5 takes non-empty tensors, got {tuple(q.shape)}")
+    head_dim_build(d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"K5 takes {name} with a contiguous last axis, got strides {t.stride()}")
@@ -448,10 +427,8 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"K5 launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(q {tuple(q.shape)} {q.dtype}, strides {q.stride()})"
-        )
+        raise _build.launch_error(lib, err, "K5",
+                                  f"q {tuple(q.shape)} {q.dtype}, strides {q.stride()}")
     mha_attention.launches += 1
     return out
 

@@ -16,7 +16,10 @@ what the design does about it). The forward reads x once where the
 example fits its thread-block cluster's shared memory and writes the output
 once; the backward reads x and the cotangent and writes dx. A forward called
 for a gradient also writes the per-(example, group) f32 mean and rstd, which
-the autograd Function saves and hands to the backward.
+the autograd Function saves and hands to the backward. The forward's split
+of the work, and so the order of its sums, is chosen for a batch of 16
+whatever the call's batch: an example's output is the same bits in any
+batch (the serving daemon's promise).
 
 Dispatch: a CPU tensor goes to the plain versions
 (:func:`group_norm_fused_plain`, :func:`group_norm_fused_bwd_plain`); a CUDA
@@ -120,25 +123,17 @@ def group_norm_fused_bwd_plain(
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("groupnorm")
-    if lib.nd_group_norm_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nd_group_norm_fwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, p, p,
-                                          i, i, i, i, ctypes.c_float, i, i, i, p]
-        lib.nd_group_norm_bwd.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, p, p, p,
-                                          i, i, i, i, i, i, i, i, p]
-        lib.nd_group_norm_plan.argtypes = [i, i, i, i, i, i, i, i, i,
-                                           ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.nd_group_norm_fwd, lib.nd_group_norm_bwd, lib.nd_group_norm_plan):
-            fn.restype = ctypes.c_int
-        lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _build.bind("groupnorm", {
+        "nd_group_norm_fwd": [p, p, p, p, p, p, ll, i, p, p, i, i, i, i, ctypes.c_float, i, i, i,
+                              p],
+        "nd_group_norm_bwd": [p, p, p, p, p, p, p, ll, i, p, p, p, i, i, i, i, i, i, i, i, p],
+        "nd_group_norm_plan": [*[i] * 9, ctypes.POINTER(ctypes.c_int)],
+    })
 
 
 def _raise(lib, err, what, x):
-    raise RuntimeError(f"{what} launch failed: {lib.nd_cuda_error_string(err).decode()} "
-                       f"(x {tuple(x.shape)} {x.dtype})")
+    raise _build.launch_error(lib, err, what, f"x {tuple(x.shape)} {x.dtype}")
 
 
 def group_norm_plan(shape, dtype, num_groups: int = 32, backward: bool = False,
@@ -150,7 +145,8 @@ def group_norm_plan(shape, dtype, num_groups: int = 32, backward: bool = False,
     ``resident`` where every row stays in shared memory between the two
     passes, else ``re-read``; and ``hbm_bytes``, what the call moves to and
     from device memory if every re-read row comes from it again (the
-    upper end: L2 serves part of them). ``force`` = (slices, cluster size)
+    upper end: L2 serves part of them). The forward's split is the same at
+    every batch (chosen for 16). ``force`` = (slices, cluster size)
     makes that split the plan of every later call of these shapes on this
     card (to time the splits against each other); it raises if the split is
     not one the card can run."""

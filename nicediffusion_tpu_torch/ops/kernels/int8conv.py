@@ -109,15 +109,8 @@ def _sms(index: int) -> int:
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("int8conv")
-    fn = lib.nd_int8_conv
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, i, p, *[i] * 10, p]
-        fn.restype = ctypes.c_int
-        lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("int8conv", {"nd_int8_conv": [p, i, p, p, p, p, p, i, p, *[i] * 10, p]})
 
 
 def _check(x, kernel_q, inv_act, deq, bias, stride, out_dtype):
@@ -189,11 +182,9 @@ def int8_conv_nhwc(x, kernel_q, inv_act, deq, bias=None, stride: int = 1,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"int8 conv launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(x {tuple(x.shape)} {x.dtype}, kernel_q {tuple(kernel_q.shape)}, stride {stride}, "
-            f"{route} route, {tile} filters a block)"
-        )
+        raise _build.launch_error(
+            lib, err, "int8 conv", f"x {tuple(x.shape)} {x.dtype}, kernel_q "
+            f"{tuple(kernel_q.shape)}, stride {stride}, {route} route, {tile} filters a block")
     int8_conv_nhwc.launches += 1
     return (out, sums) if raw else out
 

@@ -101,16 +101,10 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("resblock")
-    fn = lib.nd_gn_silu_conv3x3
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, p, p, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.nd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("resblock", {"nd_gn_silu_conv3x3": [
+        p, p, p, p, p, ctypes.c_longlong, i, p, p, p, p, p, p, i, i, i, i, i, i,
+        ctypes.c_float, i, i, p]})
 
 
 def _check(x, gamma, beta, weight, bias, es, eb, num_groups):
@@ -182,10 +176,8 @@ def _forward(x, gamma, beta, weight, bias, es, eb, num_groups, eps, out=None):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(
-            f"K4 launch failed: {lib.nd_cuda_error_string(err).decode()} "
-            f"(x {tuple(x.shape)} {x.dtype}, weight {tuple(weight.shape)})"
-        )
+        raise _build.launch_error(lib, err, "K4",
+                                  f"x {tuple(x.shape)} {x.dtype}, weight {tuple(weight.shape)}")
     gn_silu_conv3x3.launches += 1
     return out
 

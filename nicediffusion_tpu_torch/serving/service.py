@@ -16,12 +16,12 @@ fixed serving batch, into which concurrent requests are packed:
     the device with the rest of the batch in one copy, so a given (seed,
     label) starts from the same x_T on the CPU and on the card, whichever
     batch and row it lands in. With a deterministic sampler (DDIM eta=0,
-    dpm++) in float32 its output does not depend on its batch, bit for bit;
-    in bfloat16 cuDNN's convs can move a row by an ulp with its batch mates,
-    and a chain carries that on (ROADMAP, "bf16 serving is not
-    batch-position independent"). Step noise (DDPM) comes
-    from a device generator seeded from (rng_seed, k) for the k-th served
-    batch, the counterpart of ``jax.random.fold_in(rng, k)``.
+    dpm++) its output does not depend on the row it lands in or on its
+    batch mates at the serve batch, bit for bit, in float32 and in bfloat16
+    (where every conv runs the bf16 conv kernel, whose sums for a row do not
+    depend on the rest of the batch; ops/kernels/conv.py). Step noise
+    (DDPM) comes from a device generator seeded from (rng_seed, k) for the
+    k-th served batch, the counterpart of ``jax.random.fold_in(rng, k)``.
   * Serving modes are fixed at construction: the model's dtype (and a frozen
     int8 model), encoder_cache, guidance_interval.
 

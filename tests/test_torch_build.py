@@ -87,6 +87,26 @@ def test_build_report_passes_a_clean_tensor_core_k4():
                for line in lines)
 
 
+def test_build_report_names_k2s_exact_and_masked_instances():
+    """K2's two instances of a build: the exact one (the head dim is hc) and
+    the one for head dims below it."""
+    from chip_smoke import build_report
+
+    def k2(kernel, args):
+        mangled = f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelI{args}EEvNS_7BwdArgsE"
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                "ptxas info    : Used 132 registers, used 1 barriers\n")
+
+    lines = build_report("attention_bwd", k2("attention_bwd_dq_wgmma", "Li64ELb1E")
+                         + k2("attention_bwd_dq_wgmma", "Li64ELb0E")
+                         + k2("attention_bwd_dkv_wgmma", "Li256ELb1E"))
+    assert lines[0].startswith("attention_bwd_dq_wgmma bf16 hc=64 exact: Used 132")
+    assert lines[1].startswith("attention_bwd_dq_wgmma bf16 hc=64 (head dim below hc): Used")
+    assert lines[2].startswith("attention_bwd_dkv_wgmma bf16 hc=256 exact (dV and dK in separate "
+                               "blocks): Used")
+
+
 @pytest.mark.parametrize("log,match", [
     (_ptxas("gn_silu_conv3x3_wgmma", 16), "spills"),  # sums in local memory
     (_ptxas("gn_silu_conv3x3", 0) + _ptxas("group_stats", 0), "names no wgmma"),

@@ -3,9 +3,11 @@ on the card.
 
 bf16 K1, K2, K4 and K5 run on the tensor cores (wgmma), f32 on the CUDA
 cores; K3 and its backward on the CUDA cores in both; the int8 conv on the
-tensor cores in s8 (its s32 sums bit-equal to the plain version's). ``-k k2``
-runs K2's tests, ``-k "k1 or k5 or attention_function"`` the forward's, ``-k
-k4`` K4's, ``-k k3`` K3's forward and backward, ``-k int8`` the int8 conv's.
+tensor cores in s8 (its s32 sums bit-equal to the plain version's), the bf16
+conv on them in bf16. ``-k k2`` runs K2's tests, ``-k "k1 or k5 or
+attention_function"`` the forward's, ``-k k4`` K4's, ``-k k3`` K3's forward
+and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
+``-k head_dim`` K1 and K2 at head dims between two builds.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -23,6 +25,7 @@ import torch
 
 from nicediffusion_tpu_torch import DiffusionModel
 from nicediffusion_tpu_torch.ops.kernels import attention as k1
+from nicediffusion_tpu_torch.ops.kernels import conv as kc
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
 from nicediffusion_tpu_torch.ops.kernels import resblock as k4
@@ -207,8 +210,8 @@ def test_k5_refuses_what_it_does_not_take(cuda):
 
 
 def test_k1_refuses_what_it_does_not_take(cuda):
-    with pytest.raises(NotImplementedError, match="head dim 96"):
-        k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 192, device=cuda), 2, True)
+    with pytest.raises(NotImplementedError, match="head dim 320.*queue C"):
+        k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 640, device=cuda), 2, True)
     with pytest.raises(TypeError):
         k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 128, device=cuda).half(), 2, True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -330,8 +333,8 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         g = torch.zeros(b, n, c3 // 3, device=cuda, dtype=qkv.dtype) if g is None else g
         return k1.fused_qkv_attention_bwd(qkv, g, g if o is None else o, heads, True, **kw)
 
-    with pytest.raises(NotImplementedError, match="head dim 96"):
-        call(torch.zeros(1, 64, 3 * 192, device=cuda))
+    with pytest.raises(NotImplementedError, match="head dim 320.*queue C"):
+        call(torch.zeros(1, 64, 3 * 640, device=cuda))
     with pytest.raises(TypeError):
         call(torch.zeros(1, 64, 3 * 128, device=cuda).half())
     qkv = torch.zeros(1, 64, 3 * 128, device=cuda)
@@ -564,7 +567,7 @@ def test_k3_at_the_data_parallel_batches(cuda, batch, index):
     """K3 and its backward at every ``openai_64`` GroupNorm shape at the
     per-rank batches of chip_smoke.py's ``[dp]`` runs on two ranks: 4 (a
     training step's global batch of 8) and 8 (a sampling or served batch of
-    16); K3's plan (slices, cluster, route) depends on the batch."""
+    16); the backward's plan (slices, cluster, route) depends on the batch."""
     (h, w, c), mode = _gn_keys("openai_64")[index]
     for dtype in (torch.float32, torch.bfloat16):
         args, cot = _k3_inputs(cuda, dtype, (batch, h, w, c), mode, seed=h + c + batch)
@@ -590,9 +593,8 @@ def test_k3_at_the_quality_eval_shapes(cuda, preset, index):
     (p, b, i) for p, b, n in (("qe_unet", 16, 21), ("qe_unet", 128, 21), ("openai_64", 1, 30))
     for i in range(n)])
 def test_k3_at_the_tools_other_batches(cuda, preset, batch, index):
-    """K3 at the batches the tools give a model beside the timed paths'
-    (K3's plan depends on the batch): tools/quality_eval.py's UNet at model
-    batch 16 (its int8 calibration, 8 labels under CFG) and 128 (a chunk
+    """K3 at the batches the tools give a model beside the timed paths':
+    tools/quality_eval.py's UNet at model batch 16 (its int8 calibration, 8 labels under CFG) and 128 (a chunk
     outside the guidance interval), and verify_checkpoint's ``openai_64`` at
     batch 1 (its smoke sample); f32 and bf16, with the forward's gates and
     planted fault."""
@@ -678,6 +680,46 @@ def test_k3_re_read_route(cuda, backward, dtype):
     mean, rstd = _k3_check_forward(args, dtype, True)
     if backward:
         _k3_check_backward(args, cot, mean, rstd, dtype, True)
+
+
+@pytest.mark.parametrize("index", range(30))
+def test_k3_forward_row_is_batch_invariant(cuda, index):
+    """At every ``openai_64`` GroupNorm shape, bf16: one example's output,
+    mean and rstd are the same bits alone and in rows of batches of 4, 8, 16
+    and 128 among other examples. The forward's split, and so the order of
+    its sums, is chosen for one batch whatever the call's."""
+    (h, w, c), mode = _gn_keys("openai_64")[index]
+    (x, sc, bi, es, esh), _ = _k3_inputs(cuda, torch.bfloat16, (129, h, w, c), mode, seed=c)
+    silu = mode != "plain"
+
+    def rows(b, row):
+        """x, es and esh of examples 1 to b, example 0 in place of ``row``
+        (b = 0: example 0 alone)."""
+        out = []
+        for t in (x, es, esh):
+            if t is not None:
+                src, t = t, (t[:1] if b == 0 else t[1:b + 1]).clone()
+                t[row] = src[0]
+            out.append(t)
+        return out
+
+    xs, ess, eshs = rows(0, 0)
+    ref = k3.group_norm_fused_with_stats(xs, sc, bi, ess, eshs, silu=silu)
+    for b, row in ((4, 3), (8, 5), (16, 15), (128, 77)):
+        xs, ess, eshs = rows(b, row)
+        got = k3.group_norm_fused_with_stats(xs, sc, bi, ess, eshs, silu=silu)
+        for name, a, r in zip(("out", "mean", "rstd"), got, ref):
+            assert torch.equal(a[row], r[0]), f"{name} moves at row {row} of {b}"
+
+
+def test_k3_forward_splits_a_batch_past_the_grid_limit(cuda):
+    """A batch whose (example, channel slice) pairs pass 65,535 runs in more
+    than one launch, and matches the plain version."""
+    shape = (2100, 1, 1, 1024)
+    plan = k3.group_norm_plan(shape, torch.float32, force=(32, 1))
+    assert plan["slices"] == 32 and shape[0] * plan["slices"] > 65535
+    args, _ = _k3_inputs(cuda, torch.float32, shape, "ada", seed=5)
+    _k3_check_forward(args, torch.float32, True)
 
 
 def test_k3_takes_f32_rows_beside_bf16_activations_and_unaligned_x(cuda):
@@ -1040,3 +1082,165 @@ def test_int8_model_runs_every_quantized_layer_through_the_kernel(cuda):
     assert torch.isfinite(outs[0]).all()
     corr = torch.corrcoef(torch.stack([outs[0].flatten(), outs[1].flatten()]))[0, 1]
     assert corr > 0.9999, corr
+
+
+# the bf16 conv against its plain version: the same exact products summed in
+# f32 in another order, each side rounded to bf16 before and after the bias,
+# so an element may differ by a bf16 ulp of the sum and one of the output:
+# at most two ulps of the output's largest magnitude, 2^-6 of it
+BF16_CONV_TOL = 2.0 ** -6
+
+
+def _bf16_conv_inputs(dev, shape, f, k, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = torch.randn(f, c, k, k, generator=g, device=dev) / (c * k * k) ** 0.5
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    return x, w, bias
+
+
+def _bf16_conv_gate(out, ref):
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= BF16_CONV_TOL * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape,f,k,stride", [
+    # openai_64 (model batch 2 here): a level's convs, a skip, a decoder input
+    ((2, 64, 64, 192), 192, 3, 1), ((2, 32, 32, 384), 384, 3, 1), ((2, 16, 16, 576), 576, 3, 1),
+    ((2, 8, 8, 768), 768, 3, 1), ((2, 64, 64, 384), 192, 1, 1), ((2, 8, 8, 1536), 768, 3, 1),
+    # the stem (C = 3) and the head (F = 6), a Downsample conv, ragged maps,
+    # C and F (masked loads, masked filters), a 1x1 at stride 2
+    ((2, 64, 64, 3), 192, 3, 1), ((2, 64, 64, 192), 6, 3, 1), ((2, 16, 16, 64), 64, 3, 2),
+    ((3, 28, 28, 64), 64, 3, 1), ((3, 7, 7, 256), 256, 3, 1), ((2, 9, 7, 40), 24, 1, 2),
+    ((1, 5, 11, 12), 7, 3, 1), ((2, 6, 6, 200), 130, 3, 1), ((3, 8, 8, 192), 576, 3, 1),
+    # openai_128's widths
+    ((2, 16, 16, 512), 768, 3, 1), ((2, 8, 8, 1024), 1024, 1, 1),
+])
+def test_bf16_conv_matches_plain(cuda, shape, f, k, stride):
+    """Within BF16_CONV_TOL of the plain version, with and without the bias;
+    one count per launch."""
+    x, w, bias = _bf16_conv_inputs(cuda, shape, f, k, seed=shape[-1] + f)
+    for b in (bias, None):
+        before = kc.conv_nhwc.launches
+        out = kc.conv_nhwc(x, w, b, stride)
+        torch.cuda.synchronize()
+        assert kc.conv_nhwc.launches == before + 1
+        _bf16_conv_gate(out, kc.conv_nhwc_plain(x, w, b, stride))
+
+
+@pytest.mark.parametrize("m,c,f", [(16, 192, 768), (16, 768, 1536), (1024, 384, 1152),
+                                   (128, 576, 576), (195, 128, 1000)])
+def test_bf16_conv_dense_view_matches_plain(cuda, m, c, f):
+    """The dense view: a 1 x 1 conv over (1, 1, M, C), ragged M and F."""
+    g = torch.Generator(device=cuda).manual_seed(c + f)
+    x = torch.randn(1, 1, m, c, generator=g, device=cuda).bfloat16()
+    w = torch.randn(f, c, 1, 1, generator=g, device=cuda) / c ** 0.5
+    bias = 0.1 * torch.randn(f, generator=g, device=cuda)
+    out = kc.conv_nhwc(x, w, bias)
+    torch.cuda.synchronize()
+    _bf16_conv_gate(out, kc.conv_nhwc_plain(x, w, bias))
+
+
+@pytest.mark.parametrize("shape,f,k,stride", [
+    ((64, 64, 192), 192, 3, 1), ((8, 8, 768), 768, 3, 1), ((32, 32, 384), 192, 1, 1),
+    ((16, 16, 384), 384, 3, 2), ((1, 16, 768), 1536, 1, 1), ((64, 64, 3), 192, 3, 1)])
+def test_bf16_conv_row_is_batch_invariant(cuda, shape, f, k, stride):
+    """One example's output bit-identical alone, at rows 0, 3 and 7 of a
+    batch of 8 and at rows 0 and 15 of a batch of 16, among random batch
+    mates and among zeros."""
+    x0, w, bias = _bf16_conv_inputs(cuda, (1, *shape), f, k, seed=f)
+    ref = kc.conv_nhwc(x0, w, bias, stride)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for batch, row, mates in ((8, 0, "random"), (8, 3, "random"), (8, 7, "zeros"),
+                              (16, 0, "zeros"), (16, 15, "random")):
+        x = (torch.randn((batch, *shape), generator=g, device=cuda).bfloat16()
+             if mates == "random" else torch.zeros((batch, *shape), dtype=torch.bfloat16,
+                                                   device=cuda))
+        x[row] = x0[0]
+        assert torch.equal(kc.conv_nhwc(x, w, bias, stride)[row], ref[0]), (batch, row, mates)
+
+
+@pytest.mark.parametrize("shape,k,stride", [((2, 16, 16, 384), 3, 1), ((2, 16, 16, 384), 1, 1),
+                                            ((2, 16, 16, 384), 3, 2)])
+def test_bf16_conv_filter_tiles_give_the_same_bits(cuda, shape, k, stride):
+    """wgmma m64n64, m64n128 and m64n192 sum a column block in the same
+    order: the three filter tiles give the same bits at F = 384."""
+    x, w, bias = _bf16_conv_inputs(cuda, shape, 384, k, seed=7)
+    outs = [kc.conv_nhwc(x, w, bias, stride, filter_tile=t) for t in (64, 128, 192)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_bf16_conv_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(64, 64, 3, 3, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kc.conv_nhwc(x.float(), w)
+    with pytest.raises(NotImplementedError, match="k in"):
+        kc.conv_nhwc(x, torch.zeros(64, 64, 5, 5, device=cuda))
+    with pytest.raises(ValueError, match="channels"):
+        kc.conv_nhwc(x, torch.zeros(64, 32, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="bias"):
+        kc.conv_nhwc(x, w, torch.zeros(3, device=cuda))
+
+
+def test_bf16_conv_model_runs_every_bf16_conv_through_the_kernel(cuda):
+    """A bf16 kernels=True model with grad mode off sends every Conv2d call
+    to the kernel; under autograd, in f32 and with kernels=False none."""
+    from nicediffusion_tpu_torch.models.unet import Conv2d
+
+    cfg = dict(resolution=16, in_channels=3, model_channels=64, out_channels=6,
+               num_res_blocks=1, attention_resolutions=(8,), channel_mult=(1, 2),
+               num_heads=2, num_classes=10, resblock_updown=True, use_adaptive_gn=True)
+    x = torch.randn(2, 16, 16, 3, device=cuda)
+    t, y = torch.tensor([3, 500], device=cuda), torch.tensor([1, 2], device=cuda)
+    for dtype, kernels, grad, expect in ((torch.bfloat16, True, False, True),
+                                         (torch.bfloat16, True, True, False),
+                                         (torch.float32, True, False, False),
+                                         (torch.bfloat16, False, False, False)):
+        model = DiffusionModel(**cfg, dtype=dtype, kernels=kernels, device=cuda).eval()
+        n = sum(isinstance(m, Conv2d) for m in model.modules())
+        before = kc.conv_nhwc.launches
+        with torch.set_grad_enabled(grad):
+            out = model(x, t, y)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert kc.conv_nhwc.launches - before == (n if expect else 0), (dtype, kernels, grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n,hc,heads", [
+    # --model_channels 96 --num_heads 4 (24, 48, 96), 128 with 4 heads at
+    # channel_mult 3 (96), and odd ones: not a multiple of 8 (no 16-byte copy)
+    (256, 24, 4), (64, 48, 4), (1024, 96, 2), (65, 96, 2), (100, 20, 3), (49, 100, 2),
+    (17, 200, 1), (64, 160, 2),
+])
+def test_k1_k2_at_head_dims_between_builds(cuda, dtype, split_first, n, hc, heads):
+    """K1 and K2 at head dims between two builds, on the build for the next
+    one up: every element written (outputs pre-filled with NaN), no column
+    past the head dim touched, within K1's and K2's gates of their plain
+    versions (and K2's relative gate in bf16); the row log-sum-exp too."""
+    assert k1.head_dim_build(hc) > hc
+    g = torch.Generator(device=cuda).manual_seed(n + hc)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).to(dtype)
+    out = torch.full((2, n, heads * hc), float("nan"), dtype=dtype, device=cuda)
+    lse = torch.empty(2, heads, n, device=cuda)
+    k1.fused_qkv_attention(qkv, heads, split_first, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k1"])
+    q, k, _ = k1.split_qkv(qkv.float(), heads, split_first)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * hc ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
+    dqkv = torch.full_like(qkv, float("nan"))
+    k1.fused_qkv_attention_bwd(qkv, cot, out, heads, split_first, lse=lse, out=dqkv)
+    torch.cuda.synchronize()
+    assert not torch.isnan(dqkv).any()
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, out, heads, split_first, lse)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **TOL[dtype, "k2"])
+    if dtype == torch.bfloat16:
+        assert _k2_rel_err(dqkv, ref, heads, split_first) <= K2_BF16_REL

@@ -204,66 +204,75 @@ def test_guidance_interval_wants_classifier_free_guidance(checkpoints, tmp_path)
         main(_argv(model_path, str(tmp_path / "out") + "/", "--guidance_interval", "0.0", "0.6"))
 
 
-@pytest.mark.parametrize("flags", [
-    ("--dtype", "int8"), ("--int8_calibration", "calib.npz"), ("--data_parallel",),
-    ("--upsample",),
-], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_name_their_roadmap_entry(flags, checkpoints, tmp_path, capsys,
-                                                monkeypatch):
-    """Raised before any model is built: the checkpoint does not exist.
-    Static int8 is ported: ``--dtype int8`` samples through the quantized
-    model, calibrated on the spot, and ``--int8_calibration`` (with it) writes
-    the calibration file on the first run and serves from it on the next.
-    ``--upsample`` is ported: without ``models/RealESRGAN_x4plus.pth`` under
-    the working directory it prints the skip message and keeps the images;
-    with random full-width ESRGAN weights there (basicsr names, inside
-    ``params_ema``) every saved image is 4x. ``--data_parallel`` is ported: in
-    a world of one (no torchrun) it changes nothing, images and files alike
-    (tests/test_torch_distributed.py runs it on two ranks)."""
-    if flags[0] == "--data_parallel":
-        model_path, _ = checkpoints
-        runs = [main(_argv(model_path, str(tmp_path / out) + "/", *extra))
-                for out, extra in (("plain", ()), ("dp", flags))]
-        for a, b in zip(runs[0][0], runs[1][0]):
-            np.testing.assert_array_equal(a, b)
-        names = sorted(os.listdir(tmp_path / "dp"))
-        assert len(names) == 2 and names == sorted(os.listdir(tmp_path / "plain"))
-        return
-    if flags[0] == "--upsample":
-        from nicediffusion_tpu_torch.models.rrdb import RRDBNet
+def _int8_runs(model_path, tmp_path, *extra):
+    """Two runs of the entry point with ``extra``: the images of each."""
+    return [main(_argv(model_path, str(tmp_path / f"out{i}") + "/", *extra)) for i in range(2)]
 
-        model_path, _ = checkpoints
-        monkeypatch.chdir(tmp_path)
-        skipped = main(_argv(model_path, str(tmp_path / "skip") + "/", *flags))
-        assert "Skipping --upsample" in capsys.readouterr().out
-        assert skipped[0][1].shape == (2, 16, 16, 3)
-        os.makedirs(tmp_path / "models")
-        torch.manual_seed(0)  # the module initialisers draw from the global RNG
-        torch.save({"params_ema": RRDBNet(device="cpu").state_dict()},
-                   tmp_path / "models" / "RealESRGAN_x4plus.pth")
-        out_dir = str(tmp_path / "up") + "/"
-        upsampled = main(_argv(model_path, out_dir, *flags))
-        assert "Skipping" not in capsys.readouterr().out
-        shown, out, _ = upsampled[0]
-        assert out.shape == shown.shape == (2, 64, 64, 3) and out.dtype == np.uint8
-        assert out.std() > 0
-        names = sorted(os.listdir(out_dir))
-        assert len(names) == 2 and Image.open(out_dir + names[0]).size == (64, 64)
-        return
-    if flags[0] in ("--dtype", "--int8_calibration"):
-        model_path, _ = checkpoints
-        extra = ("--dtype", "int8", "--int8_calibration", str(tmp_path / flags[1])) \
-            if flags[0] == "--int8_calibration" else flags
-        runs = [main(_argv(model_path, str(tmp_path / f"out{i}") + "/", *extra))
-                for i in range(2)]
-        assert runs[0][0][1].shape == (2, 16, 16, 3) and runs[0][0][1].std() > 0
-        np.testing.assert_array_equal(runs[0][0][1], runs[1][0][1])
-        assert os.path.exists(tmp_path / flags[1]) == (flags[0] == "--int8_calibration")
-        return
-    argv = _argv(str(tmp_path / "absent.npz"), str(tmp_path / "out") + "/", *flags)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A") as err:
-        main(argv)
-    assert flags[0] in str(err.value)
+
+def test_dtype_int8_samples_through_a_model_calibrated_on_the_spot(checkpoints, tmp_path):
+    """``--dtype int8`` samples through the quantized model, calibrated on the
+    spot: the same images twice, and no calibration file."""
+    model_path, _ = checkpoints
+    runs = _int8_runs(model_path, tmp_path, "--dtype", "int8")
+    assert runs[0][0][1].shape == (2, 16, 16, 3) and runs[0][0][1].std() > 0
+    np.testing.assert_array_equal(runs[0][0][1], runs[1][0][1])
+    assert not os.path.exists(tmp_path / "int8")
+
+
+def test_int8_calibration_is_written_then_served_from(checkpoints, tmp_path):
+    """``--int8_calibration`` (with ``--dtype int8``) writes the calibration
+    file on the first run and serves from it on the next: the same images."""
+    model_path, _ = checkpoints
+    calib = tmp_path / "calib.npz"
+    runs = _int8_runs(model_path, tmp_path, "--dtype", "int8", "--int8_calibration", str(calib))
+    assert runs[0][0][1].shape == (2, 16, 16, 3) and runs[0][0][1].std() > 0
+    np.testing.assert_array_equal(runs[0][0][1], runs[1][0][1])
+    assert os.path.exists(calib)
+
+
+def test_data_parallel_in_a_world_of_one_changes_nothing(checkpoints, tmp_path):
+    """``--data_parallel`` without torchrun: images and files as without it
+    (tests/test_torch_distributed.py runs it on two ranks)."""
+    model_path, _ = checkpoints
+    runs = [main(_argv(model_path, str(tmp_path / out) + "/", *extra))
+            for out, extra in (("plain", ()), ("dp", ("--data_parallel",)))]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    names = sorted(os.listdir(tmp_path / "dp"))
+    assert len(names) == 2 and names == sorted(os.listdir(tmp_path / "plain"))
+
+
+def test_upsample_without_esrgan_weights_keeps_the_images(checkpoints, tmp_path, capsys,
+                                                         monkeypatch):
+    """``--upsample`` with no ``models/RealESRGAN_x4plus.pth`` under the
+    working directory prints the skip message and keeps the images."""
+    model_path, _ = checkpoints
+    monkeypatch.chdir(tmp_path)
+    skipped = main(_argv(model_path, str(tmp_path / "skip") + "/", "--upsample"))
+    assert "Skipping --upsample" in capsys.readouterr().out
+    assert skipped[0][1].shape == (2, 16, 16, 3)
+
+
+def test_upsample_with_esrgan_weights_saves_every_image_4x(checkpoints, tmp_path, capsys,
+                                                          monkeypatch):
+    """``--upsample`` with random full-width ESRGAN weights there (basicsr
+    names, inside ``params_ema``): every saved image is 4x."""
+    from nicediffusion_tpu_torch.models.rrdb import RRDBNet
+
+    model_path, _ = checkpoints
+    monkeypatch.chdir(tmp_path)
+    os.makedirs(tmp_path / "models")
+    torch.manual_seed(0)  # the module initialisers draw from the global RNG
+    torch.save({"params_ema": RRDBNet(device="cpu").state_dict()},
+               tmp_path / "models" / "RealESRGAN_x4plus.pth")
+    out_dir = str(tmp_path / "up") + "/"
+    upsampled = main(_argv(model_path, out_dir, "--upsample"))
+    assert "Skipping" not in capsys.readouterr().out
+    shown, out, _ = upsampled[0]
+    assert out.shape == shown.shape == (2, 64, 64, 3) and out.dtype == np.uint8
+    assert out.std() > 0
+    names = sorted(os.listdir(out_dir))
+    assert len(names) == 2 and Image.open(out_dir + names[0]).size == (64, 64)
 
 
 def test_wrong_label_count_asserts(checkpoints, tmp_path):

@@ -67,9 +67,9 @@ def weights(conditional=True, seed=0):
 
 
 def _tiny_service(serve_batch=4, linger_ms=200.0, conditional=True, steps=4,
-                  dargs=None, **cfg_kw):
+                  dargs=None, dtype=None, **cfg_kw):
     _, params = weights(conditional)
-    model = port_model(tiny_cfg(conditional), params)
+    model = port_model(tiny_cfg(conditional), params, dtype=dtype)
     diffusion = Diffusion(model=model, **(dargs or diff_args(steps)))
     return SamplerService(
         diffusion, ServingConfig(serve_batch=serve_batch, linger_ms=linger_ms, **cfg_kw),
@@ -135,6 +135,21 @@ def test_deterministic_sampler_is_batch_position_independent():
         outs = [f.result(timeout=120) for f in futs]
         assert svc.stats()["batches"] == 2
         np.testing.assert_allclose(alone, outs[-1], rtol=0, atol=1e-6)
+
+
+def test_deterministic_sampler_is_batch_position_independent_in_bf16():
+    # the same in bf16 compute, bit for bit: the convs and dense products
+    # take the bf16 conv's plain version here (its kernel on the card), which
+    # sums each example alone
+    with _tiny_service(serve_batch=4, linger_ms=300.0, dtype=torch.bfloat16) as svc:
+        assert svc.diffusion.model.dtype == torch.bfloat16
+        svc.warmup()
+        alone = svc.sample(labels=[2], seed=42, timeout=120)  # a padded batch
+        futs = [svc.submit(labels=[i], seed=i) for i in range(3)]
+        futs.append(svc.submit(labels=[2], seed=42))  # last row of a full batch
+        outs = [f.result(timeout=120) for f in futs]
+        assert svc.stats()["batches"] == 2
+        np.testing.assert_allclose(alone, outs[-1], rtol=0, atol=0)
 
 
 def test_fifo_packing_request_spans_to_next_batch():

@@ -55,6 +55,14 @@ CFG_WIDE_HEADS = dict(
     num_heads=2, split_qkv_first=True, resblock_updown=True,
     use_adaptive_gn=True, num_classes=7,
 )
+# --model_channels 96 --num_heads 4: head dims 24, 48 and 96, between K1's
+# builds (each runs on the next one up on the card)
+CFG_HEAD_DIMS_BETWEEN_BUILDS = dict(
+    resolution=8, in_channels=3, model_channels=96, out_channels=6,
+    num_res_blocks=1, attention_resolutions=(8, 4, 2), channel_mult=(1, 2, 4),
+    num_heads=4, split_qkv_first=True, resblock_updown=True,
+    use_adaptive_gn=True, num_classes=7,
+)
 
 
 def random_jax_params(cfg, seed=0):
@@ -110,9 +118,10 @@ def forward_both(cfg, jmodel, params, model, seed=1):
     return out, ref
 
 
-@pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV, CFG_WIDE_HEADS],
+@pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV, CFG_WIDE_HEADS,
+                                 CFG_HEAD_DIMS_BETWEEN_BUILDS],
                          ids=["ada_updown_ragged", "additive_interleaved", "no_conv_resample",
-                              "head_dims_128_192_256"])
+                              "head_dims_128_192_256", "head_dims_24_48_96"])
 @pytest.mark.parametrize("kernels", [True, False])
 def test_forward_matches_jax(cfg, kernels):
     jmodel, params = random_jax_params(cfg)

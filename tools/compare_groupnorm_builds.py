@@ -1,17 +1,19 @@
 """K3 (fused GroupNorm) and its backward of two trees on one NVIDIA card.
 
-    python tools/compare_groupnorm_builds.py --against <dir>
+    python tools/compare_groupnorm_builds.py --against <dir> [--batches 16 128 8 4]
 
 ``<dir>`` is the root of another checkout of this repository, for instance
 an earlier commit unpacked with ``git archive <commit> | tar -x -C <dir>``.
-Its ``nicediffusion_tpu_torch/ops/kernels/groupnorm.py`` is loaded as a
-module of its own (a tree whose K3 is the Triton kernel, with a backward
-that recomputes the plain version under autograd, needs nothing else of its
-package; a tree whose K3 is CUDA C++ is loaded with its package, which then
-builds its own library), beside this tree's.
+A tree whose K3 is the Triton kernel (with a backward that recomputes the
+plain version under autograd) has its
+``nicediffusion_tpu_torch/ops/kernels/groupnorm.py`` loaded as a module of
+its own. For a tree whose K3 is CUDA C++, its ``csrc/groupnorm.cu`` is
+built with the package's nvcc flags and this tree's wrapper is loaded a
+second time, bound to that library (the C interface is the same).
 
-At every GroupNorm shape of one ``openai_64`` forward at model batch 16
-(bf16, the inputs of chip_smoke.py's ``[kernels]``) it times both forwards;
+At every GroupNorm shape of one ``openai_64`` forward at each model batch of
+``--batches`` (default 16; bf16, the inputs of chip_smoke.py's
+``[kernels]``) it times both forwards;
 at every GroupNorm shape of one ``openai_64`` training step at batch 8 (bf16)
 both backwards, each through its tree's autograd Function
 (``torch.autograd.grad`` of the forward's output), and this tree's backward
@@ -27,9 +29,12 @@ Imports torch and the port; needs a card.
 """
 
 import argparse
+import ctypes
 import importlib.util
 import os
+import subprocess
 import sys
+import types
 
 import torch
 
@@ -39,13 +44,17 @@ from chip_smoke import (  # noqa: E402
     BF16_TOL, K3_BF16_REL, PATHS, TRAIN_BATCH, graph_ms, k3_rel_err, main_path_calls,
     model_config, profiled_ms, within)
 from nicediffusion_tpu_torch import DiffusionModel  # noqa: E402
+from nicediffusion_tpu_torch.ops.kernels import _build  # noqa: E402
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3  # noqa: E402
 
 MODULE = os.path.join("nicediffusion_tpu_torch", "ops", "kernels", "groupnorm.py")
+SOURCE = os.path.join("nicediffusion_tpu_torch", "csrc", "groupnorm.cu")
 
 
-def load_other(root):
-    """The other tree's K3 module, under a name of its own."""
+def load_other(root, build_dir):
+    """The other tree's K3 module, under a name of its own: its own module
+    for a Triton K3; for a CUDA C++ K3, this tree's wrapper bound to the
+    other tree's library, built into ``build_dir``."""
     path = os.path.join(root, MODULE)
     with open(path) as f:
         standalone = "from . import" not in f.read()
@@ -54,8 +63,21 @@ def load_other(root):
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod
-    raise SystemExit(f"{path} imports its package: compare such trees by running this tool "
-                     "from each")
+    os.makedirs(build_dir, exist_ok=True)
+    so = os.path.join(build_dir, "libgroupnorm_other.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           os.path.join(root, SOURCE)], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    spec = importlib.util.spec_from_file_location(
+        "nicediffusion_tpu_torch.ops.kernels._other_groupnorm", k3.__file__)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = types.SimpleNamespace(
+        bind=lambda name, signatures: _build.set_signatures(lib, signatures),
+        launch_error=_build.launch_error)
+    return mod
 
 
 def inputs(gen, dev, b, h, w, c, mode, grad=False):
@@ -97,10 +119,13 @@ def hold(name, got, ref):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", required=True, help="root of the other checkout")
+    parser.add_argument("--batches", type=int, nargs="+", default=[PATHS["forward"][0]],
+                        help="model batches of the forwards")
+    parser.add_argument("--build_dir", default=os.path.join(_build.BUILD_DIR, "compare"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    other = load_other(args.against)
+    other = load_other(args.against, args.build_dir)
     trees = {"other": other, "this": k3}
     dev = torch.device("cuda")
     model = DiffusionModel(**model_config(), kernels=False, device="meta").eval()
@@ -110,7 +135,14 @@ def main(argv=None):
     graph = lambda fn: graph_ms(fn, iters=10)  # noqa: E731
     prof = lambda fn: profiled_ms(fn, iters=10)  # noqa: E731
 
-    b = PATHS["forward"][0]
+    for b in args.batches:
+        compare_forwards(trees, keys, gen, dev, b, graph, prof)
+    compare_backwards(trees, keys, gen, dev, graph, prof)
+
+
+def compare_forwards(trees, keys, gen, dev, b, graph, prof):
+    """Both trees' forwards at every GroupNorm shape of one openai_64
+    forward at model batch ``b``, and their sums."""
     sums, worst = {}, 0.0
     for (_, (h, w, c), mode), per in keys:
         x, *rest = inputs(gen, dev, b, h, w, c, mode)[0]
@@ -133,8 +165,12 @@ def main(argv=None):
           f" by torch.profiler, {sums['forward', 'this', 'graph'] / sums['forward', 'other', 'graph']:.4f}"
           f" by graph; the two within {worst:.3g} relative", flush=True)
 
+
+def compare_backwards(trees, keys, gen, dev, graph, prof):
+    """Both trees' backwards through autograd, and this tree's kernel called
+    directly, at every GroupNorm shape of one openai_64 training step."""
     b = TRAIN_BATCH
-    worst = 0.0
+    sums, worst = {}, 0.0
     for (_, (h, w, c), mode), per in keys:
         leaves, cot = inputs(gen, dev, b, h, w, c, mode, grad=True)
         kw = dict(silu=mode != "plain")
