@@ -60,12 +60,18 @@ every hand-written kernel on the way:
      in TFLOP/s of its two products and as
      a share of its bound; K1 at one N of 1024 for head dims 64 to 256, and
      with and without writing the row log-sum-exp. K5 runs at the
-     ``openai_128`` shapes as strided views of a projection and as separate
-     contiguous tensors, and at D = 16, N = 49; then, with the counts reset,
+     ``openai_128`` shapes (and those of ``openai_128`` at one head) as
+     strided views of a projection and as separate contiguous tensors, and at
+     D = 16, N = 49; then, with the counts reset,
      it is called directly at those shapes and held bit for bit against K1
      (no model calls K5: these are the launches its entry reports); K1 (and
      in step 6 K2) also at head dims 24, 48 and 96, each on the build for
-     the next one up;
+     the next one up, and at head dims 257 to 1024 (ABOVE_256) on the
+     chunked build, the lse against torch.logsumexp and K5 equal to K1 bit
+     for bit there; K1 timed at the attention shapes of ``openai_128`` at one
+     head (head dims 512, 768 and 1024, model batch 8: the ``wide128`` path)
+     with the chunked build's recompute factor and the library's kernel
+     (which backend scaled_dot_product_attention picked) beside the bound;
   4. the full-width f32 model with kernels on against ``kernels=False``
      on one CFG forward (max abs <= 1e-3, the repo's parity bar);
   5. the slice: bf16, CFG w=0.8, DDPM with learned-interpolation variance
@@ -89,7 +95,9 @@ every hand-written kernel on the way:
      pre-filled with NaN, with K1's row log-sum-exp handed over and without
      it, at every attention shape of a training step of both models (and of
      one data-parallel rank's ``openai_64`` step at batch 4), of the
-     classifier's gradient and at a ragged N with head dims 128 and 192; bf16
+     classifier's gradient and at a ragged N with head dims 128 and 192, of
+     a training step of ``openai_128`` at one head (batch 2, timed, as K1's
+     ``wide128``) and at head dims 257 to 1024 (ABOVE_256); bf16
      also to a relative error of dq, dk and dv per (example, head), which a
      planted fault (the lse handed over 0.05 too high) must fail at every
      shape; its times beside the plain version's and the library call's (the
@@ -142,6 +150,14 @@ every hand-written kernel on the way:
      every parameter's f32 gradient kernels on against ``kernels=False``, then
      3 ``Trainer.train_step`` calls in bf16 with remat at batch 4, with the
      launch counts the structure gives, steps/s and peak memory;
+ 11b. ``[wide-heads]``: ``openai_128``'s widths at one head (head dims
+     512, 768 and 1024, every attention call on the chunked build) on step
+     11's weights: the f32 forward at model batch 8 kernels on against
+     ``kernels=False`` (1e-3) and the bf16 one (finite, its distance read),
+     the f32 loss and gradients (LOSS_TOL, GRAD_TOL), the sampling entry
+     point in custom mode (bf16, a 5-step DDIM chain at batch 2) and one
+     bf16 ``Trainer`` step with remat at batch 2, each with its launch counts
+     held to the structure;
  12. static int8 (``[int8]``): (a) the int8 conv (s8 x s8 -> s32 wgmma,
      one launch a call, the quantize folded into its stagers) against its
      plain version (exact float64 sums) at every (H, W, C, F, k, stride) one
@@ -347,6 +363,13 @@ K3_BF16_REL = 1e-2
 BF16_CONV_TOL = 2.0 ** -6
 # K1 and K2 at head dims between two builds (each runs on the next one up)
 BETWEEN_BUILDS = (24, 48, 96)
+# K1, K2 and K5 at head dims above 256 (the chunked build), each at one N:
+# (head dim, N); 2 heads, so the two layouts differ
+ABOVE_256 = ((257, 65), (300, 100), (320, 17), (384, 256), (512, 1024), (768, 64), (1024, 1024))
+# [wide-heads]: openai_128's widths at one head (head dims 512, 768, 1024)
+WIDE_BATCH = 8  # the f32 and bf16 forwards' model batch
+WIDE_TRAIN_BATCH = 2  # the Trainer step's and the sampling entry point's batch
+WIDE_STEPS = 5  # the entry point's DDIM chain
 MODEL_TOL = 1e-3
 GRAD_TOL = 1e-3  # max |dgrad| <= GRAD_TOL * max |grad|, per parameter
 LOSS_TOL = 1e-4  # |dloss| <= LOSS_TOL * max(1, |loss|)
@@ -531,7 +554,9 @@ GMMA_SASS = {"attention": r"HGMMA", "attention_bwd": r"HGMMA", "resblock": r"HGM
 # (no HGMMA gate applies to them)
 NO_SPILL_LIBS = {"groupnorm": "K3"}
 _ENTRY = re.compile(
-    r"Compiling entry function '\S*?(attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
+    r"Compiling entry function '\S*?(attention_fwd_chunked_wgmma|attention_fwd_chunked|"
+    r"attention_bwd_dq_chunked_wgmma|attention_bwd_dkv_chunked_wgmma|attention_bwd_dq_chunked|"
+    r"attention_bwd_dkv_chunked|attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
     r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
     r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma)_kernelI(\S+)'")
@@ -565,13 +590,16 @@ def build_report(name, nvcc_log):
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1).startswith("group_norm"):
                 entry = f"{m.group(1)} {dt}" + (f" vector={dims[0]}" if dims else "")
+            elif "_chunked" in m.group(1):  # <output columns a block>: head dims above 256
+                entry = f"{m.group(1)} {dt}" + (f" chunk={dims[0]}" if dims else "")
             else:
                 entry = f"{m.group(1)} {dt}" + (f" hc={dims[0]}" if dims else "") + (
                     f" rows={dims[1]}" if len(dims) > 1 else "")
             exact = re.search(r"Lb([01])E", m.group(2))  # K2: the head dim is hc
             if m.group(1).startswith("attention_bwd") and exact:
                 entry += " exact" if exact.group(1) == "1" else " (head dim below hc)"
-            if m.group(1) == "attention_bwd_dkv_wgmma" and dims and int(dims[0]) > 128:
+            if (m.group(1) == "attention_bwd_dkv_wgmma" and dims and int(dims[0]) > 128
+                    or m.group(1) == "attention_bwd_dkv_chunked_wgmma"):
                 entry += " (dV and dK in separate blocks)"
         elif "spill" in line:
             spills = line.strip()
@@ -841,14 +869,53 @@ PATHS = {
     "int8_serve": (128, torch.bfloat16,
                    "one openai_64 int8 sampling forward at batch 64 (model batch 128 under CFG; "
                    "int8 convs only)"),
+    "wide128": (WIDE_BATCH, torch.bfloat16,
+                f"the attention calls of one openai_128 forward at num_heads=1 (head dims 512, "
+                f"768, 1024: the chunked build) at model batch {WIDE_BATCH}"),
+    "wide128_train": (WIDE_TRAIN_BATCH, torch.bfloat16,
+                      f"the attention calls of one openai_128 training step at num_heads=1 at "
+                      f"batch {WIDE_TRAIN_BATCH}"),
 }
 # paths held against the plain version at their shapes and batch, not timed:
 # the batches the tools give a model beside those of the timed paths (the
 # int8 conv plans its tiles from the batch)
 CHECKED_PATHS = ("verify64", "qe_calib", "qe_gi", "qe_int8_gi")
 GUIDED_PATHS = ("unet128", "cls128")
+# where K5 is held and timed as views of the projection, and called directly
+# in place of K1 (no model calls it): the guided slice's models, and
+# openai_128 at one head (the chunked build)
+K5_PATHS = (*GUIDED_PATHS, "wide128")
 # unet128: openai_128 training
-K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train", "qe_unet", "qe_cls")
+K2_PATHS = ("train", "emnist", "cls128", "unet128", "dp_train", "qe_unet", "qe_cls",
+            "wide128_train")
+# the chunked build's output columns a block (csrc/attention.cu: kChunk;
+# attention_bwd.cu: kChunkBf16, kChunkF32)
+FWD_CHUNK = 256
+BWD_CHUNK = {torch.bfloat16: 256, torch.float32: 128}
+
+
+def recompute_factor(kernel, hd, dtype):
+    """The matrix products an attention kernel makes over the fewest its
+    function needs, from the head dim: 1 below 257. Above 256 every output
+    chunk's block makes the products over all of D again: K1 S once per chunk
+    and P V once in all, against 2; K2 S and dP for each chunk of dQ and of
+    dK, S for each of dV (bf16: separate blocks) or S and dP for each chunk
+    of dK and dV together (f32), and dQ, dK and dV once in all, against 5."""
+    if hd <= 256:
+        return 1.0
+    if kernel == "K1":
+        return (-(-hd // FWD_CHUNK) + 1) / 2
+    chunks = -(-hd // BWD_CHUNK[dtype])
+    per_chunk = 5 if dtype == torch.bfloat16 else 4
+    return (per_chunk * chunks + 3) / 5
+
+
+def library_kernel(fn):
+    """The kernel that takes most of the device time of ``fn`` (a library
+    call) by torch.profiler: which backend it picked."""
+    _, names = profiled_ms(fn, iters=3, by_name=True)
+    name = max(names, key=names.get)
+    return name if len(name) <= 90 else name[:87] + "..."
 
 
 def rate(key, b, ms, bound):
@@ -888,12 +955,14 @@ def phase_kernels(dev, paths):
     its classifier at batch 4; the serving daemon at model batch 128; one
     rank's rows of a data-parallel ``openai_64`` training step, 4; the
     tools' models at their batches: quality_eval's UNet at 256, 128 and 16,
-    its classifier at 256, verify_checkpoint's ``openai_64`` at 1), in f32
+    its classifier at 256, verify_checkpoint's ``openai_64`` at 1;
+    ``openai_128`` at one head, head dims 512 to 1024, at 8 and 2), in f32
     and bf16; times (CHECKED_PATHS: none) in each path's compute
     type per shape and summed per forward, beside the plain version, the
-    library call and the bound. K5 runs at the attention shapes of the
-    ``openai_128`` paths and at D = 16, N = 49; K1 also at head dims 24, 48
-    and 96, on the builds for 32, 64 and 128."""
+    library call and the bound (above 256 with the chunked build's recompute
+    factor and the library's kernel). K5 runs at the attention shapes of
+    K5_PATHS and at D = 16, N = 49; K1 also at head dims 24, 48 and 96, on
+    the builds for 32, 64 and 128, and with K5 at ABOVE_256's head dims."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
     from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 
@@ -978,7 +1047,13 @@ def phase_kernels(dev, paths):
                     f"device time {device[0]:.4f} ms{rate(key, b, device[0], bound)}, plain "
                     f"{device[1]:.4f} ms, library {device[2]:.4f} ms; torch.profiler "
                     f"{prof[0]:.4f} ms, library {prof[1]:.4f} ms; bound {max(bound):.4f} ms")
-            if kind == "attention" and where in GUIDED_PATHS:
+                if kind == "attention" and c // heads > 256:
+                    factor = recompute_factor("K1", c // heads, dtype)
+                    log(f"[kernels] {name} {dtype}: head dim {c // heads} on the chunked build, "
+                        f"{factor:.2f}x the bound's products (bound with them "
+                        f"{max(bound[0], factor * bound[1]):.4f} ms); the library ran "
+                        f"{library_kernel(library)}")
+            if kind == "attention" and where in K5_PATHS:
                 name = f"K5 B={b} H={heads} N={n} D={c // heads}"
                 err, views = check_mha(name, qkv, heads, split_first, dtype, tol)
                 errs["mha", dtype] = max(errs["mha", dtype], err)
@@ -1020,6 +1095,36 @@ def phase_kernels(dev, paths):
                 log(f"[kernels] K1 B=2 N={n} 4 heads of {hc} on the build for "
                     f"{k1.head_dim_build(hc)}, {dtype}, split_first={split_first}: max abs err "
                     f"{err:.3g} vs plain (gate {tol})")
+    # K1 and K5 at head dims above 256 (the chunked build), both layouts, the
+    # outputs and the lse pre-filled with NaN; K5 on the views equal to K1
+    # bit for bit (K2 at the same head dims: [k2])
+    for hc, n in ABOVE_256:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = (F32_TOL if dtype == torch.float32 else BF16_TOL)["attention"]
+            qkv = torch.randn(2, n, 3 * 2 * hc, generator=g, device=dev).to(dtype)
+            for split_first in (True, False):
+                out = torch.full((2, n, 2 * hc), float("nan"), dtype=dtype, device=dev)
+                lse = torch.full((2, 2, n), float("nan"), device=dev)
+                k1.fused_qkv_attention(qkv, 2, split_first, out=out, lse=lse)
+                torch.cuda.synchronize()
+                if torch.isnan(out).any() or torch.isnan(lse).any():
+                    raise AssertionError(f"K1 head dim {hc} {dtype}: elements left unwritten")
+                what = f"K1 B=2 N={n} 2 heads of {hc} {dtype} split_first={split_first}"
+                err = check(what, out, k1.fused_qkv_attention_plain(qkv, 2, split_first), tol)
+                errs["attention", dtype] = max(errs["attention", dtype], err)
+                q, k, _ = k1.split_qkv(qkv.float(), 2, split_first)
+                logits = torch.matmul(q, k.transpose(-1, -2)) * hc ** -0.5
+                lse_err = check(f"{what} lse", lse, torch.logsumexp(logits, -1),
+                                dict(atol=1e-4, rtol=1e-5))
+                err5, views = check_mha(f"K5 B=2 H=2 N={n} D={hc}", qkv, 2, split_first, dtype,
+                                        tol)
+                errs["mha", dtype] = max(errs["mha", dtype], err5)
+                if not torch.equal(k1.mha_attention(*views).transpose(1, 2).reshape(out.shape),
+                                   out):
+                    raise AssertionError(f"K5 differs from K1 at {what}")
+                log(f"[kernels] {what} (build {k1.head_dim_build(hc)}): max abs err {err:.3g} "
+                    f"vs plain (gate {tol}), lse {lse_err:.3g} vs torch.logsumexp; K5 {err5:.3g}, "
+                    f"equal to K1 bit for bit")
     # head dims 64 to 256 at one N and 4 heads, beside the paths' own
     # shapes: the rate per operation of each build
     for hc in (64, 128, 192, 256):
@@ -1048,8 +1153,8 @@ def phase_kernels(dev, paths):
     log(f"[kernels] K3 calls per forward by route: "
         + ", ".join(f"{where} {route} {n}" for (where, route), n in sorted(routes.items())))
     for (kind, where), tally in tallies.items():
-        if ((kind == "mha" and where not in GUIDED_PATHS) or where not in paths
-                or where in CHECKED_PATHS):
+        if ((kind == "mha" and where not in K5_PATHS) or where not in paths
+                or where in CHECKED_PATHS or tally.bound_ms == 0):
             continue
         _, dtype, basis = PATHS[where]
         log(f"[kernels] {kind}, {dtype} calls of {basis}, each timed back to back: {tally}")
@@ -1058,20 +1163,21 @@ def phase_kernels(dev, paths):
 
 def phase_mha_direct(dev, paths):
     """K5 called directly, as no model calls it: with the counts reset, one
-    call for every attention call of one ``openai_128`` forward and one
-    classifier forward at batch 4 in bf16, on views of a projection; each
+    call for every attention call of one forward of each K5_PATHS model at
+    its batch (``openai_128`` and its classifier at 4, ``openai_128`` at one
+    head, on the chunked build, at 8) in bf16, on views of a projection; each
     result must equal K1's on the same projection bit for bit (they are one
     kernel). Returns the launch counts of these calls."""
     from nicediffusion_tpu_torch.ops.kernels import attention as k1
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     work = []
-    for where in GUIDED_PATHS:
+    for where in K5_PATHS:
         for key, per_call in sorted(paths[where].items(), key=str):
             if key[0] != "attention":
                 continue
             _, n, c, heads, split_first = key
-            qkv = torch.randn(GUIDED_BATCH, n, 3 * c, generator=g, device=dev).bfloat16()
+            qkv = torch.randn(PATHS[where][0], n, 3 * c, generator=g, device=dev).bfloat16()
             work.append((qkv, heads, split_first, per_call,
                          k1.fused_qkv_attention(qkv, heads, split_first)))
     reset_launches()
@@ -1083,8 +1189,9 @@ def phase_mha_direct(dev, paths):
             raise AssertionError(f"K5 differs from K1 at qkv {tuple(qkv.shape)}, {heads} heads")
     torch.cuda.synchronize()
     launches = read_launches()
-    log(f"[k5] {launches['mha']} direct calls at the attention shapes of one openai_128 and "
-        f"one classifier forward, bf16, batch {GUIDED_BATCH}: each equal to K1 bit for bit")
+    log(f"[k5] {launches['mha']} direct calls at the attention shapes of one openai_128 and one "
+        f"classifier forward, bf16, batch {GUIDED_BATCH}, and of one openai_128 forward at one "
+        f"head (head dims 512, 768, 1024), batch {WIDE_BATCH}: each equal to K1 bit for bit")
     return launches
 
 
@@ -1503,6 +1610,8 @@ def phase_kernels_bwd(dev, paths):
               (("attention", 100, 384, 2, True), 0, None)]
     cases += [(("attention", n, 4 * hc, 4, True), 0, None)
               for n, hc in zip((256, 64, 100), BETWEEN_BUILDS)]
+    # head dims above 256 (the chunked build), 2 heads
+    cases += [(("attention", n, 2 * hc, 2, True), 0, None) for hc, n in ABOVE_256]
     for (_, n, c, heads, split_first), per_step, where in cases:
         b, timed_dtype, _ = PATHS[where] if where else (4, None, None)
         name = f"K2 B={b} N={n} C={c} heads={heads}"
@@ -1581,6 +1690,13 @@ def phase_kernels_bwd(dev, paths):
                     f"{max(bound):.4f} ms; torch.profiler: K2 {read['k2_profiler']:.4f} ms, "
                     f"the library's forward {read['forward_profiler']:.4f} ms "
                     f"(graph {read['forward_graph']:.4f})")
+                hd = c // heads
+                if hd > 256:
+                    factor = recompute_factor("K2", hd, dtype)
+                    log(f"[k2] {name} {dtype}: head dim {hd} on the chunked build, "
+                        f"{factor:.2f}x the bound's products (bound with them "
+                        f"{max(bound[0], factor * bound[1]):.4f} ms); the library's backward "
+                        f"ran {library_kernel(library)}")
     log(f"[k2] max abs err vs plain: f32 {errs[torch.float32]:.3g}, bf16 "
         f"{errs[torch.bfloat16]:.3g}; f32 vs autograd of the plain forward {auto_err:.3g}; "
         f"bf16 relative error of dq, dk and dv per (example, head) {rel_err:.3g} (gate "
@@ -1740,15 +1856,16 @@ def phase_k3_bwd(dev, paths):
     return errs, tallies, gates
 
 
-def phase_grads(dev, off, preset="openai_64", batch=4):
-    """Loss and every parameter's gradient of the f32 model of ``preset`` on
-    one fixed batch (HYBRID loss, injected t and noise; both models in
-    ``eval()`` mode, so no dropout): kernels on against ``off``
-    (kernels=False, the same remat setting)."""
+def phase_grads(dev, off, preset="openai_64", batch=4, cfg=None):
+    """Loss and every parameter's gradient of the f32 model of ``preset``
+    (or of ``cfg``, with ``preset``'s diffusion) on one fixed batch (HYBRID
+    loss, injected t and noise; both models in ``eval()`` mode, so no
+    dropout): kernels on against ``off`` (kernels=False, the same remat
+    setting)."""
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
     from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
 
-    cfg = dict(model_config(preset), num_classes=off.num_classes)
+    cfg = dict(cfg or model_config(preset), num_classes=off.num_classes)
     on = DiffusionModel(**cfg, use_remat=off.use_remat, device=dev).eval()
     on.load_state_dict(off.state_dict(), strict=True)
     dcfg = dict(DIFFUSION_PRESETS[preset], rescaled_num_steps=1000,
@@ -1780,7 +1897,8 @@ def phase_grads(dev, off, preset="openai_64", batch=4):
             raise AssertionError(f"gradient of {name}: max abs diff {rel:.3g} of its max |grad|")
         if rel > worst:
             worst, worst_name = rel, name
-    log(f"[grads] {preset} f32, HYBRID loss at batch {batch}: loss {loss_on:.6f} with kernels, "
+    what = preset if cfg.get("num_heads") != 1 else f"{preset} at num_heads=1"
+    log(f"[grads] {what} f32, HYBRID loss at batch {batch}: loss {loss_on:.6f} with kernels, "
         f"{loss_off:.6f} without; {len(grads_on)} gradients, worst max |diff| / max |grad| "
         f"{worst:.3g} ({worst_name}), gate {GRAD_TOL}")
     del on, grads_on, grads_off
@@ -2579,6 +2697,161 @@ def phase_train_128(dev, off):
     del trainer, model
     torch.cuda.empty_cache()
     return launches
+
+
+def wide_config():
+    """openai_128's widths at one head: 1 head over 512, 768 and 1024
+    channels at 32x32, 16x16 and 8x8 (head dims 512, 768 and 1024). The
+    number of heads changes no parameter's shape, so the preset's weights
+    load as they are."""
+    from nicediffusion_tpu_torch.utils.config import MODEL_PRESETS
+
+    return dict(MODEL_PRESETS["openai_128"], num_heads=1)
+
+
+def phase_wide_heads(dev, state):
+    """[wide-heads]: every attention call on the chunked build. The
+    ``openai_128`` widths at one head (wide_config) on ``state``, the
+    weights of [model-128]'s ``openai_128``, through the entry points a user
+    calls: (a) the f32 forward at model batch WIDE_BATCH, kernels on against
+    ``kernels=False`` (MODEL_TOL), and the bf16 forward (finite, its distance
+    from kernels off read); (b) loss and every gradient of the f32 model,
+    kernels on against off (phase_grads: LOSS_TOL, GRAD_TOL); (c) the
+    sampling entry point in custom mode, bf16, a WIDE_STEPS-step DDIM chain of
+    WIDE_TRAIN_BATCH images (files there, images finite and not constant);
+    (d) one ``Trainer`` step in bf16 with remat at batch WIDE_TRAIN_BATCH,
+    its loss and gradient norm finite. The launch counts of (a), (c) and (d)
+    are held to the structure: K1 once per attention call (twice a block in
+    a remat step), K2 once per attention block a step. Returns their sum."""
+    from PIL import Image
+
+    from nicediffusion_tpu_torch import DiffusionModel, Trainer
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
+    from nicediffusion_tpu_torch.scripts.sample import main as sample_main
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = wide_config()
+    total = collections.Counter()
+    t0 = time.perf_counter()
+
+    def held(what, launches, expect):
+        log(f"[wide-heads] {what}: launches {launches}, expected {expect}")
+        if launches != expect:
+            raise AssertionError(f"[wide-heads] {what}: launch counts {launches} != {expect}")
+        total.update(launches)
+
+    # (a) the forwards, kernels on against off
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(WIDE_BATCH, cfg["resolution"], cfg["resolution"], cfg["in_channels"],
+                    generator=g, device=dev)
+    t = torch.randint(0, 1000, (WIDE_BATCH,), generator=g, device=dev)
+    y = torch.randint(0, cfg["num_classes"], (WIDE_BATCH,), generator=g, device=dev)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernels in (False, True):
+            model = DiffusionModel(**cfg, dtype=dtype, kernels=kernels, device=dev).eval()
+            model.load_state_dict(state, strict=True)
+            reset_launches()
+            with torch.inference_mode():
+                outs[dtype, kernels] = model(x, t, y).float()
+            torch.cuda.synchronize()
+            if kernels:
+                # one forward's launches; in bf16 also the entry point's, a step
+                n_attn = sum(isinstance(m, AttentionBlock) for m in model.modules())
+                n_gn = sum(isinstance(m, GroupNormOp) for m in model.modules())
+                per_forward = {"attention": n_attn, "attention_bwd": 0, "groupnorm": n_gn,
+                               "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
+                               "conv": conv_per_call(model)}
+                held(f"{dtype} forward at model batch {WIDE_BATCH}", read_launches(), per_forward)
+            del model
+        out, ref = outs[dtype, True], outs[dtype, False]
+        if out.shape != (WIDE_BATCH, cfg["resolution"], cfg["resolution"],
+                         cfg["out_channels"]) or not torch.isfinite(out).all():
+            raise AssertionError(f"[wide-heads] {dtype} forward: {tuple(out.shape)}, or not finite")
+        if dtype == torch.float32:
+            err = check("[wide-heads] f32 forward, kernels on vs off", out, ref,
+                        dict(atol=MODEL_TOL, rtol=0))
+        else:
+            err = (out - ref).abs().max().item()
+        log(f"[wide-heads] openai_128 widths at num_heads=1, {dtype} forward at model batch "
+            f"{WIDE_BATCH}: kernels on vs off max abs {err:.3g} (output max abs "
+            f"{ref.abs().max().item():.3g}" + (f"; gate {MODEL_TOL})" if dtype == torch.float32
+                                               else "; read, bf16)"))
+    # (b) the f32 loss and gradients, kernels on against off
+    off = DiffusionModel(**cfg, kernels=False, device=dev).eval()
+    off.load_state_dict(state, strict=True)
+    phase_grads(dev, off, "openai_128", 4, cfg=cfg)
+    del off, outs
+    torch.cuda.empty_cache()
+    log(f"[wide-heads] (a) and (b) took {time.perf_counter() - t0:.1f} s")
+
+    # (c) the sampling entry point in custom mode
+    t1 = time.perf_counter()
+    dcfg = DIFFUSION_PRESETS["openai_128"]
+    with tempfile.TemporaryDirectory() as workdir:
+        model_path = os.path.join(workdir, "wide128.pt")
+        torch.save(state, model_path)
+        out_dir = os.path.join(workdir, "wide") + os.sep
+        os.makedirs(out_dir)
+        label = 207
+        reset_launches()
+        samples = sample_main([
+            "--model_path", model_path, "--custom",
+            "--resolution", str(cfg["resolution"]),
+            "--model_channels", str(cfg["model_channels"]),
+            "--channel_mult", "/".join(map(str, cfg["channel_mult"])),
+            "--num_res_blocks", str(cfg["num_res_blocks"]),
+            "--attention_resolutions", "/".join(map(str, cfg["attention_resolutions"])),
+            "--num_heads", "1", "--num_classes", str(cfg["num_classes"]),
+            "--split_qkv_first", "--resblock_updown", "--use_adaptive_gn",
+            "--rescaled_num_steps", str(WIDE_STEPS), "--use_ddim",
+            "--beta_schedule", dcfg["beta_schedule"],
+            "--sampling_var_type", dcfg["sampling_var_type"],
+            "--batch_size", str(WIDE_TRAIN_BATCH), "--num_samples", "1",
+            "--labels", str(label), "--save_path", out_dir, "--seed", "0",
+        ])
+        torch.cuda.synchronize()
+        files = sorted(os.listdir(out_dir))
+        expect_files = [f"{label}_sample{i}.jpg" for i in range(WIDE_TRAIN_BATCH)]
+        if files != expect_files:
+            raise AssertionError(f"[wide-heads] files {files} != {expect_files}")
+        for name in files:
+            with Image.open(out_dir + name) as img:
+                if img.size != (cfg["resolution"],) * 2:
+                    raise AssertionError(f"[wide-heads] {name}: {img.size}")
+    (_, images, labels), = samples
+    if images.shape != (WIDE_TRAIN_BATCH, cfg["resolution"], cfg["resolution"], 3) or any(
+            img.std() == 0 for img in images):
+        raise AssertionError(f"[wide-heads] samples {images.shape}, or a constant image")
+    held(f"the sampling entry point, bf16, DDIM {WIDE_STEPS} steps at batch {WIDE_TRAIN_BATCH}",
+         read_launches(), {k: n * WIDE_STEPS for k, n in per_forward.items()})
+    log(f"[wide-heads] (c) {WIDE_TRAIN_BATCH} images of label {label} through the sampling "
+        f"entry point (custom mode) in {time.perf_counter() - t1:.1f} s")
+
+    # (d) one Trainer step, bf16, remat
+    t2 = time.perf_counter()
+    model = DiffusionModel(**cfg, dtype=torch.bfloat16, use_remat=True, device=dev)
+    model.load_state_dict(state, strict=True)
+    loader = synthetic_batches(WIDE_TRAIN_BATCH, cfg["resolution"], cfg["in_channels"],
+                               cfg["num_classes"], seed=SEED)
+    trainer = Trainer(model, dict(dcfg, rescaled_num_steps=1000, guidance_method=None), loader,
+                      iterations=1, batch_size=WIDE_TRAIN_BATCH, lr=1e-5, weight_decay=1e-3,
+                      ema_rate=0.99, seed=SEED)
+    batch, batch_labels = next(loader)
+    reset_launches()
+    metrics = trainer.train_step(batch, batch_labels)
+    torch.cuda.synchronize()
+    loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+    if not (math.isfinite(loss) and math.isfinite(norm)):
+        raise AssertionError(f"[wide-heads] Trainer step: loss {loss}, gradient norm {norm}")
+    held(f"one Trainer step, bf16, remat, batch {WIDE_TRAIN_BATCH}", read_launches(),
+         expect_train_launches(trainer.model, 1))
+    log(f"[wide-heads] (d) one Trainer step: loss {loss:.5f}, gradient norm {norm:.4g}, "
+        f"{time.perf_counter() - t2:.1f} s with the model's set-up")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return dict(total)
 
 
 INT8_OPS = 1979e12  # int8 tensor-core operations a second, dense
@@ -5298,6 +5571,10 @@ def main():
                  EncoderUNet(**qe_cls_cfg, kernels=False, device=meta).eval(), meta),
              "verify64": calls}
     paths["qe_calib"] = paths["qe_gi"] = paths["qe_unet"]
+    # [wide-heads]: openai_128's widths at one head, its attention calls
+    wide = DiffusionModel(**wide_config(), kernels=False, device=meta).eval()
+    paths["wide128"] = paths["wide128_train"] = collections.Counter(
+        {k: n for k, n in main_path_calls(wide, meta).items() if k[0] == "attention"})
     halves = resblock_halves(reference, dev)
     int8_calls = int8_conv_calls(reference, model_config(), dev)
     int8_calls_emnist = int8_conv_calls(emnist, model_config("EMNIST"), dev)
@@ -5331,6 +5608,8 @@ def main():
     del unet128, cls128
     torch.cuda.empty_cache()
     phase_done("[train-128]")
+    wide_launches = phase_wide_heads(dev, unet128_state)
+    phase_done("[wide-heads]")
     phase_model(dev, reference)
     phase_grads(dev, reference)
     phase_grads(dev, emnist, "EMNIST", EMNIST_BATCH)
@@ -5341,7 +5620,8 @@ def main():
     by_path = {"sampling": phase_slice(dev, state), "mha_attention_direct": mha_launches,
                "resblock_halves_direct": k4_launches,
                "resblock_halves_direct_bf16": k4_launches_bf16,
-               "train_openai_128": train128_launches}
+               "train_openai_128": train128_launches,
+               "wide_heads_openai_128": wide_launches}
     phase_done("[slice]")
     by_path["sr_chain_openai_256"] = phase_sr(dev, sr256)
     del sr256
@@ -5409,7 +5689,7 @@ def main():
               "nicediffusion_tpu/ops/pallas/attention.py:177", "attention",
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
-              {w: tallies["attention", w] for w in forward_others},
+              {w: tallies["attention", w] for w in (*forward_others, "wide128")},
               attention_routes),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
@@ -5417,7 +5697,7 @@ def main():
               f"sum over one openai_64 training step's calls, bf16, batch {TRAIN_BATCH}, "
               f"K1's row log-sum-exp handed over",
               {w: k2_tallies[w] for w in ("emnist", "cls128", "unet128", "dp_train",
-                                          "qe_unet", "qe_cls")},
+                                          "qe_unet", "qe_cls", "wide128_train")},
               attention_routes,
               # the same step's sums read by CUDA graph and by torch.profiler
               device_yardsticks=k2_yard),
@@ -5447,7 +5727,7 @@ def main():
               tallies["mha", "unet128"],
               f"sum over the attention calls of one openai_128 forward, bf16, batch "
               f"{GUIDED_BATCH}, q, k and v as views of the projection",
-              {"cls128": tallies["mha", "cls128"]}, attention_routes),
+              {w: tallies["mha", w] for w in ("cls128", "wide128")}, attention_routes),
         # no model calls K4 either: its launches are phase_resblock_direct's calls
         entry("gn_silu_conv3x3", "cuda", "nicediffusion_tpu_torch/csrc/resblock.cu",
               "nicediffusion_tpu/ops/pallas/resblock.py:131", "resblock",

@@ -15,10 +15,11 @@
 // the last axis is contiguous) and K1 is the case where the three pointers
 // are offsets into one projection. Nothing is transposed or padded in
 // device memory. The kernels are built for head dims 32, 64, 128, 192 and
-// 256; a head dim D between two of them (K5 only) runs the next one up with
-// the columns past D zero-filled in shared memory and never stored, which is
-// the TPU kernel's zero-padding to 128 lanes without the device-memory copy.
-// The scale is the caller's, from the true D.
+// 256; a head dim D between two of them runs the next one up with the
+// columns past D zero-filled in shared memory and never stored, which is the
+// TPU kernel's zero-padding to 128 lanes without the device-memory copy. A
+// head dim above 256 runs the chunked kernels (below). The scale is the
+// caller's, from the true D.
 //
 // The TPU kernels kept a whole (N, N) f32 logits tile in VMEM. On Hopper a
 // block has at most 227 KB of shared memory, and at N = 1024 the logits of
@@ -96,7 +97,34 @@
 // 165,376 at HC = 192 and 214,528 at HC = 256, one block a multiprocessor.
 // It is bound by shared-memory bandwidth and FMA issue (two shared loads
 // per four FMAs).
+//
+// Head dims above 256: the chunked kernels. A 64 x D bf16 accumulator is
+// past 255 registers a thread at D = 512, and Q with two K/V stages past a
+// block's 227 KB, so a head row is not held whole. A grid axis runs over
+// chunks of the output's columns (DC = 256 in bf16 and f32): the block of
+// (query tile, chunk) sums S = sum_c Q_c K_c^T over the 64-column chunks c
+// of D, which stream through a two-stage cp.async ring (attention_chunked.cuh;
+// a 64-column bf16 chunk is one 128-byte swizzle atom a row, so the
+// descriptors are the whole-row builds'), keeps the online softmax, and
+// accumulates only O[:, chunk] += P V[:, chunk], V's chunk staged beside the
+// ring. Every block of a query tile runs the same sums in the same order, so
+// their p, row max and row sum agree bit for bit with nothing exchanged;
+// chunk 0 alone writes the lse. Columns past D land as zeros and are not
+// stored; the 2-byte staging serves views that allow no 16-byte copy.
+//   * bf16 (attention_fwd_chunked_wgmma_kernel): two warpgroups, 128 query
+//     rows, sharing the ring; shared memory 2 x (16 + 8) KB of ring + 32 KB
+//     of V + 1 KB = 82,944 bytes; ptxas (CUDA 12.8): 216 registers, no spill
+//     (the O chunk is DC / 2 = 128 of them, as O at the build for 256).
+//   * f32 (attention_fwd_chunked_kernel): attention_fwd_kernel's tiling,
+//     q and k restaged a 64-column chunk at a time for every key tile;
+//     4 x (2 x 64 x 65 + 64 x 256 + 64 x 68) = 116,224 bytes, 128 registers.
+// The price is S made once per output chunk: (ceil(D / DC) + 1) / 2 of the
+// products the function needs, 1.5x at D = 512 and 2.5x at 1024. A step is
+// one barrier and four k16 products on a 24 KB fill, so the ring's latency,
+// not the tensor cores, sets the pace; P kept in shared memory instead of S
+// recomputed is the next step (ROADMAP queue B).
 
+#include "attention_chunked.cuh"
 #include "attention_common.cuh"
 #include "sm90.cuh"
 
@@ -118,7 +146,7 @@ struct AttnArgs {
   float* lse;    // K1 only, may be null: the row log-sum-exp, f32 (batch, heads, n)
   View qs, ks, vs, os;
   int n;         // tokens
-  int d;         // head dim in device memory, <= HC
+  int d;         // head dim in device memory: <= HC, or any above 256 (chunked)
   float scale;   // d^-0.5
   int vec16;     // bf16: q, k, v bases and strides are multiples of 16 bytes
   int out_vec2;  // bf16: the output's base and strides allow 4-byte stores
@@ -467,6 +495,310 @@ cudaError_t launch_bf16(const AttnArgs& a, int batch, int heads, cudaStream_t st
   return cudaGetLastError();
 }
 
+// ------------------------------------------ head dims above 256: D in chunks
+
+// Output columns a block (a chunk of D), both types: the bf16 accumulator of
+// a 64 x DC chunk is DC / 2 registers a thread, as O is at the build for 256.
+constexpr int kChunk = 256;
+
+template <int DC>
+struct ChunkedTile {
+  static constexpr int kRing = chunked::Ring<kBlockRows>::kBytes;  // Q and K chunks
+  static constexpr int kVBytes = kWgBN * DC * 2;                   // V's chunk of columns
+  static constexpr size_t kSmem = kRing + kVBytes + 1024;
+};
+
+// bf16 at D > 256: the block of (query tile, column chunk) sums S over
+// 64-column chunks of Q and K (chunked::contract) and accumulates only its DC
+// columns of O; the softmax, the rounding of p and the tile order are those
+// of attention_fwd_wgmma_kernel. Chunk 0 writes the lse.
+template <int DC>
+__global__ void __launch_bounds__(kBlockThreads)
+attention_fwd_chunked_wgmma_kernel(const AttnArgs a) {
+  using Tile = ChunkedTile<DC>;
+  constexpr int kCB = DC / 64;
+  constexpr uint32_t kSbo = 8 * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = ring + Tile::kRing;
+
+  const int n = a.n, dv = a.d;
+  const int chunks = (dv + DC - 1) / DC;
+  const int q0 = (blockIdx.x / chunks) * kBlockRows;
+  const int d0 = (blockIdx.x % chunks) * DC;  // this block's output columns d0 to d0 + DC - 1
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads;  // owns query rows q0 + 64 wg to q0 + 64 wg + 63
+  const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
+  const bool vec = a.vec16 != 0;
+
+  using bf16 = __nv_bfloat16;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + head * a.qs.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + head * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + head * a.vs.h;
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.os.b + head * a.os.h;
+
+  float o[kCB][32];
+#pragma unroll
+  for (int c = 0; c < kCB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  const int col_lane = 2 * (lane % 4);
+
+  int step = 0;
+  const int tiles = (n + kWgBN - 1) / kWgBN;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kWgBN;
+    float s[kWgBN / 2];
+    chunked::contract<kBlockRows, kBlockThreads>(
+        s, ring, step, qb, a.qs.n, q0, kb, a.ks.n, k0, n, dv, vec, tid, wg, [&] {
+          sm90::stage_tile<kWgBN, DC, kBlockThreads>(v_s, vb + d0, a.vs.n, k0, n, dv - d0, vec,
+                                                     tid);
+        });
+
+    // the online softmax of attention_fwd_wgmma_kernel
+    const bool ragged = k0 + kWgBN > n;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (ragged && k0 + 8 * j + col_lane + (e % 2) >= n) s[4 * j + e] = kMasked;
+        mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+      }
+    float corr[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = sm90::ex2((m[i] - mx[i]) * scale_log2);
+      m[i] = mx[i];
+      ms[i] = mx[i] * scale_log2;
+    }
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = sm90::ex2(fmaf(s[4 * j + e], scale_log2, -ms[e / 2]));
+        rs[e / 2] += p;
+        s[4 * j + e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * corr[i] + rs[i];
+    }
+    uint32_t p[kWgBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWgBN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i % 4) / 2];
+      sm90::fence_regs(o[c]);
+    }
+
+    // O += P V over this block's DC columns of V, staged by the contraction
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kCB; ++c) {
+        const uint64_t db = sm90::sw128_desc(v_s + c * kWgBN * 128 + kk * 16 * 128,
+                                             kWgBN * 128, kSbo);
+        sm90::wgmma_rs_m64n64k16<1>(o[c], p[kk], db, 1);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kCB; ++c) sm90::fence_regs(o[c]);
+  }
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const int g = q0 + kBM * wg + 16 * warp + lane / 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = g + 8 * half;
+    if (row >= n) continue;
+    if (a.lse != nullptr && d0 == 0 && lane % 4 == 0)
+      a.lse[((size_t)b * gridDim.y + head) * n + row] = m[half] * a.scale + logf(l[half]);
+    bf16* dst = ob + (long long)row * a.os.n;
+#pragma unroll
+    for (int c = 0; c < kCB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = d0 + 64 * c + 8 * j + col_lane;
+        const float v0 = o[c][4 * j + 2 * half] * inv[half];
+        const float v1 = o[c][4 * j + 2 * half + 1] * inv[half];
+        if (a.out_vec2 && col + 1 < dv) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < dv) dst[col] = __float2bfloat16(v0);
+          if (col + 1 < dv) dst[col + 1] = __float2bfloat16(v1);
+        }
+      }
+  }
+}
+
+template <int DC>
+constexpr size_t chunked_smem_bytes() {
+  constexpr int kS = chunked::kCols + 1;
+  return sizeof(float) * (size_t)(kBM * kS + kBN * kS + kBN * DC + kBM * kPStride);
+}
+
+// f32 at D > 256: attention_fwd_kernel with S summed over 64-column chunks of
+// q and k (restaged for every key tile) and O accumulated over the block's DC
+// columns of v only. Chunk 0 writes the lse.
+template <int DC>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_chunked_kernel(const AttnArgs a) {
+  constexpr int kS = chunked::kCols + 1;  // padded row stride of the q and k chunks
+  constexpr int kOC = DC / 16;            // output columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;               // kBM x kS
+  float* ks = qs + kBM * kS;      // kBN x kS
+  float* vs = ks + kBN * kS;      // kBN x DC
+  float* ps = vs + kBN * DC;      // kBM x kPStride
+
+  const int n = a.n, dv = a.d;
+  const int chunks = (dv + DC - 1) / DC;
+  const int q0 = (blockIdx.x / chunks) * kBM;
+  const int d0 = (blockIdx.x % chunks) * DC;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const float scale = a.scale;
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.qs.b + head * a.qs.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + head * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + head * a.vs.h;
+  float* ob = static_cast<float*>(a.o) + b * a.os.b + head * a.os.h;
+  const long long q_n = a.qs.n, k_n = a.ks.n, v_n = a.vs.n, o_n = a.os.n;
+  const int warp = tid / 32, lane = tid % 32;
+
+  float o[kTR][kOC];
+  float m[kTR], l[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) o[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < n; k0 += kBN) {
+    float s[kTR][kTC];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < dv; c0 += chunked::kCols) {
+      // the previous chunk's readers (and the previous tile's, of vs and ps)
+      // are done
+      __syncthreads();
+      for (int r = warp; r < kBM; r += kThreads / 32) {
+        const int qrow = q0 + r, krow = k0 + r;
+        const float* qsrc = qb + qrow * q_n + c0;
+        const float* ksrc = kb + krow * k_n + c0;
+#pragma unroll
+        for (int d = lane; d < chunked::kCols; d += 32) {
+          qs[r * kS + d] = (qrow < n && c0 + d < dv) ? qsrc[d] : 0.f;
+          ks[r * kS + d] = (krow < n && c0 + d < dv) ? ksrc[d] : 0.f;
+        }
+        if (c0 == 0) {
+          const float* vsrc = vb + krow * v_n + d0;
+#pragma unroll
+          for (int d = lane; d < DC; d += 32)
+            vs[r * DC + d] = (krow < n && d0 + d < dv) ? vsrc[d] : 0.f;
+        }
+      }
+      __syncthreads();
+      tile_dot_nt_add(qs, ks, ty, tx, s);
+    }
+
+    // the online softmax of attention_fwd_kernel
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        s[i][j] = (k0 + tx + 16 * j < n) ? s[i][j] * scale : kMasked;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rs += p;
+        ps[(ty * kTR + i) * kPStride + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr + row_sum16(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kOC; ++j) o[i][j] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int k = 0; k < kBN; ++k) {
+      float pv[kTR], vv[kOC];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) pv[i] = ps[(ty * kTR + i) * kPStride + k];
+#pragma unroll
+      for (int j = 0; j < kOC; ++j) vv[j] = vs[k * DC + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kOC; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int row = q0 + ty * kTR + i;
+    if (row >= n) continue;
+    if (a.lse != nullptr && d0 == 0 && tx == 0)
+      a.lse[((size_t)b * gridDim.y + head) * n + row] = m[i] + logf(l[i]);
+    const float inv = 1.f / l[i];
+    float* dst = ob + row * o_n;
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) {
+      const int d = d0 + tx + 16 * j;
+      if (d < dv) dst[d] = o[i][j] * inv;
+    }
+  }
+}
+
+// a grid axis over the DC-column chunks of D: x = query tile * chunks + chunk
+template <bool kBf16>
+cudaError_t launch_chunked(const AttnArgs& a, int batch, int heads, cudaStream_t stream) {
+  constexpr int kDC = kChunk;
+  constexpr int kRows = kBf16 ? kBlockRows : kBM;
+  constexpr size_t smem = kBf16 ? ChunkedTile<kDC>::kSmem : chunked_smem_bytes<kDC>();
+  static_assert(smem <= 232448, "over a block's shared memory");
+  void (*kernel)(const AttnArgs);
+  if constexpr (kBf16) kernel = attention_fwd_chunked_wgmma_kernel<kDC>;
+  else kernel = attention_fwd_chunked_kernel<kDC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (a.d + kDC - 1) / kDC;
+  dim3 grid(((a.n + kRows - 1) / kRows) * chunks, heads, batch);
+  kernel<<<grid, kBf16 ? kBlockThreads : kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- dispatch
 
 bool multiple_of(long long v, long long m) { return v % m == 0; }
@@ -490,8 +822,8 @@ cudaError_t launch(const AttnArgs& a, int batch, int heads, cudaStream_t s) {
   else return launch_f32<HC>(a, batch, heads, s);
 }
 
-// the kernel built for the smallest head dim that holds a.d: f32 on the
-// CUDA cores, bf16 on the tensor cores
+// the kernel built for the smallest head dim that holds a.d, or above 256 the
+// chunked one: f32 on the CUDA cores, bf16 on the tensor cores
 template <bool kBf16>
 cudaError_t dispatch_head_dim(const AttnArgs& a, int batch, int heads, cudaStream_t s) {
   if (a.d <= 0) return cudaErrorInvalidValue;
@@ -500,7 +832,7 @@ cudaError_t dispatch_head_dim(const AttnArgs& a, int batch, int heads, cudaStrea
   if (a.d <= 128) return launch<kBf16, 128>(a, batch, heads, s);
   if (a.d <= 192) return launch<kBf16, 192>(a, batch, heads, s);
   if (a.d <= 256) return launch<kBf16, 256>(a, batch, heads, s);
-  return cudaErrorInvalidValue;
+  return launch_chunked<kBf16>(a, batch, heads, s);
 }
 
 // dtype: 0 = float32, 1 = bfloat16

@@ -87,7 +87,35 @@
 // and in bf16 rows that allow 16-byte copies) folds D to the constant HC,
 // as the kernels were before other head dims ran, and the other reads D at
 // run time and masks its loads and stores.
+//
+// Head dims above 256: the chunked kernels, with K1's chunked schedule
+// (attention.cu, attention_chunked.cuh). A grid axis runs over chunks of the
+// output's columns; every contraction over D (S and dP, or S^T and dP^T) is
+// summed over 64-column chunks streamed through a two-stage ring, and a block
+// accumulates only its chunk of dQ, dK or dV. No atomics, the same rounding
+// points, and every block of a tile makes the same sums in the same order.
+//   * dq (bf16 attention_bwd_dq_chunked_wgmma_kernel, one warpgroup a 64-row
+//     query tile and chunk): S over the chunks, packed to p, then dP (never
+//     live together), delta = rowsum(g o) over the whole row from device
+//     memory by every block (chunk 0 writes it for the dk/dv kernel), dQ's
+//     DC = 256 columns += dS K[:, chunk]. 244 registers, no spill.
+//   * dk/dv (bf16 attention_bwd_dkv_chunked_wgmma_kernel): x = (key tile,
+//     chunk, dV or dK). A dV block makes S^T and dV[:, chunk] += P^T
+//     G[:, chunk]; a dK block also dP^T and dK[:, chunk] += dS^T Q[:, chunk].
+//     The query tile's lse and delta are staged with its B operand. 240
+//     registers, no spill. Both: 2 x 16 KB of ring + 32 KB + 512 + 1024 =
+//     67,072 bytes.
+//   * f32 (attention_bwd_dq_chunked_kernel, attention_bwd_dkv_chunked_kernel):
+//     the FMA kernels' 64-row tiles with the four operands restaged a chunk
+//     at a time, DC = 128 (one block makes both dK and dV: its two sums and
+//     two B operands); 116,992 and 167,936 bytes, 128 and 184 registers.
+// The price is S and dP made once per output chunk: per (query tile, key
+// tile) pair the bf16 kernels make 5 products per chunk (dQ's S and dP, dV's
+// S, dK's S and dP) and dQ, dK and dV once in all, (5 ceil(D / DC) + 3) / 5 of
+// the five the function needs: 2.6x at D = 512, 4.6x at 1024 (f32: 4 per
+// chunk).
 
+#include "attention_chunked.cuh"
 #include "attention_common.cuh"
 #include "sm90.cuh"
 
@@ -802,6 +830,524 @@ cudaError_t launch_bf16(const BwdArgs& a, int batch, int num_heads, cudaStream_t
   return cudaGetLastError();
 }
 
+// ------------------------------------------ head dims above 256: D in chunks
+
+// Output columns a block (a chunk of D): dQ, dK or dV of a 64-row tile is
+// DC / 2 registers a thread in bf16, as at the build for 256. The f32 dk/dv
+// block holds both sums and their two operand tiles, hence its narrower chunk.
+constexpr int kChunkBf16 = 256;
+constexpr int kChunkF32 = 128;
+
+template <int DC>
+struct ChunkedBwdTile {
+  static constexpr int kRing = chunked::Ring<64>::kBytes;  // the contractions' chunks
+  static constexpr int kOutBytes = 64 * DC * 2;            // the output product's B operand
+  // the ring, the B operand, 64 lse and 64 delta values (dk/dv), alignment
+  static constexpr size_t kSmem = kRing + kOutBytes + 128 * 4 + 1024;
+  static_assert(kSmem <= 232448, "over a block's shared memory");
+};
+
+// bf16 dq at D > 256: one warpgroup a block of (query tile, dQ column chunk).
+// S = Q K^T and then dP = G V^T are summed over 64-column chunks of D
+// (chunked::contract; S is packed to p before dP is made, so the two are
+// never live together), delta = rowsum(g o) over the whole head row from
+// device memory by every block (chunk 0 writes it for the dk/dv kernel), and
+// dQ's DC columns accumulate dS K[:, chunk]. Rounding as the dq kernel above.
+template <int DC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_bwd_dq_chunked_wgmma_kernel(const BwdArgs a) {
+  using P = ChunkedBwdTile<DC>;
+  constexpr int kCB = DC / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t out_s = ring + P::kRing;
+
+  const int n = a.n, c = a.c, c3 = 3 * c, dv = a.d;
+  const int chunks = (dv + DC - 1) / DC;
+  const int q0 = (blockIdx.x / chunks) * 64;
+  const int d0 = (blockIdx.x % chunks) * DC;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const bool vec = a.vec16;
+  const QkvOffsets off = qkv_offsets(head, dv, c, a.split_first);
+  const bf16* base = a.qkv + (size_t)b * n * c3;
+  const bf16* gb = a.g + (size_t)b * n * c + head * dv;
+  const bf16* ob = a.o + (size_t)b * n * c + head * dv;
+  const size_t stat = ((size_t)b * gridDim.y + head) * n;
+
+  // this thread's rows r0 and r0 + 8: their lse in log2 units and delta
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int col_lane = 2 * (lane % 4);
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    float acc = 0.f;
+    if (row < n) {
+      const bf16* gr = gb + (size_t)row * c;
+      const bf16* orow = ob + (size_t)row * c;
+      for (int d = col_lane; d < dv; d += 8) {
+        const float g1 = d + 1 < dv ? __bfloat162float(gr[d + 1]) : 0.f;
+        const float o1 = d + 1 < dv ? __bfloat162float(orow[d + 1]) : 0.f;
+        acc = fmaf(__bfloat162float(gr[d]), __bfloat162float(orow[d]), fmaf(g1, o1, acc));
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[half] = acc;
+    lse2[half] = row < n ? a.lse[stat + row] * kLog2e : 0.f;
+    if (d0 == 0 && lane % 4 == 0 && row < n) a.delta[stat + row] = acc;
+  }
+
+  float dq[kCB][32];
+#pragma unroll
+  for (int cb = 0; cb < kCB; ++cb) zero(dq[cb]);
+
+  int step = 0;
+  const int tiles = (n + 63) / 64;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * 64;
+    float s[32];
+    chunked::contract<64, kWgThreads>(
+        s, ring, step, base + off.q, c3, q0, base + off.k, c3, k0, n, dv, vec, tid, 0, [&] {
+          sm90::stage_tile<64, DC, kWgThreads>(out_s, base + off.k + d0, c3, k0, n, dv - d0, vec,
+                                               tid);
+        });
+    // p = exp(scale s - lse), keys past n at 0, rounded to bf16 in pairs
+    const bool ragged = k0 + 64 > n;
+    uint32_t pk[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, key = k0 + 16 * kk + 8 * (r / 2) + col_lane;
+        float p0 = sm90::ex2(fmaf(s[i], scale_log2, -lse2[r % 2]));
+        float p1 = sm90::ex2(fmaf(s[i + 1], scale_log2, -lse2[r % 2]));
+        if (ragged) {
+          if (key >= n) p0 = 0.f;
+          if (key + 1 >= n) p1 = 0.f;
+        }
+        pk[kk][r] = sm90::pack_bf16x2(p0, p1);
+      }
+    float dp[32];
+    chunked::contract<64, kWgThreads>(dp, ring, step, gb, c, q0, base + off.v, c3, k0, n, dv,
+                                      vec, tid, 0, [] {});
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float d = dlt[r % 2];
+        ds[kk][r] = sm90::pack_bf16x2(sm90::bf16_lo(pk[kk][r]) * (dp[i] - d) * scale,
+                                      sm90::bf16_hi(pk[kk][r]) * (dp[i + 1] - d) * scale);
+      }
+    fence_all(dq);
+    sm90::wgmma_fence();
+    product_rs(dq, ds, out_s);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(dq);
+  }
+
+  store_rows(a.dqkv + (size_t)b * n * c3 + off.q + d0, c3, r0, n, dv - d0, dq, col_lane);
+}
+
+// bf16 dk/dv at D > 256: one warpgroup a block of (key tile, dV or dK, column
+// chunk). S^T = K Q^T (and for dK dP^T = V G^T) summed over 64-column chunks
+// of D, then dV's DC columns accumulate P^T G[:, chunk], or dK's dS^T
+// Q[:, chunk]. The query tile's lse and delta are staged with its B operand.
+template <int DC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_bwd_dkv_chunked_wgmma_kernel(const BwdArgs a) {
+  using P = ChunkedBwdTile<DC>;
+  constexpr int kCB = DC / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t out_s = ring + P::kRing;
+  // lse * log2(e) of the query tile's 64 rows, then their delta
+  float* stats = reinterpret_cast<float*>(smem_raw + (out_s + P::kOutBytes - raw));
+
+  const int n = a.n, c = a.c, c3 = 3 * c, hd = a.d;
+  const int chunks = (hd + DC - 1) / DC;
+  const bool is_dk = blockIdx.x & 1;
+  const int k0 = (blockIdx.x / 2 / chunks) * 64;
+  const int d0 = (blockIdx.x / 2 % chunks) * DC;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const bool vec = a.vec16;
+  const QkvOffsets off = qkv_offsets(head, hd, c, a.split_first);
+  const bf16* base = a.qkv + (size_t)b * n * c3;
+  const bf16* gb = a.g + (size_t)b * n * c + head * hd;
+  const size_t stat = ((size_t)b * gridDim.y + head) * n;
+  const int col_lane = 2 * (lane % 4);
+  const float scale = a.scale, scale_log2 = scale * kLog2e;
+  // the B operand of this block's product: G's chunk for dV, Q's for dK
+  const bf16* out_src = is_dk ? base + off.q + d0 : gb + d0;
+  const long long out_ld = is_dk ? c3 : c;
+
+  float acc[kCB][32];
+#pragma unroll
+  for (int cb = 0; cb < kCB; ++cb) zero(acc[cb]);
+
+  int step = 0;
+  const int tiles = (n + 63) / 64;
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = t * 64;
+    float s[32];
+    chunked::contract<64, kWgThreads>(
+        s, ring, step, base + off.k, c3, k0, base + off.q, c3, q0, n, hd, vec, tid, 0, [&] {
+          sm90::stage_tile<64, DC, kWgThreads>(out_s, out_src, out_ld, q0, n, hd - d0, vec, tid);
+          // rows past n get lse = inf, so p = 0
+          for (int i = tid; i < 128; i += kWgThreads) {
+            const int row = q0 + i % 64;
+            float v;
+            if (i < 64) v = row < n ? a.lse[stat + row] * kLog2e : __int_as_float(0x7f800000);
+            else v = row < n ? a.delta[stat + row] : 0.f;
+            stats[i] = v;
+          }
+        });
+    // p^T = exp(scale s - lse[query]), rounded to bf16 in pairs
+    uint32_t pk[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, col = 16 * kk + 8 * (r / 2) + col_lane;
+        const float2 l2 = *reinterpret_cast<const float2*>(stats + col);
+        pk[kk][r] = sm90::pack_bf16x2(sm90::ex2(fmaf(s[i], scale_log2, -l2.x)),
+                                      sm90::ex2(fmaf(s[i + 1], scale_log2, -l2.y)));
+      }
+    if (is_dk) {
+      float dp[32];
+      chunked::contract<64, kWgThreads>(dp, ring, step, base + off.v, c3, k0, gb, c, q0, n, hd,
+                                        vec, tid, 0, [] {});
+      // ds^T = p^T (dp^T - delta[query]) scale, rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r, col = 16 * kk + 8 * (r / 2) + col_lane;
+          const float2 d2 = *reinterpret_cast<const float2*>(stats + 64 + col);
+          pk[kk][r] = sm90::pack_bf16x2(sm90::bf16_lo(pk[kk][r]) * (dp[i] - d2.x) * scale,
+                                        sm90::bf16_hi(pk[kk][r]) * (dp[i + 1] - d2.y) * scale);
+        }
+    }
+    fence_all(acc);
+    sm90::wgmma_fence();
+    product_rs(acc, pk, out_s);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+  }
+
+  const int r0 = k0 + 16 * warp + lane / 4;
+  bf16* dst = a.dqkv + (size_t)b * n * c3 + (is_dk ? off.k : off.v) + d0;
+  store_rows(dst, c3, r0, n, hd - d0, acc, col_lane);
+}
+
+template <int DC>
+constexpr size_t chunked_dq_smem_bytes() {
+  constexpr int kS = chunked::kCols + 1;
+  return sizeof(float) * (size_t)(4 * 64 * kS + 64 * kPStride + 64 * (DC + 1));
+}
+
+template <int DC>
+constexpr size_t chunked_dkv_smem_bytes() {
+  constexpr int kS = chunked::kCols + 1;
+  return sizeof(float) *
+         (size_t)(4 * 64 * kS + 2 * 64 * kPStride + 2 * 64 * (DC + 1) + 2 * 64);
+}
+
+// f32 dq at D > 256: attention_bwd_dq_kernel with 64-row tiles, S and dP
+// summed over 64-column chunks of q, k, g and v (restaged for every key
+// tile), delta from device memory, and dq's DC columns from k's chunk.
+template <int DC>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_chunked_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
+                                const float* __restrict__ o, const float* __restrict__ lse,
+                                float* __restrict__ dqkv, float* __restrict__ delta, int n, int c,
+                                int dv, int split_first, float scale) {
+  constexpr int kS = chunked::kCols + 1;
+  constexpr int kOC = DC / 16;  // dq columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;             // 64 x kS: the chunks of the contractions
+  float* gs = qs + 64 * kS;
+  float* ks = gs + 64 * kS;
+  float* vs = ks + 64 * kS;
+  float* dss = vs + 64 * kS;    // 64 x kPStride
+  float* kout = dss + 64 * kPStride;  // 64 x (DC + 1): k's columns d0 to d0 + DC - 1
+
+  const int chunks = (dv + DC - 1) / DC;
+  const int q0 = (blockIdx.x / chunks) * 64;
+  const int d0 = (blockIdx.x % chunks) * DC;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int c3 = 3 * c;
+  const QkvOffsets off = qkv_offsets(head, dv, c, split_first);
+  const float* base = qkv + (size_t)b * n * c3;
+  const float* gbase = g + (size_t)b * n * c + head * dv;
+  const float* obase = o + (size_t)b * n * c + head * dv;
+  const size_t stat_base = ((size_t)b * gridDim.y + head) * n;
+
+  // the log-sum-exp of this thread's rows, and delta = rowsum(g * o) over
+  // the whole head row from device memory
+  float row_lse[kTR], row_delta[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int row = q0 + ty * kTR + i;
+    row_lse[i] = row < n ? lse[stat_base + row] : 0.f;
+    float acc = 0.f;
+    if (row < n)
+      for (int d = tx; d < dv; d += 16)
+        acc = fmaf(gbase[(size_t)row * c + d], obase[(size_t)row * c + d], acc);
+    row_delta[i] = row_sum16(acc);
+    if (d0 == 0 && tx == 0 && row < n) delta[stat_base + row] = row_delta[i];
+  }
+
+  float dq[kTR][kOC];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) dq[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < n; k0 += kBN) {
+    float s[kTR][kTC], dp[kTR][kTC];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < dv; c0 += chunked::kCols) {
+      __syncthreads();  // the previous chunk's (and tile's) readers are done
+      load_tile<chunked::kCols>(qs, base + off.q + c0, c3, q0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(gs, gbase + c0, c, q0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(ks, base + off.k + c0, c3, k0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(vs, base + off.v + c0, c3, k0, n, dv - c0, tid);
+      if (c0 == 0) load_tile<DC>(kout, base + off.k + d0, c3, k0, n, dv - d0, tid);
+      __syncthreads();
+      tile_dot_nt_add(qs, ks, ty, tx, s);
+      tile_dot_nt_add(gs, vs, ty, tx, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        const bool valid = k0 + tx + 16 * j < n;
+        const float p = valid ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        dss[(ty * kTR + i) * kPStride + tx + 16 * j] = p * (dp[i][j] - row_delta[i]) * scale;
+      }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < kBN; ++k) {
+      float dsv[kTR], kv[kOC];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) dsv[i] = dss[(ty * kTR + i) * kPStride + k];
+#pragma unroll
+      for (int j = 0; j < kOC; ++j) kv[j] = kout[k * (DC + 1) + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kOC; ++j) dq[i][j] = fmaf(dsv[i], kv[j], dq[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int row = q0 + ty * kTR + i;
+    if (row >= n) continue;
+    float* dst = dqkv + ((size_t)b * n + row) * c3 + off.q;
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) {
+      const int d = d0 + tx + 16 * j;
+      if (d < dv) dst[d] = dq[i][j];
+    }
+  }
+}
+
+// f32 dk/dv at D > 256: attention_bwd_dkv_kernel with 64-key tiles, S and dP
+// summed over 64-column chunks, dk's and dv's DC columns from q's and g's
+// chunks.
+template <int DC>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkv_chunked_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 float* __restrict__ dqkv, int n, int c, int dv, int split_first,
+                                 float scale) {
+  constexpr int kS = chunked::kCols + 1;
+  constexpr int kO = DC + 1;    // row stride of the q and g column chunks
+  constexpr int kOC = DC / 16;  // dk and dv columns per thread
+  constexpr int KR = kBN / 16;  // keys per thread in dk and dv: ty * KR + i
+  extern __shared__ float smem[];
+  float* ks = smem;                  // 64 x kS each: the chunks of the contractions
+  float* vs = ks + 64 * kS;
+  float* qs = vs + 64 * kS;
+  float* gs = qs + 64 * kS;
+  float* ps = gs + 64 * kS;          // kBM x kPStride
+  float* dss = ps + kBM * kPStride;  // kBM x kPStride
+  float* qout = dss + kBM * kPStride;  // kBM x kO: q's columns d0 to d0 + DC - 1
+  float* gout = qout + kBM * kO;       // kBM x kO: g's
+  float* lse_s = gout + kBM * kO;      // kBM
+  float* delta_s = lse_s + kBM;        // kBM
+
+  const int chunks = (dv + DC - 1) / DC;
+  const int k0 = (blockIdx.x / chunks) * kBN;
+  const int d0 = (blockIdx.x % chunks) * DC;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int c3 = 3 * c;
+  const QkvOffsets off = qkv_offsets(head, dv, c, split_first);
+  const float* base = qkv + (size_t)b * n * c3;
+  const float* gbase = g + (size_t)b * n * c + head * dv;
+  const size_t stat_base = ((size_t)b * gridDim.y + head) * n;
+
+  float dk[KR][kOC], dv_acc[KR][kOC];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) {
+      dk[i][j] = 0.f;
+      dv_acc[i][j] = 0.f;
+    }
+
+  for (int q0 = 0; q0 < n; q0 += kBM) {
+    // score tile: query rows ty * kTR + i, keys tx + 16 * j
+    float s[kTR][kTC], dp[kTR][kTC];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < dv; c0 += chunked::kCols) {
+      __syncthreads();  // the previous chunk's (and tile's) readers are done
+      load_tile<chunked::kCols>(ks, base + off.k + c0, c3, k0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(vs, base + off.v + c0, c3, k0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(qs, base + off.q + c0, c3, q0, n, dv - c0, tid);
+      load_tile<chunked::kCols>(gs, gbase + c0, c, q0, n, dv - c0, tid);
+      if (c0 == 0) {
+        load_tile<DC>(qout, base + off.q + d0, c3, q0, n, dv - d0, tid);
+        load_tile<DC>(gout, gbase + d0, c, q0, n, dv - d0, tid);
+        if (tid < kBM) {
+          const int row = q0 + tid;
+          lse_s[tid] = row < n ? lse[stat_base + row] : 0.f;
+          delta_s[tid] = row < n ? delta[stat_base + row] : 0.f;
+        }
+      }
+      __syncthreads();
+      tile_dot_nt_add(qs, ks, ty, tx, s);
+      tile_dot_nt_add(gs, vs, ty, tx, dp);
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      const int r = ty * kTR + i;
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) {
+        const int col = tx + 16 * j;
+        const bool valid = (q0 + r < n) && (k0 + col < n);
+        const float p = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        ps[r * kPStride + col] = p;
+        dss[r * kPStride + col] = p * (dp[i][j] - delta_s[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dv += p^T g and dk += ds^T q over the tile's query rows
+#pragma unroll 4
+    for (int r = 0; r < kBM; ++r) {
+      float pk[KR], dsk[KR], gv[kOC], qv[kOC];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        pk[i] = ps[r * kPStride + ty * KR + i];
+        dsk[i] = dss[r * kPStride + ty * KR + i];
+      }
+#pragma unroll
+      for (int j = 0; j < kOC; ++j) {
+        gv[j] = gout[r * kO + tx + 16 * j];
+        qv[j] = qout[r * kO + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int j = 0; j < kOC; ++j) {
+          dv_acc[i][j] = fmaf(pk[i], gv[j], dv_acc[i][j]);
+          dk[i][j] = fmaf(dsk[i], qv[j], dk[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const int key = k0 + ty * KR + i;
+    if (key >= n) continue;
+    float* dst = dqkv + ((size_t)b * n + key) * c3;
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) {
+      const int d = d0 + tx + 16 * j;
+      if (d >= dv) continue;
+      dst[off.k + d] = dk[i][j];
+      dst[off.v + d] = dv_acc[i][j];
+    }
+  }
+}
+
+// grid x: dq (query tile * chunks + chunk); dk/dv bf16 ((key tile * chunks +
+// chunk) * 2 + {0: dV, 1: dK}), f32 (key tile * chunks + chunk)
+cudaError_t launch_chunked_f32(const float* qkv, const float* g, const float* o,
+                               const float* lse, float* dqkv, float* delta, int batch, int n,
+                               int c, int num_heads, int dv, int split_first, float scale,
+                               cudaStream_t stream) {
+  constexpr int kDC = kChunkF32;
+  auto dq_kernel = attention_bwd_dq_chunked_kernel<kDC>;
+  auto dkv_kernel = attention_bwd_dkv_chunked_kernel<kDC>;
+  constexpr size_t dq_smem = chunked_dq_smem_bytes<kDC>();
+  constexpr size_t dkv_smem = chunked_dkv_smem_bytes<kDC>();
+  static_assert(dq_smem <= 232448 && dkv_smem <= 232448, "over a block's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (dv + kDC - 1) / kDC;
+  dim3 grid((n + 63) / 64 * chunks, num_heads, batch);
+  dq_kernel<<<grid, kThreads, dq_smem, stream>>>(qkv, g, o, lse, dqkv, delta, n, c, dv,
+                                                 split_first, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<grid, kThreads, dkv_smem, stream>>>(qkv, g, lse, delta, dqkv, n, c, dv,
+                                                   split_first, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_chunked_bf16(const BwdArgs& a, int batch, int num_heads, cudaStream_t stream) {
+  constexpr int kDC = kChunkBf16;
+  using P = ChunkedBwdTile<kDC>;
+  auto dq_kernel = attention_bwd_dq_chunked_wgmma_kernel<kDC>;
+  auto dkv_kernel = attention_bwd_dkv_chunked_wgmma_kernel<kDC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.n + 63) / 64, chunks = (a.d + kDC - 1) / kDC;
+  dq_kernel<<<dim3(tiles * chunks, num_heads, batch), kWgThreads, P::kSmem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<dim3(tiles * chunks * 2, num_heads, batch), kWgThreads, P::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -815,14 +1361,14 @@ extern "C" {
 // n) row log-sum-exp K1 wrote (natural log), delta f32 (batch, num_heads, n)
 // scratch; all contiguous on the current device, and for bf16 dqkv on 4
 // bytes. A head dim c / num_heads up to 256 runs on the build for the next
-// of 32, 64, 128, 192 and 256 up. Returns the CUDA error code of the
-// launches (0 on success).
+// of 32, 64, 128, 192 and 256 up, a larger one on the chunked kernels.
+// Returns the CUDA error code of the launches (0 on success).
 int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o,
                                    const void* lse, void* dqkv, void* delta, int batch, int n,
                                    int c, int num_heads, int split_first, int dtype, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0 || c / num_heads > 256)
+  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0)
     return (int)cudaErrorInvalidValue;
   const int hd = c / num_heads;
   const float* lse_f = static_cast<const float*>(lse);
@@ -841,8 +1387,10 @@ int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o
     if (hd <= 64) ND_LAUNCH(64);
     if (hd <= 128) ND_LAUNCH(128);
     if (hd <= 192) ND_LAUNCH(192);
-    ND_LAUNCH(256);
+    if (hd <= 256) ND_LAUNCH(256);
 #undef ND_LAUNCH
+    return (int)launch_chunked_f32(q, gf, of, lse_f, d, delta_f, batch, n, c, num_heads, hd,
+                                   split_first, scale, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (!aligned(dqkv, 4)) return (int)cudaErrorInvalidValue;
@@ -860,8 +1408,9 @@ int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o
   if (hd <= 64) ND_LAUNCH(64);
   if (hd <= 128) ND_LAUNCH(128);
   if (hd <= 192) ND_LAUNCH(192);
-  ND_LAUNCH(256);
+  if (hd <= 256) ND_LAUNCH(256);
 #undef ND_LAUNCH
+  return (int)launch_chunked_bf16(a, batch, num_heads, s);
 }
 
 const char* nd_cuda_error_string(int err) {

@@ -85,4 +85,25 @@ __device__ __forceinline__ void tile_dot_nt(const float* a, const float* b, int 
   }
 }
 
+// tile_dot_nt without the zeroing: s[i][j] += the products of one 64-column
+// chunk (row stride 65) of a head row, for the head dims above 256, whose
+// sums run over several chunks
+template <int TR = kTR, int TC = kTC>
+__device__ __forceinline__ void tile_dot_nt_add(const float* a, const float* b, int ty, int tx,
+                                                float (&s)[TR][TC]) {
+  constexpr int kS = 64 + 1;
+#pragma unroll 8
+  for (int d = 0; d < 64; ++d) {
+    float av[TR], bv[TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) av[i] = a[(ty * TR + i) * kS + d];
+#pragma unroll
+    for (int j = 0; j < TC; ++j) bv[j] = b[(tx + 16 * j) * kS + d];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
 }  // namespace nd

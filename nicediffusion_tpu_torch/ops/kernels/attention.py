@@ -24,12 +24,17 @@ The row log-sum-exp. Called for a gradient, K1 also writes the f32
 (B, H, N) log-sum-exp of each row's scaled logits, and K2 takes it: K2 then
 recomputes p = exp(logits - lse) without a pass of its own over the keys.
 
-Head dims. K1, K2 and K5 take any head dim D up to 256
-(:func:`head_dim_build`): the kernel built for the next of 32, 64, 128, 192
-and 256 up zero-fills the columns of q, k and v (and K2's g and o) past D as
-they land in shared memory and stores no column past D; the scale stays
-D^-1/2. A head dim above 256 needs another schedule (S summed over chunks
-of D, the output written in chunks: ROADMAP queue C) and raises.
+Head dims. K1, K2 and K5 take any head dim D (:func:`head_dim_build`). Up
+to 256 the kernel built for the next of 32, 64, 128, 192 and 256 up holds a
+whole head row in one tile: it zero-fills the columns of q, k and v (and K2's
+g and o) past D as they land in shared memory and stores no column past D;
+the scale stays D^-1/2. Above 256 a row no longer fits a tile, and the
+chunked kernels run: a grid axis over chunks of the output's columns (256 in
+bf16; f32 256 forward, 128 backward), each block summing the logits (and
+K2's dP) over 64-column chunks of D that stream through a two-stage ring and
+accumulating only its own chunk of the output. The blocks of one row tile
+repeat the same sums in the same order, so they agree on p bit for bit; the
+price is the logits made once per output chunk.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
 (:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
@@ -52,6 +57,7 @@ import torch
 from . import _build
 
 __all__ = [
+    "CHUNKED",
     "SUPPORTED_HEAD_DIMS",
     "head_dim_build",
     "mha_attention",
@@ -63,20 +69,21 @@ __all__ = [
     "fused_qkv_attention_bwd_plain",
 ]
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # the builds; a head dim runs on the next one up
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 192, 256)  # whole-row builds; a head dim runs on the next one up
+CHUNKED = "chunked"  # the build for head dims above 256: D in chunks
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def head_dim_build(d: int) -> int:
+def head_dim_build(d: int) -> int | str:
     """The build a head dim ``d`` runs on: the smallest of
-    :data:`SUPPORTED_HEAD_DIMS` that holds it (24 -> 32, 96 -> 128). Raises
-    ``NotImplementedError`` above 256."""
+    :data:`SUPPORTED_HEAD_DIMS` that holds it (24 -> 32, 96 -> 128), or
+    :data:`CHUNKED` above 256. Raises ``ValueError`` below 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d}: K1, K2 and K5 take head dims of 1 and up")
     for build in SUPPORTED_HEAD_DIMS:
         if d <= build:
             return build
-    raise NotImplementedError(
-        f"head dim {d}: K1, K2 and K5 take head dims up to {SUPPORTED_HEAD_DIMS[-1]}, a whole "
-        f"head row in one tile (ROADMAP queue C, 'K1/K2 at head dims above 256')")
+    return CHUNKED
 
 
 def split_qkv(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool):
@@ -385,8 +392,8 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a contiguous (B, H, N, D).
 
     The three may have any batch, head and row strides (views of a fused
-    projection, say) as long as the last axis is contiguous; D is any value
-    up to 256. CPU tensors take the plain version; CUDA tensors launch K5 on
+    projection, say) as long as the last axis is contiguous; D is any value.
+    CPU tensors take the plain version; CUDA tensors launch K5 on
     the current stream. ``mha_attention.launches`` counts the launches. No
     autograd: the JAX function it replaces has no VJP either. ``out``, a
     contiguous tensor like q, is written in place of a fresh ``torch.empty``.

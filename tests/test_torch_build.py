@@ -107,6 +107,31 @@ def test_build_report_names_k2s_exact_and_masked_instances():
                                "blocks): Used")
 
 
+def test_build_report_names_and_gates_the_chunked_attention_kernels():
+    """The kernels for head dims above 256 (a block per chunk of the
+    output's columns) are named with their chunk, their tensor-core
+    instances gated for spills like any wgmma instance."""
+    from chip_smoke import build_report
+
+    def chunked(kernel, spill_bytes):
+        mangled = f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelILi256EEEvNS_7BwdArgsE"
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"    0 bytes stack frame, {spill_bytes} bytes spill stores, 0 bytes spill loads\n"
+                "ptxas info    : Used 200 registers, used 1 barriers\n")
+
+    lines = build_report("attention_bwd", chunked("attention_bwd_dq_chunked_wgmma", 0)
+                         + chunked("attention_bwd_dkv_chunked_wgmma", 0)
+                         + chunked("attention_bwd_dq_chunked", 0))
+    assert [line.split(":")[0] for line in lines] == [
+        "attention_bwd_dq_chunked_wgmma bf16 chunk=256",
+        "attention_bwd_dkv_chunked_wgmma bf16 chunk=256 (dV and dK in separate blocks)",
+        "attention_bwd_dq_chunked f32 chunk=256"]
+    lines = build_report("attention", chunked("attention_fwd_chunked_wgmma", 0))
+    assert lines[0].startswith("attention_fwd_chunked_wgmma bf16 chunk=256: Used 200")
+    with pytest.raises(AssertionError, match="attention_fwd_chunked_wgmma bf16 chunk=256 spills"):
+        build_report("attention", chunked("attention_fwd_chunked_wgmma", 8))
+
+
 @pytest.mark.parametrize("log,match", [
     (_ptxas("gn_silu_conv3x3_wgmma", 16), "spills"),  # sums in local memory
     (_ptxas("gn_silu_conv3x3", 0) + _ptxas("group_stats", 0), "names no wgmma"),

@@ -158,11 +158,16 @@ def test_models_hand_their_kernels_flag_to_every_conv(which, cfg, kernels):
 
 
 @pytest.mark.parametrize("d,build", [(24, 32), (32, 32), (48, 64), (96, 128), (100, 128),
-                                     (160, 192), (200, 256), (256, 256)])
+                                     (160, 192), (200, 256), (256, 256), (257, k1.CHUNKED),
+                                     (512, k1.CHUNKED), (1024, k1.CHUNKED)])
 def test_head_dim_rounds_up_to_a_build(d, build):
     assert k1.head_dim_build(d) == build
 
 
 def test_head_dim_over_256_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="head dim 257.*queue C"):
-        k1.head_dim_build(257)
+    """A head dim over 256 raises no more: it runs on the chunked build, at
+    any width. Only a head dim under 1 raises."""
+    for d in (257, 300, 768, 4096):
+        assert k1.head_dim_build(d) == k1.CHUNKED
+    with pytest.raises(ValueError, match="head dim 0"):
+        k1.head_dim_build(0)

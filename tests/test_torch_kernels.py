@@ -7,7 +7,8 @@ tensor cores in s8 (its s32 sums bit-equal to the plain version's), the bf16
 conv on them in bf16. ``-k k2`` runs K2's tests, ``-k "k1 or k5 or
 attention_function"`` the forward's, ``-k k4`` K4's, ``-k k3`` K3's forward
 and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
-``-k head_dim`` K1 and K2 at head dims between two builds.
+``-k head_dim`` K1 and K2 at head dims between two builds, ``-k above_256``
+K1, K2 and K5 at head dims above 256 (the chunked build).
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -109,6 +110,7 @@ def test_k1_matches_plain(cuda, dtype, split_first, n, hc, heads):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,heads", [
     (64, 64, 4), (49, 16, 2), (256, 64, 6), (65, 192, 2), (100, 256, 2), (65, 40, 3),
+    (65, 320, 2), (64, 512, 1),
 ])
 def test_k5_matches_plain(cuda, dtype, n, d, heads):
     """K5 on separate contiguous q, k, v and on strided views of a fused
@@ -182,6 +184,8 @@ def test_k5_bf16_matches_plain(cuda, d, form):
 @pytest.mark.parametrize("split_first", [True, False])
 @pytest.mark.parametrize("n,hc,heads", [
     (1024, 64, 6), (256, 192, 4), (64, 256, 4), (65, 128, 4), (49, 32, 4),
+    # the chunked build: 16-byte copies (512) and 2-byte ones (300)
+    (256, 512, 2), (65, 300, 2),
 ])
 def test_k5_equals_k1_bit_for_bit_bf16(cuda, n, hc, heads, split_first):
     """One kernel, one tile order: bf16 K5 on the views of a projection and
@@ -197,8 +201,13 @@ def test_k5_equals_k1_bit_for_bit_bf16(cuda, n, hc, heads, split_first):
 
 def test_k5_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 64, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="up to 256"):
-        k1.mha_attention(*(torch.zeros(1, 1, 8, 320, device=cuda),) * 3)
+    # head dim 320 is taken (the chunked build), every element written
+    g = torch.Generator(device=cuda).manual_seed(320)
+    wide = torch.randn(3, 1, 1, 8, 320, generator=g, device=cuda)
+    out = torch.full((1, 1, 8, 320), float("nan"), device=cuda)
+    k1.mha_attention(*wide, out=out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, k1.mha_attention_plain(*wide), **TOL[torch.float32, "k1"])
     with pytest.raises(TypeError):
         k1.mha_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous last axis"):
@@ -210,8 +219,12 @@ def test_k5_refuses_what_it_does_not_take(cuda):
 
 
 def test_k1_refuses_what_it_does_not_take(cuda):
-    with pytest.raises(NotImplementedError, match="head dim 320.*queue C"):
-        k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 640, device=cuda), 2, True)
+    # head dim 320 is taken (the chunked build)
+    g = torch.Generator(device=cuda).manual_seed(640)
+    qkv = torch.randn(1, 64, 3 * 640, generator=g, device=cuda)
+    torch.testing.assert_close(k1.fused_qkv_attention(qkv, 2, True),
+                               k1.fused_qkv_attention_plain(qkv, 2, True),
+                               **TOL[torch.float32, "k1"])
     with pytest.raises(TypeError):
         k1.fused_qkv_attention(torch.zeros(1, 64, 3 * 128, device=cuda).half(), 2, True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -291,7 +304,7 @@ def test_k2_bf16_relative_gate_sees_a_shifted_lse(cuda, hc, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,hc,heads", [
-    (1024, 64, 6), (49, 32, 4), (65, 128, 2), (256, 192, 4), (100, 256, 2),
+    (1024, 64, 6), (49, 32, 4), (65, 128, 2), (256, 192, 4), (100, 256, 2), (256, 512, 1),
 ])
 def test_k1_lse_is_the_logsumexp_of_the_logits(cuda, dtype, n, hc, heads):
     """K1's row log-sum-exp equals torch.logsumexp of the f32 logits of the
@@ -333,8 +346,14 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         g = torch.zeros(b, n, c3 // 3, device=cuda, dtype=qkv.dtype) if g is None else g
         return k1.fused_qkv_attention_bwd(qkv, g, g if o is None else o, heads, True, **kw)
 
-    with pytest.raises(NotImplementedError, match="head dim 320.*queue C"):
-        call(torch.zeros(1, 64, 3 * 640, device=cuda))
+    # head dim 320 is taken (the chunked build)
+    gen = torch.Generator(device=cuda).manual_seed(641)
+    wide = torch.randn(1, 64, 3 * 640, generator=gen, device=cuda)
+    cot = 2 * torch.rand(1, 64, 640, generator=gen, device=cuda) - 1
+    o = k1.fused_qkv_attention_plain(wide, 2, True)
+    torch.testing.assert_close(call(wide, g=cot, o=o),
+                               k1.fused_qkv_attention_bwd_plain(wide, cot, o, 2, True),
+                               **TOL[torch.float32, "k2"])
     with pytest.raises(TypeError):
         call(torch.zeros(1, 64, 3 * 128, device=cuda).half())
     qkv = torch.zeros(1, 64, 3 * 128, device=cuda)
@@ -350,7 +369,7 @@ def test_k2_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("split_first", [True, False])
 @pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2),
-                                        (65, 192, 2), (100, 256, 2)])
+                                        (65, 192, 2), (100, 256, 2), (65, 320, 2)])
 def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads):
     """The autograd Function in f32 (forward K1, backward K2) against
     autograd through the plain forward, and its counters: one K1 and one K2
@@ -372,7 +391,7 @@ def test_attention_function_gradient_on_the_card(cuda, split_first, n, hc, heads
 
 @pytest.mark.parametrize("split_first", [True, False])
 @pytest.mark.parametrize("n,hc,heads", [(64, 64, 3), (49, 32, 4), (100, 128, 2),
-                                        (65, 192, 2), (100, 256, 2)])
+                                        (65, 192, 2), (100, 256, 2), (65, 320, 2)])
 def test_attention_function_bf16_gradient_on_the_card(cuda, split_first, n, hc, heads):
     """The autograd Function in bf16 (forward K1 on the tensor cores,
     backward K2): the output within the bf16 gate of the plain forward, the
@@ -1244,3 +1263,62 @@ def test_k1_k2_at_head_dims_between_builds(cuda, dtype, split_first, n, hc, head
     torch.testing.assert_close(dqkv.float(), ref.float(), **TOL[dtype, "k2"])
     if dtype == torch.bfloat16:
         assert _k2_rel_err(dqkv, ref, heads, split_first) <= K2_BF16_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split_first", [True, False])
+@pytest.mark.parametrize("n", [17, 64, 65, 256, 1024])
+@pytest.mark.parametrize("hc", [257, 300, 320, 384, 512, 768, 1024])
+def test_k1_k2_above_256(cuda, dtype, split_first, n, hc):
+    """K1 and K2 at head dims above 256, on the chunked build (a block per
+    chunk of the output's columns, each summing the logits over all of D):
+    every element written (outputs pre-filled with NaN), within K1's and
+    K2's gates of their plain versions (and K2's relative gate in bf16); the
+    row log-sum-exp, which chunk 0 alone writes, against torch.logsumexp.
+    Odd head dims and 300 take the 2-byte staging (no 16-byte copy)."""
+    assert k1.head_dim_build(hc) == k1.CHUNKED
+    heads = 2
+    g = torch.Generator(device=cuda).manual_seed(n + hc)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).to(dtype)
+    out = torch.full((2, n, heads * hc), float("nan"), dtype=dtype, device=cuda)
+    lse = torch.full((2, heads, n), float("nan"), device=cuda)
+    launches = k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches
+    k1.fused_qkv_attention(qkv, heads, split_first, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    ref = k1.fused_qkv_attention_plain(qkv, heads, split_first)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype, "k1"])
+    q, k, _ = k1.split_qkv(qkv.float(), heads, split_first)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * hc ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
+    dqkv = torch.full_like(qkv, float("nan"))
+    k1.fused_qkv_attention_bwd(qkv, cot, out, heads, split_first, lse=lse, out=dqkv)
+    torch.cuda.synchronize()
+    assert (k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert not torch.isnan(dqkv).any()
+    ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, out, heads, split_first, lse)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **TOL[dtype, "k2"])
+    if dtype == torch.bfloat16:
+        assert _k2_rel_err(dqkv, ref, heads, split_first) <= K2_BF16_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_above_256_equals_k1_on_views(cuda, dtype):
+    """K5 at D = 512 on the strided views of a projection and on contiguous
+    copies: every element written, within K1's gate of its plain version,
+    and equal to K1 on the projection bit for bit (one chunked kernel)."""
+    heads, n, d = 2, 256, 512
+    g = torch.Generator(device=cuda).manual_seed(d)
+    qkv = torch.randn(2, n, 3 * heads * d, generator=g, device=cuda).to(dtype)
+    fused = k1.fused_qkv_attention(qkv, heads, True)
+    views = k1.split_qkv(qkv, heads, True)
+    for q, k, v in (views, tuple(t.contiguous() for t in views)):
+        out = torch.full((2, heads, n, d), float("nan"), dtype=dtype, device=cuda)
+        k1.mha_attention(q, k, v, out=out)
+        torch.cuda.synchronize()
+        assert not torch.isnan(out).any()
+        torch.testing.assert_close(out.float(), k1.mha_attention_plain(q, k, v).float(),
+                                   **TOL[dtype, "k1"])
+        assert torch.equal(out.transpose(1, 2).reshape(fused.shape), fused)

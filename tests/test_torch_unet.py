@@ -55,6 +55,10 @@ CFG_WIDE_HEADS = dict(
     num_heads=2, split_qkv_first=True, resblock_updown=True,
     use_adaptive_gn=True, num_classes=7,
 )
+# openai_128's widths at one head, cut to an 8x8 model: 1 head over 256, 384
+# and 512 channels gives head dims 256, 384 and 512 (the chunked build above
+# 256 on the card)
+CFG_HEAD_DIMS_ABOVE_256 = dict(CFG_WIDE_HEADS, num_heads=1)
 # --model_channels 96 --num_heads 4: head dims 24, 48 and 96, between K1's
 # builds (each runs on the next one up on the card)
 CFG_HEAD_DIMS_BETWEEN_BUILDS = dict(
@@ -119,9 +123,10 @@ def forward_both(cfg, jmodel, params, model, seed=1):
 
 
 @pytest.mark.parametrize("cfg", [CFG_ADA, CFG_PLAIN, CFG_NO_CONV, CFG_WIDE_HEADS,
-                                 CFG_HEAD_DIMS_BETWEEN_BUILDS],
+                                 CFG_HEAD_DIMS_BETWEEN_BUILDS, CFG_HEAD_DIMS_ABOVE_256],
                          ids=["ada_updown_ragged", "additive_interleaved", "no_conv_resample",
-                              "head_dims_128_192_256", "head_dims_24_48_96"])
+                              "head_dims_128_192_256", "head_dims_24_48_96",
+                              "head_dims_256_384_512"])
 @pytest.mark.parametrize("kernels", [True, False])
 def test_forward_matches_jax(cfg, kernels):
     jmodel, params = random_jax_params(cfg)

@@ -24,6 +24,10 @@ calls replayed (device time, free of the host's launch cost).
     held to each other within K2's bf16 gates (per element and relative).
     Sums over one step or gradient.
 
+Each shape also says whether the two trees' K1, K5 and K2 results are equal
+bit for bit, and the last line how many differ (0 for a change that leaves
+these builds' arithmetic as it was).
+
 Imports torch and the port; needs a card.
 """
 
@@ -183,26 +187,40 @@ def main(argv=None):
     def fmt(best, tag, what):
         return f"{best[tag, what, 'events']:.4f} ms (graph {best[tag, what, 'graph']:.4f})"
 
+    differing = []
+
+    def same(what, a, b, shape):
+        equal = torch.equal(a, b)
+        if not equal:
+            differing.append(f"{what} at {shape}")
+        return "equal bit for bit" if equal else "DIFFERENT bits"
+
     sums = {}
     for b, n, c, heads, per, path in SHAPES:
         qkv = torch.randn(b, n, 3 * c, generator=gen, device=dev).bfloat16()
-        out = torch.empty(b, n, c, dtype=torch.bfloat16, device=dev)
+        out = {tag: torch.empty(b, n, c, dtype=torch.bfloat16, device=dev) for tag in roots}
+        out_lse = torch.empty(b, n, c, dtype=torch.bfloat16, device=dev)
         lse = torch.empty(b, heads, n, device=dev)
         views = k1.split_qkv(qkv, heads, True)
-        out5 = torch.empty(views[0].shape, dtype=torch.bfloat16, device=dev)
+        out5 = {tag: torch.empty(views[0].shape, dtype=torch.bfloat16, device=dev)
+                for tag in roots}
         calls = {}
         for tag in roots:
             lib = libs[tag, "attention"]
-            calls[tag, "K1"] = lambda lib=lib: k1_call(lib, qkv, heads, out)
-            calls[tag, "K5"] = lambda lib=lib: k5_call(lib, *views, out5)
-        calls["this", "K1+lse"] = lambda: k1_call(libs["this", "attention"], qkv, heads, out,
-                                                  lse)
+            calls[tag, "K1"] = lambda lib=lib, tag=tag: k1_call(lib, qkv, heads, out[tag])
+            calls[tag, "K5"] = lambda lib=lib, tag=tag: k5_call(lib, *views, out5[tag])
+        calls["this", "K1+lse"] = lambda: k1_call(libs["this", "attention"], qkv, heads,
+                                                  out_lse, lse)
         best = best_of_turns(calls)
+        torch.cuda.synchronize()
+        shape = f"qkv ({b}, {n}, {3 * c})"
+        bits = (f"K1 {same('K1', out['this'], out['other'], shape)}, K5 "
+                f"{same('K5', out5['this'], out5['other'], shape)}")
         for key, ms in best.items():
             sums[(path,) + key] = sums.get((path,) + key, 0.0) + per * ms
-        print(f"qkv ({b}, {n}, {3 * c}), {heads} heads of {c // heads}, {per} per forward of "
-              f"{path}: " + "; ".join(f"{tag} {what} {fmt(best, tag, what)}"
-                                      for tag, what in calls), flush=True)
+        print(f"{shape}, {heads} heads of {c // heads}, {per} per forward of {path}: "
+              + "; ".join(f"{tag} {what} {fmt(best, tag, what)}" for tag, what in calls)
+              + f"; the two trees: {bits}", flush=True)
     for path in dict.fromkeys(s[-1] for s in SHAPES):
         print(f"sum over one forward of {path}: " + "; ".join(
             f"{tag} {what} {sums[path, tag, what, 'events']:.4f} ms (graph "
@@ -234,13 +252,16 @@ def main(argv=None):
                              f"qkv {tuple(qkv.shape)}")
         for key, ms in best.items():
             sums[(path,) + key] = sums.get((path,) + key, 0.0) + per * ms
+        bits = same("K2", dqkv["this"], dqkv["other"], f"qkv ({b}, {n}, {3 * c})")
         print(f"K2 qkv ({b}, {n}, {3 * c}), {heads} heads of {c // heads}, {per} per "
               f"{path}: other {fmt(best, 'other', 'K2')}; this {fmt(best, 'this', 'K2')}; the "
-              f"two differ by at most {gap:.3g}, relative {rel:.3g}", flush=True)
+              f"two differ by at most {gap:.3g}, relative {rel:.3g}: {bits}", flush=True)
     for path in dict.fromkeys(s[-1] for s in K2_SHAPES):
         print(f"K2 sum over one {path}: " + "; ".join(
             f"{tag} {sums[path, tag, 'K2', 'events']:.4f} ms (graph "
             f"{sums[path, tag, 'K2', 'graph']:.4f})" for tag in ("other", "this")), flush=True)
+    print(f"bits: {len(differing)} results differ between the two trees"
+          + (f": {differing}" if differing else ""), flush=True)
 
 
 if __name__ == "__main__":
