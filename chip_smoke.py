@@ -30,7 +30,9 @@ every hand-written kernel on the way:
      multiplies in the machine code of those five libraries (cuobjdump
      -sass: HGMMA for the bf16 ones, any integer mnemonic, IGMMA, for the
      int8 conv), which must not be 0 in any: bf16 K1, K2, K4 and K5 and the
-     two convs run on the tensor cores (wgmma), f32 on the CUDA cores;
+     two convs run on the tensor cores (wgmma), f32 on the CUDA cores; each
+     of the bf16 conv's six instances must also hold TMA loads (UTMALDG)
+     and setmaxnreg (USETMAXREG): its producer warpgroup;
   3. each kernel against its plain torch version at every shape one
      forward of each main path gives it (found by hooks on plain-version
      forwards of ``openai_64``, of the train entry point's EMNIST model,
@@ -181,7 +183,8 @@ every hand-written kernel on the way:
      int8, encoder_cache 2, guidance_interval (0.1, 0.7)) finite and
      correlated above 0.9 with the exact bf16 chain;
  12b. the bf16 conv (``[conv]``, csrc/bf16conv.cu: bf16 wgmma, one launch
-     a call, a fixed order of sums), the conv of every bf16 forward with grad
+     a call, a fixed order of sums; a TMA producer warpgroup, an mbarrier
+     ring, persistent blocks), the conv of every bf16 forward with grad
      mode off (sampling, serving, a teacher's forwards), which replaces cuDNN
      there so that a row's output does not depend on its batch: against its
      plain version within BF16_CONV_TOL at every conv shape and batch of the
@@ -190,7 +193,8 @@ every hand-written kernel on the way:
      three batches), with and without the bias; one example's output bit
      for bit alone and at rows of batches of 8 and 16; the filter tiles' bits
      equal; its times at model batch 16 and 128 beside the plain version,
-     cuDNN's bf16 F.conv2d and the bound. Every phase's launch counts hold
+     cuDNN's bf16 F.conv2d and the bound, with each shape's plan (route,
+     filter tile, work units, persistent blocks). Every phase's launch counts hold
      its calls too (``conv``: each Conv2d of a bf16 forward with grad mode
      off);
  13. super-resolution (``[sr]``): the SuperResolutionModel at ``openai_256``
@@ -639,6 +643,29 @@ def int8_sass_by_instance(sass):
     return counts
 
 
+# what the machine code of every bf16 conv instance must hold: warpgroup
+# multiplies, TMA loads (its producer's tensor-map loads) and setmaxnreg
+# (the producer's registers handed to the consumers)
+BF16_CONV_SASS = ("HGMMA", "UTMALDG", "USETMAXREG")
+
+
+def bf16_sass_by_instance(sass):
+    """The BF16_CONV_SASS instructions in the machine code of each bf16 conv
+    instance (cuobjdump -sass prints a "Function : <mangled>" line before
+    each), by route and filter tile."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(bf16_conv_(?:halo|row)_wgmma)_kernelILi(\d)E", line)
+        if m:
+            current = f"{m.group(1)} bf16 filters={64 * int(m.group(2))}"
+            counts[current] = collections.Counter({op: 0 for op in BF16_CONV_SASS})
+        elif current:
+            for op in BF16_CONV_SASS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[current][op] += 1
+    return counts
+
+
 def phase_build():
     from nicediffusion_tpu_torch.ops.kernels import _build
 
@@ -666,6 +693,18 @@ def phase_build():
         if name == "int8conv":
             for instance, count in int8_sass_by_instance(sass).items():
                 log(f"[build]   {instance}: {count} IGMMA")
+        if name == "bf16conv":
+            instances = bf16_sass_by_instance(sass)
+            for instance, ops in instances.items():
+                log(f"[build]   {instance}: " + ", ".join(f"{ops[op]} {op}"
+                                                           for op in BF16_CONV_SASS))
+                if not all(ops.values()):
+                    raise AssertionError(f"the bf16 conv's {instance} lacks "
+                                         f"{[op for op in BF16_CONV_SASS if not ops[op]]} in its "
+                                         "machine code: no TMA producer or no register handover")
+            if len(instances) != 6:
+                raise AssertionError(f"the bf16 conv library holds {len(instances)} kernel "
+                                     "instances, not 6 (two routes x three filter tiles)")
         if not found:
             raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
                                  f"{kernels} is off the tensor cores")
@@ -3060,9 +3099,9 @@ def record_conv_shapes():
     if getattr(launch, "records", False):
         return
 
-    def recording(x, weight, bias, stride, filter_tile):
+    def recording(x, weight, bias, stride, *rest):
         CONV_SHAPES.add((*x.shape, weight.shape[0], weight.shape[-1], stride, bias is not None))
-        return launch(x, weight, bias, stride, filter_tile)
+        return launch(x, weight, bias, stride, *rest)
 
     recording.records = True
     kc._launch = recording
@@ -3179,9 +3218,12 @@ def phase_conv(dev, calls):
             bound = bf16_conv_bound_ms(b, h, w, c, f, k, stride)
             tally.add(per_forward, ms, plain, lib, bound, device, prof)
             ops = 2 * b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * f * k * k * c
-            route, tile = kc.conv_nhwc_plan(k, stride, f)
+            route, tile = kc.conv_nhwc_plan(h, w, k, stride, f)
+            units = kc.conv_nhwc_units(b, h, w, k, stride, f, tile)
+            blocks = min(units, torch.cuda.get_device_properties(dev).multi_processor_count)
             log(f"[conv] {(b, h, w, c)} -> {f}, {k}x{k}, stride {stride}, {per_forward} per "
-                f"forward, {route} route, {tile} filters a block: device time {device[0]:.4f} ms "
+                f"forward, plan: {route} route, {tile} filters a unit, {units} units on {blocks} "
+                f"persistent blocks: device time {device[0]:.4f} ms "
                 f"by graph ({ops / device[0] / 1e9:.1f} TFLOP/s), {prof[0]:.4f} by "
                 f"torch.profiler, host-timed {ms:.4f}; "
                 + (f"plain {device[1]:.4f} (host {plain:.4f}); " if plain_timed else "")
@@ -5767,9 +5809,14 @@ def main():
               f"is the bf16 F.conv2d (cuDNN) it replaces",
               {"serve64": conv_tallies[PATHS["serve64"][0]]},
               {"bfloat16": "wgmma bf16 x bf16 -> f32, one launch a call, a fixed order of sums "
-                           "(taps, then 32-channel steps; no split K): k = 3 stride 1 on the "
-                           "halo route (A by ldmatrix from the halo), the rest on the row route "
-                           "(A by descriptor); weights by cp.async"},
+                           "(no split K): k = 3 stride 1 on the halo route (32-channel steps, "
+                           "then kernel rows, then columns; A by descriptor from the halo), the "
+                           "rest on the row route (taps, then 32-channel steps; A by "
+                           "descriptor); one wgmma group kept in flight; warp-specialised and "
+                           "persistent: a producer warpgroup loads a ring of stages by TMA "
+                           "(cp.async where C % 8 or x's alignment allows none) under full "
+                           "and empty mbarriers, two consumer warpgroups multiply and store "
+                           "by TMA (from registers where F % 8 != 0)"},
               **conv_gates),
     ]
     for k in kernels:

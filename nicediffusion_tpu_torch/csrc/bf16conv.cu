@@ -1,6 +1,6 @@
 // The bf16 convolution of the sampling and serving forwards: bf16 x bf16 ->
 // f32 sums on the tensor cores (wgmma), one launch a call, with a reduction
-// order that no batch, row or batch mate changes.
+// order that no batch, row, batch mate, tiling or grid changes.
 //
 // Replaces no TPU kernel. The JAX package computes its convs and dense
 // products in XLA (flax nn.Conv and nn.Dense with dtype=bf16,
@@ -10,12 +10,18 @@
 // depends on where it sits, and the serving daemon's promise that a (seed,
 // label) gives the same image in any batch and row broke in bf16
 // (tools/find_batch_variance.py names the calls). Here every output element
-// is summed by one thread's accumulator in one order: taps in order, and
-// inside a tap 32-channel steps in order, each step two wgmma k16 in order.
-// Nothing splits K, and the plan (ops/kernels/conv.py::conv_nhwc_plan)
-// picks the route and the filter tile from the conv's k, stride and F alone,
-// never from the batch. So a row's output is a function of that row alone,
-// bit for bit.
+// is summed by one thread's accumulator in one order, fixed per route:
+//   halo route: 32-channel steps in order; inside a step the kernel rows
+//     dy = 0, 1, 2; inside a row the columns dx = 0, 1, 2; inside a tap the
+//     two k16 halves (one wgmma each);
+//   row route: taps in order (dy, dx row-major); inside a tap the 32-channel
+//     steps in order; inside a step the two k16 halves.
+// wgmma sums its k16 products in a fixed order whatever its n (m64n64,
+// m64n128 and m64n192 give the same bits), so the filter tile, the work
+// unit and the grid are free: nothing splits K, and the plan
+// (ops/kernels/conv.py::conv_nhwc_plan) reads the conv's map, k, stride and
+// F, never the batch. A row's output is a function of that row alone, bit
+// for bit, and equal to every earlier build's with these orders.
 //
 // For x (B, H, W, C) NHWC bf16, w (F, k, k, C) bf16 (channels innermost per
 // filter and tap) and an optional bias (F,) bf16 it computes
@@ -29,43 +35,67 @@
 // What bounds it. Operations: 2 k^2 C F per output pixel against 2 (C + F)
 // bytes, hundreds of operations a byte at the UNets' widths, above the
 // card's ~295 for bf16 at 989 TFLOP/s and 3.35 TB/s: the tensor cores'
-// rate. As in the int8 conv, the warps that multiply also stage, in
-// lockstep with the products (queue B: a producer warpgroup, TMA).
+// rate. What kept the earlier build from it: the warps that multiplied also
+// staged, in lockstep (a block barrier, the fragment loads and a drain of
+// the tensor cores in every (step, kernel row) pair), and small maps (8 x 8,
+// 16 x 16 at model batch 16) gave a few dozen blocks for 132 multiprocessors.
 //
-// The design is the int8 conv's (int8conv.cu), without the quantize (what
-// the two share is in conv_common.cuh): an implicit GEMM, M output pixels,
-// N filters, K the k^2 taps x C channels; a block is two warpgroups (256
-// threads), 64 output pixels each, sharing a filter tile of 64 NB (NB = 1,
-// 2 or 3). The filter tiles of one pixel tile
-// are consecutive blocks. The weights of one (tap, 32-channel step), 64 NB
-// filters x 64 bytes, land by 16-byte cp.async in the 64-byte swizzle in a
-// ring of 4 stages and are read by descriptor; every product is one wgmma
-// m64n(64 NB)k16 per 16 channels. Channels past C, filters past F and pixels
-// past the map are zeros (zero fill, or masked loads where C or the
-// pointers allow no 16-byte copy); C, F, H and W are anything.
+// The design: an implicit GEMM, M output pixels, N filters, K the k^2 taps x
+// C channels, warp-specialised and persistent. A block is three warpgroups
+// (384 threads): a producer that only loads (setmaxnreg gives its registers
+// to the others) and two consumers that only issue wgmma, both operands read
+// from shared memory by descriptor. The producer fills a ring of stages,
+// each with a full and an empty mbarrier: a consumer waits on a stage's full
+// barrier, issues its wgmma group, waits until one group is left in flight
+// (wgmma_wait<1>) and then releases the previous stage on its empty barrier,
+// so its next wait and the producer's loads overlap the products. (An
+// earlier build of the halo route took A from registers, loaded by ldmatrix
+// beside a group in flight; at one filter tile it gave other bits now and
+// then: the compiler may hand a group's A registers on once it is issued.)
+// A block walks the work units (two 64-pixel tiles, one a consumer, x 64 NB
+// filters, NB = 1, 2 or 3; the filter tiles of one pixel tile consecutive)
+// in a stride of the grid, one block a multiprocessor: the producer loads
+// unit n + 1 while the consumers store unit n. The plan picks NB from the map so that small maps
+// fill the card; the number of blocks is min(units, multiprocessors).
+// Loads: by TMA (cp.async.bulk.tensor, one thread) where C is a multiple of
+// 8 and x and the weights sit on 16 bytes: the weights through a 3-D tensor
+// map over (F, k k, C), box (64 NB, 1, 32), the halo through a 4-D map over
+// x, box (1, 10, 10, 32), the row route's A through a 2-D map over (M, C),
+// box (128, 32); the boxes' out-of-bounds elements land as zeros (the
+// padding, channels past C, filters past F, pixels past M). TMA's 64-byte
+// swizzle is the layout the descriptors read: chunk c of row p at chunk
+// c ^ ((p / 2) % 4). Elsewhere (C = 3, a view off 16 bytes, the row
+// route's strided and 3 x 3 taps) the producer warpgroup's 128 threads stage
+// the same bytes into the same places by cp.async (byte loads where no
+// 16-byte copy is aligned) and arrive on the full barrier per thread.
 //
 // The halo route (bf16_conv_halo_wgmma_kernel): stride 1, k = 3. Each
-// warpgroup owns an 8 x 8 tile of output pixels and its 10 x 10 halo; the
+// consumer owns an 8 x 8 tile of output pixels and its 10 x 10 halo; the
 // tiles of all examples are numbered in one sequence, and a pixel's place
-// in its tile depends on its coordinates alone. A step's halo (100 pixels x
-// 64 bytes) lands by cp.async straight into its swizzled buffer (chunk c of
-// pixel p at chunk c ^ ((p / 2) % 4)); tap (dy, dx) is the halo shifted by
-// (dy, dx), its m64k16 A fragments two ldmatrix.x4 a thread. A pair is one
-// kernel row: a ring stage holds its three taps' slabs, and one barrier
-// starts six wgmma a warpgroup. Two halo buffers: step s + 1's lands during
-// step s's three pairs.
+// in its tile depends on its coordinates alone. Tap (dy, dx) is the halo
+// from pixel (dy, dx) on: a K-major A whose 8-row groups (the tile's rows)
+// lie ten pixels apart, read by descriptor. A ring stage holds one kernel
+// row's three taps' weight slabs (a pair); the halos of a step have a ring of
+// two slots with barriers of their own, each released once the step's last
+// group is done.
 // The row route (bf16_conv_row_wgmma_kernel): k = 1, stride 2 and the dense
-// view. M is linear, 128 output pixels a block, all examples in one
-// sequence. A ring stage holds the slab and the im2col A tile (128 pixels x
-// 32 channels of the tap's shifted input, by cp.async into the 64-byte
-// swizzle), both read by descriptor.
-// Epilogue (both): from the accumulators, the rounding above, the four lanes
-// of a quad storing eight consecutive filters of a pixel as pairs.
+// view. M is linear, 128 output pixels a unit, all examples in one
+// sequence. A ring stage holds the (tap, step) slab and the A tile (128
+// pixels x 32 channels of the tap's shifted input), both read by descriptor.
+// Epilogue (both): from the accumulators, the rounding above. Where F is a
+// multiple of 8, into a staging tile in shared memory (64 filters x 64
+// pixels a block, 128-byte swizzle) and out by one TMA store a block, which
+// the consumer does not wait for: the next unit's products overlap it.
+// Elsewhere the four lanes of a quad store eight consecutive filters of a
+// pixel as pairs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include "conv_common.cuh"
 #include "sm90.cuh"
@@ -78,24 +108,28 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kStepC = kRowBytes / 2;    // channels a step: one 64-byte row
 constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks a row
-constexpr int kEpc = 8;           // bf16 elements a chunk
-constexpr int kHalo = kHPx * kRowBytes;  // one halo buffer
-constexpr int kHaloSlots = (kHPx * kChunks + kWgThreads - 1) / kWgThreads;
-constexpr int kATile = kBM * kRowBytes;
+constexpr int kEpc = 8;                  // bf16 elements a chunk
+constexpr int kHalo = kHPx * kRowBytes;  // one tile's halo of a step: 6400 bytes
+constexpr int kHaloPad = 13 * 512;       // its buffer, on whole 512-byte swizzle atoms
+constexpr int kATile = kBM * kRowBytes;  // the row route's A of a step
+constexpr int kOutBlock = 64 * 128;      // the epilogue's 64 rows x 64 filters
+constexpr int kConsumers = 2 * kWgThreads;
+constexpr int kBlock = kConsumers + kWgThreads;  // two consumer warpgroups, one producer
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;  // 128 x 56 + 256 x 224 <= 65536
 
 struct Args : Shape {
+  CUtensorMap map_x;    // TMA: x (the halo route's 4-D map, the row route's 2-D one)
+  CUtensorMap map_w;    // TMA: the weights, 3-D
+  CUtensorMap map_out;  // TMA store: out (4-D on the halo route, 2-D on the row route)
   const bf16* x;
   const bf16* wt;
   const bf16* bias;  // null: no bias
   bf16* out;
+  long long units;   // work units: (pixel tiles, filter tile)
+  int ftiles;        // filter tiles of 64 NB
+  int tma;           // 1: loads by TMA; 0: by cp.async
+  int tma_out;       // 1: the epilogue through shared memory and a TMA store
 };
-
-template <int NB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[NB * 32], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (NB == 1) sm90::wgmma_rs_m64n64k16_bf16(d, a, b, 1);
-  if constexpr (NB == 2) sm90::wgmma_rs_m64n128k16_bf16(d, a, b, 1);
-  if constexpr (NB == 3) sm90::wgmma_rs_m64n192k16_bf16(d, a, b, 1);
-}
 
 template <int NB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[NB * 32], uint64_t a, uint64_t b) {
@@ -140,253 +174,504 @@ __device__ __forceinline__ void store_tile(const Args& a, const float (&acc)[NB 
     }
 }
 
+// The epilogue by TMA store: store_tile's rounding into a warpgroup's staging
+// buffer at buf, NB blocks of 64 filters, each 64 rows (the accumulator's)
+// x 128 bytes in the 128-byte swizzle (chunk c of row r at c ^ (r % 8): a
+// quad's 16 bytes land in another bank group in each of a warp's 8 rows)
+template <int NB>
+__device__ __forceinline__ void stage_out(const Args& a, const float (&acc)[NB * 32], uint32_t buf,
+                                          int f0, int warp, int lane) {
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = f0 + 64 * cb + 8 * j + 2 * (lane % 4);  // F % 8 = 0: col and col + 1
+      const bool in = a.bias != nullptr && col < a.f;
+      const float b0 = in ? __bfloat162float(a.bias[col]) : 0.f;
+      const float b1 = in ? __bfloat162float(a.bias[col + 1]) : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * warp + lane / 4 + 8 * half;
+        float v0 = acc[32 * cb + 4 * j + 2 * half], v1 = acc[32 * cb + 4 * j + 2 * half + 1];
+        if (a.bias != nullptr) {
+          v0 = __fadd_rn(__bfloat162float(__float2bfloat16_rn(v0)), b0);
+          v1 = __fadd_rn(__bfloat162float(__float2bfloat16_rn(v1)), b1);
+        }
+        sm90::st_shared_b32(buf + (uint32_t)(cb * kOutBlock + row * 128 +
+                                             ((j ^ (row & 7)) << 4) + 4 * (lane % 4)),
+                            sm90::pack_bf16x2(v0, v1));
+      }
+    }
+}
+
+// A consumer warpgroup's epilogue by TMA store: wait until the buffer's
+// previous stores have read it, stage the tile, then one thread stores each
+// 64-filter block below F at the coordinates store(block, its address) names
+template <int NB, typename Store>
+__device__ __forceinline__ void store_out(const Args& a, const float (&acc)[NB * 32], uint32_t buf,
+                                          int f0, int wg, int wtid, Store store) {
+  if (wtid == 0) sm90::bulk_wait_read<0>();
+  sm90::named_barrier(1 + wg, kWgThreads);
+  stage_out<NB>(a, acc, buf, f0, wtid / 32, wtid % 32);
+  sm90::fence_proxy_async();
+  sm90::named_barrier(1 + wg, kWgThreads);
+  if (wtid == 0) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+      if (f0 + 64 * cb < a.f) store(cb, buf + (uint32_t)(cb * kOutBlock));
+    sm90::bulk_commit();
+  }
+}
+
+// ------------------------------------------------- cp.async staging
+// (the producer warpgroup's 128 threads, ptid 0 to 127, a chunk each in turn)
+
+// the slabs of taps tap0 to tap0 + n - 1 at channel step `step`, filters f0
+// to f0 + 64 NB - 1, into consecutive slabs of 64 NB rows at dst; filters
+// past F and channels past C as zeros
+template <int NB>
+__device__ __forceinline__ void stage_slabs(uint32_t dst, const Args& a, int f0, int tap0, int n,
+                                            int step, int ptid) {
+  constexpr int kPer = 64 * NB * kChunks;  // chunks a slab
+#pragma unroll 1
+  for (int id = ptid; id < n * kPer; id += kWgThreads) {
+    const int j = id / kPer, rem = id - j * kPer, r = rem / kChunks, q = rem % kChunks;
+    const int fl = f0 + r, c = step * kStepC + q * kEpc;
+    const int valid = fl < a.f ? min(max(a.c - c, 0), kEpc) : 0;
+    const bf16* src = valid > 0 ? a.wt + ((size_t)fl * a.taps + tap0 + j) * a.c + c : a.wt;
+    copy_chunk(dst + (uint32_t)(j * NB * kSlabBytes) + sm90::sw64_offset(r, q), src, 2 * valid,
+               a.vec_w);
+  }
+}
+
+// channel step `step` of the halos of tiles t0 and t1 into the halo slot at
+// hb (t1's at hb + kHaloPad); zeros outside the map and past C
+__device__ __forceinline__ void stage_halos(uint32_t hb, const Args& a, const Tile8& t0,
+                                            const Tile8& t1, int step, int ptid) {
+  constexpr int kPer = kHPx * kChunks;  // chunks a halo
+#pragma unroll 1
+  for (int id = ptid; id < 2 * kPer; id += kWgThreads) {
+    const int i = id / kPer, rem = id - i * kPer, p = rem / kChunks, chunk = rem % kChunks;
+    const int b = i ? t1.b : t0.b, y0 = i ? t1.y0 : t0.y0, x0 = i ? t1.x0 : t0.x0;
+    const int yy = y0 + p / kHSide - 1, xx = x0 + p % kHSide - 1;
+    const int ch = step * kStepC + chunk * kEpc;
+    const bool inside = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
+    const int valid = inside ? min(max(a.c - ch, 0), kEpc) : 0;
+    const bf16* src =
+        valid > 0 ? a.x + (((size_t)b * a.h + yy) * a.w + xx) * a.c + ch : a.x;
+    copy_chunk(hb + (uint32_t)(i * kHaloPad) + sm90::sw64_offset(p, chunk), src, 2 * valid,
+               a.vec_x);
+  }
+}
+
+// a producer thread's arrival on a full barrier after its copies: once its
+// cp.async land, or where some went by byte loads and shared stores, after
+// its copies and a proxy fence (the wgmma operands are read through the
+// async proxy)
+__device__ __forceinline__ void arrive_copied(uint32_t bar, const Args& a) {
+  if (a.vec_x && a.vec_w) {
+    sm90::cp_async_mbar_arrive(bar);
+  } else {
+    sm90::cp_async_commit();
+    sm90::cp_async_wait_all();
+    sm90::fence_proxy_async();
+    sm90::mbar_arrive(bar);
+  }
+}
+
 // ------------------------------------------------------------- halo route
 
 template <int NB>
-struct HaloSmem {
-  static constexpr int kStage = 3 * NB * kSlabBytes;  // the three taps of a kernel row
+struct HaloRing {
+  static constexpr int kStages = NB == 1 ? 8 : NB == 2 ? 6 : 4;
+  static constexpr int kSlab = NB * kSlabBytes;  // 64 NB filters of one (tap, step)
+  static constexpr int kStage = 3 * kSlab;       // the three taps of a kernel row
   static constexpr int kRing = kStages * kStage;
-  static constexpr size_t kSmem = kRing + 2 * 2 * kHalo + 1024;  // two steps x two warpgroups
+  static constexpr int kOut = 2 * NB * kOutBlock;  // the two consumers' epilogue tiles
+  static constexpr int kHalos = 2 * 2 * kHaloPad;  // two steps x two consumers
+  static constexpr size_t kSmem = 1024 + kRing + kOut + kHalos + 8 * (2 * kStages + 4);
   static_assert(kSmem <= 232448, "over a block's shared memory");
 };
 
-// A thread's share of a warpgroup's halo: chunk ids wtid + 128 j of the 100
-// pixels x 4 chunks of a step (pixel id / 4, chunk id % 4), with the offset
-// of each into the tile's example at channel 0 and whether its pixel lies in
-// the map, computed once
-struct Halo {
-  const bf16* xb;  // the tile's example
-  long long goff[kHaloSlots];
-  uint32_t in;     // bit j: slot j is a chunk of a pixel in the map
-  int wtid;
-
-  __device__ __forceinline__ void init(const Args& a, const Tile8& t, int wtid_) {
-    wtid = wtid_;
-    xb = a.x + (size_t)t.b * a.h * a.w * a.c;
-    in = 0u;
-#pragma unroll
-    for (int j = 0; j < kHaloSlots; ++j) {
-      const int id = wtid + kWgThreads * j, p = id / kChunks, chunk = id % kChunks;
-      const int yy = t.y0 + p / kHSide - 1, xx = t.x0 + p % kHSide - 1;
-      const bool inside = id < kHPx * kChunks && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
-      in |= (uint32_t)inside << j;
-      goff[j] = inside ? ((long long)yy * a.w + xx) * a.c + chunk * kEpc : 0;
-    }
-  }
-
-  // channel step `step` into the swizzled halo buffer at buf; zeros outside
-  // the map and past C
-  __device__ __forceinline__ void stage(uint32_t buf, const Args& a, int step) const {
-#pragma unroll
-    for (int j = 0; j < kHaloSlots; ++j) {
-      const int id = wtid + kWgThreads * j;
-      if (id >= kHPx * kChunks) break;
-      const int ch = step * kStepC + (id % kChunks) * kEpc;
-      const int valid = (in >> j) & 1u ? min(max(a.c - ch, 0), kEpc) : 0;
-      const bf16* src = valid > 0 ? xb + goff[j] + step * kStepC : xb;
-      copy_chunk(buf + sm90::sw64_offset(id / kChunks, id % kChunks), src, 2 * valid, a.vec_x);
-    }
-  }
-};
-
 template <int NB>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlock, 1)
     bf16_conv_halo_wgmma_kernel(const __grid_constant__ Args a) {
-  using Sm = HaloSmem<NB>;
+  using R = HaloRing<NB>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, wtid = tid % kWgThreads;
-  const int wg = tid / kWgThreads, warp = wtid / 32, lane = tid % 32;
-  const uint32_t halo0 = ring + Sm::kRing + wg * kHalo;
-  auto halo_buf = [&](int s) { return halo0 + (uint32_t)((s & 1) * 2 * kHalo); };
-  const int ftiles = (a.f + 64 * NB - 1) / (64 * NB);
-  const Tile8 t = tile_of((int)(blockIdx.x / ftiles) * 2 + wg, a);
-  const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
-  const int steps = a.steps, iters = 3 * steps;  // (step, kernel row) pairs, rows fastest
-  Slab<bf16, NB> slab;
-  slab.init(a, f0, tid);
-  Halo halo;
-  halo.init(a, t, wtid);
-  // the slabs of pair it, taps (dy, 0 to 2), into ring stage it % kStages
-  auto stage_slabs = [&](int it) {
-    if (it >= iters) return;
-    const int step = it / 3, dy = it - 3 * step;
-    const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-      slab.stage(st + (uint32_t)(dx * NB * kSlabBytes), a, a.wt, 3 * dy + dx, step);
-  };
-  // this lane's ldmatrix row: matrix j = lane / 8 holds rows 8 (j % 2) to
-  // 8 (j % 2) + 7 of the warp's 16 (tile row 2 warp + j % 2, columns 0 to 7)
-  // at bytes 16 (j / 2) to 16 (j / 2) + 15 of each k16 half
-  const int mrow = 2 * warp + ((lane >> 3) & 1), mcol = lane & 7, khalf = lane >> 4;
-
-  // prologue: step 0's halo with pair 0's slabs (one group), then the slabs
-  // of pairs 1 and 2 (a group each)
-  halo.stage(halo_buf(0), a, 0);
-#pragma unroll 1
-  for (int it = 0; it < kAhead; ++it) {
-    stage_slabs(it);
-    sm90::cp_async_commit();
-  }
-
-  float acc[NB * 32];
-#pragma unroll
-  for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    const int step = it / 3, dy = it - 3 * step;
-    // this pair's slabs (and at a step's first row its halo, staged with
-    // the group of pair it - 3) landed in this thread's copies; the barrier
-    // makes everyone's visible and says that the stage and the halo buffer
-    // the loads below overwrite are free
-    sm90::cp_async_wait<kAhead - 1>();
-    sm90::fence_proxy_async();
-    __syncthreads();
-    // the A fragments of taps (dy, 0 to 2): the halo shifted by (dy, dx)
-    uint32_t frag[3][2][4];
-    const uint32_t hb = halo_buf(step);
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int p = (mrow + dy) * kHSide + mcol + dx;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        sm90::ldmatrix_x4(frag[dx][kk], hb + (uint32_t)(p * kRowBytes) +
-                                            (uint32_t)(((2 * kk + khalf) ^ ((p >> 1) & 3)) << 4));
+  const uint32_t outs = ring + R::kRing, halos = outs + R::kOut, full_w = halos + R::kHalos;
+  const uint32_t empty_w = full_w + 8 * R::kStages, full_h = empty_w + 8 * R::kStages;
+  const uint32_t empty_h = full_h + 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const uint32_t fills = a.tma ? 1u : (uint32_t)kWgThreads;  // arrivals a fill
+    for (int i = 0; i < R::kStages; ++i) {
+      sm90::mbar_init(full_w + 8u * i, fills);
+      sm90::mbar_init(empty_w + 8u * i, 2);  // one a consumer warpgroup
     }
-    uint32_t wst = ring + (uint32_t)((it % kStages) * Sm::kStage);
-    asm volatile("" : "+r"(wst));
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        wgmma_rs<NB>(acc, frag[dx][kk], sm90::sw64_desc(wst + dx * NB * kSlabBytes + kk * 32));
-    sm90::wgmma_commit();
-    // a step's first row: the halo of step + 1 into the buffer step - 1
-    // read; every pair: the slabs of it + kAhead
-    if (dy == 0 && step + 1 < steps) halo.stage(halo_buf(step + 1), a, step + 1);
-    stage_slabs(it + kAhead);
-    sm90::cp_async_commit();
-    sm90::wgmma_wait<0>();
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(full_h + 8u * i, fills);
+      sm90::mbar_init(empty_h + 8u * i, 2);  // one a consumer warpgroup
+    }
+    sm90::fence_mbarrier_init();
   }
-  sm90::fence_regs(acc);
+  __syncthreads();
+  const int ftiles = a.ftiles, iters = 3 * a.steps;  // (step, kernel row) pairs, rows fastest
 
-  if (!t.live) return;
-  long long pix[2];
+  if (tid >= kConsumers) {  // the producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int ptid = tid - kConsumers;
+    if (a.tma && ptid != 0) return;
+    int ws = 0, wph = 0, hs = 0, hph = 0;
+#pragma unroll 1
+    for (long long u = blockIdx.x; u < a.units; u += gridDim.x) {
+      const int pair = (int)(u / ftiles), f0 = (int)(u - (long long)pair * ftiles) * 64 * NB;
+      const Tile8 t0 = tile_of(2 * pair, a), t1 = tile_of(2 * pair + 1, a);
+#pragma unroll 1
+      for (int it = 0; it < iters; ++it) {
+        const int step = it / 3, dy = it - 3 * step;
+        if (dy == 0) {  // the step's two halos into the next halo slot
+          const uint32_t hb = halos + (uint32_t)(hs * 2 * kHaloPad), bar = full_h + 8u * hs;
+          sm90::mbar_wait(empty_h + 8u * hs, hph ^ 1);
+          if (a.tma) {
+            sm90::mbar_arrive_expect_tx(bar, 2 * kHalo);
+            sm90::tma_load_4d(hb, &a.map_x, bar, step * kStepC, t0.x0 - 1, t0.y0 - 1, t0.b);
+            sm90::tma_load_4d(hb + kHaloPad, &a.map_x, bar, step * kStepC, t1.x0 - 1, t1.y0 - 1,
+                              t1.b);
+          } else {
+            stage_halos(hb, a, t0, t1, step, ptid);
+            arrive_copied(bar, a);
+          }
+          if (++hs == 2) hs = 0, hph ^= 1;
+        }
+        // the slabs of taps (dy, 0 to 2) into the next ring stage
+        const uint32_t st = ring + (uint32_t)(ws * R::kStage), bar = full_w + 8u * ws;
+        sm90::mbar_wait(empty_w + 8u * ws, wph ^ 1);
+        if (a.tma) {
+          sm90::mbar_arrive_expect_tx(bar, R::kStage);
+          for (int dx = 0; dx < 3; ++dx)
+            sm90::tma_load_3d(st + (uint32_t)(dx * R::kSlab), &a.map_w, bar, step * kStepC,
+                              3 * dy + dx, f0);
+        } else {
+          stage_slabs<NB>(st, a, f0, 3 * dy, 3, step, ptid);
+          arrive_copied(bar, a);
+        }
+        if (++ws == R::kStages) ws = 0, wph ^= 1;
+      }
+    }
+    if (!a.tma) {
+      sm90::cp_async_commit();
+      sm90::cp_async_wait_all();
+    }
+  } else {  // the consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = tid / kWgThreads, wtid = tid % kWgThreads, warp = wtid / 32, lane = tid % 32;
+    int ws = 0, wph = 0, hs = 0, hph = 0;
+    float acc[NB * 32];
+#pragma unroll 1
+    for (long long u = blockIdx.x; u < a.units; u += gridDim.x) {
+      const int pair = (int)(u / ftiles), f0 = (int)(u - (long long)pair * ftiles) * 64 * NB;
+      const Tile8 t = tile_of(2 * pair + wg, a);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int yy = t.y0 + 2 * warp + half, xx = t.x0 + lane / 4;
-    pix[half] = yy < a.h && xx < a.w ? ((long long)t.b * a.h + yy) * a.w + xx : -1;
+      for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
+      int prev = -1, prev_h = -1;  // the stage and halo slot the group in flight reads
+#pragma unroll 1
+      for (int it = 0; it < iters; ++it) {
+        // wait for the pair's stage (at a step's first row also its halo) and
+        // issue its six wgmma, A and B both by descriptor: tap (dy, dx) is
+        // the halo from pixel (dy, dx) on, 8-row groups (tile rows) ten
+        // pixels apart, so accumulator row g is tile pixel (g / 8, g % 8).
+        // Once one group is left in flight, release what the previous pair
+        // read: its stage, and at a step's last row its halo.
+        const int step = it / 3, dy = it - 3 * step;
+        if (dy == 0) sm90::mbar_wait(full_h + 8u * hs, hph);
+        sm90::mbar_wait(full_w + 8u * ws, wph);
+        if (!a.tma) sm90::fence_proxy_async();
+        uint32_t hb =
+            halos + (uint32_t)(hs * 2 * kHaloPad + wg * kHaloPad + dy * kHSide * kRowBytes);
+        uint32_t st = ring + (uint32_t)(ws * R::kStage);
+        asm volatile("" : "+r"(st), "+r"(hb));
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            wgmma_ss<NB>(acc, sm90::sw64_desc(hb + dx * kRowBytes + kk * 32, kHSide * kRowBytes),
+                         sm90::sw64_desc(st + dx * R::kSlab + kk * 32));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (prev >= 0 && wtid == 0) sm90::mbar_arrive(empty_w + 8u * prev);
+        if (prev_h >= 0 && wtid == 0) sm90::mbar_arrive(empty_h + 8u * prev_h);
+        prev = ws, prev_h = dy == 2 ? hs : -1;
+        if (++ws == R::kStages) ws = 0, wph ^= 1;
+        if (dy == 2 && ++hs == 2) hs = 0, hph ^= 1;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (wtid == 0) {
+        sm90::mbar_arrive(empty_w + 8u * prev);
+        sm90::mbar_arrive(empty_h + 8u * prev_h);
+      }
+      if (a.tma_out) {
+        if (t.live)
+          store_out<NB>(a, acc, outs + (uint32_t)(wg * NB * kOutBlock), f0, wg, wtid,
+                        [&](int cb, uint32_t src) {
+                          sm90::tma_store_4d(&a.map_out, src, f0 + 64 * cb, t.x0, t.y0, t.b);
+                        });
+      } else if (t.live) {
+        long long pix[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int yy = t.y0 + 2 * warp + half, xx = t.x0 + lane / 4;
+          pix[half] = yy < a.h && xx < a.w ? ((long long)t.b * a.h + yy) * a.w + xx : -1;
+        }
+        store_tile<NB>(a, acc, pix, f0, lane);
+      }
+    }
+    if (a.tma_out && wtid == 0) sm90::bulk_wait<0>();
   }
-  store_tile<NB>(a, acc, pix, f0, lane);
 }
 
 // -------------------------------------------------------------- row route
 
 template <int NB>
-struct RowSmem {
-  static constexpr int kStage = NB * kSlabBytes + kATile;  // the slab, then A
-  static constexpr size_t kSmem = kStages * kStage + 1024;
+struct RowRing {
+  static constexpr int kSlab = NB * kSlabBytes;
+  static constexpr int kStage = kSlab + kATile;  // the slab, then A
+  static constexpr int kStages = NB == 1 ? 16 : NB == 2 ? 11 : 8;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kOut = 2 * NB * kOutBlock;  // the two consumers' epilogue tiles
+  static constexpr size_t kSmem = 1024 + kRing + kOut + 8 * 2 * kStages;
   static_assert(kSmem <= 232448, "over a block's shared memory");
 };
 
 template <int NB>
-__global__ void __launch_bounds__(kThreads, NB == 3 ? 1 : 2)
+__global__ void __launch_bounds__(kBlock, 1)
     bf16_conv_row_wgmma_kernel(const __grid_constant__ Args a) {
-  using Sm = RowSmem<NB>;
+  using R = RowRing<NB>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, wg = tid / kWgThreads, warp = (tid % kWgThreads) / 32;
-  const int lane = tid % 32;
-  const int ftiles = (a.f + 64 * NB - 1) / (64 * NB);
-  const long long m0 = (long long)(blockIdx.x / ftiles) * kBM;
-  const int f0 = (int)(blockIdx.x % ftiles) * 64 * NB;
-  Slab<bf16, NB> slab;
-  slab.init(a, f0, tid);
-
-  // this thread's A row r (output pixel m0 + r) and half hf of its chunks
-  const int r = tid >> 1, hf = tid & 1;
-  const long long m = m0 + r;
-  const bool live = m < a.m;
-  int img, iy, ix;
-  {
-    const long long per_img = (long long)a.ho * a.wo, mm = live ? m : 0;
-    const long long b = mm / per_img;
-    const int rem = (int)(mm - b * per_img), oy = rem / a.wo, ox = rem - oy * a.wo;
-    img = (int)b;
-    iy = oy * a.stride - a.pad;
-    ix = ox * a.stride - a.pad;
-  }
-
-  // (tap, step) pairs, steps fastest
-  const int iters = a.taps * a.steps;
-  auto stage_pair = [&](int it) {
-    if (it >= iters) return;
-    const int tap = it / a.steps, step = it - tap * a.steps;
-    const uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
-    slab.stage(st, a, a.wt, tap, step);
-    const int dy = tap / a.k, dx = tap - dy * a.k, yy = iy + dy, xx = ix + dx;
-    const bool in = live && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
-    const bf16* src = a.x + (in ? (((size_t)img * a.h + yy) * a.w + xx) * a.c : 0);
-    const uint32_t at = st + NB * kSlabBytes;
-#pragma unroll
-    for (int j = 0; j < kChunks / 2; ++j) {
-      const int chunk = hf * (kChunks / 2) + j, c = step * kStepC + chunk * kEpc;
-      const int valid = in ? min(max(a.c - c, 0), kEpc) : 0;
-      copy_chunk(at + sm90::sw64_offset(r, chunk), valid > 0 ? src + c : a.x, 2 * valid,
-                 a.vec_x);
+  const uint32_t outs = ring + R::kRing, full = outs + R::kOut, empty = full + 8 * R::kStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < R::kStages; ++i) {
+      sm90::mbar_init(full + 8u * i, a.tma ? 1u : (uint32_t)kWgThreads);
+      sm90::mbar_init(empty + 8u * i, 2);
     }
-  };
+    sm90::fence_mbarrier_init();
+  }
+  __syncthreads();
+  const int ftiles = a.ftiles, iters = a.taps * a.steps;  // (tap, step) pairs, steps fastest
 
+  if (tid >= kConsumers) {  // the producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int ptid = tid - kConsumers;
+    if (a.tma && ptid != 0) return;
+    int ws = 0, wph = 0;
 #pragma unroll 1
-  for (int it = 0; it < kAhead; ++it) {
-    stage_pair(it);
-    sm90::cp_async_commit();
-  }
-
-  float acc[NB * 32];
-#pragma unroll
-  for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
+    for (long long u = blockIdx.x; u < a.units; u += gridDim.x) {
+      const long long mt = u / ftiles, m0 = mt * kBM;
+      const int f0 = (int)(u - mt * ftiles) * 64 * NB;
+      // cp.async: this thread's A row, output pixel m0 + ptid
+      const long long m = m0 + ptid;
+      const bool live = m < a.m;
+      int img, iy, ix;
+      {
+        const long long per_img = (long long)a.ho * a.wo, mm = live ? m : 0;
+        const long long b = mm / per_img;
+        const int rem = (int)(mm - b * per_img), oy = rem / a.wo, ox = rem - oy * a.wo;
+        img = (int)b;
+        iy = oy * a.stride - a.pad;
+        ix = ox * a.stride - a.pad;
+      }
 #pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    // pair it landed in this thread's copies; the barrier makes everyone's
-    // visible and says that the stage pair it - 1 read is free
-    sm90::cp_async_wait<kAhead - 1>();
-    sm90::fence_proxy_async();
-    __syncthreads();
-    uint32_t st = ring + (uint32_t)((it % kStages) * Sm::kStage);
-    uint32_t at = st + (uint32_t)(NB * kSlabBytes + wg * 64 * kRowBytes);
-    asm volatile("" : "+r"(st), "+r"(at));
-    sm90::wgmma_fence();
+      for (int it = 0; it < iters; ++it) {
+        const int tap = it / a.steps, step = it - tap * a.steps;
+        const uint32_t st = ring + (uint32_t)(ws * R::kStage), bar = full + 8u * ws;
+        sm90::mbar_wait(empty + 8u * ws, wph ^ 1);
+        if (a.tma) {  // k = 1, stride 1: A is rows m0 to m0 + 127 of x as (M, C)
+          sm90::mbar_arrive_expect_tx(bar, R::kStage);
+          sm90::tma_load_3d(st, &a.map_w, bar, step * kStepC, tap, f0);
+          sm90::tma_load_2d(st + R::kSlab, &a.map_x, bar, step * kStepC, (int)m0);
+        } else {
+          stage_slabs<NB>(st, a, f0, tap, 1, step, ptid);
+          const int dy = tap / a.k, dx = tap - dy * a.k, yy = iy + dy, xx = ix + dx;
+          const bool in = live && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
+          const bf16* src = a.x + (in ? (((size_t)img * a.h + yy) * a.w + xx) * a.c : 0);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      wgmma_ss<NB>(acc, sm90::sw64_desc(at + kk * 32), sm90::sw64_desc(st + kk * 32));
-    sm90::wgmma_commit();
-    stage_pair(it + kAhead);
-    sm90::cp_async_commit();
-    sm90::wgmma_wait<0>();
-  }
-  sm90::fence_regs(acc);
-
-  long long pix[2];
+          for (int chunk = 0; chunk < kChunks; ++chunk) {
+            const int c = step * kStepC + chunk * kEpc;
+            const int valid = in ? min(max(a.c - c, 0), kEpc) : 0;
+            copy_chunk(st + R::kSlab + sm90::sw64_offset(ptid, chunk),
+                       valid > 0 ? src + c : a.x, 2 * valid, a.vec_x);
+          }
+          arrive_copied(bar, a);
+        }
+        if (++ws == R::kStages) ws = 0, wph ^= 1;
+      }
+    }
+    if (!a.tma) {
+      sm90::cp_async_commit();
+      sm90::cp_async_wait_all();
+    }
+  } else {  // the consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = tid / kWgThreads, wtid = tid % kWgThreads, warp = wtid / 32, lane = tid % 32;
+    int ws = 0, wph = 0, prev = -1;
+    float acc[NB * 32];
+#pragma unroll 1
+    for (long long u = blockIdx.x; u < a.units; u += gridDim.x) {
+      const long long mt = u / ftiles, m0 = mt * kBM;
+      const int f0 = (int)(u - mt * ftiles) * 64 * NB;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long mo = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * half;
-    pix[half] = mo < a.m ? mo : -1;
+      for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int it = 0; it < iters; ++it) {
+        sm90::mbar_wait(full + 8u * ws, wph);
+        if (!a.tma) sm90::fence_proxy_async();
+        uint32_t st = ring + (uint32_t)(ws * R::kStage);
+        uint32_t at = st + (uint32_t)(R::kSlab + wg * 64 * kRowBytes);
+        asm volatile("" : "+r"(st), "+r"(at));
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_ss<NB>(acc, sm90::sw64_desc(at + kk * 32), sm90::sw64_desc(st + kk * 32));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (prev >= 0 && wtid == 0) sm90::mbar_arrive(empty + 8u * prev);
+        prev = ws;
+        if (++ws == R::kStages) ws = 0, wph ^= 1;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (wtid == 0) sm90::mbar_arrive(empty + 8u * prev);
+      prev = -1;
+      const long long mw = m0 + 64 * wg;  // this warpgroup's first output pixel
+      if (a.tma_out) {
+        if (mw < a.m)
+          store_out<NB>(a, acc, outs + (uint32_t)(wg * NB * kOutBlock), f0, wg, wtid,
+                        [&](int cb, uint32_t src) {
+                          sm90::tma_store_2d(&a.map_out, src, f0 + 64 * cb, (int)mw);
+                        });
+        continue;
+      }
+      long long pix[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long mo = mw + 16 * warp + lane / 4 + 8 * half;
+        pix[half] = mo < a.m ? mo : -1;
+      }
+      store_tile<NB>(a, acc, pix, f0, lane);
+    }
+    if (a.tma_out && wtid == 0) sm90::bulk_wait<0>();
   }
-  store_tile<NB>(a, acc, pix, f0, lane);
 }
 
 // ---------------------------------------------------------------- launch
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// -lcuda link); null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dimensions (sizes innermost first, byte
+// strides of dimensions 1 on) in boxes of `box` elements laid out in shared
+// memory in `swizzle`; loads give zeros out of bounds, stores skip them
+bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// multiprocessors of the current device, read once per device
+int multiprocessors() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 1;
+  }
+  return counts[dev];
+}
+
 template <int NB>
-cudaError_t launch_nb(const Args& a, int route, cudaStream_t stream) {
-  if (route == 1)
-    return launch(bf16_conv_halo_wgmma_kernel<NB>, HaloSmem<NB>::kSmem, grid_of<NB>(a, 1), a,
-                  stream);
-  return launch(bf16_conv_row_wgmma_kernel<NB>, RowSmem<NB>::kSmem, grid_of<NB>(a, 0), a,
-                stream);
+cudaError_t launch_nb(Args& a, int batch, int route, int max_blocks, cudaStream_t stream) {
+  const bool halo = route == 1;
+  void (*kernel)(Args) = halo ? &bf16_conv_halo_wgmma_kernel<NB> : &bf16_conv_row_wgmma_kernel<NB>;
+  const size_t smem = halo ? HaloRing<NB>::kSmem : RowRing<NB>::kSmem;
+  a.ftiles = (a.f + 64 * NB - 1) / (64 * NB);
+  a.units = (halo ? ((long long)a.tiles + 1) / 2 : (a.m + kBM - 1) / kBM) * a.ftiles;
+  if (a.tma) {
+    const cuuint64_t cb = 2ull * a.c;  // bytes a pixel or a (filter, tap)
+    const cuuint64_t wdims[3] = {(cuuint64_t)a.c, (cuuint64_t)a.taps, (cuuint64_t)a.f};
+    const cuuint64_t wstrides[2] = {cb, cb * a.taps};
+    const cuuint32_t wbox[3] = {kStepC, 1, 64 * NB};
+    bool ok = encode(&a.map_w, a.wt, 3, wdims, wstrides, wbox);
+    if (halo) {
+      const cuuint64_t xdims[4] = {(cuuint64_t)a.c, (cuuint64_t)a.w, (cuuint64_t)a.h,
+                                   (cuuint64_t)batch};
+      const cuuint64_t xstrides[3] = {cb, cb * a.w, cb * a.w * a.h};
+      const cuuint32_t xbox[4] = {kStepC, kHSide, kHSide, 1};
+      ok = ok && encode(&a.map_x, a.x, 4, xdims, xstrides, xbox);
+    } else {
+      const cuuint64_t xdims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.m};
+      const cuuint64_t xstrides[1] = {cb};
+      const cuuint32_t xbox[2] = {kStepC, kBM};
+      ok = ok && encode(&a.map_x, a.x, 2, xdims, xstrides, xbox);
+    }
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  if (a.tma_out) {  // out (batch, ho, wo, f) in boxes of 64 filters x 64 pixels
+    const cuuint64_t fb = 2ull * a.f;
+    bool ok;
+    if (halo) {
+      const cuuint64_t dims[4] = {(cuuint64_t)a.f, (cuuint64_t)a.wo, (cuuint64_t)a.ho,
+                                  (cuuint64_t)batch};
+      const cuuint64_t strides[3] = {fb, fb * a.wo, fb * a.wo * a.ho};
+      const cuuint32_t box[4] = {64, kSide, kSide, 1};
+      ok = encode(&a.map_out, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    } else {
+      const cuuint64_t dims[2] = {(cuuint64_t)a.f, (cuuint64_t)a.m};
+      const cuuint64_t strides[1] = {fb};
+      const cuuint32_t box[2] = {64, 64};
+      ok = encode(&a.map_out, a.out, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  long long blocks = a.units < multiprocessors() ? a.units : multiprocessors();
+  if (max_blocks > 0 && blocks > max_blocks) blocks = max_blocks;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, kBlock, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -396,23 +681,36 @@ extern "C" {
 // x (batch, h, w, c) NHWC bf16; wt (f, k, k, c) bf16; bias (f,) bf16 or null;
 // out (batch, ho, wo, f) bf16, ho = (h - 1) / stride + 1, the same for wo
 // (padding k / 2). route 0 is the row route, 1 the halo route (k = 3,
-// stride 1); filter_tile 64, 128 or 192. All on the current device. Returns
-// the CUDA error code of the launch (0 on success).
+// stride 1); filter_tile 64, 128 or 192. max_blocks > 0 caps the persistent
+// grid (else one block a multiprocessor, at most one a work unit); staging 0
+// loads and stores by TMA where the call allows it, bit 0 set loads by
+// cp.async always, bit 1 set stores from registers always (every way gives
+// the same bits). All on the current device. Returns the CUDA error code of
+// the launch (0 on success).
 int nd_bf16_conv(const void* x, const void* wt, const void* bias, void* out, int batch, int h,
                  int w, int c, int f, int k, int stride, int route, int filter_tile,
-                 void* stream) {
+                 int max_blocks, int staging, void* stream) {
   Args a;
+  std::memset(static_cast<void*>(&a), 0, sizeof(a));
   if (!make_shape(a, batch, h, w, c, f, k, stride, route, filter_tile, x, 2, wt, 2))
     return (int)cudaErrorInvalidValue;
   a.x = static_cast<const bf16*>(x);
   a.wt = static_cast<const bf16*>(wt);
   a.bias = static_cast<const bf16*>(bias);
   a.out = static_cast<bf16*>(out);
+  // TMA: 16-byte global strides and bases, int coordinates, and on the row
+  // route an A that is x itself (k = 1, stride 1)
+  a.tma = (staging & 1) == 0 && c % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(wt) % 16 == 0 && a.m <= INT_MAX &&
+          (route == 1 || (k == 1 && stride == 1));
+  // the TMA store: 16-byte rows of out (F % 8 = 0) on 16 bytes, int coordinates
+  a.tma_out = (staging & 2) == 0 && f % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+              a.m <= INT_MAX;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (filter_tile / 64) {
-    case 1: return (int)launch_nb<1>(a, route, s);
-    case 2: return (int)launch_nb<2>(a, route, s);
-    default: return (int)launch_nb<3>(a, route, s);
+    case 1: return (int)launch_nb<1>(a, batch, route, max_blocks, s);
+    case 2: return (int)launch_nb<2>(a, batch, route, max_blocks, s);
+    default: return (int)launch_nb<3>(a, batch, route, max_blocks, s);
   }
 }
 

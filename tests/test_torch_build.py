@@ -223,3 +223,27 @@ def test_the_int8_sass_gate_counts_integer_warpgroup_multiplies():
             "  /*0a30*/  QGMMA.64x64x32.F32.E4M3.E4M3 R0, gdesc[UR8], R0 ;\n")
     assert re.findall(rf"\b({GMMA_SASS['int8conv']})\.", sass) == ["IGMMA"]
     assert re.findall(rf"\b({GMMA_SASS['resblock']})\.", sass) == ["HGMMA"]
+
+
+def test_the_bf16_conv_sass_gate_counts_tma_loads_and_setmaxnreg_per_instance():
+    """The bf16 conv's gate reads each instance's machine code apart: its
+    warpgroup multiplies, TMA loads and register handovers, by route and
+    filter tile (the instance whose producer lost its TMA loads shows 0)."""
+    from chip_smoke import BF16_CONV_SASS, bf16_sass_by_instance
+
+    def function(route, nb, body):
+        name = (f"_ZN12_GLOBAL__N_1{len(route) + 22}bf16_conv_{route}_wgmma_kernel"
+                f"ILi{nb}EEEvNS_4ArgsE")
+        return f"\t\tFunction : {name}\n" + body
+
+    sass = (function("halo", 3, "  USETMAXREG.DEALLOC.CTAPOOL 0x38 ;\n  UTMALDG.4D [UR8], [UR4] ;\n"
+                                "  UTMALDG.3D [UR16], [UR4] ;\n"
+                                "  HGMMA.64x192x16.F32.BF16 R24, R152, gdesc[UR8], R24 ;\n")
+            + function("row", 1, "  USETMAXREG.TRY_ALLOC.CTAPOOL 0xe0 ;\n"
+                                 "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;\n"))
+    counts = bf16_sass_by_instance(sass)
+    assert BF16_CONV_SASS == ("HGMMA", "UTMALDG", "USETMAXREG")
+    assert counts["bf16_conv_halo_wgmma bf16 filters=192"] == {"HGMMA": 1, "UTMALDG": 2,
+                                                               "USETMAXREG": 1}
+    assert counts["bf16_conv_row_wgmma bf16 filters=64"] == {"HGMMA": 1, "UTMALDG": 0,
+                                                             "USETMAXREG": 1}

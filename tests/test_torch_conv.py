@@ -8,6 +8,8 @@ The conv kernel itself runs only on the card (tests/test_torch_kernels.py,
 holds the kernel to.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -104,14 +106,69 @@ def test_conv_plain_row_is_batch_invariant(shape, f, k, stride):
                 assert torch.equal(kc.conv_nhwc(x, w, b, stride)[row], ref), (batch, row, mates)
 
 
-@pytest.mark.parametrize("k,stride,f,route,tile", [
-    (3, 1, 192, "halo", 192), (3, 1, 384, "halo", 192), (3, 1, 256, "halo", 128),
-    (3, 1, 6, "halo", 64), (1, 1, 576, "row", 192), (3, 2, 64, "row", 64), (1, 1, 130, "row", 64),
+@pytest.mark.parametrize("h,w,k,stride,f,route,tile", [
+    # openai_64: 64 x 64 and 32 x 32 levels fill the card at the widest tile
+    (64, 64, 3, 1, 192, "halo", 192), (32, 32, 3, 1, 384, "halo", 192),
+    (64, 64, 1, 1, 192, "row", 192), (16, 16, 3, 1, 576, "halo", 192),
+    # small maps split finer: 8 x 8 at 64 filters, 16 x 16 at 384 filters at 128
+    (8, 8, 3, 1, 768, "halo", 64), (8, 8, 1, 1, 768, "row", 64), (16, 16, 3, 1, 384, "halo", 128),
+    (3, 1, 3, 1, 256, "halo", 64),
+    # no tile divides F: 64 (the head's F = 6, ragged F)
+    (64, 64, 3, 1, 6, "halo", 64), (1, 1, 1, 1, 130, "row", 64), (16, 16, 3, 2, 64, "row", 64),
 ])
-def test_conv_plan_takes_no_batch(k, stride, f, route, tile):
-    """The route from k and stride, the widest tile of 192, 128 and 64 that
-    divides F (else 64): nothing of the batch or the map goes in."""
-    assert kc.conv_nhwc_plan(k, stride, f) == (route, tile)
+def test_conv_plan_takes_no_batch(h, w, k, stride, f, route, tile):
+    """The route from k and stride; the tile from the map, k, stride and F:
+    one of 192, 128 and 64 that divides F (else 64), the fewest waves of
+    units on the card at PLAN_BATCH, the widest on a tie. The batch is not
+    an argument."""
+    assert kc.conv_nhwc_plan(h, w, k, stride, f) == (route, tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _preset_conv_shapes():
+    """Every (H, W, C, F, k, stride) of one forward of openai_64, openai_128
+    and the super-resolution UNet at openai_256's widths (the meta device)."""
+    from chip_smoke import conv_calls, model_config, sr_config
+    from nicediffusion_tpu_torch.models.unet import SuperResolutionModel
+
+    meta = torch.device("meta")
+    shapes = set()
+    for cfg, cls in ((model_config("openai_64"), DiffusionModel),
+                     (model_config("openai_128"), DiffusionModel),
+                     (sr_config(), SuperResolutionModel)):
+        shapes |= set(conv_calls(cls(**cfg, kernels=False, device=meta).eval(), meta))
+    return tuple(sorted(shapes))
+
+
+def test_conv_plan_reads_no_batch_at_every_preset_shape():
+    """The plan's arguments are the map, k, stride and F; what the wrapper
+    launches with (plan_for of x's shape) is the same at batches 1, 16 and
+    128 at every conv shape of openai_64, openai_128 and sr256."""
+    import inspect
+
+    assert list(inspect.signature(kc.conv_nhwc_plan).parameters) == ["h", "w", "k", "stride", "f"]
+    shapes = _preset_conv_shapes()
+    assert len(shapes) > 60
+    for h, w, c, f, k, stride in shapes:
+        plans = {kc.plan_for((b, h, w, c), f, k, stride) for b in (1, 16, 128)}
+        assert plans == {kc.conv_nhwc_plan(h, w, k, stride, f)}, (h, w, c, f, k, stride)
+
+
+@pytest.mark.parametrize("f", [6, 64, 96, 130, 192, 256, 320, 384, 448, 576, 640, 768, 1000, 1024,
+                               1152, 1536])
+def test_conv_plan_leaves_no_zero_products_where_f_allows(f):
+    """At every map, k and stride of the presets, the tile divides F whenever
+    one of 192, 128 and 64 does; the units at batch 16 grow as the tile
+    narrows."""
+    for h, w, _, _, k, stride in _preset_conv_shapes():
+        route, tile = kc.conv_nhwc_plan(h, w, k, stride, f)
+        assert route == ("halo" if (k, stride) == (3, 1) else "row")
+        if any(f % t == 0 for t in kc.FILTER_TILES):
+            assert f % tile == 0, (h, w, k, stride, f, tile)
+        else:
+            assert tile == 64
+        units = [kc.conv_nhwc_units(16, h, w, k, stride, f, t) for t in kc.FILTER_TILES]
+        assert units == sorted(units)
 
 
 def test_bf16_model_sends_every_conv_to_the_conv_wrapper(monkeypatch):

@@ -1191,6 +1191,101 @@ def test_bf16_conv_filter_tiles_give_the_same_bits(cuda, shape, k, stride):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1)], ids=["halo", "row"])
+def test_bf16_conv_tma_and_copy_staging_give_the_same_bits(cuda, k, stride):
+    """C = 8: x loaded by TMA, by cp.async (forced) and by byte loads from a
+    view one element into its storage, stored by TMA or from registers, give
+    the same bits; C = 3 (no tensor map: cp.async) equals C = 8 with five
+    zero channels, loaded by TMA."""
+    x, w, bias = _bf16_conv_inputs(cuda, (2, 20, 12, 8), 48, k, seed=8)
+    tma = kc.conv_nhwc(x, w, bias, stride)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xv = flat[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    for out in (*(kc.conv_nhwc(x, w, bias, stride, staging=s) for s in kc.STAGINGS),
+                kc.conv_nhwc(xv, w, bias, stride), kc.conv_nhwc(x, w, bias, stride, blocks=3,
+                                                                staging="copy")):
+        assert torch.equal(out, tma)
+    _bf16_conv_gate(tma, kc.conv_nhwc_plain(x, w, bias, stride))
+    x3, w3 = x[..., :3].contiguous(), w[:, :3].contiguous()
+    padded, wpadded = torch.zeros_like(x), torch.zeros_like(w)
+    padded[..., :3], wpadded[:, :3] = x3, w3
+    out3 = kc.conv_nhwc(x3, w3, bias, stride)
+    assert torch.equal(out3, kc.conv_nhwc(padded, wpadded, bias, stride))
+    _bf16_conv_gate(out3, kc.conv_nhwc_plain(x3, w3, bias, stride))
+
+
+@pytest.mark.parametrize("shape,f,k,stride", [
+    ((4, 16, 16, 64), 128, 3, 1), ((4, 16, 16, 64), 128, 1, 1), ((3, 30, 18, 40), 72, 3, 2)],
+    ids=["halo", "row", "row_s2"])
+def test_bf16_conv_persistent_grid_with_fewer_blocks_than_units(cuda, shape, f, k, stride):
+    """A grid of 1, 3 or units - 1 blocks walks every work unit (the ring's
+    stages and phases carried across units) and gives the bits of one block
+    a unit, by TMA and by cp.async."""
+    x, w, bias = _bf16_conv_inputs(cuda, shape, f, k, seed=5)
+    b, h, wd, _ = shape
+    tile = kc.conv_nhwc_plan(h, wd, k, stride, f)[1]
+    units = kc.conv_nhwc_units(b, h, wd, k, stride, f, tile)
+    assert units > 3
+    ref = kc.conv_nhwc(x, w, bias, stride)
+    _bf16_conv_gate(ref, kc.conv_nhwc_plain(x, w, bias, stride))
+    for blocks in (1, 3, units - 1):
+        for staging in ("tma", "copy"):
+            assert torch.equal(kc.conv_nhwc(x, w, bias, stride, blocks=blocks, staging=staging),
+                               ref), (blocks, staging)
+
+
+@pytest.mark.parametrize("hw,c", [(8, 96), (16, 96), (16, 384)])
+@pytest.mark.parametrize("k", [3, 1], ids=["halo", "row"])
+def test_bf16_conv_every_plan_choice_gives_the_same_bits(cuda, hw, c, k):
+    """At 8 x 8 and 16 x 16 maps (C = 96: three channel steps, an odd number
+    of (step, kernel row) pairs; C = 384: twelve), every filter tile, a
+    capped grid and every way to load and store give the bits of the plan's
+    choice, each twice: a race between the loads and the products in flight
+    shows as bits that move from launch to launch."""
+    x, w, bias = _bf16_conv_inputs(cuda, (16, hw, hw, c), 384, k, seed=hw + k + c)
+    ref = kc.conv_nhwc(x, w, bias)
+    _bf16_conv_gate(ref, kc.conv_nhwc_plain(x, w, bias))
+    for tile in kc.FILTER_TILES:
+        for blocks in (None, 5):
+            for staging in kc.STAGINGS:
+                for _ in range(2):
+                    out = kc.conv_nhwc(x, w, bias, filter_tile=tile, blocks=blocks,
+                                       staging=staging)
+                    assert torch.equal(out, ref), (tile, blocks, staging)
+
+
+@pytest.mark.parametrize("shape,f,k", [((8, 8, 768), 768, 3), ((16, 16, 576), 576, 3),
+                                       ((16, 16, 384), 576, 1), ((64, 64, 3), 192, 3)])
+def test_bf16_conv_row_is_bit_identical_at_rows_0_7_15_of_batches_1_8_16(cuda, shape, f, k):
+    """One example's output at row 0 of a batch of 1 equals it at rows 0 and
+    7 of a batch of 8 and rows 0, 7 and 15 of a batch of 16, among random
+    batch mates: the plan and the grid change with the batch, the sums do not."""
+    x0, w, bias = _bf16_conv_inputs(cuda, (1, *shape), f, k, seed=f + k)
+    ref = kc.conv_nhwc(x0, w, bias)[0]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for batch in (8, 16):
+        for row in (r for r in (0, 7, 15) if r < batch):
+            x = torch.randn((batch, *shape), generator=g, device=cuda).bfloat16()
+            x[row] = x0[0]
+            assert torch.equal(kc.conv_nhwc(x, w, bias)[row], ref), (batch, row)
+
+
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1), (3, 2)], ids=["halo", "row", "row_s2"])
+def test_bf16_conv_on_a_misaligned_view(cuda, k, stride):
+    """x a contiguous view one element into its storage (no tensor map, no
+    16-byte copy) and C = 72: the byte loads give the aligned call's bits."""
+    x, w, bias = _bf16_conv_inputs(cuda, (2, 9, 10, 72), 80, k, seed=11)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xv = flat[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    out = kc.conv_nhwc(xv, w, bias, stride)
+    assert torch.equal(out, kc.conv_nhwc(x, w, bias, stride))
+    _bf16_conv_gate(out, kc.conv_nhwc_plain(x, w, bias, stride))
+
+
 def test_bf16_conv_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(64, 64, 3, 3, device=cuda)
@@ -1202,6 +1297,10 @@ def test_bf16_conv_refuses_what_it_does_not_take(cuda):
         kc.conv_nhwc(x, torch.zeros(64, 32, 3, 3, device=cuda))
     with pytest.raises(ValueError, match="bias"):
         kc.conv_nhwc(x, w, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="staging"):
+        kc.conv_nhwc(x, w, staging="bulk")
+    with pytest.raises(ValueError, match="blocks"):
+        kc.conv_nhwc(x, w, blocks=0)
 
 
 def test_bf16_conv_model_runs_every_bf16_conv_through_the_kernel(cuda):
