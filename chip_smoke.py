@@ -368,8 +368,11 @@ BF16_CONV_TOL = 2.0 ** -6
 # K1 and K2 at head dims between two builds (each runs on the next one up)
 BETWEEN_BUILDS = (24, 48, 96)
 # K1, K2 and K5 at head dims above 256 (the chunked build), each at one N:
-# (head dim, N); 2 heads, so the two layouts differ
-ABOVE_256 = ((257, 65), (300, 100), (320, 17), (384, 256), (512, 1024), (768, 64), (1024, 1024))
+# (head dim, N); 2 heads, so the two layouts differ. In bf16 N = 1200 (above
+# the P-resident route's limit of 1152) runs the walk, the others the
+# resident route
+ABOVE_256 = ((257, 65), (300, 100), (320, 17), (384, 256), (512, 1024), (768, 64), (1024, 1024),
+             (384, 1200))
 # [wide-heads]: openai_128's widths at one head (head dims 512, 768, 1024)
 WIDE_BATCH = 8  # the f32 and bf16 forwards' model batch
 WIDE_TRAIN_BATCH = 2  # the Trainer step's and the sampling entry point's batch
@@ -558,12 +561,13 @@ GMMA_SASS = {"attention": r"HGMMA", "attention_bwd": r"HGMMA", "resblock": r"HGM
 # (no HGMMA gate applies to them)
 NO_SPILL_LIBS = {"groupnorm": "K3"}
 _ENTRY = re.compile(
-    r"Compiling entry function '\S*?(attention_fwd_chunked_wgmma|attention_fwd_chunked|"
+    r"Compiling entry function '\S*?(attention_fwd_resident_wgmma|attention_bwd_resident_wgmma|"
+    r"attention_bwd_delta|attention_fwd_chunked_wgmma|attention_fwd_chunked|"
     r"attention_bwd_dq_chunked_wgmma|attention_bwd_dkv_chunked_wgmma|attention_bwd_dq_chunked|"
     r"attention_bwd_dkv_chunked|attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
     r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
-    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma)_kernelI(\S+)'")
+    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma)_kernel(I\S+|\S*)'")
 _INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
 
@@ -594,6 +598,10 @@ def build_report(name, nvcc_log):
                 entry = f"{m.group(1)} {dt}" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1).startswith("group_norm"):
                 entry = f"{m.group(1)} {dt}" + (f" vector={dims[0]}" if dims else "")
+            elif "_resident" in m.group(1):  # head dims above 256, N <= 1152
+                entry = f"{m.group(1)} bf16 P in shared memory, TMA producer"
+            elif m.group(1) == "attention_bwd_delta":
+                entry = f"{m.group(1)} bf16 in, f32 sums"
             elif "_chunked" in m.group(1):  # <output columns a block>: head dims above 256
                 entry = f"{m.group(1)} {dt}" + (f" chunk={dims[0]}" if dims else "")
             else:
@@ -649,21 +657,40 @@ def int8_sass_by_instance(sass):
 BF16_CONV_SASS = ("HGMMA", "UTMALDG", "USETMAXREG")
 
 
-def bf16_sass_by_instance(sass):
-    """The BF16_CONV_SASS instructions in the machine code of each bf16 conv
-    instance (cuobjdump -sass prints a "Function : <mangled>" line before
-    each), by route and filter tile."""
+def sass_by_instance(sass, pattern, name):
+    """The BF16_CONV_SASS instructions in the machine code of each kernel
+    whose "Function : <mangled>" line (cuobjdump -sass prints one before
+    each) matches ``pattern``, keyed by ``name(match)``."""
     counts, current = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?(bf16_conv_(?:halo|row)_wgmma)_kernelILi(\d)E", line)
-        if m:
-            current = f"{m.group(1)} bf16 filters={64 * int(m.group(2))}"
-            counts[current] = collections.Counter({op: 0 for op in BF16_CONV_SASS})
+        if "Function : " in line:
+            m = re.search(pattern, line)
+            current = name(m) if m else None
+            if current:
+                counts[current] = collections.Counter({op: 0 for op in BF16_CONV_SASS})
         elif current:
             for op in BF16_CONV_SASS:
                 if re.search(rf"\b{op}\b", line):
                     counts[current][op] += 1
     return counts
+
+
+def bf16_sass_by_instance(sass):
+    """Each bf16 conv instance's counts, by route and filter tile."""
+    return sass_by_instance(sass, r"(bf16_conv_(?:halo|row)_wgmma)_kernelILi(\d)E",
+                            lambda m: f"{m.group(1)} bf16 filters={64 * int(m.group(2))}")
+
+
+# the P-resident attention kernels (head dims above 256): one in each of the
+# attention libraries, each a TMA producer handing its registers over
+RESIDENT_KERNELS = {"attention": "attention_fwd_resident_wgmma",
+                    "attention_bwd": "attention_bwd_resident_wgmma"}
+
+
+def resident_sass_by_instance(sass):
+    """Each P-resident attention kernel's counts."""
+    return sass_by_instance(sass, r"(attention_(?:fwd|bwd)_resident_wgmma)_kernel",
+                            lambda m: m.group(1))
 
 
 def phase_build():
@@ -693,6 +720,18 @@ def phase_build():
         if name == "int8conv":
             for instance, count in int8_sass_by_instance(sass).items():
                 log(f"[build]   {instance}: {count} IGMMA")
+        if name in RESIDENT_KERNELS:
+            instances = resident_sass_by_instance(sass)
+            for instance, ops in instances.items():
+                log(f"[build]   {instance} (P in shared memory): " + ", ".join(
+                    f"{ops[op]} {op}" for op in BF16_CONV_SASS))
+                if not all(ops.values()):
+                    raise AssertionError(f"{instance} lacks {[op for op in BF16_CONV_SASS if not ops[op]]}"
+                                         " in its machine code: no TMA producer or no register "
+                                         "handover")
+            if list(instances) != [RESIDENT_KERNELS[name]]:
+                raise AssertionError(f"the {name} library holds the P-resident kernels "
+                                     f"{list(instances)}, not {RESIDENT_KERNELS[name]}")
         if name == "bf16conv":
             instances = bf16_sass_by_instance(sass)
             for instance, ops in instances.items():
@@ -933,20 +972,41 @@ FWD_CHUNK = 256
 BWD_CHUNK = {torch.bfloat16: 256, torch.float32: 128}
 
 
-def recompute_factor(kernel, hd, dtype):
+def recompute_factor(kernel, hd, dtype, n=None, pairs=None):
     """The matrix products an attention kernel makes over the fewest its
-    function needs, from the head dim: 1 below 257. Above 256 every output
-    chunk's block makes the products over all of D again: K1 S once per chunk
-    and P V once in all, against 2; K2 S and dP for each chunk of dQ and of
-    dK, S for each of dV (bf16: separate blocks) or S and dP for each chunk
-    of dK and dV together (f32), and dQ, dK and dV once in all, against 5."""
+    function needs (K1 2, K2 5), from the head dim and, above 256 in bf16,
+    the route the plan picks from N (and its split from the (batch, head)
+    pairs): 1 below 257. The walk makes the products over all of D again for
+    every output chunk: K1 S once per chunk and P V once in all; K2 S and dP
+    for each chunk of dQ and of dK, S for each of dV (bf16: separate blocks)
+    or S and dP for each chunk of dK and dV together (f32), and dQ, dK and dV
+    once in all. The P-resident route makes K1's S once a (query tile, key
+    tile) pair, K2's S three times and dP twice (dq, dk and dv blocks), each
+    once more for every further part of a split."""
     if hd <= 256:
         return 1.0
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
+    if dtype == torch.bfloat16 and n is not None:
+        plan = k1.chunked_attention_plan(n, hd, pairs, kernel)
+        if plan["route"] == "resident":
+            s = plan["split"]
+            return (s + 1) / 2 if kernel == "K1" else (5 * s + 3) / 5
     if kernel == "K1":
         return (-(-hd // FWD_CHUNK) + 1) / 2
     chunks = -(-hd // BWD_CHUNK[dtype])
     per_chunk = 5 if dtype == torch.bfloat16 else 4
     return (per_chunk * chunks + 3) / 5
+
+
+def route_of(kernel, n, hd, pairs, dtype):
+    """'route (split s)' of an attention call above head dim 256."""
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
+    if dtype != torch.bfloat16:
+        return "walk (f32)"
+    plan = k1.chunked_attention_plan(n, hd, pairs, kernel)
+    return f"{plan['route']} (split {plan['split']})"
 
 
 def library_kernel(fn):
@@ -1087,9 +1147,16 @@ def phase_kernels(dev, paths):
                     f"{device[1]:.4f} ms, library {device[2]:.4f} ms; torch.profiler "
                     f"{prof[0]:.4f} ms, library {prof[1]:.4f} ms; bound {max(bound):.4f} ms")
                 if kind == "attention" and c // heads > 256:
-                    factor = recompute_factor("K1", c // heads, dtype)
+                    factor = recompute_factor("K1", c // heads, dtype, n, b * heads)
+                    before = dict(k1.route_launches)
+                    k1.fused_qkv_attention(qkv, heads, split_first)
+                    torch.cuda.synchronize()
+                    ran = {f"{kr[0]} {kr[1]}": v - before.get(kr, 0)
+                           for kr, v in k1.route_launches.items() if v != before.get(kr, 0)}
                     log(f"[kernels] {name} {dtype}: head dim {c // heads} on the chunked build, "
-                        f"{factor:.2f}x the bound's products (bound with them "
+                        f"route {route_of('K1', n, c // heads, b * heads, dtype)}, one call's "
+                        f"launches by route {ran}; {factor:.2f}x the bound's products "
+                        f"({factor * 2:.2f} N^2 D products of the 2 needed; bound with them "
                         f"{max(bound[0], factor * bound[1]):.4f} ms); the library ran "
                         f"{library_kernel(library)}")
             if kind == "attention" and where in K5_PATHS:
@@ -1228,10 +1295,12 @@ def phase_mha_direct(dev, paths):
             raise AssertionError(f"K5 differs from K1 at qkv {tuple(qkv.shape)}, {heads} heads")
     torch.cuda.synchronize()
     launches = read_launches()
+    routes = read_routes()
     log(f"[k5] {launches['mha']} direct calls at the attention shapes of one openai_128 and one "
         f"classifier forward, bf16, batch {GUIDED_BATCH}, and of one openai_128 forward at one "
-        f"head (head dims 512, 768, 1024), batch {WIDE_BATCH}: each equal to K1 bit for bit")
-    return launches
+        f"head (head dims 512, 768, 1024), batch {WIDE_BATCH}: each equal to K1 bit for bit; "
+        f"above head dim 256 by route {routes}")
+    return {**launches, **routes}
 
 
 def randomize(model, seed):
@@ -1731,9 +1800,16 @@ def phase_kernels_bwd(dev, paths):
                     f"(graph {read['forward_graph']:.4f})")
                 hd = c // heads
                 if hd > 256:
-                    factor = recompute_factor("K2", hd, dtype)
-                    log(f"[k2] {name} {dtype}: head dim {hd} on the chunked build, "
-                        f"{factor:.2f}x the bound's products (bound with them "
+                    factor = recompute_factor("K2", hd, dtype, n, b * heads)
+                    before = dict(k1.route_launches)
+                    fns[0]()
+                    torch.cuda.synchronize()
+                    ran = {f"{kr[0]} {kr[1]}": v - before.get(kr, 0)
+                           for kr, v in k1.route_launches.items() if v != before.get(kr, 0)}
+                    log(f"[k2] {name} {dtype}: head dim {hd} on the chunked build, route "
+                        f"{route_of('K2', n, hd, b * heads, dtype)}, one call's launches by "
+                        f"route {ran}; {factor:.2f}x the bound's products ({factor * 5:.2f} "
+                        f"N^2 D products of the 5 needed; bound with them "
                         f"{max(bound[0], factor * bound[1]):.4f} ms); the library's backward "
                         f"ran {library_kernel(library)}")
     log(f"[k2] max abs err vs plain: f32 {errs[torch.float32]:.3g}, bf16 "
@@ -1973,8 +2049,19 @@ def kernel_counters():
 
 
 def reset_launches():
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    k1.route_launches.clear()
+
+
+def read_routes():
+    """The attention launches at head dims above 256 by kernel and route
+    since the last reset_launches: {"K1 resident": n, ...}."""
+    from nicediffusion_tpu_torch.ops.kernels import attention as k1
+
+    return {f"{kernel} {route}": n for (kernel, route), n in sorted(k1.route_launches.items())}
 
 
 def read_launches():
@@ -2774,11 +2861,18 @@ def phase_wide_heads(dev, state):
     total = collections.Counter()
     t0 = time.perf_counter()
 
-    def held(what, launches, expect):
-        log(f"[wide-heads] {what}: launches {launches}, expected {expect}")
-        if launches != expect:
-            raise AssertionError(f"[wide-heads] {what}: launch counts {launches} != {expect}")
+    def held(what, launches, expect, routes=None):
+        """the launch counts, and those of each route above head dim 256:
+        every bf16 call on the P-resident route (no N here exceeds its
+        limit), every f32 one on the walk"""
+        ran = read_routes()
+        log(f"[wide-heads] {what}: launches {launches}, expected {expect}; by route {ran}, "
+            f"expected {routes}")
+        if launches != expect or ran != routes:
+            raise AssertionError(f"[wide-heads] {what}: launch counts {launches}, {ran} != "
+                                 f"{expect}, {routes}")
         total.update(launches)
+        total.update(ran)
 
     # (a) the forwards, kernels on against off
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -2802,7 +2896,9 @@ def phase_wide_heads(dev, state):
                 per_forward = {"attention": n_attn, "attention_bwd": 0, "groupnorm": n_gn,
                                "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
                                "conv": conv_per_call(model)}
-                held(f"{dtype} forward at model batch {WIDE_BATCH}", read_launches(), per_forward)
+                route = "resident" if dtype == torch.bfloat16 else "walk"
+                held(f"{dtype} forward at model batch {WIDE_BATCH}", read_launches(), per_forward,
+                     {f"K1 {route}": n_attn})
             del model
         out, ref = outs[dtype, True], outs[dtype, False]
         if out.shape != (WIDE_BATCH, cfg["resolution"], cfg["resolution"],
@@ -2864,7 +2960,8 @@ def phase_wide_heads(dev, state):
             img.std() == 0 for img in images):
         raise AssertionError(f"[wide-heads] samples {images.shape}, or a constant image")
     held(f"the sampling entry point, bf16, DDIM {WIDE_STEPS} steps at batch {WIDE_TRAIN_BATCH}",
-         read_launches(), {k: n * WIDE_STEPS for k, n in per_forward.items()})
+         read_launches(), {k: n * WIDE_STEPS for k, n in per_forward.items()},
+         {"K1 resident": per_forward["attention"] * WIDE_STEPS})
     log(f"[wide-heads] (c) {WIDE_TRAIN_BATCH} images of label {label} through the sampling "
         f"entry point (custom mode) in {time.perf_counter() - t1:.1f} s")
 
@@ -2884,8 +2981,9 @@ def phase_wide_heads(dev, state):
     loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
     if not (math.isfinite(loss) and math.isfinite(norm)):
         raise AssertionError(f"[wide-heads] Trainer step: loss {loss}, gradient norm {norm}")
-    held(f"one Trainer step, bf16, remat, batch {WIDE_TRAIN_BATCH}", read_launches(),
-         expect_train_launches(trainer.model, 1))
+    expect = expect_train_launches(trainer.model, 1)
+    held(f"one Trainer step, bf16, remat, batch {WIDE_TRAIN_BATCH}", read_launches(), expect,
+         {"K1 resident": expect["attention"], "K2 resident": expect["attention_bwd"]})
     log(f"[wide-heads] (d) one Trainer step: loss {loss:.5f}, gradient norm {norm:.4g}, "
         f"{time.perf_counter() - t2:.1f} s with the model's set-up")
     del trainer, model
@@ -5720,11 +5818,19 @@ def main():
                 "other_paths": {f"{where}, batch {PATHS[where][0]}, {PATHS[where][1]}":
                                 t.fields() for where, t in others.items()}}
 
+    def by_route(kernel):
+        """a kernel's launches above head dim 256 on the main paths, by route"""
+        return {route: sum(path.get(f"{kernel} {route}", 0) for path in by_path.values())
+                for route in ("resident", "walk")}
+
     forward = "sum over one openai_64 forward's calls, bf16, model batch 16"
     forward_others = ("train", "emnist", *GUIDED_PATHS, "sr256", "serve64", "dp_train",
                       "qe_unet", "qe_cls")
     # K1, K2 and K5: one kernel per input type
-    attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging",
+    attention_routes = {"bfloat16": "wgmma: tensor cores, cp.async staging; above head dim 256 "
+                                    "and N <= 1152 the P-resident route (P or dS of every tile "
+                                    "in shared memory, a TMA producer warpgroup, mbarriers), "
+                                    "above N = 1152 the walk (the logits per output chunk)",
                         "float32": "FMA: CUDA cores"}
     kernels = [
         entry("fused_qkv_attention", "cuda", "nicediffusion_tpu_torch/csrc/attention.cu",
@@ -5732,7 +5838,7 @@ def main():
               errs["attention", torch.float32], errs["attention", torch.bfloat16],
               tallies["attention", "forward"], forward,
               {w: tallies["attention", w] for w in (*forward_others, "wide128")},
-              attention_routes),
+              attention_routes, launches_by_route_above_256=by_route("K1")),
         entry("fused_qkv_attention_bwd", "cuda", "nicediffusion_tpu_torch/csrc/attention_bwd.cu",
               "nicediffusion_tpu/ops/pallas/attention.py:334", "attention_bwd",
               k2_errs[torch.float32], k2_errs[torch.bfloat16], k2_tallies["train"],
@@ -5742,7 +5848,7 @@ def main():
                                           "qe_unet", "qe_cls", "wide128_train")},
               attention_routes,
               # the same step's sums read by CUDA graph and by torch.profiler
-              device_yardsticks=k2_yard),
+              device_yardsticks=k2_yard, launches_by_route_above_256=by_route("K2")),
         entry("group_norm_fused", "cuda", "nicediffusion_tpu_torch/csrc/groupnorm.cu",
               "nicediffusion_tpu/ops/pallas/groupnorm.py:151", "groupnorm",
               errs["groupnorm", torch.float32], errs["groupnorm", torch.bfloat16],
@@ -5769,7 +5875,8 @@ def main():
               tallies["mha", "unet128"],
               f"sum over the attention calls of one openai_128 forward, bf16, batch "
               f"{GUIDED_BATCH}, q, k and v as views of the projection",
-              {w: tallies["mha", w] for w in ("cls128", "wide128")}, attention_routes),
+              {w: tallies["mha", w] for w in ("cls128", "wide128")}, attention_routes,
+              launches_by_route_above_256=by_route("K5")),
         # no model calls K4 either: its launches are phase_resblock_direct's calls
         entry("gn_silu_conv3x3", "cuda", "nicediffusion_tpu_torch/csrc/resblock.cu",
               "nicediffusion_tpu/ops/pallas/resblock.py:131", "resblock",

@@ -98,31 +98,42 @@
 // It is bound by shared-memory bandwidth and FMA issue (two shared loads
 // per four FMAs).
 //
-// Head dims above 256: the chunked kernels. A 64 x D bf16 accumulator is
-// past 255 registers a thread at D = 512, and Q with two K/V stages past a
-// block's 227 KB, so a head row is not held whole. A grid axis runs over
-// chunks of the output's columns (DC = 256 in bf16 and f32): the block of
-// (query tile, chunk) sums S = sum_c Q_c K_c^T over the 64-column chunks c
-// of D, which stream through a two-stage cp.async ring (attention_chunked.cuh;
-// a 64-column bf16 chunk is one 128-byte swizzle atom a row, so the
-// descriptors are the whole-row builds'), keeps the online softmax, and
-// accumulates only O[:, chunk] += P V[:, chunk], V's chunk staged beside the
-// ring. Every block of a query tile runs the same sums in the same order, so
-// their p, row max and row sum agree bit for bit with nothing exchanged;
-// chunk 0 alone writes the lse. Columns past D land as zeros and are not
-// stored; the 2-byte staging serves views that allow no 16-byte copy.
-//   * bf16 (attention_fwd_chunked_wgmma_kernel): two warpgroups, 128 query
-//     rows, sharing the ring; shared memory 2 x (16 + 8) KB of ring + 32 KB
-//     of V + 1 KB = 82,944 bytes; ptxas (CUDA 12.8): 216 registers, no spill
-//     (the O chunk is DC / 2 = 128 of them, as O at the build for 256).
-//   * f32 (attention_fwd_chunked_kernel): attention_fwd_kernel's tiling,
-//     q and k restaged a 64-column chunk at a time for every key tile;
-//     4 x (2 x 64 x 65 + 64 x 256 + 64 x 68) = 116,224 bytes, 128 registers.
-// The price is S made once per output chunk: (ceil(D / DC) + 1) / 2 of the
-// products the function needs, 1.5x at D = 512 and 2.5x at 1024. A step is
-// one barrier and four k16 products on a 24 KB fill, so the ring's latency,
-// not the tensor cores, sets the pace; P kept in shared memory instead of S
-// recomputed is the next step (ROADMAP queue B).
+// Head dims above 256: two routes (attention_chunked.cuh), chosen by the
+// host's plan (ops/kernels/attention.py :: chunked_attention_plan) from N and
+// D; only its split of a tile's columns over blocks reads the number of
+// (batch, head) pairs, and no split changes a bit.
+//   * The P-resident route (bf16, N <= 1152: attention_fwd_resident_wgmma_
+//     kernel). A block owns a 64-query tile of one head: pass 1 makes S_t
+//     once for every key tile t (summed over 64-column chunks of D in chunk
+//     order), runs the online softmax (the running row max handed from one
+//     consumer warpgroup to the other, which take alternate key tiles) and
+//     keeps the bf16 p_t (8 KB a tile, 128 KB at N = 1024) and the
+//     correction and row sum of each row in shared memory; pass 2 walks the
+//     output's 64-column blocks, up to four a warpgroup at once: O *= corr_t,
+//     O += p_t V_t with p_t as wgmma's A by descriptor. S is made once a
+//     (query tile, key tile) pair: the products the function needs, no more
+//     (a split over s blocks repeats pass 1: (s + 1) / 2). A producer
+//     warpgroup feeds a ring of 16 KB stages by TMA (a 4-D map over each of
+//     q, k and v) under mbarriers. Shared memory 1,680 bytes + 16 KB a stage
+//     (4 to 8) + 8,704 a key tile: 222,864 bytes at N = 1024 (5 stages).
+//     ptxas (CUDA 12.8): 168 registers (the cap of 384 threads; setmaxnreg
+//     gives the consumers 224 and the producer 56), no spill, no stack.
+//   * The walk (bf16 above N = 1152, f32 always; the kernels below): a
+//     grid axis over 256-column chunks of the output, the block of (query
+//     tile, chunk) summing S over the 64-column chunks of D, streamed through
+//     a two-stage cp.async ring, and accumulating only its chunk; every block
+//     of a query tile runs the same sums in the same order, so their p, row
+//     max and row sum agree bit for bit; chunk 0 alone writes the lse. Its
+//     price is S made once per output chunk: (ceil(D / 256) + 1) / 2 of the
+//     products, 1.5x at D = 512. bf16 (attention_fwd_chunked_wgmma_kernel):
+//     two warpgroups, 128 query rows, 82,944 bytes, 216 registers; f32
+//     (attention_fwd_chunked_kernel): 116,224 bytes, 128 registers.
+// Both routes give the same bits (the same sums in the same order, the same
+// roundings). Columns past D land as zeros and are not stored; views that
+// allow no 16-byte copy are staged with 2-byte loads. What bounds them on
+// this card: at N = 1024, D = 512 the two products are 2 N^2 D flops a head
+// against 4 N D bytes: the tensor cores (989 TFLOP/s); a block streams K and
+// V from L2 once and Q once a key tile.
 
 #include "attention_chunked.cuh"
 #include "attention_common.cuh"
@@ -799,6 +810,36 @@ cudaError_t launch_chunked(const AttnArgs& a, int batch, int heads, cudaStream_t
   return cudaGetLastError();
 }
 
+// bf16 at D > 256, N <= 1152: the P-resident route (attention_chunked.cuh)
+__global__ void __launch_bounds__(resident::kBlockThreads, 1)
+attention_fwd_resident_wgmma_kernel(const __grid_constant__ resident::Args a) {
+  resident::run<true>(a);
+}
+
+// K1's views as the route's operands; grid x = query tile * split + part
+cudaError_t launch_resident(const AttnArgs& a, int batch, int heads, int split,
+                            cudaStream_t stream) {
+  resident::Args r;
+  std::memset(static_cast<void*>(&r), 0, sizeof(r));
+  using bf16 = __nv_bfloat16;
+  r.src[resident::kQ] = {static_cast<const bf16*>(a.q), a.qs.b, a.qs.h, a.qs.n};
+  r.src[resident::kK] = {static_cast<const bf16*>(a.k), a.ks.b, a.ks.h, a.ks.n};
+  r.src[resident::kV] = {static_cast<const bf16*>(a.v), a.vs.b, a.vs.h, a.vs.n};
+  r.dst[0] = {static_cast<bf16*>(a.o), a.os.b, a.os.h, a.os.n};
+  r.lse_out = a.lse;
+  r.scale = a.scale;
+  r.out_vec2 = a.out_vec2;
+  if (!resident::prepare(r, a.n, a.d, heads, batch, split, 3, a.vec16 != 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = resident::smem_bytes(r.tiles, r.slots);
+  auto kernel = attention_fwd_resident_wgmma_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(r.tiles * split, heads, batch), resident::kBlockThreads, smem, stream>>>(r);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- dispatch
 
 bool multiple_of(long long v, long long m) { return v % m == 0; }
@@ -835,15 +876,21 @@ cudaError_t dispatch_head_dim(const AttnArgs& a, int batch, int heads, cudaStrea
   return launch_chunked<kBf16>(a, batch, heads, s);
 }
 
-// dtype: 0 = float32, 1 = bfloat16
-int dispatch(AttnArgs a, int batch, int heads, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. route 0: the head-dim builds (above 256
+// the walk); 1: the P-resident route (bf16, D > 256, N <= 1152), its
+// columns split over `split` blocks a query tile. A route that does not take
+// the call is refused, never replaced.
+int dispatch(AttnArgs a, int batch, int heads, int dtype, int route, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || heads <= 0 || a.n <= 0) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || heads <= 0 || a.n <= 0 || route < 0 || route > 1 ||
+      (route == 1 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_head_dim<false>(a, batch, heads, s);
   if (dtype == 1) {
     a.vec16 = views_16b(a);
     a.out_vec2 = aligned(a.o, 4) && multiple_of(a.os.b, 2) && multiple_of(a.os.h, 2) &&
                  multiple_of(a.os.n, 2);
+    if (route == 1) return (int)launch_resident(a, batch, heads, split, s);
     return (int)dispatch_head_dim<true>(a, batch, heads, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -856,11 +903,11 @@ extern "C" {
 // K1. qkv is (batch, n, 3c) and out is (batch, n, c), both contiguous on the
 // current device. lse, when not null, is an f32 (batch, num_heads, n) that
 // receives each row's log-sum-exp of the scaled logits, ln sum_j exp(scale
-// q k_j), which K2 takes. Returns the CUDA error code of the launch (0 on
-// success).
-int nd_fused_qkv_attention_lse(const void* qkv, void* out, float* lse, int batch, int n, int c,
-                               int num_heads, int split_first, int dtype, float scale,
-                               void* stream) {
+// q k_j), which K2 takes. route and split as dispatch's. Returns the CUDA
+// error code of the launch (0 on success).
+int nd_fused_qkv_attention_routed(const void* qkv, void* out, float* lse, int batch, int n,
+                                  int c, int num_heads, int split_first, int dtype, float scale,
+                                  int route, int split, void* stream) {
   if (num_heads <= 0 || c % num_heads != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long hc = c / num_heads, c3 = 3LL * c;
@@ -880,16 +927,17 @@ int nd_fused_qkv_attention_lse(const void* qkv, void* out, float* lse, int batch
   a.n = n;
   a.d = (int)hc;
   a.scale = scale;
-  return dispatch(a, batch, num_heads, dtype, stream);
+  return dispatch(a, batch, num_heads, dtype, route, split, stream);
 }
 
 // K5. q, k and v are (batch, heads, n, d) views with the given element
 // strides of their batch, head and row axes (the last axis contiguous); out
-// is a contiguous (batch, heads, n, d). Returns the CUDA error code.
-int nd_mha_attention(const void* q, const void* k, const void* v, void* out, int batch,
-                     int heads, int n, int d, const long long* q_strides,
-                     const long long* k_strides, const long long* v_strides, int dtype,
-                     float scale, void* stream) {
+// is a contiguous (batch, heads, n, d). route and split as dispatch's.
+// Returns the CUDA error code.
+int nd_mha_attention_routed(const void* q, const void* k, const void* v, void* out, int batch,
+                            int heads, int n, int d, const long long* q_strides,
+                            const long long* k_strides, const long long* v_strides, int dtype,
+                            float scale, int route, int split, void* stream) {
   AttnArgs a = {};
   a.q = q;
   a.k = k;
@@ -902,7 +950,7 @@ int nd_mha_attention(const void* q, const void* k, const void* v, void* out, int
   a.n = n;
   a.d = d;
   a.scale = scale;
-  return dispatch(a, batch, heads, dtype, stream);
+  return dispatch(a, batch, heads, dtype, route, split, stream);
 }
 
 const char* nd_cuda_error_string(int err) {

@@ -88,32 +88,41 @@
 // as the kernels were before other head dims ran, and the other reads D at
 // run time and masks its loads and stores.
 //
-// Head dims above 256: the chunked kernels, with K1's chunked schedule
-// (attention.cu, attention_chunked.cuh). A grid axis runs over chunks of the
-// output's columns; every contraction over D (S and dP, or S^T and dP^T) is
-// summed over 64-column chunks streamed through a two-stage ring, and a block
-// accumulates only its chunk of dQ, dK or dV. No atomics, the same rounding
-// points, and every block of a tile makes the same sums in the same order.
-//   * dq (bf16 attention_bwd_dq_chunked_wgmma_kernel, one warpgroup a 64-row
-//     query tile and chunk): S over the chunks, packed to p, then dP (never
-//     live together), delta = rowsum(g o) over the whole row from device
-//     memory by every block (chunk 0 writes it for the dk/dv kernel), dQ's
-//     DC = 256 columns += dS K[:, chunk]. 244 registers, no spill.
-//   * dk/dv (bf16 attention_bwd_dkv_chunked_wgmma_kernel): x = (key tile,
-//     chunk, dV or dK). A dV block makes S^T and dV[:, chunk] += P^T
-//     G[:, chunk]; a dK block also dP^T and dK[:, chunk] += dS^T Q[:, chunk].
-//     The query tile's lse and delta are staged with its B operand. 240
-//     registers, no spill. Both: 2 x 16 KB of ring + 32 KB + 512 + 1024 =
-//     67,072 bytes.
-//   * f32 (attention_bwd_dq_chunked_kernel, attention_bwd_dkv_chunked_kernel):
-//     the FMA kernels' 64-row tiles with the four operands restaged a chunk
-//     at a time, DC = 128 (one block makes both dK and dV: its two sums and
-//     two B operands); 116,992 and 167,936 bytes, 128 and 184 registers.
-// The price is S and dP made once per output chunk: per (query tile, key
-// tile) pair the bf16 kernels make 5 products per chunk (dQ's S and dP, dV's
-// S, dK's S and dP) and dQ, dK and dV once in all, (5 ceil(D / DC) + 3) / 5 of
-// the five the function needs: 2.6x at D = 512, 4.6x at 1024 (f32: 4 per
-// chunk).
+// Head dims above 256: K1's two routes (attention.cu, attention_chunked.cuh),
+// chosen by the same plan from N and D.
+//   * The P-resident route (bf16, N <= 1152): two kernels, no atomics.
+//     attention_bwd_delta_kernel makes delta = rowsum(g o) a row (a quad of
+//     lanes a row, the walk's order of sums); then
+//     attention_bwd_resident_wgmma_kernel runs three kinds of block, each
+//     owning one 64-row tile: dq (query tile: pass 1 makes S_t and dP_t once
+//     a key tile, p from K1's lse, keeps dS_t in shared memory; pass 2 walks
+//     dQ's 64-column blocks, dQ += dS_t K_t), dk (key tile: S^T and dP^T
+//     once a query tile, dS^T kept; dK += dS^T_t Q_t) and dv (key tile: S^T
+//     once a query tile, P^T kept; dV += P^T_t G_t). The query rows' lse and
+//     delta of dk and dv sit in shared memory (512 bytes a tile). Per (query
+//     tile, key tile) pair: S three times, dP twice, dQ, dK and dV once: 8
+//     of the 5 products the function needs, 1.6x (a split over s blocks: (5 s
+//     + 3) / 5). One launch of 3 x tiles x split blocks a head. Shared
+//     memory as K1's route; ptxas (CUDA 12.8): 168 registers (consumers 224,
+//     producer 56 by setmaxnreg), no spill; the delta kernel 30.
+//   * The walk (bf16 above N = 1152, f32 always; the kernels below): a
+//     grid axis over chunks of the output's columns; every contraction over
+//     D (S and dP, or S^T and dP^T) is summed over 64-column chunks streamed
+//     through a two-stage ring, and a block accumulates only its chunk of dQ,
+//     dK or dV. bf16 dq (attention_bwd_dq_chunked_wgmma_kernel: a 64-row
+//     query tile and 256 dQ columns; delta over the whole row by every block,
+//     chunk 0 writes it) 244 registers; dk/dv (attention_bwd_dkv_chunked_
+//     wgmma_kernel: (key tile, chunk, dV or dK)) 240; both 67,072 bytes. f32
+//     (attention_bwd_dq_chunked_kernel, attention_bwd_dkv_chunked_kernel): the
+//     FMA kernels' tiles, four operands restaged a chunk at a time, 128
+//     columns (one block makes dK and dV); 116,992 and 167,936 bytes, 128 and
+//     184 registers. The price is S and dP made once per output chunk:
+//     (5 ceil(D / 256) + 3) / 5 of the products in bf16, 2.6x at D = 512, 4.6x
+//     at 1024.
+// Both bf16 routes give the same bits: every S, p, dP, dS and output element
+// from the same sums in the same order with the same roundings. What bounds
+// them on this card: 5 x 2 N^2 D flops a head against 8 N D bytes, the
+// tensor cores at the training shapes.
 
 #include "attention_chunked.cuh"
 #include "attention_common.cuh"
@@ -1352,6 +1361,70 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// delta = rowsum(g o) of every (batch element, head, row): a quad of lanes a
+// row, each lane the pairs of columns 8 j + 2 (lane % 4) + {0, 1}, then two
+// shuffles, the order of the dq kernels above
+__global__ void __launch_bounds__(256)
+attention_bwd_delta_kernel(const bf16* __restrict__ g, const bf16* __restrict__ o,
+                           float* __restrict__ delta, int n, int c, int dv) {
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x % 32, col_lane = 2 * (lane % 4);
+  const int row = blockIdx.x * 64 + threadIdx.x / 4;
+  float acc = 0.f;
+  if (row < n) {
+    const bf16* gr = g + (size_t)b * n * c + head * dv + (size_t)row * c;
+    const bf16* orow = o + (size_t)b * n * c + head * dv + (size_t)row * c;
+    for (int d = col_lane; d < dv; d += 8) {
+      const float g1 = d + 1 < dv ? __bfloat162float(gr[d + 1]) : 0.f;
+      const float o1 = d + 1 < dv ? __bfloat162float(orow[d + 1]) : 0.f;
+      acc = fmaf(__bfloat162float(gr[d]), __bfloat162float(orow[d]), fmaf(g1, o1, acc));
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (lane % 4 == 0 && row < n) delta[((size_t)b * gridDim.y + head) * n + row] = acc;
+}
+
+// bf16 at D > 256, N <= 1152: the P-resident route's dq, dk and dv blocks
+__global__ void __launch_bounds__(resident::kBlockThreads, 1)
+attention_bwd_resident_wgmma_kernel(const __grid_constant__ resident::Args a) {
+  resident::run<false>(a);
+}
+
+// q, k, v and g as the route's operands, dq, dk and dv at the same offsets of
+// dqkv; the delta kernel, then one launch: x = (role * tiles + tile) * split
+// + part, roles dq, dk, dv
+cudaError_t launch_resident(const BwdArgs& a, int batch, int num_heads, int split,
+                            cudaStream_t stream) {
+  const long long n = a.n, c = a.c, hd = a.d, c3 = 3 * c;
+  // [q(C) | k(C) | v(C)] when split_first, else per head [h0:(q|k|v) | h1:...]
+  const long long part = a.split_first ? c : hd, head = a.split_first ? hd : 3 * hd;
+  resident::Args r;
+  std::memset(static_cast<void*>(&r), 0, sizeof(r));
+  for (int i = 0; i < 3; ++i) {
+    r.src[i] = {a.qkv + i * part, n * c3, head, c3};
+    r.dst[i] = {a.dqkv + i * part, n * c3, head, c3};
+  }
+  r.src[resident::kG] = {a.g, n * c, hd, c};
+  r.lse_in = a.lse;
+  r.delta = a.delta;
+  r.scale = a.scale;
+  r.out_vec2 = hd % 2 == 0;  // dqkv is on 4 bytes; even offsets and strides
+  if (!resident::prepare(r, a.n, a.d, num_heads, batch, split, 4, a.vec16 != 0))
+    return cudaErrorInvalidValue;
+  attention_bwd_delta_kernel<<<dim3((a.n + 63) / 64, num_heads, batch), 256, 0, stream>>>(
+      a.g, a.o, a.delta, a.n, a.c, a.d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = resident::smem_bytes(r.tiles, r.slots);
+  auto kernel = attention_bwd_resident_wgmma_kernel;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(3 * r.tiles * split, num_heads, batch), resident::kBlockThreads, smem, stream>>>(r);
+  return cudaGetLastError();
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -1361,14 +1434,17 @@ extern "C" {
 // n) row log-sum-exp K1 wrote (natural log), delta f32 (batch, num_heads, n)
 // scratch; all contiguous on the current device, and for bf16 dqkv on 4
 // bytes. A head dim c / num_heads up to 256 runs on the build for the next
-// of 32, 64, 128, 192 and 256 up, a larger one on the chunked kernels.
-// Returns the CUDA error code of the launches (0 on success).
-int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o,
-                                   const void* lse, void* dqkv, void* delta, int batch, int n,
-                                   int c, int num_heads, int split_first, int dtype, float scale,
-                                   void* stream) {
+// of 32, 64, 128, 192 and 256 up, a larger one on the chunked kernels: route
+// 0 the walk, route 1 the P-resident route (bf16, N <= 1152), its columns
+// split over `split` blocks a row tile. A route that does not take the call
+// is refused. Returns the CUDA error code of the launches (0 on success).
+int nd_fused_qkv_attention_bwd_routed(const void* qkv, const void* g, const void* o,
+                                      const void* lse, void* dqkv, void* delta, int batch, int n,
+                                      int c, int num_heads, int split_first, int dtype,
+                                      float scale, int route, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0)
+  if (batch <= 0 || n <= 0 || num_heads <= 0 || c % num_heads != 0 || route < 0 || route > 1 ||
+      (route == 1 && (dtype != 1 || c / num_heads <= 256)))
     return (int)cudaErrorInvalidValue;
   const int hd = c / num_heads;
   const float* lse_f = static_cast<const float*>(lse);
@@ -1410,6 +1486,7 @@ int nd_fused_qkv_attention_bwd_lse(const void* qkv, const void* g, const void* o
   if (hd <= 192) ND_LAUNCH(192);
   if (hd <= 256) ND_LAUNCH(256);
 #undef ND_LAUNCH
+  if (route == 1) return (int)launch_resident(a, batch, num_heads, split, s);
   return (int)launch_chunked_bf16(a, batch, num_heads, s);
 }
 

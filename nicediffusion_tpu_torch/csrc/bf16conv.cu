@@ -569,38 +569,13 @@ __global__ void __launch_bounds__(kBlock, 1)
 
 // ---------------------------------------------------------------- launch
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// -lcuda link); null if the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a bf16 tensor map of `rank` dimensions (sizes innermost first, byte
 // strides of dimensions 1 on) in boxes of `box` elements laid out in shared
 // memory in `swizzle`; loads give zeros out of bounds, stores skip them
 bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
             const cuuint64_t* strides, const cuuint32_t* box,
             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
-  const EncodeTiled fn = encoder();
+  const sm90::EncodeTiled fn = sm90::tensor_map_encoder();
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),

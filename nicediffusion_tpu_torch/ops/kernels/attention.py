@@ -28,13 +28,24 @@ Head dims. K1, K2 and K5 take any head dim D (:func:`head_dim_build`). Up
 to 256 the kernel built for the next of 32, 64, 128, 192 and 256 up holds a
 whole head row in one tile: it zero-fills the columns of q, k and v (and K2's
 g and o) past D as they land in shared memory and stores no column past D;
-the scale stays D^-1/2. Above 256 a row no longer fits a tile, and the
-chunked kernels run: a grid axis over chunks of the output's columns (256 in
-bf16; f32 256 forward, 128 backward), each block summing the logits (and
-K2's dP) over 64-column chunks of D that stream through a two-stage ring and
-accumulating only its own chunk of the output. The blocks of one row tile
-repeat the same sums in the same order, so they agree on p bit for bit; the
-price is the logits made once per output chunk.
+the scale stays D^-1/2. Above 256 a row no longer fits a tile, and one of two
+routes runs, as :func:`chunked_attention_plan` says from N and D:
+
+* ``"resident"`` (bf16, N up to :data:`RESIDENT_N_LIMIT`): a block owns a
+  64-row tile, makes the logits (and K2's dP) once for each tile of the other
+  side, summed over 64-column chunks of D, keeps the bf16 p (or dS) of every
+  tile in shared memory, then walks the output's 64-column blocks. K1 makes
+  the products the function needs, K2 8 of its 5 (S in the dq, dk and dv
+  blocks, dP in two). A producer warpgroup feeds the multiplying ones by TMA.
+* ``"walk"`` (f32, and bf16 above the limit): a grid axis over chunks of the
+  output's columns (256 in bf16; f32 256 forward, 128 backward), each block
+  summing the logits over all of D again for its own chunk.
+
+Both give the same bits: every element from the same sums in the same order
+with the same roundings. The plan's ``split`` (the blocks a row tile's
+columns are spread over, each repeating the logits) is the only thing that
+reads the number of (batch, head) pairs, and no split changes a bit.
+``route_launches`` counts each route's launches by kernel.
 
 Dispatch: a CPU tensor goes to the plain torch version of the same function
 (:func:`fused_qkv_attention_plain`, :func:`fused_qkv_attention_bwd_plain`,
@@ -50,6 +61,7 @@ two). Without a gradient to take it calls K1 directly and saves nothing.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -58,8 +70,11 @@ from . import _build
 
 __all__ = [
     "CHUNKED",
+    "RESIDENT_N_LIMIT",
     "SUPPORTED_HEAD_DIMS",
+    "chunked_attention_plan",
     "head_dim_build",
+    "route_launches",
     "mha_attention",
     "mha_attention_plain",
     "split_qkv",
@@ -84,6 +99,65 @@ def head_dim_build(d: int) -> int | str:
         if d <= build:
             return build
     return CHUNKED
+
+
+# the P-resident route's N limit: N <= 64 x the key tiles whose bf16 p (8 KB)
+# and f32 row values (512 B) fit beside four 16 KB ring stages in a block's
+# shared memory (csrc/attention_chunked.cuh: resident::kNLimit)
+RESIDENT_N_LIMIT = 1152
+# a card's multiprocessors, for the split: the H100's 132
+_MULTIPROCESSORS = 132
+# below this many blocks the plan spreads a row tile's columns over blocks
+_SMALL_GRID = 16
+_ROUTE_CODES = {"walk": 0, "resident": 1}
+# launches of the head dims above 256, by (kernel, route): ("K1" | "K2" |
+# "K5", "resident" | "walk")
+route_launches: collections.Counter = collections.Counter()
+
+
+def chunked_attention_plan(n: int, d: int, pairs: int, kernel: str = "K1",
+                           split: int | None = None) -> dict:
+    """The bf16 route of a call with head dim ``d`` above 256 over ``n``
+    tokens and ``pairs`` (batch, head) pairs: a dict with ``route``
+    (``"resident"`` up to :data:`RESIDENT_N_LIMIT`, else ``"walk"``),
+    ``n_limit`` and ``split``, the blocks each row tile's 64-column output
+    blocks are spread over on the resident route (1 on the walk).
+
+    The route and the limit read N and D alone. The split reads the grid:
+    where K1's row tiles times ``pairs`` (K2's: three blocks a row tile) are
+    at most 16 blocks, the columns are spread over up to 132 / blocks blocks
+    (two column blocks a part at least), each repeating the logits; no split
+    changes a bit. ``split`` forces one (it must lie between 1 and the
+    most the head dim allows)."""
+    if d <= 256:
+        raise ValueError(f"head dim {d}: the chunked routes take head dims above 256")
+    if n < 1 or pairs < 1:
+        raise ValueError(f"N {n} and (batch, head) pairs {pairs} must be positive")
+    if kernel not in ("K1", "K2", "K5"):
+        raise ValueError(f"kernel {kernel!r}: K1, K2 or K5")
+    most = max(1, (-(-d // 64)) // 2)
+    if n > RESIDENT_N_LIMIT:
+        if split not in (None, 1):
+            raise ValueError(f"N {n} runs the walk, which has no split")
+        return {"route": "walk", "n_limit": RESIDENT_N_LIMIT, "split": 1}
+    if split is None:
+        blocks = -(-n // 64) * pairs * (3 if kernel == "K2" else 1)
+        split = min(most, max(1, _MULTIPROCESSORS // blocks)) if blocks <= _SMALL_GRID else 1
+    elif not 1 <= split <= most:
+        raise ValueError(f"split {split}: head dim {d} takes 1 to {most}")
+    return {"route": "resident", "n_limit": RESIDENT_N_LIMIT, "split": split}
+
+
+def _route(kernel: str, dtype: torch.dtype, n: int, d: int, pairs: int,
+           split: int | None) -> tuple[str | None, int, int]:
+    """(route name or None below head dim 257, route code, split) of a call:
+    f32 above 256 always walks; ``split`` forces the resident route's."""
+    if d <= 256 or dtype != torch.bfloat16:
+        if split is not None:
+            raise ValueError("split applies to the bf16 resident route (head dims above 256)")
+        return ("walk" if d > 256 else None), 0, 1
+    plan = chunked_attention_plan(n, d, pairs, kernel, split)
+    return plan["route"], _ROUTE_CODES[plan["route"]], plan["split"]
 
 
 def split_qkv(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool):
@@ -176,14 +250,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _library() -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     return _build.bind("attention", {
-        "nd_fused_qkv_attention_lse": [_P, _P, _P, *[_I] * 6, _F, _P],
-        "nd_mha_attention": [_P, _P, _P, _P, *[_I] * 4, strides, strides, strides, _I, _F, _P],
+        "nd_fused_qkv_attention_routed": [_P, _P, _P, *[_I] * 6, _F, _I, _I, _P],
+        "nd_mha_attention_routed": [_P, _P, _P, _P, *[_I] * 4, strides, strides, strides, _I, _F,
+                                    _I, _I, _P],
     })
 
 
 def _bwd_library() -> ctypes.CDLL:
     return _build.bind("attention_bwd",
-                       {"nd_fused_qkv_attention_bwd_lse": [*[_P] * 6, *[_I] * 6, _F, _P]})
+                       {"nd_fused_qkv_attention_bwd_routed": [*[_P] * 6, *[_I] * 6, _F, _I, _I,
+                                                              _P]})
 
 
 def _check(qkv: torch.Tensor, num_heads: int, kernel: str = "K1") -> None:
@@ -219,9 +295,10 @@ def _check_lse(kernel: str, lse: torch.Tensor, shape, like: torch.Tensor) -> Non
 
 def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
              out: torch.Tensor | None = None,
-             lse: torch.Tensor | None = None) -> torch.Tensor:
+             lse: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor; ``lse``, an
-    f32 (B, H, N), receives the row log-sum-exp."""
+    f32 (B, H, N), receives the row log-sum-exp; ``split`` forces the
+    resident route's (:func:`chunked_attention_plan`)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     if lse is not None:
@@ -234,23 +311,26 @@ def _forward(qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
     if qkv.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {qkv.device}")
     _check(qkv, num_heads)
+    route, code, split = _route("K1", qkv.dtype, n, c // num_heads, b * num_heads, split)
     if out is None:
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     else:
         _check_out("K1", out, (b, n, c), qkv)
     with torch.cuda.device(qkv.device):
         lib = _library()
-        err = lib.nd_fused_qkv_attention_lse(
+        err = lib.nd_fused_qkv_attention_routed(
             qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
             b, n, c, num_heads,
             int(split_qkv_first), _DTYPE_CODES[qkv.dtype],
-            (c // num_heads) ** -0.5,
+            (c // num_heads) ** -0.5, code, split,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err:
         raise _build.launch_error(lib, err, "K1",
                                   f"qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads")
     fused_qkv_attention.launches += 1
+    if route:
+        route_launches["K1", route] += 1
     return out
 
 
@@ -263,7 +343,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def fused_qkv_attention_bwd(
     qkv: torch.Tensor, g: torch.Tensor, o: torch.Tensor, num_heads: int,
     split_qkv_first: bool, lse: torch.Tensor | None = None,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, split: int | None = None,
 ) -> torch.Tensor:
     """Cotangent of :func:`fused_qkv_attention` wrt qkv -> (B, N, 3C).
 
@@ -276,7 +356,8 @@ def fused_qkv_attention_bwd(
     cores. ``fused_qkv_attention_bwd.launches`` counts the launches.
     ``out``, a contiguous tensor like qkv (on 16 bytes in bf16), is written in
     place of a fresh ``torch.empty`` (a check pre-fills it to see that every
-    element is written).
+    element is written). ``split`` forces the resident route's
+    (:func:`chunked_attention_plan`).
     """
     b, n, c3 = qkv.shape
     c = c3 // 3
@@ -288,6 +369,7 @@ def fused_qkv_attention_bwd(
     if qkv.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors, got {qkv.device}")
     _check(qkv, num_heads, "K2")
+    route, code, split = _route("K2", qkv.dtype, n, c // num_heads, b * num_heads, split)
     for name, t, shape in (("g", g, (b, n, c)), ("o", o, (b, n, c)), ("out", out, (b, n, c3))):
         if t is not None and (t.shape != shape or t.dtype != qkv.dtype
                               or t.device != qkv.device or not t.is_contiguous()):
@@ -303,21 +385,23 @@ def fused_qkv_attention_bwd(
         lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
         _forward(qkv, num_heads, split_qkv_first, lse=lse)  # counted on K1
     dqkv = torch.empty_like(qkv) if out is None else out
-    # per-row delta = rowsum(g o), written by the dq kernel for the dk/dv kernel
+    # per-row delta = rowsum(g o), written by the dq (or delta) kernel for the dk/dv blocks
     delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         lib = _bwd_library()
-        err = lib.nd_fused_qkv_attention_bwd_lse(
+        err = lib.nd_fused_qkv_attention_bwd_routed(
             qkv.data_ptr(), g.data_ptr(), o.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
             delta.data_ptr(), b, n, c, num_heads,
             int(split_qkv_first), _DTYPE_CODES[qkv.dtype],
-            (c // num_heads) ** -0.5,
+            (c // num_heads) ** -0.5, code, split,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err:
         raise _build.launch_error(lib, err, "K2",
                                   f"qkv {tuple(qkv.shape)} {qkv.dtype}, {num_heads} heads")
     fused_qkv_attention_bwd.launches += 1
+    if route:
+        route_launches["K2", route] += 1
     return dqkv
 
 
@@ -353,6 +437,7 @@ class _FusedQKVAttention(torch.autograd.Function):
 def fused_qkv_attention(
     qkv: torch.Tensor, num_heads: int, split_qkv_first: bool,
     out: torch.Tensor | None = None, lse: torch.Tensor | None = None,
+    split: int | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T * hc^-0.5) v over a (B, N, 3C) projection -> (B, N, C).
 
@@ -364,13 +449,14 @@ def fused_qkv_attention(
     ``torch.empty`` (a check pre-fills it to see that every element is
     written). ``lse``, a contiguous f32 (B, H, N), receives each row's
     log-sum-exp of the scaled logits, ``ln sum_j exp(q k_j * hc^-0.5)``, which
-    K2 takes. Neither can be combined with a gradient.
+    K2 takes. Neither can be combined with a gradient. ``split`` forces the
+    resident route's (:func:`chunked_attention_plan`), for tests.
     """
     if torch.is_grad_enabled() and qkv.requires_grad:
-        if out is not None or lse is not None:
-            raise ValueError("K1 writes no caller's out or lse under autograd")
+        if out is not None or lse is not None or split is not None:
+            raise ValueError("K1 writes no caller's out or lse and takes no split under autograd")
         return _FusedQKVAttention.apply(qkv, num_heads, split_qkv_first)
-    return _forward(qkv, num_heads, split_qkv_first, out, lse)
+    return _forward(qkv, num_heads, split_qkv_first, out, lse, split)
 
 
 fused_qkv_attention.launches = 0
@@ -387,7 +473,7 @@ def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
     """softmax(q k^T * D^-0.5) v over separate (B, H, N, D) q, k and v ->
     a contiguous (B, H, N, D).
 
@@ -397,6 +483,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the current stream. ``mha_attention.launches`` counts the launches. No
     autograd: the JAX function it replaces has no VJP either. ``out``, a
     contiguous tensor like q, is written in place of a fresh ``torch.empty``.
+    ``split`` forces the resident route's (:func:`chunked_attention_plan`).
     """
     if not (q.shape == k.shape == v.shape and q.ndim == 4):
         raise ValueError(
@@ -418,6 +505,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if 0 in q.shape:
         raise ValueError(f"K5 takes non-empty tensors, got {tuple(q.shape)}")
     head_dim_build(d)
+    route, code, split = _route("K5", q.dtype, n, d, b * h, split)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"K5 takes {name} with a contiguous last axis, got strides {t.stride()}")
@@ -427,16 +515,18 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_out("K5", out, (b, h, n, d), q)
     with torch.cuda.device(q.device):
         lib = _library()
-        err = lib.nd_mha_attention(
+        err = lib.nd_mha_attention_routed(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d,
             _STRIDES(*q.stride()[:3]), _STRIDES(*k.stride()[:3]), _STRIDES(*v.stride()[:3]),
-            _DTYPE_CODES[q.dtype], d ** -0.5,
+            _DTYPE_CODES[q.dtype], d ** -0.5, code, split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise _build.launch_error(lib, err, "K5",
                                   f"q {tuple(q.shape)} {q.dtype}, strides {q.stride()}")
     mha_attention.launches += 1
+    if route:
+        route_launches["K5", route] += 1
     return out
 
 

@@ -132,6 +132,61 @@ def test_build_report_names_and_gates_the_chunked_attention_kernels():
         build_report("attention", chunked("attention_fwd_chunked_wgmma", 8))
 
 
+def test_build_report_names_and_gates_the_resident_attention_kernels():
+    """The P-resident route's kernels (head dims above 256, N up to the
+    limit; no template arguments) and K2's delta kernel are named, and the
+    tensor-core ones gated for spills like any wgmma instance."""
+    from chip_smoke import build_report
+
+    def entry(kernel, args, spill_bytes, registers=168):
+        mangled = (f"_ZN49_GLOBAL__N__a3f9efbf_16_attention_bwd_cu_1fe32b06{len(kernel) + 7}"
+                   f"{kernel}_kernel{args}")
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {mangled}\n"
+                f"    0 bytes stack frame, {spill_bytes} bytes spill stores, 0 bytes spill loads\n"
+                f"ptxas info    : Used {registers} registers, used 2 barriers\n")
+
+    resident = "EN2nd8resident4ArgsE"
+    lines = build_report("attention_bwd",
+                         entry("attention_bwd_resident_wgmma", resident, 0)
+                         + entry("attention_bwd_delta", "EPK13__nv_bfloat16S2_Pfiii", 0, 30)
+                         + entry("attention_bwd_dq_chunked_wgmma", "ILi256EEEvNS_7BwdArgsE", 0))
+    assert [line.split(":")[0] for line in lines] == [
+        "attention_bwd_resident_wgmma bf16 P in shared memory, TMA producer",
+        "attention_bwd_delta bf16 in, f32 sums",
+        "attention_bwd_dq_chunked_wgmma bf16 chunk=256"]
+    assert lines[0].split(": ", 1)[1].startswith("Used 168 registers")
+    lines = build_report("attention", entry("attention_fwd_resident_wgmma", resident, 0))
+    assert lines[0].startswith("attention_fwd_resident_wgmma bf16 P in shared memory, TMA "
+                               "producer: Used 168")
+    with pytest.raises(AssertionError, match="attention_fwd_resident_wgmma bf16 .* spills"):
+        build_report("attention", entry("attention_fwd_resident_wgmma", resident, 16))
+
+
+def test_the_resident_attention_sass_gate_counts_tma_loads_and_setmaxnreg():
+    """The P-resident kernels' machine code is read apart from the other
+    attention kernels': their warpgroup multiplies, TMA loads and register
+    handovers (a kernel of another name counts nothing)."""
+    from chip_smoke import resident_sass_by_instance
+
+    def function(kernel, body):
+        return (f"\t\tFunction : _ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernel"
+                f"EN2nd8resident4ArgsE\n" + body)
+
+    sass = (function("attention_fwd_resident_wgmma",
+                     "  USETMAXREG.DEALLOC.CTAPOOL 0x38 ;\n  UTMALDG.4D [UR8], [UR4] ;\n"
+                     "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;\n"
+                     "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;\n")
+            + function("attention_fwd_chunked_wgmma",
+                       "  HGMMA.64x64x16.F32.BF16 R24, R152, gdesc[UR8], R24 ;\n")
+            + function("attention_bwd_resident_wgmma",
+                       "  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;\n"))
+    counts = resident_sass_by_instance(sass)
+    assert counts == {
+        "attention_fwd_resident_wgmma": {"HGMMA": 2, "UTMALDG": 1, "USETMAXREG": 1},
+        "attention_bwd_resident_wgmma": {"HGMMA": 1, "UTMALDG": 0, "USETMAXREG": 0}}
+
+
 @pytest.mark.parametrize("log,match", [
     (_ptxas("gn_silu_conv3x3_wgmma", 16), "spills"),  # sums in local memory
     (_ptxas("gn_silu_conv3x3", 0) + _ptxas("group_stats", 0), "names no wgmma"),

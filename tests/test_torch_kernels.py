@@ -8,7 +8,8 @@ conv on them in bf16. ``-k k2`` runs K2's tests, ``-k "k1 or k5 or
 attention_function"`` the forward's, ``-k k4`` K4's, ``-k k3`` K3's forward
 and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
 ``-k head_dim`` K1 and K2 at head dims between two builds, ``-k above_256``
-K1, K2 and K5 at head dims above 256 (the chunked build).
+K1, K2 and K5 at head dims above 256 (the chunked build: the P-resident
+route and the walk), ``-k resident`` the resident route's splits.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -1366,23 +1367,28 @@ def test_k1_k2_at_head_dims_between_builds(cuda, dtype, split_first, n, hc, head
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("split_first", [True, False])
-@pytest.mark.parametrize("n", [17, 64, 65, 256, 1024])
+@pytest.mark.parametrize("n", [17, 64, 65, 256, 1024, k1.RESIDENT_N_LIMIT, k1.RESIDENT_N_LIMIT + 1])
 @pytest.mark.parametrize("hc", [257, 300, 320, 384, 512, 768, 1024])
 def test_k1_k2_above_256(cuda, dtype, split_first, n, hc):
-    """K1 and K2 at head dims above 256, on the chunked build (a block per
-    chunk of the output's columns, each summing the logits over all of D):
-    every element written (outputs pre-filled with NaN), within K1's and
-    K2's gates of their plain versions (and K2's relative gate in bf16); the
-    row log-sum-exp, which chunk 0 alone writes, against torch.logsumexp.
-    Odd head dims and 300 take the 2-byte staging (no 16-byte copy)."""
+    """K1 and K2 at head dims above 256, on the chunked build: in bf16 up to
+    the N limit the P-resident route (the logits once a tile pair, p or dS
+    kept in shared memory), above it and in f32 the walk (a block per chunk
+    of the output's columns, each summing the logits over all of D), each
+    counted on its route's launch counter: every element written (outputs
+    pre-filled with NaN), within K1's and K2's gates of their plain versions
+    (and K2's relative gate in bf16); the row log-sum-exp against
+    torch.logsumexp. Odd head dims and 300 take the 2-byte staging (no
+    16-byte copy, no tensor map)."""
     assert k1.head_dim_build(hc) == k1.CHUNKED
     heads = 2
+    route = "resident" if dtype == torch.bfloat16 and n <= k1.RESIDENT_N_LIMIT else "walk"
     g = torch.Generator(device=cuda).manual_seed(n + hc)
     qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).to(dtype)
     cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).to(dtype)
     out = torch.full((2, n, heads * hc), float("nan"), dtype=dtype, device=cuda)
     lse = torch.full((2, heads, n), float("nan"), device=cuda)
     launches = k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches
+    routes = dict(k1.route_launches)
     k1.fused_qkv_attention(qkv, heads, split_first, out=out, lse=lse)
     torch.cuda.synchronize()
     assert not torch.isnan(out).any()
@@ -1396,11 +1402,106 @@ def test_k1_k2_above_256(cuda, dtype, split_first, n, hc):
     torch.cuda.synchronize()
     assert (k1.fused_qkv_attention.launches, k1.fused_qkv_attention_bwd.launches) == (
         launches[0] + 1, launches[1] + 1)
+    ran = {key: v - routes.get(key, 0) for key, v in k1.route_launches.items()
+           if v != routes.get(key, 0)}
+    assert ran == {("K1", route): 1, ("K2", route): 1}
     assert not torch.isnan(dqkv).any()
     ref = k1.fused_qkv_attention_bwd_plain(qkv, cot, out, heads, split_first, lse)
     torch.testing.assert_close(dqkv.float(), ref.float(), **TOL[dtype, "k2"])
     if dtype == torch.bfloat16:
         assert _k2_rel_err(dqkv, ref, heads, split_first) <= K2_BF16_REL
+
+
+@pytest.mark.parametrize("n", [64, 256, 1024])
+def test_k1_k2_above_256_batch_position_independent(cuda, n):
+    """One example's bf16 K1 output, row log-sum-exp and K2 gradient at head
+    dim 512 are the same bits at positions 0 and 3 of batches 4 and 8 (other
+    examples around it; the plan's split follows the batch, the bits do not)."""
+    heads, hc = 1, 512
+    g = torch.Generator(device=cuda).manual_seed(n)
+    row = torch.randn(1, n, 3 * hc, generator=g, device=cuda).bfloat16()
+    row_cot = (2 * torch.rand(1, n, hc, generator=g, device=cuda) - 1).bfloat16()
+    seen = []
+    for batch in (4, 8):
+        for pos in (0, 3):
+            qkv = torch.randn(batch, n, 3 * hc, generator=g, device=cuda).bfloat16()
+            cot = (2 * torch.rand(batch, n, hc, generator=g, device=cuda) - 1).bfloat16()
+            qkv[pos], cot[pos] = row[0], row_cot[0]
+            lse = torch.empty(batch, heads, n, device=cuda)
+            out = k1.fused_qkv_attention(qkv, heads, True, lse=lse)
+            dqkv = k1.fused_qkv_attention_bwd(qkv, cot, out, heads, True, lse=lse)
+            torch.cuda.synchronize()
+            seen.append((out[pos], lse[pos], dqkv[pos]))
+    for other in seen[1:]:
+        for a, b in zip(seen[0], other):
+            assert torch.equal(a, b)
+
+
+def test_k1_k2_k5_resident_repeat_bit_for_bit(cuda):
+    """The P-resident route's K1 (with its lse), K5 on contiguous copies and
+    K2 at openai_128's widest one-head call, 20 times each: every result the
+    first's bits. A race between the ring's producer and its consumers shows
+    in some calls only (a build with four TMA issuers passed every other test
+    here and differed in 3 of 60 calls)."""
+    g = torch.Generator(device=cuda).manual_seed(512)
+    qkv = torch.randn(8, 1024, 3 * 512, generator=g, device=cuda).bfloat16()
+    copies = [t.contiguous() for t in k1.split_qkv(qkv, 1, True)]
+    qkv2 = torch.randn(2, 1024, 3 * 512, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(2, 1024, 512, generator=g, device=cuda) - 1).bfloat16()
+    lse2 = torch.empty(2, 1, 1024, device=cuda)
+    out2 = k1.fused_qkv_attention(qkv2, 1, True, lse=lse2)
+
+    def once():
+        lse = torch.empty(8, 1, 1024, device=cuda)
+        return (k1.fused_qkv_attention(qkv, 1, True, lse=lse), lse, k1.mha_attention(*copies),
+                k1.fused_qkv_attention_bwd(qkv2, cot, out2, 1, True, lse=lse2))
+
+    first = once()
+    for _ in range(19):
+        for a, b in zip(first, once()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("split_first", [False, True])
+def test_k2_resident_making_its_lse_repeat_bit_for_bit(cuda, split_first):
+    """K2 with no lse handed over (the wrapper launches K1 for it) at two
+    heads of 1024 channels, N = 1024 (five ring slots), 50 times: every
+    result the first's bits, none NaN. Two consumer warpgroups that waited on
+    one full barrier a slot in turn let one pass on a fill still in flight in
+    some calls only; this call was where it showed."""
+    g = torch.Generator(device=cuda).manual_seed(2048 + split_first)
+    qkv = torch.randn(4, 1024, 3 * 2048, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(4, 1024, 2048, generator=g, device=cuda) - 1).bfloat16()
+    out = k1.fused_qkv_attention(qkv, 2, split_first)
+    first = k1.fused_qkv_attention_bwd(qkv, cot, out, 2, split_first)
+    assert not torch.isnan(first).any()
+    for _ in range(49):
+        assert torch.equal(k1.fused_qkv_attention_bwd(qkv, cot, out, 2, split_first), first)
+
+
+@pytest.mark.parametrize("hc", [320, 512, 768])
+@pytest.mark.parametrize("n", [64, 200])
+def test_k1_k2_k5_resident_split_gives_equal_bits(cuda, n, hc):
+    """The P-resident route with a row tile's output columns over one block
+    and over the most blocks the plan allows (each repeating the logits):
+    K1 with its lse, K5 on the views and K2 give the same bits."""
+    heads = 2
+    most = max(1, -(-hc // 64) // 2)
+    g = torch.Generator(device=cuda).manual_seed(n * hc)
+    qkv = torch.randn(2, n, 3 * heads * hc, generator=g, device=cuda).bfloat16()
+    cot = (2 * torch.rand(2, n, heads * hc, generator=g, device=cuda) - 1).bfloat16()
+    views = k1.split_qkv(qkv, heads, False)
+    results = []
+    for split in (1, most):
+        lse = torch.empty(2, heads, n, device=cuda)
+        out = k1.fused_qkv_attention(qkv, heads, False, lse=lse, split=split)
+        out5 = k1.mha_attention(*views, split=split)
+        dqkv = k1.fused_qkv_attention_bwd(qkv, cot, out, heads, False, lse=lse, split=split)
+        torch.cuda.synchronize()
+        results.append((out, lse, out5, dqkv))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    assert torch.equal(results[0][2].transpose(1, 2).reshape(results[0][0].shape), results[0][0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

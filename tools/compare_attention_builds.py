@@ -14,19 +14,25 @@ calls replayed (device time, free of the host's launch cost).
 
   * K1 on the fused projection and K5 on its strided views at every bf16
     attention shape of the port's main paths (the openai_64 and openai_128
-    UNets and the openai_128 classifier); for this tree also K1 writing the
-    row log-sum-exp that K2 takes. Sums over one forward of each path.
+    UNets and the openai_128 classifier, and openai_128 at one head: head
+    dims 512, 768 and 1024 on the chunked build), and at a head dim above 256
+    with N above the P-resident route's limit (the walk); for this tree also
+    K1 writing the row log-sum-exp that K2 takes. Sums over one forward of
+    each path.
   * K2 at the bf16 attention shapes of one openai_64 and one openai_128
-    training step and of one guidance gradient through the classifier. A
-    build whose K2 takes the log-sum-exp (``nd_fused_qkv_attention_bwd_lse``)
-    is handed its own K1's, as the autograd Function does; an earlier build
+    training step (at one head too) and of one guidance gradient through the
+    classifier, and above the limit. A build whose K2 takes the log-sum-exp
+    (``nd_fused_qkv_attention_bwd_lse`` or ``_routed``) is handed its own
+    K1's, as the autograd Function does; an earlier build
     (``nd_fused_qkv_attention_bwd``) makes it itself. The two results are
     held to each other within K2's bf16 gates (per element and relative).
     Sums over one step or gradient.
 
-Each shape also says whether the two trees' K1, K5 and K2 results are equal
-bit for bit, and the last line how many differ (0 for a change that leaves
-these builds' arithmetic as it was).
+A build with routed entry points (``nd_*_routed``) runs the route and split
+that this tree's plan (``chunked_attention_plan``) gives. Each shape also
+says whether the two trees' K1, K5 and K2 results are equal bit for bit, and
+the last line how many differ, in all and at head dims above 256 (0 for a
+change that leaves these builds' arithmetic as it was).
 
 Imports torch and the port; needs a card.
 """
@@ -64,6 +70,10 @@ SHAPES = (
     (4, 256, 384, 6, 2, "classifier, batch 4"),
     (4, 64, 512, 8, 3, "classifier, batch 4"),
     (4, 65, 512, 8, 1, "classifier, batch 4"),
+    (8, 1024, 512, 1, 5, "openai_128 at one head, model batch 8"),
+    (8, 256, 768, 1, 5, "openai_128 at one head, model batch 8"),
+    (8, 64, 1024, 1, 6, "openai_128 at one head, model batch 8"),
+    (2, 1280, 384, 1, 1, "head dim 384, N above the resident limit (the walk)"),
 )
 # (batch, N, C, heads, calls per step, path): the bf16 attention backward
 # calls of one training step (one per attention call of its forward) or of
@@ -79,6 +89,10 @@ K2_SHAPES = (
     (4, 256, 384, 6, 2, "classifier guidance gradient, batch 4"),
     (4, 64, 512, 8, 3, "classifier guidance gradient, batch 4"),
     (4, 65, 512, 8, 1, "classifier guidance gradient, batch 4"),
+    (2, 1024, 512, 1, 5, "openai_128 training step at one head, batch 2"),
+    (2, 256, 768, 1, 5, "openai_128 training step at one head, batch 2"),
+    (2, 64, 1024, 1, 6, "openai_128 training step at one head, batch 2"),
+    (2, 1280, 384, 1, 1, "head dim 384, N above the resident limit (the walk)"),
 )
 _STRIDES = ctypes.c_longlong * 3
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -91,9 +105,14 @@ def build(root, out_dir, tag, name):
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
     lib = ctypes.CDLL(lib)
-    if name == "attention":
-        lib.nd_mha_attention.argtypes = [
-            *[_P] * 4, *[_I] * 4, *[ctypes.POINTER(ctypes.c_longlong)] * 3, _I, _F, _P]
+    strides = [ctypes.POINTER(ctypes.c_longlong)] * 3
+    if name == "attention" and hasattr(lib, "nd_fused_qkv_attention_routed"):
+        lib.nd_mha_attention_routed.argtypes = [*[_P] * 4, *[_I] * 4, *strides, _I, _F, _I, _I, _P]
+        lib.nd_fused_qkv_attention_routed.argtypes = [_P, _P, _P, *[_I] * 6, _F, _I, _I, _P]
+    elif hasattr(lib, "nd_fused_qkv_attention_bwd_routed"):
+        lib.nd_fused_qkv_attention_bwd_routed.argtypes = [*[_P] * 6, *[_I] * 6, _F, _I, _I, _P]
+    elif name == "attention":
+        lib.nd_mha_attention.argtypes = [*[_P] * 4, *[_I] * 4, *strides, _I, _F, _P]
         if hasattr(lib, "nd_fused_qkv_attention_lse"):
             lib.nd_fused_qkv_attention_lse.argtypes = [_P, _P, _P, *[_I] * 6, _F, _P]
         else:
@@ -105,15 +124,29 @@ def build(root, out_dir, tag, name):
     return lib
 
 
+def routed(kernel, n, d, pairs):
+    """(route code, split) of this tree's plan for a bf16 call: the head-dim
+    builds (0) up to 256, above it the plan's route."""
+    if d <= 256:
+        return 0, 1
+    plan = k1.chunked_attention_plan(n, d, pairs, kernel)
+    return (1 if plan["route"] == "resident" else 0), plan["split"]
+
+
 def k1_call(lib, qkv, heads, out, lse=None):
-    """K1 through the build's own C interface: a build that can write the
-    log-sum-exp (``nd_fused_qkv_attention_lse``) writes it into ``lse``, or
-    none when ``lse`` is None; an earlier build (``nd_fused_qkv_attention``)
-    takes no ``lse``."""
+    """K1 through the build's own C interface: a routed build
+    (``nd_fused_qkv_attention_routed``) on the plan's route, a build that can
+    write the log-sum-exp (``_routed``, ``nd_fused_qkv_attention_lse``) into
+    ``lse``, or none when ``lse`` is None; an earlier build
+    (``nd_fused_qkv_attention``) takes no ``lse``."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     common = (b, n, c, heads, 1, 1, (c // heads) ** -0.5, torch.cuda.current_stream().cuda_stream)
-    if hasattr(lib, "nd_fused_qkv_attention_lse"):
+    if hasattr(lib, "nd_fused_qkv_attention_routed"):
+        err = lib.nd_fused_qkv_attention_routed(
+            qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), *common[:-1],
+            *routed("K1", n, c // heads, b * heads), common[-1])
+    elif hasattr(lib, "nd_fused_qkv_attention_lse"):
         err = lib.nd_fused_qkv_attention_lse(qkv.data_ptr(), out.data_ptr(),
                                              None if lse is None else lse.data_ptr(), *common)
     elif lse is None:
@@ -131,7 +164,11 @@ def k2_call(lib, qkv, g, o, lse, dqkv, scratch):
     c = c3 // 3
     heads = lse.shape[1]
     common = (b, n, c, heads, 1, 1, (c // heads) ** -0.5, torch.cuda.current_stream().cuda_stream)
-    if hasattr(lib, "nd_fused_qkv_attention_bwd_lse"):
+    if hasattr(lib, "nd_fused_qkv_attention_bwd_routed"):
+        err = lib.nd_fused_qkv_attention_bwd_routed(
+            qkv.data_ptr(), g.data_ptr(), o.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+            scratch.data_ptr(), *common[:-1], *routed("K2", n, c // heads, b * heads), common[-1])
+    elif hasattr(lib, "nd_fused_qkv_attention_bwd_lse"):
         err = lib.nd_fused_qkv_attention_bwd_lse(qkv.data_ptr(), g.data_ptr(), o.data_ptr(),
                                                  lse.data_ptr(), dqkv.data_ptr(),
                                                  scratch.data_ptr(), *common)
@@ -145,10 +182,14 @@ def k2_call(lib, qkv, g, o, lse, dqkv, scratch):
 
 def k5_call(lib, q, k, v, out):
     b, h, n, d = q.shape
-    err = lib.nd_mha_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               b, h, n, d, _STRIDES(*q.stride()[:3]), _STRIDES(*k.stride()[:3]),
-                               _STRIDES(*v.stride()[:3]), 1, d ** -0.5,
-                               torch.cuda.current_stream().cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d,
+            _STRIDES(*q.stride()[:3]), _STRIDES(*k.stride()[:3]), _STRIDES(*v.stride()[:3]), 1,
+            d ** -0.5)
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "nd_mha_attention_routed"):
+        err = lib.nd_mha_attention_routed(*args, *routed("K5", n, d, b * h), stream)
+    else:
+        err = lib.nd_mha_attention(*args, stream)
     if err:
         raise RuntimeError(f"K5 launch failed: {err}")
 
@@ -187,12 +228,15 @@ def main(argv=None):
     def fmt(best, tag, what):
         return f"{best[tag, what, 'events']:.4f} ms (graph {best[tag, what, 'graph']:.4f})"
 
-    differing = []
+    differing, chunked = [], {"results": 0, "differ": 0}
 
-    def same(what, a, b, shape):
+    def same(what, a, b, shape, head_dim):
         equal = torch.equal(a, b)
         if not equal:
             differing.append(f"{what} at {shape}")
+        if head_dim > 256:
+            chunked["results"] += 1
+            chunked["differ"] += not equal
         return "equal bit for bit" if equal else "DIFFERENT bits"
 
     sums = {}
@@ -214,8 +258,8 @@ def main(argv=None):
         best = best_of_turns(calls)
         torch.cuda.synchronize()
         shape = f"qkv ({b}, {n}, {3 * c})"
-        bits = (f"K1 {same('K1', out['this'], out['other'], shape)}, K5 "
-                f"{same('K5', out5['this'], out5['other'], shape)}")
+        bits = (f"K1 {same('K1', out['this'], out['other'], shape, c // heads)}, K5 "
+                f"{same('K5', out5['this'], out5['other'], shape, c // heads)}")
         for key, ms in best.items():
             sums[(path,) + key] = sums.get((path,) + key, 0.0) + per * ms
         print(f"{shape}, {heads} heads of {c // heads}, {per} per forward of {path}: "
@@ -240,7 +284,8 @@ def main(argv=None):
         calls = {}
         for tag in roots:
             lib = libs[tag, "attention_bwd"]
-            handed = hasattr(lib, "nd_fused_qkv_attention_bwd_lse")
+            handed = (hasattr(lib, "nd_fused_qkv_attention_bwd_lse")
+                      or hasattr(lib, "nd_fused_qkv_attention_bwd_routed"))
             calls[tag, "K2"] = lambda lib=lib, tag=tag, handed=handed: k2_call(
                 lib, qkv, g, o, lse if handed else scratch[tag][1], dqkv[tag], scratch[tag][0])
         best = best_of_turns(calls)
@@ -252,7 +297,7 @@ def main(argv=None):
                              f"qkv {tuple(qkv.shape)}")
         for key, ms in best.items():
             sums[(path,) + key] = sums.get((path,) + key, 0.0) + per * ms
-        bits = same("K2", dqkv["this"], dqkv["other"], f"qkv ({b}, {n}, {3 * c})")
+        bits = same("K2", dqkv["this"], dqkv["other"], f"qkv ({b}, {n}, {3 * c})", c // heads)
         print(f"K2 qkv ({b}, {n}, {3 * c}), {heads} heads of {c // heads}, {per} per "
               f"{path}: other {fmt(best, 'other', 'K2')}; this {fmt(best, 'this', 'K2')}; the "
               f"two differ by at most {gap:.3g}, relative {rel:.3g}: {bits}", flush=True)
@@ -260,7 +305,8 @@ def main(argv=None):
         print(f"K2 sum over one {path}: " + "; ".join(
             f"{tag} {sums[path, tag, 'K2', 'events']:.4f} ms (graph "
             f"{sums[path, tag, 'K2', 'graph']:.4f})" for tag in ("other", "this")), flush=True)
-    print(f"bits: {len(differing)} results differ between the two trees"
+    print(f"bits: {len(differing)} results differ between the two trees, "
+          f"{chunked['differ']} of the {chunked['results']} at head dims above 256"
           + (f": {differing}" if differing else ""), flush=True)
 
 
