@@ -14,23 +14,25 @@ the super-resolution UNet at ``openai_256`` widths, the ESRGAN stage
 serving daemon (HTTP requests micro-batched into one chain) at
 ``openai_64`` in bf16 and int8, and data-parallel training, sampling and
 serving at ``openai_64`` (two ranks sharing the card, one through torchrun),
-and tensor-parallel forwards and training at ``openai_64`` (two ranks
-sharing the card, each with half the paired layers' channels). It checks
-every hand-written kernel on the way:
+tensor-parallel forwards and training at ``openai_64`` (two ranks
+sharing the card, each with half the paired layers' channels), and
+``DiffusionModel(winograd=True)`` at ``openai_64``, sampled and served. It
+checks every hand-written kernel on the way:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: K1 with K5, K2, K3 (forward and backward), K4, the int8 conv and
-     the bf16 conv (CUDA C++, one nvcc for sm_90a per source, started
-     together) from the
+  2. build: K1 with K5, K2, K3 (forward and backward), K4, the int8 conv,
+     the bf16 conv and the Winograd conv (CUDA C++, one nvcc for sm_90a per
+     source, started together) from the
      sources in this checkout; the registers and spills ptxas reports for
      each kernel (kept beside a cached build; a tensor-core instantiation
      that spills fails, and so does a library of K1/K5, K2, K4, the int8
-     conv or the bf16 conv whose log names none; K3 has no wgmma, and any of
-     its instantiations that spills fails), and the count of warpgroup
-     multiplies in the machine code of those five libraries (cuobjdump
-     -sass: HGMMA for the bf16 ones, any integer mnemonic, IGMMA, for the
-     int8 conv), which must not be 0 in any: bf16 K1, K2, K4 and K5 and the
-     two convs run on the tensor cores (wgmma), f32 on the CUDA cores; each
+     conv, the bf16 conv or the Winograd conv whose log names none; K3 has
+     no wgmma, and any of its instantiations that spills fails), and the
+     count of warpgroup multiplies in the machine code of those six
+     libraries (cuobjdump -sass: HGMMA for the bf16 ones, any integer
+     mnemonic, IGMMA, for the int8 conv), which must not be 0 in any: bf16
+     K1, K2, K4 and K5 and the three convs run on the tensor cores (wgmma),
+     f32 on the CUDA cores; each
      of the bf16 conv's six instances must also hold TMA loads (UTMALDG)
      and setmaxnreg (USETMAXREG): its producer warpgroup;
   3. each kernel against its plain torch version at every shape one
@@ -81,6 +83,22 @@ every hand-written kernel on the way:
      counters must show every attention and GroupNorm call went through the
      kernels; samples/s with kernels on and off; a torch.profiler breakdown
      of one sampling forward;
+  5a. ``[winograd]``: ``DiffusionModel(winograd=True)`` at full-width
+     ``openai_64`` on the same weights, its stride-1 3x3 convs (the stem and
+     the 72 residual-block ones) through the Winograd conv (csrc/winograd.cu:
+     F(2x2, 3x3), the transforms and 16 bf16 wgmma products fused, one launch
+     a call, a fixed order of sums): the kernel against its plain version
+     within BF16_CONV_TOL at every such conv shape at model batch 16 and 128
+     and at the EMNIST model's 28, 14 and 7 maps; the f32 Winograd forward
+     against the f32 direct model (1e-3); the bf16 forward and a DDIM-10 CFG
+     chain kernels on and off against the f32 Winograd model; the main path
+     (that chain through ``Diffusion.denoise`` and served batches, the plain
+     versions refused) with its launch counts; one example's output bit for
+     bit at other rows and batch sizes and through the daemon; the kernel's
+     times over the 73 convs at model batch 16 and 128 beside its plain
+     version, the bf16 conv and cuDNN at the same convs and the bound; a
+     bf16 forward at model batch 128 with winograd on against off (busy ms,
+     idle share, samples/s of a DDIM-10 chain of 64);
   5b. the full-width ``openai_128`` f32 forward, its classifier's logits and
      the guidance gradient, kernels on against ``kernels=False``; then the
      sampling entry point (``nicediffusion_tpu_torch.scripts.sample.main``)
@@ -551,12 +569,13 @@ def phase_device():
 # name a wgmma instantiation, none may spill, and the machine code must hold
 # warpgroup multiplies (HGMMA)
 WGMMA_LIBS = {"attention": "K1/K5", "attention_bwd": "K2", "resblock": "K4",
-              "int8conv": "the int8 conv", "bf16conv": "the bf16 conv"}
+              "int8conv": "the int8 conv", "bf16conv": "the bf16 conv",
+              "winograd": "the Winograd conv"}
 # the warpgroup multiplies each library must hold in its machine code: bf16
 # ones (HGMMA), or for the int8 conv any integer one, whatever mnemonic
 # cuobjdump prints for it (IGMMA on CUDA 12.8)
 GMMA_SASS = {"attention": r"HGMMA", "attention_bwd": r"HGMMA", "resblock": r"HGMMA",
-             "int8conv": r"(?!HGMMA|QGMMA)[A-Z]*GMMA", "bf16conv": r"HGMMA"}
+             "int8conv": r"(?!HGMMA|QGMMA)[A-Z]*GMMA", "bf16conv": r"HGMMA", "winograd": r"HGMMA"}
 # libraries with no tensor-core kernel, none of whose instantiations may spill
 # (no HGMMA gate applies to them)
 NO_SPILL_LIBS = {"groupnorm": "K3"}
@@ -567,7 +586,8 @@ _ENTRY = re.compile(
     r"attention_bwd_dkv_chunked|attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
     r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
-    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma)_kernel(I\S+|\S*)'")
+    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma|winograd_conv_wgmma)"
+    r"_kernel(I\S+|\S*)'")
 _INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
 
@@ -592,6 +612,8 @@ def build_report(name, nvcc_log):
             if m.group(1).startswith("int8_conv"):  # <x type, 64-filter blocks>
                 entry = (f"{m.group(1)} s8 x={_INT8_TYPES.get(dims[0], dims[0])}"
                          + (f" filters={64 * int(dims[1])}" if len(dims) > 1 else ""))
+            elif m.group(1) == "winograd_conv_wgmma":  # 16 m64n16 accumulators
+                entry = f"{m.group(1)} bf16 16 positions x m64n16"
             elif m.group(1).startswith("bf16_conv"):  # <64-filter blocks>
                 entry = f"{m.group(1)} bf16" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1) == "gn_silu_conv3x3_wgmma":
@@ -747,8 +769,8 @@ def phase_build():
         if not found:
             raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
                                  f"{kernels} is off the tensor cores")
-    log(f"[build] K1, K2, K3, K4, the int8 conv and the bf16 conv ready in {cuda_s:.2f} s "
-        f"(built side by side)")
+    log(f"[build] K1, K2, K3, K4, the int8 conv, the bf16 conv and the Winograd conv ready in "
+        f"{cuda_s:.2f} s (built side by side)")
 
 
 def main_path_calls(model, dev):
@@ -2074,12 +2096,13 @@ def conv_per_call(model, dtype=None, part=None, recording=False):
     in a bf16 (``dtype``, default the model's) ``kernels=True`` model, the
     int8 convs only while they record their calibration (else their own
     kernel or the dynamic path); 0 otherwise."""
-    from nicediffusion_tpu_torch.models.unet import Conv2d, Int8Conv
+    from nicediffusion_tpu_torch.models.unet import Conv2d, Int8Conv, WinogradConv
 
     if (dtype or model.dtype) != torch.bfloat16 or not model.kernels:
         return 0
     parts = part if isinstance(part, tuple) else (part or model,)
-    return sum(isinstance(m, Conv2d) and (recording or not isinstance(m, Int8Conv))
+    return sum(isinstance(m, Conv2d) and not isinstance(m, WinogradConv)
+               and (recording or not isinstance(m, Int8Conv))
                for p in parts for m in p.modules())
 
 
@@ -2116,6 +2139,7 @@ KERNEL_GROUPS = (
     ("K3 GroupNorm backward", ("group_norm_bwd",)),
     ("K3 GroupNorm forward", ("group_norm_fwd",)),
     ("int8 conv", ("int8_conv",)),
+    ("Winograd conv", ("winograd_conv",)),
     ("bf16 conv", ("bf16_conv",)),
     ("conv backward (cuDNN dgrad/wgrad)", ("dgrad", "wgrad", "bwd")),
     ("conv forward (cuDNN fprop)", ("fprop", "conv", "xmma", "cudnn")),
@@ -3384,6 +3408,377 @@ def phase_conv_cover(dev, held):
     return len(CONV_SHAPES), len(todo), err, rel
 
 
+# the model batches of [winograd]'s timings: a sampling forward's, and a
+# forward of serve batch 64 under CFG
+WINOGRAD_BATCHES = (16, 128)
+WINOGRAD_STEPS = 10  # [winograd]'s DDIM chains
+WINOGRAD_CHAIN_BATCH = 64  # images a chain in the on/off reading at model batch 128
+# the bf16 Winograd model kernels on and off, each against the f32 Winograd
+# model: the kernel changes only the order of M's f32 sums (and K1, K3 and
+# the bf16 conv theirs), so its relative error may exceed the plain
+# versions' by little; a fault in V, U, the products or A^T M A would move
+# every output by far more
+WINOGRAD_BF16_SLACK = 1.5
+
+
+def winograd_calls(model, dev):
+    """Every WinogradConv call of one forward of ``model`` (kernels=False;
+    shapes only), as a Counter of (H, W, C, F) -> calls per forward."""
+    from nicediffusion_tpu_torch.models.unet import WinogradConv
+
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        _, h, w, c = args[0].shape
+        calls[(h, w, c, mod.weight.shape[0])] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, WinogradConv)]
+    x = torch.zeros(1, model.resolution, model.resolution, model.in_channels, device=dev)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        model(x, zero, zero if model.conditional else None)
+    for h in hooks:
+        h.remove()
+    if sum(calls.values()) != len(hooks):
+        raise AssertionError(f"{sum(calls.values())} Winograd calls for {len(hooks)} layers")
+    return calls
+
+
+def winograd_bound_ms(b, h, w, c, f):
+    """(bytes ms, operations ms) of the Winograd conv: x, U (16 F C bf16) and
+    the f32 bias read once, the output written once; 2 x 16 C F operations a
+    4x4 tile (four outputs) at the bf16 tensor-core peak."""
+    tiles = b * -(-h // 2) * -(-w // 2)
+    bytes_moved = 2 * (b * h * w * c + 16 * f * c + b * h * w * f) + 4 * f
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, 2 * 16 * tiles * c * f / BF16_FLOPS * 1e3
+
+
+def winograd_inputs(g, dev, b, h, w, c, f):
+    """bf16 x, a fan-in-scaled (F, C, 3, 3) weight in bf16 (the model casts
+    its parameter so before the transform), its U and an f32 bias."""
+    from nicediffusion_tpu_torch.ops.winograd import transform_weights_3x3
+
+    x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    weight = (torch.randn(f, c, 3, 3, generator=g, device=dev) / (9 * c) ** 0.5).bfloat16()
+    return x, weight, transform_weights_3x3(weight), 0.1 * torch.randn(f, generator=g, device=dev)
+
+
+def winograd_against_plain(g, dev, case, what):
+    """The Winograd conv against its plain version at ``case`` = (B, H, W, C,
+    F, bias or not) on seeded inputs. The same V and U, exact products, f32
+    sums over C in another order, one rounding to bf16 after the bias: one
+    bf16 ulp of the output and f32 noise, inside BF16_CONV_TOL of the
+    output's largest magnitude, past which it raises. Returns (max abs err,
+    that magnitude)."""
+    from nicediffusion_tpu_torch.ops.kernels import winograd as kw
+
+    b, h, w, c, f, with_bias = case
+    x, _, u, bias = winograd_inputs(g, dev, b, h, w, c, f)
+    bias = bias if with_bias else None
+    out = kw.winograd_conv_nhwc(x, u, bias)
+    torch.cuda.synchronize()
+    ref = kw.winograd_conv_nhwc_plain(x, u, bias)
+    e = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not (bool(torch.isfinite(out).all()) and e <= BF16_CONV_TOL * scale):
+        raise AssertionError(f"{what} {(b, h, w, c)} -> {f}, {'with' if with_bias else 'no'} "
+                             f"bias: max abs err {e:.3g} over {BF16_CONV_TOL} x {scale:.3g}")
+    return e, scale
+
+
+def rel_err(out, ref):
+    """||out - ref||_F / ||ref||_F in float64; inf if out is not finite."""
+    out, ref = out.double(), ref.double()
+    if not torch.isfinite(out).all():
+        return math.inf
+    return (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+
+
+def phase_winograd(dev, state):
+    """``[winograd]``: ``DiffusionModel(winograd=True)`` at full-width
+    ``openai_64`` on ``state`` (its 72 residual-block 3x3 convs and the stem
+    through csrc/winograd.cu in bf16 with grad mode off). (a) The kernel
+    against its plain version (BF16_CONV_TOL) at every Winograd conv shape
+    of ``openai_64`` at model batch 16 and 128 and of the EMNIST model (28,
+    14 and 7 maps) at 16, with the bias, and at 16 without for
+    ``openai_64``. (b) The f32 Winograd forward (the plain function on the
+    card, TF32 off) against the f32 direct model (MODEL_TOL); the bf16
+    forward and a DDIM-10 CFG chain
+    kernels on and off, each against the f32 Winograd model (the kernels'
+    relative error at most WINOGRAD_BF16_SLACK times the plain versions').
+    (c) The main path with every count reset: that chain through
+    ``Diffusion.denoise`` and the served batches of ``serve_positions``
+    (plain versions refused), each Winograd conv through the kernel; one
+    example's output bit for bit alone at row 0 among zeros, at rows 7 and
+    15 of 16 and row 3 of 8, and through the daemon. (d) The kernel's times
+    over the 73 convs at model batch 16 and 128 (host-timed, by CUDA graph,
+    by torch.profiler), beside its plain version (the XLA composition's
+    method, on the card), the bf16 conv at the same convs (csrc/bf16conv.cu,
+    as the direct model calls it), cuDNN's bf16 F.conv2d and the bound. (e)
+    A bf16 forward at model batch 128, winograd on against off: device busy
+    ms, wall, idle share (in turns), and samples/s of a DDIM-10 chain of 64
+    images. U made once a weight (WinogradConv keeps it) in (b), (c) and (e);
+    (d) reads what making it each call would cost.
+    Returns (kernel tallies by batch, max abs err, max err relative to the
+    output's largest magnitude, readings, the main path's launches)."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp, WinogradConv
+    from nicediffusion_tpu_torch.ops.kernels import conv as kc
+    from nicediffusion_tpu_torch.ops.kernels import winograd as kw
+    from nicediffusion_tpu_torch.ops.winograd import transform_weights_3x3
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    t_start = time.perf_counter()
+
+    def took(part):
+        log(f"[winograd] {part} took {time.perf_counter() - t_start:.1f} s from the phase's start")
+
+    cfg = model_config()
+    meta = torch.device("meta")
+    calls = winograd_calls(DiffusionModel(**cfg, winograd=True, kernels=False,
+                                          device=meta).eval(), meta)
+    emnist = winograd_calls(DiffusionModel(**model_config("EMNIST"), winograd=True,
+                                           kernels=False, device=meta).eval(), meta)
+    n_win = sum(calls.values())
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    # (a) the kernel against its plain version
+    b16, b128 = WINOGRAD_BATCHES
+    cases = {(b, *shape, True) for b in WINOGRAD_BATCHES for shape in calls}
+    cases |= {(b16, *shape, False) for shape in calls}
+    cases |= {(b16, *shape, True) for shape in emnist}
+    err = rel = 0.0
+    for case in sorted(cases):
+        e, scale = winograd_against_plain(g, dev, case, "[winograd]")
+        err, rel = max(err, e), max(rel, e / scale)
+    log(f"[winograd] the Winograd conv at {len(cases)} (B, H, W, C, F, bias) cases (the "
+        f"{len(calls)} shapes of openai_64's {n_win} Winograd convs at model batch {b16} and "
+        f"{b128}, EMNIST's {len(emnist)} at 28, 14 and 7 at {b16}) against its plain version: "
+        f"max abs err {err:.3g}, at most {rel:.3g} of the output's largest magnitude (gate "
+        f"{BF16_CONV_TOL})")
+    took("(a)")
+
+    def make(dtype, kernels=True, winograd=True):
+        m = DiffusionModel(**cfg, dtype=dtype, kernels=kernels, winograd=winograd,
+                           device=dev).eval()
+        m.load_state_dict(state, strict=True)
+        return m
+
+    # (b) f32 Winograd against the direct model; bf16 kernels on and off
+    x = torch.randn(b16, 64, 64, 3, generator=g, device=dev)
+    t = torch.randint(0, 1000, (b16,), generator=g, device=dev)
+    y = torch.randint(0, cfg["num_classes"], (b16,), generator=g, device=dev)
+    wf32, on, direct = make(torch.float32), make(torch.bfloat16), make(torch.float32,
+                                                                       winograd=False)
+    n_wconv = sum(isinstance(m, WinogradConv) for m in on.modules())
+    if n_wconv != n_win:
+        raise AssertionError(f"{n_wconv} WinogradConv layers, {n_win} Winograd calls")
+    with torch.inference_mode():
+        ref = wf32(x, t, y)
+        e_f32 = (ref - direct(x, t, y)).abs().max().item()
+    del direct
+    off = make(torch.bfloat16, kernels=False)
+    with torch.inference_mode():
+        out_on, out_off = on(x, t, y), off(x, t, y)
+    log(f"[winograd] f32 forward at model batch {b16} (TF32 off): Winograd against the direct "
+        f"model max abs diff {e_f32:.3g} (gate {MODEL_TOL})")
+    if not e_f32 <= MODEL_TOL:
+        raise AssertionError(f"[winograd] the f32 Winograd forward is {e_f32:.3g} from the "
+                             f"direct one")
+    fwd = {"on": rel_err(out_on, ref), "off": rel_err(out_off, ref)}
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=WINOGRAD_STEPS,
+                use_ddim=True, ddim_eta=0.0, guidance_method="classifier_free",
+                guidance_strength=0.8)
+    labels = torch.arange(8, device=dev) * 97 % 1000 + 1
+
+    def chain(model, batch=8, seed=11):
+        return Diffusion(model=model, **dcfg).denoise(
+            torch.Generator(device=dev).manual_seed(seed), y=labels.repeat(batch // 8),
+            batch_size=batch)
+
+    chain(on, seed=3).cpu()  # warm-up (cuDNN plans of the direct convs)
+    torch.cuda.synchronize()
+    reset_launches()
+    kw.winograd_conv_nhwc.launches = 0
+    chain_on = chain(on)
+    with plain_versions_refused():
+        pos, rerun, served, _, _, again = serve_positions(Diffusion(model=on, **dcfg), dev)
+    torch.cuda.synchronize()
+    launches = {**read_launches(), "winograd": kw.winograd_conv_nhwc.launches}
+    # the chain, serve_positions' three served batches and its Diffusion.denoise
+    forwards = WINOGRAD_STEPS * (1 + 3 + 1)
+    n_attn = sum(isinstance(m, AttentionBlock) for m in on.modules())
+    n_gn = sum(isinstance(m, GroupNormOp) for m in on.modules())
+    expect = {"attention": n_attn * forwards, "attention_bwd": 0, "groupnorm": n_gn * forwards,
+              "groupnorm_bwd": 0, "mha": 0, "resblock": 0, "int8conv": 0,
+              "conv": conv_per_call(on) * forwards, "winograd": n_win * forwards}
+    log(f"[winograd] main path (a DDIM-{WINOGRAD_STEPS} CFG chain of 8 through "
+        f"Diffusion.denoise, then serve_positions' three served batches of 8 and its chain, "
+        f"{forwards} forwards at model batch {b16}, the plain versions refused while serving): "
+        f"launches "
+        f"{launches}, expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"[winograd] launch counts {launches} != {expect}")
+    bit = torch.equal(served, again)
+    log(f"[winograd] served bf16 Winograd: one request alone against the same (seed, label) in "
+        f"the last row of a full batch: max abs diff {pos:.6g} (gate 0); alone again "
+        f"{rerun:.6g} (gate 0); the served batch against Diffusion.denoise: "
+        f"{'bit-equal' if bit else 'DIFFERENT'}")
+    if pos != 0 or rerun != 0 or not bit:
+        raise AssertionError("[winograd] bf16 Winograd serving is not batch-position independent")
+    with torch.inference_mode():
+        chains = {"on": chain_on.float(), "off": chain(off).float(), "f32": chain(wf32)}
+    for name in ("on", "off"):
+        if chains[name].shape != (8, 64, 64, 3) or not chains[name].abs().max() <= 1.0:
+            raise AssertionError(f"[winograd] the {name} chain: {tuple(chains[name].shape)}, "
+                                 f"values not finite in [-1, 1]")
+    chn = {k: rel_err(chains[k], chains["f32"]) for k in ("on", "off")}
+    log(f"[winograd] bf16 against the f32 Winograd model, relative Frobenius error: forward at "
+        f"model batch {b16} kernels on {fwd['on']:.4g}, off {fwd['off']:.4g}; DDIM-"
+        f"{WINOGRAD_STEPS} chain on {chn['on']:.4g}, off {chn['off']:.4g}; on against off: "
+        f"forward {rel_err(out_on, out_off):.4g}, chain "
+        f"{rel_err(chains['on'], chains['off']):.4g} (gate: on at most {WINOGRAD_BF16_SLACK} "
+        f"x off)")
+    if not (fwd["on"] <= WINOGRAD_BF16_SLACK * fwd["off"]
+            and chn["on"] <= WINOGRAD_BF16_SLACK * chn["off"]):
+        raise AssertionError(f"[winograd] bf16 kernels on {fwd}, {chn}: past "
+                             f"{WINOGRAD_BF16_SLACK} x kernels off")
+    del off, wf32
+    torch.cuda.empty_cache()
+
+    # one example's output bit for bit at other rows and batch sizes
+    target = (torch.randn(1, 64, 64, 3, generator=g, device=dev), torch.tensor([417], device=dev),
+              torch.tensor([42], device=dev))
+
+    def at_row(batch, row, mates):
+        if mates == "zeros":
+            xb = torch.zeros(batch, 64, 64, 3, device=dev)
+            tb = torch.zeros(batch, dtype=torch.long, device=dev)
+            yb = torch.zeros(batch, dtype=torch.long, device=dev)
+        else:
+            xb = torch.randn(batch, 64, 64, 3, generator=g, device=dev)
+            tb = torch.randint(0, 1000, (batch,), generator=g, device=dev)
+            yb = torch.randint(0, cfg["num_classes"], (batch,), generator=g, device=dev)
+        xb[row], tb[row], yb[row] = target[0][0], target[1][0], target[2][0]
+        with torch.inference_mode():
+            return on(xb, tb, yb)[row]
+
+    alone = at_row(16, 0, "zeros")
+    rows = {(batch, row): torch.equal(alone, at_row(batch, row, "random"))
+            for batch, row in ((16, 7), (16, 15), (8, 3))}
+    log(f"[winograd] one example's bf16 forward at row 0 among zeros against rows 7 and 15 of "
+        f"16 and row 3 of 8 among random batch mates: {rows} (gate: all bit-equal)")
+    if not all(rows.values()):
+        raise AssertionError(f"[winograd] one example's output moves with its row: {rows}")
+    took("(b), (c)")
+
+    # (d) times over the 73 convs
+    def conv_fns(x, weight, u, bias):
+        """the four ways to one conv: the kernel (U made), its plain version,
+        cuDNN, and the bf16 conv as the direct model calls it (its f32
+        weight cast in the call, the bias rounded to bf16 as flax does)"""
+        wparam, bias_bf16 = weight.float(), bias.bfloat16()
+        return {"kernel": lambda: kw.winograd_conv_nhwc(x, u, bias),
+                "plain": lambda: kw.winograd_conv_nhwc_plain(x, u, bias),
+                "library": lambda: library_conv_bf16(x, weight, bias_bf16, 1),
+                "direct": lambda: kc.conv_nhwc(x, wparam, bias, 1)}
+
+    winograd_layers = [m for m in on.modules() if isinstance(m, WinogradConv)]
+    make_u = graph_ms(lambda: [transform_weights_3x3(m.weight.bfloat16()) for m in
+                               winograd_layers], iters=1, rounds=3)
+    tallies, direct = {}, {}
+    for b in WINOGRAD_BATCHES:
+        tally, dt = tallies[b], direct[b] = Tally(), Tally()
+        runs = {"kernel": [], "library": [], "direct": []}
+        for (h, w, c, f), n in sorted(calls.items()):
+            fns = conv_fns(*winograd_inputs(g, dev, b, h, w, c, f))
+            host = {k: time_ms(fn, iters=1, rounds=2) if k == "plain"
+                    else time_ms(fn, iters=5, rounds=3) for k, fn in fns.items()}
+            graph = {k: graph_ms(fn, iters=1, rounds=1) if k == "plain"
+                     else graph_ms(fn, iters=5, rounds=3) for k, fn in fns.items()}
+            for k in runs:
+                runs[k].append((fns[k], n))
+            bound = winograd_bound_ms(b, h, w, c, f)
+            tally.add(n, host["kernel"], host["plain"], host["library"], bound,
+                      (graph["kernel"], graph["plain"], graph["library"]), (0.0, 0.0))
+            dt.add(n, host["direct"], 0.0, host["library"], bf16_conv_bound_ms(b, h, w, c, f, 3, 1),
+                   (graph["direct"], 0.0, graph["library"]), (0.0, 0.0))
+            ops = 2 * 16 * b * -(-h // 2) * -(-w // 2) * c * f
+            log(f"[winograd] {(b, h, w, c)} -> {f}, {n} per forward, "
+                f"{kw.winograd_conv_units(b, h, w, c, f)} blocks: kernel {graph['kernel']:.4f} "
+                f"ms by graph ({ops / graph['kernel'] / 1e9:.1f} TFLOP/s), host "
+                f"{host['kernel']:.4f}; plain {graph['plain']:.4f} (host {host['plain']:.4f}); "
+                f"bf16 conv {graph['direct']:.4f}; cuDNN bf16 F.conv2d {graph['library']:.4f}; "
+                f"bound {max(bound):.4f} ms ({'bytes' if bound[0] >= bound[1] else 'operations'})")
+
+        def one_forward(kind):
+            return lambda: [fn() for fn, n in runs[kind] for _ in range(n)]
+
+        tally.profiler_ms = profiled_ms(one_forward("kernel"), iters=2)
+        tally.profiler_library_ms = dt.profiler_library_ms = profiled_ms(one_forward("library"),
+                                                                         iters=2)
+        dt.profiler_ms = profiled_ms(one_forward("direct"), iters=2)
+        del runs
+        log(f"[winograd] Winograd conv, the {n_win} Winograd convs of one openai_64 forward at "
+            f"model batch {b}, each timed back to back: {tally}; the kernel at "
+            f"{tally.bound_ms / tally.device_ms:.3f} of its bound by graph; bf16 conv at the same "
+            f"convs by graph {dt.device_ms:.4f} ms, by torch.profiler {dt.profiler_ms:.4f}, "
+            f"host-timed {dt.ms:.4f} (bound {dt.bound_ms:.4f}); Winograd / bf16 conv "
+            f"{tally.device_ms / dt.device_ms:.3f} by graph, "
+            f"{tally.profiler_ms / dt.profiler_ms:.3f} by torch.profiler; Winograd / cuDNN "
+            f"{tally.device_ms / tally.device_library_ms:.3f} by graph, "
+            f"{tally.profiler_ms / tally.profiler_library_ms:.3f} by torch.profiler")
+    log(f"[winograd] U of the {n_win} layers (cast and transform, elementwise), what each "
+        f"forward would cost if WinogradConv did not keep it: {make_u:.4f} ms by graph")
+    took("(d)")
+
+    # (e) a bf16 forward at model batch 128, winograd on against off
+    models = {"on": on, "off": make(torch.bfloat16, winograd=False)}
+    xb = torch.randn(b128, 64, 64, 3, generator=g, device=dev)
+    tb = torch.randint(0, 1000, (b128,), generator=g, device=dev)
+    yb = torch.randint(0, cfg["num_classes"], (b128,), generator=g, device=dev)
+    forward_128 = {}
+    for name in ("off", "on", "on", "off"):  # in turns
+        model = models[name]
+
+        def fwd128(model=model):
+            with torch.inference_mode():
+                model(xb, tb, yb)
+
+        wall = time_ms(fwd128, iters=2, rounds=2)
+        busy = profiled_ms(fwd128, iters=1)
+        read = {"busy_ms": busy, "wall_ms": wall, "idle": 1 - busy / wall}
+        if name not in forward_128:  # one chain each
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                chain(model, WINOGRAD_CHAIN_BATCH, seed=5)
+            torch.cuda.synchronize()
+            read["samples_per_s"] = WINOGRAD_CHAIN_BATCH / (time.perf_counter() - t0)
+        forward_128.setdefault(name, []).append(read)
+    for name, reads in forward_128.items():
+        def each(key, fmt):
+            return ", ".join(format(r[key], fmt) for r in reads)
+
+        log(f"[winograd] bf16 openai_64 forward at model batch {b128}, winograd {name} (two "
+            f"turns of off, on, on, off): device busy {each('busy_ms', '.3f')} ms, wall "
+            f"{each('wall_ms', '.3f')} ms, idle share {each('idle', '.3f')}; a DDIM-"
+            f"{WINOGRAD_STEPS} CFG chain of {WINOGRAD_CHAIN_BATCH} (in the first turn): "
+            f"{reads[0]['samples_per_s']:.4f} samples/s")
+    del models, on
+    torch.cuda.empty_cache()
+    took("(e)")
+    readings = {"convs_per_forward": n_win, "f32_against_direct_max_abs": e_f32,
+                "bf16_forward_rel_err": fwd,
+                "bf16_chain_rel_err": chn, "rows_bit_equal": len(rows),
+                "served_position_diff": pos, "cases_held": len(cases),
+                "transform_ms_per_forward": make_u,
+                "direct_bf16_conv_same_convs": {b: direct[b].fields() for b in direct},
+                "forward_model_batch_128": forward_128}
+    return tallies, err, rel, readings, launches
+
+
 def int8_forward_kernels(forward, n_int8, model_batch):
     """The gate that the int8 conv is one launch a call: torch.profiler over
     one int8 forward must see exactly ``n_int8`` kernels of int8conv.cu (any
@@ -3986,16 +4381,19 @@ def check_reply(payload, n, what):
 @contextlib.contextmanager
 def plain_versions_refused():
     """While the block runs, the plain versions the model would take with
-    kernels=False (attention, GroupNorm, the int8 conv, cuDNN's conv) and the
-    bf16 conv's plain version raise."""
+    kernels=False (attention, GroupNorm, the int8 conv, cuDNN's conv, the
+    Winograd function) and the bf16 and Winograd convs' plain versions
+    raise."""
+    from nicediffusion_tpu_torch.models import unet
     from nicediffusion_tpu_torch.ops import attention, groupnorm, quant
-    from nicediffusion_tpu_torch.ops.kernels import conv
+    from nicediffusion_tpu_torch.ops.kernels import conv, winograd
 
     def refuse(*args, **kw):
         raise AssertionError("a plain version ran on the served path")
 
     saved = [(attention, "fused_qkv_attention_plain"), (groupnorm, "_plain_group_norm"),
-             (quant, "int8_conv_plain"), (conv, "conv_nhwc_plain"), (F, "conv2d")]
+             (quant, "int8_conv_plain"), (conv, "conv_nhwc_plain"), (F, "conv2d"),
+             (unet, "winograd_conv_3x3"), (winograd, "winograd_conv_nhwc_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     for mod, name, _ in saved:
         setattr(mod, name, refuse)
@@ -5763,6 +6161,9 @@ def main():
                "train_openai_128": train128_launches,
                "wide_heads_openai_128": wide_launches}
     phase_done("[slice]")
+    win_tallies, win_err, win_rel, win_readings, by_path["winograd_openai_64"] = \
+        phase_winograd(dev, state)
+    phase_done("[winograd]")
     by_path["sr_chain_openai_256"] = phase_sr(dev, sr256)
     del sr256
     torch.cuda.empty_cache()
@@ -5925,6 +6326,24 @@ def main():
                            "and empty mbarriers, two consumer warpgroups multiply and store "
                            "by TMA (from registers where F % 8 != 0)"},
               **conv_gates),
+        # no Pallas kernel either: the JAX package's Winograd conv is an XLA
+        # composition; the conv of DiffusionModel(winograd=True)'s bf16
+        # forwards with grad mode off, bf16 only
+        entry("winograd_conv_nhwc", "cuda", "nicediffusion_tpu_torch/csrc/winograd.cu",
+              "nicediffusion_tpu/ops/winograd.py:63", "winograd", win_err, win_err,
+              win_tallies[WINOGRAD_BATCHES[0]],
+              f"sum over the {win_readings['convs_per_forward']} Winograd convs of one "
+              f"openai_64 winograd=True sampling forward, bf16, model batch "
+              f"{WINOGRAD_BATCHES[0]}, U made beforehand; the library call is cuDNN's bf16 "
+              f"F.conv2d of the same conv",
+              {"serve64": win_tallies[WINOGRAD_BATCHES[1]]},
+              {"bfloat16": "wgmma bf16 x bf16 -> f32, one launch a call: a block of two "
+                           "warpgroups owns 64 Winograd tiles x 32 filters, walks C in "
+                           "32-channel steps through two shared-memory stages (V made by "
+                           "each thread's transform of one tile's 8 channels, U by cp.async), "
+                           "16 m64n16 accumulators a warpgroup, A^T M A in registers; a fixed "
+                           "order of sums, no split K"},
+              max_rel_err=win_rel, **win_readings),
     ]
     for k in kernels:
         if k["launches"] <= 0:

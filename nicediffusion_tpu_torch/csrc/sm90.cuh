@@ -423,9 +423,21 @@ __device__ __forceinline__ void wgmma_rs_m64n192k32_s8(int (&d)[96], const uint3
 }
 
 // bf16 operands, both K-major in the 64-byte swizzle (sw64_desc), f32 sums:
-// the bf16 conv (bf16conv.cu) walks K 32 channels (one 64-byte row) a step,
-// and one instruction is k16, half a row, the second half 32 bytes further,
-// as the s8 products above take k32 (transpose immediates 0).
+// the bf16 conv (bf16conv.cu) and the Winograd conv (winograd.cu) walk K 32
+// channels (one 64-byte row) a step, and one instruction is k16, half a row,
+// the second half 32 bytes further, as the s8 products above take k32
+// (transpose immediates 0).
+
+__device__ __forceinline__ void wgmma_ss_m64n16k16_bf16(float (&d)[8], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 __device__ __forceinline__ void wgmma_ss_m64n64k16_bf16(float (&d)[32], uint64_t desc_a,
                                                        uint64_t desc_b, int scale_d) {

@@ -49,8 +49,17 @@ one of three modes, set by the model's methods (no global): under
 ``model.calibrating()`` the float compute, recording the running max |x| of
 its input; after ``model.freeze_int8(calib)`` the static path (its
 ``kernel_q``, ``inv_act`` and ``deq`` buffers, not in the state dict), through
-the int8 conv kernel; otherwise the dynamic path (ops/quant.py). Winograd is
-an ablation the port leaves out. ``device=None`` means the CUDA card
+the int8 conv kernel; otherwise the dynamic path (ops/quant.py).
+
+Winograd (``winograd=True``, opt-in and off by default, as in the JAX
+package): every stride-1 3x3 conv that JAX routes so (the stem, the residual
+blocks' ``in_conv`` and ``out_conv``, the Upsample convs; not the head, not
+a stride-2 conv, and in an int8 model only the stem) becomes a
+WinogradConv, F(2x2, 3x3) (ops/winograd.py), with the same ``weight`` and
+``bias``: the same state dict loads either way. In bf16 with grad mode off
+and ``kernels`` it runs the Winograd kernel (ops/kernels/winograd.py), whose
+order of sums, like the bf16 conv's, does not see the batch; otherwise the
+plain torch function. ``device=None`` means the CUDA card
 (utils/device.py); the CPU has to be asked for.
 
 Tensor parallelism (``shard_module_(model, mesh)`` or ``model.shard_(mesh)``,
@@ -85,6 +94,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import qkv_attention
 from ..ops.groupnorm import ada_group_norm_silu, group_norm, group_norm_silu
 from ..ops.kernels.conv import conv_nhwc
+from ..ops.kernels.winograd import winograd_conv_nhwc
 from ..ops.math import timestep_embedding
 from ..ops.quant import (
     int8_conv,
@@ -95,11 +105,13 @@ from ..ops.quant import (
     static_quant_triple,
 )
 from ..ops.resize import avg_pool_2x, resize_bilinear, upsample_nearest_2x
+from ..ops.winograd import transform_weights_3x3, winograd_conv_3x3
 from ..parallel.sharding import shard_params, shard_tensor, unet_param_shard_dims
 from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model, scatter_to_model
 from ..utils.device import resolve_device
 
-__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense", "shard_module_"]
+__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense", "WinogradConv",
+           "shard_module_"]
 
 
 class Conv2d(nn.Module):
@@ -220,11 +232,59 @@ class Int8Dense(_Int8State, Linear):
         return int8_dense(x, self.weight, self.bias, out_dtype, kernels=self.kernels)
 
 
+class WinogradConv(Conv2d):
+    """A stride-1 3x3 Conv2d computed by Winograd F(2x2, 3x3) (JAX models/
+    unet.py ``WinogradConv``): the same ``weight`` (OIHW) and ``bias``. The
+    weight is cast to the compute type, then transformed; the f32 bias is
+    added in f32 before the one rounding (not the bf16 conv's flax
+    rounding). With ``kernels`` a bf16 call with grad mode off runs the
+    Winograd kernel (ops/kernels/winograd.py); otherwise, and on CPU
+    tensors, the plain torch function (ops/winograd.py).
+
+    With grad mode off the transformed weight U is kept between calls, made
+    anew when the weight changes (its storage or version counter): JAX's
+    transform runs once per sampling chain, hoisted out of the scan as
+    loop-invariant; here about 13 ms of elementwise work a full-width
+    ``openai_64`` forward. Not in the state dict."""
+
+    def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False, dtype=None,
+                 device=None, kernels: bool = True):
+        super().__init__(in_ch, out_ch, 3, 1, zero_init, dtype, device, kernels=kernels)
+        self._u = self._u_key = None
+
+    def transformed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """U of the weight cast to ``dtype``, (16, F, C), made once per
+        weight version (grad mode off; it carries no gradient). A weight made
+        under ``torch.inference_mode`` has no version counter: its U is made
+        each call."""
+        w = self.weight
+        if w.is_inference():
+            return transform_weights_3x3(w.detach().to(dtype))
+        key = (w.data_ptr(), w._version, w.device, dtype)
+        if self._u_key != key:
+            self._u, self._u_key = transform_weights_3x3(w.detach().to(dtype)), key
+        return self._u
+
+    def forward(self, x, add_bias: bool = True):
+        dt = self.dtype or x.dtype
+        x = x.to(dt)
+        bias = self.bias if add_bias else None
+        if torch.is_grad_enabled():
+            return winograd_conv_3x3(x, self.weight.to(dt), bias)
+        u = self.transformed_weight(dt)
+        if self.kernels and dt == torch.bfloat16:
+            return winograd_conv_nhwc(x, u, bias)
+        return winograd_conv_3x3(x, None, bias, u=u)
+
+
 def _conv(in_ch, out_ch, k, stride=1, zero_init=False, dtype=None, device=None,
-          quantized=False, kernels=True):
-    """JAX unet.py ``_conv``: an Int8Conv when quantized, else a Conv2d."""
+          quantized=False, kernels=True, winograd=False):
+    """JAX unet.py ``_conv``: an Int8Conv when quantized, else a WinogradConv
+    for a stride-1 3x3 conv when ``winograd``, else a Conv2d."""
     if quantized:
         return Int8Conv(in_ch, out_ch, k, stride, zero_init, dtype, device, kernels=kernels)
+    if winograd and k == 3 and stride == 1:
+        return WinogradConv(in_ch, out_ch, zero_init, dtype, device, kernels=kernels)
     return Conv2d(in_ch, out_ch, k, stride, zero_init, dtype, device, kernels=kernels)
 
 
@@ -259,11 +319,11 @@ class Upsample(nn.Module):
     """2x nearest upsample, optional 3x3 conv (reference model.py:51-80)."""
 
     def __init__(self, channels: int, with_conv: bool = True, dtype=None, device=None,
-                 quantized: bool = False, kernels: bool = True):
+                 quantized: bool = False, kernels: bool = True, winograd: bool = False):
         super().__init__()
         self.conv = (
             _conv(channels, channels, 3, dtype=dtype, device=device, quantized=quantized,
-                  kernels=kernels)
+                  kernels=kernels, winograd=winograd)
             if with_conv else None
         )
 
@@ -296,14 +356,14 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, upsample: bool = False,
                  downsample: bool = False, use_adaptive_gn: bool = False,
                  dropout: float = 0.0, dtype=None, kernels: bool = True, device=None,
-                 quantized: bool = False):
+                 quantized: bool = False, winograd: bool = False):
         super().__init__()
         self.upsample, self.downsample = upsample, downsample
         self.use_adaptive_gn, self.dropout = use_adaptive_gn, dropout
         self.out_channels = out_ch
         self.tp = None  # the mesh, once shard_module_ pairs the block
         conv = functools.partial(_conv, dtype=dtype, device=device, quantized=quantized,
-                                 kernels=kernels)
+                                 kernels=kernels, winograd=winograd)
         self.in_norm = GroupNormOp(in_ch, "silu", kernels=kernels, device=device)
         self.in_conv = conv(in_ch, out_ch, 3)
         self.step_embedding = Linear(
@@ -484,6 +544,8 @@ class DiffusionModel(nn.Module):
     ``quantized`` makes the residual blocks' and resamplers' convs int8
     (``quantized_attention`` also the attention projections); see the
     module docstring for their calibrate -> freeze -> serve modes.
+    ``winograd`` computes the stride-1 3x3 convs by F(2x2, 3x3)
+    (WinogradConv, at JAX's sites; the state dict is unchanged).
     """
 
     def __init__(
@@ -512,8 +574,6 @@ class DiffusionModel(nn.Module):
         device: torch.device | str | None = None,
     ):
         super().__init__()
-        if winograd:
-            raise NotImplementedError("Winograd is an ablation the port leaves out (ROADMAP)")
         device = resolve_device(device)
         self.resolution, self.in_channels = resolution, in_channels
         self.model_channels, self.num_classes = model_channels, num_classes
@@ -525,7 +585,7 @@ class DiffusionModel(nn.Module):
         def res(cin, cout, up=False, down=False):
             return ResidualBlock(cin, cout, emb_dim, upsample=up, downsample=down,
                                  use_adaptive_gn=use_adaptive_gn, dropout=dropout,
-                                 kernels=kernels, quantized=quantized, **kw)
+                                 kernels=kernels, quantized=quantized, winograd=winograd, **kw)
 
         def attn(ch):
             return AttentionBlock(ch, num_heads, num_head_channels, split_qkv_first,
@@ -539,7 +599,8 @@ class DiffusionModel(nn.Module):
         # ---- encoder (reference model.py:363-402) ----
         ch = input_ch = int(model_channels * channel_mult[0])
         curr_res = resolution
-        down = [seq([Conv2d(in_channels, ch, 3, kernels=kernels, **kw)])]
+        # the stem: never int8, Winograd with the flag (JAX passes no quantized)
+        down = [seq([_conv(in_channels, ch, 3, kernels=kernels, winograd=winograd, **kw)])]
         skip_chs = [ch]
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
@@ -553,6 +614,7 @@ class DiffusionModel(nn.Module):
                 if resblock_updown:
                     down.append(seq([res(ch, ch, down=True)]))
                 else:
+                    # a stride-2 conv: never Winograd (JAX passes the flag, _conv drops it)
                     down.append(seq([Downsample(ch, conv_resample, quantized=quantized,
                                                 kernels=kernels, **kw)]))
                 skip_chs.append(ch)
@@ -575,7 +637,7 @@ class DiffusionModel(nn.Module):
                         layers.append(res(ch, ch, up=True))
                     else:
                         layers.append(Upsample(ch, conv_resample, quantized=quantized,
-                                               kernels=kernels, **kw))
+                                               kernels=kernels, winograd=winograd, **kw))
                     curr_res *= 2
                 up.append(seq(layers))
         self.upsampling = nn.ModuleList(up)

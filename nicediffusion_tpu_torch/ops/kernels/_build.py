@@ -130,7 +130,8 @@ def launch_error(lib: ctypes.CDLL, err: int, what: str, detail: str) -> RuntimeE
 
 
 def build_all(names: tuple[str, ...] = ("attention", "attention_bwd", "resblock",
-                                         "groupnorm", "int8conv", "bf16conv")) -> None:
+                                         "groupnorm", "int8conv", "bf16conv",
+                                         "winograd")) -> None:
     """Build several sources, one nvcc process per source, all started
     together (nvcc is a subprocess, so threads are enough), and load each
     through :func:`load_library`."""

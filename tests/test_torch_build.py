@@ -302,3 +302,40 @@ def test_the_bf16_conv_sass_gate_counts_tma_loads_and_setmaxnreg_per_instance():
                                                                "USETMAXREG": 1}
     assert counts["bf16_conv_row_wgmma bf16 filters=64"] == {"HGMMA": 1, "UTMALDG": 0,
                                                              "USETMAXREG": 1}
+
+
+def test_build_all_builds_every_source():
+    """``build_all``'s default names are every csrc/*.cu of the package, the
+    Winograd conv's included, each a library of its own."""
+    import inspect
+
+    names = inspect.signature(_build.build_all).parameters["names"].default
+    assert "winograd" in names and len(set(names)) == len(names)
+    assert set(names) == {p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+def _ptxas_winograd(spill_bytes):
+    mangled = ("_ZN44_GLOBAL__N__1d2fba03_11_winograd_cu_e607cf43"
+               "26winograd_conv_wgmma_kernelENS_4ArgsE")
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
+            f"{spill_bytes} bytes spill loads\n"
+            "ptxas info    : Used 250 registers, used 1 barriers\n")
+
+
+def test_build_report_gates_the_winograd_conv():
+    """The Winograd conv's one kernel, named as nvcc 12.8 mangles it: a clean
+    build passes with its line, a spilling one fails, a log naming no wgmma
+    instance fails (its spills would go unchecked)."""
+    from chip_smoke import GMMA_SASS, WGMMA_LIBS, build_report
+
+    assert "winograd" in WGMMA_LIBS and GMMA_SASS["winograd"] == "HGMMA"
+    lines = build_report("winograd", _ptxas_winograd(0))
+    assert [line.split(":")[0] for line in lines] == [
+        "winograd_conv_wgmma bf16 16 positions x m64n16"]
+    assert "Used 250 registers" in lines[0]
+    with pytest.raises(AssertionError, match="spills"):
+        build_report("winograd", _ptxas_winograd(56))
+    with pytest.raises(AssertionError, match="names no wgmma"):
+        build_report("winograd", "ptxas info    : 0 bytes gmem\n")

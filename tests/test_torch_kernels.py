@@ -9,7 +9,8 @@ attention_function"`` the forward's, ``-k k4`` K4's, ``-k k3`` K3's forward
 and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
 ``-k head_dim`` K1 and K2 at head dims between two builds, ``-k above_256``
 K1, K2 and K5 at head dims above 256 (the chunked build: the P-resident
-route and the walk), ``-k resident`` the resident route's splits.
+route and the walk), ``-k resident`` the resident route's splits,
+``-k winograd`` the Winograd conv's (bf16 on the tensor cores).
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -31,6 +32,8 @@ from nicediffusion_tpu_torch.ops.kernels import conv as kc
 from nicediffusion_tpu_torch.ops.kernels import groupnorm as k3
 from nicediffusion_tpu_torch.ops.kernels import int8conv as k8
 from nicediffusion_tpu_torch.ops.kernels import resblock as k4
+from nicediffusion_tpu_torch.ops.kernels import winograd as kw
+from nicediffusion_tpu_torch.ops.winograd import transform_weights_3x3
 
 pytestmark = pytest.mark.cuda
 
@@ -1522,3 +1525,100 @@ def test_k5_above_256_equals_k1_on_views(cuda, dtype):
         torch.testing.assert_close(out.float(), k1.mha_attention_plain(q, k, v).float(),
                                    **TOL[dtype, "k1"])
         assert torch.equal(out.transpose(1, 2).reshape(fused.shape), fused)
+
+
+# ---------------------------------------------------------------------------
+# the Winograd conv (csrc/winograd.cu): against its plain version at the
+# bf16 conv's gate (the same V and U, exact products, f32 sums over C in
+# another order, one rounding after the bias)
+# ---------------------------------------------------------------------------
+
+def _winograd_inputs(dev, shape, f, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    w = (torch.randn(f, c, 3, 3, generator=g, device=dev) / (9 * c) ** 0.5).bfloat16()
+    return x, transform_weights_3x3(w), 0.1 * torch.randn(f, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("shape,f", [
+    # openai_64 (model batch 2 here): a level's convs and decoder inputs
+    ((2, 64, 64, 192), 192), ((2, 32, 32, 384), 384), ((2, 16, 16, 576), 576),
+    ((2, 8, 8, 768), 768), ((2, 8, 8, 1536), 768), ((2, 32, 32, 960), 384),
+    # the stem (C = 3), EMNIST's stem (C = 1) and its odd 7x7 and 14x14 maps,
+    # odd and ragged maps, C not a multiple of 8 or of 32, F not of 32 or 2
+    ((2, 64, 64, 3), 192), ((3, 28, 28, 1), 64), ((3, 7, 7, 256), 256), ((3, 14, 14, 128), 128),
+    ((1, 5, 11, 12), 7), ((2, 9, 7, 40), 24), ((2, 6, 6, 200), 130), ((1, 1, 1, 8), 16),
+    ((2, 7, 10, 5), 33),
+])
+def test_winograd_conv_matches_plain(cuda, shape, f):
+    """Within the gate of the plain version, with and without the bias; one
+    count per launch."""
+    x, u, bias = _winograd_inputs(cuda, shape, f, seed=shape[-1] + f)
+    for b in (bias, None):
+        before = kw.winograd_conv_nhwc.launches
+        out = kw.winograd_conv_nhwc(x, u, b)
+        torch.cuda.synchronize()
+        assert kw.winograd_conv_nhwc.launches == before + 1
+        assert torch.isfinite(out).all()
+        _bf16_conv_gate(out, kw.winograd_conv_nhwc_plain(x, u, b))
+
+
+@pytest.mark.parametrize("shape,f", [((64, 64, 192), 192), ((8, 8, 768), 768),
+                                     ((7, 7, 256), 256), ((64, 64, 3), 192)])
+def test_winograd_conv_row_is_batch_invariant(cuda, shape, f):
+    """One example's output bit-identical alone, at rows 0, 3 and 7 of a
+    batch of 8 and at rows 0 and 15 of a batch of 16, among random batch
+    mates and among zeros: the plan and the order of sums never see the
+    batch."""
+    x0, u, bias = _winograd_inputs(cuda, (1, *shape), f, seed=f)
+    ref = kw.winograd_conv_nhwc(x0, u, bias)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for batch, row, mates in ((8, 0, "random"), (8, 3, "random"), (8, 7, "zeros"),
+                              (16, 0, "zeros"), (16, 15, "random")):
+        x = (torch.randn((batch, *shape), generator=g, device=cuda).bfloat16()
+             if mates == "random" else torch.zeros((batch, *shape), dtype=torch.bfloat16,
+                                                   device=cuda))
+        x[row] = x0[0]
+        assert torch.equal(kw.winograd_conv_nhwc(x, u, bias)[row], ref[0]), (batch, row, mates)
+
+
+def test_winograd_conv_refuses_what_it_does_not_take(cuda):
+    """A CUDA tensor launches or raises: f32 x or u, a u of other channels;
+    nothing falls back to the plain version."""
+    x, u, bias = _winograd_inputs(cuda, (1, 8, 8, 16), 16)
+    before = kw.winograd_conv_nhwc.launches
+    with pytest.raises(TypeError):
+        kw.winograd_conv_nhwc(x.float(), u, bias)
+    with pytest.raises(TypeError):
+        kw.winograd_conv_nhwc(x, u.float(), bias)
+    with pytest.raises(ValueError):
+        kw.winograd_conv_nhwc(x, u[:, :, :8].contiguous(), bias)
+    assert kw.winograd_conv_nhwc.launches == before
+
+
+def test_winograd_model_launches_once_per_conv(cuda):
+    """A bf16 DiffusionModel(winograd=True) forward with grad mode off: one
+    Winograd launch per WinogradConv, the head and the 1x1 skips on the bf16
+    conv; within 5% of its f32 forward."""
+    from nicediffusion_tpu_torch.models.unet import WinogradConv
+
+    cfg = dict(resolution=16, in_channels=3, model_channels=64, out_channels=6,
+               num_res_blocks=1, attention_resolutions=(8,), channel_mult=(1, 2),
+               num_heads=2, resblock_updown=True, use_adaptive_gn=True, num_classes=5)
+    torch.manual_seed(0)
+    f32 = DiffusionModel(**cfg, winograd=True, device=cuda).eval()
+    with torch.no_grad():  # the zero-initialised output convs take part
+        for p in f32.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    bf16 = DiffusionModel(**cfg, winograd=True, dtype=torch.bfloat16, device=cuda).eval()
+    bf16.load_state_dict(f32.state_dict(), strict=True)
+    n = sum(isinstance(m, WinogradConv) for m in bf16.modules())
+    x = torch.randn(4, 16, 16, 3, device=cuda)
+    t, y = torch.tensor([1, 200, 500, 999], device=cuda), torch.tensor([0, 1, 2, 4], device=cuda)
+    before = kw.winograd_conv_nhwc.launches
+    with torch.no_grad():
+        out, ref = bf16(x, t, y), f32(x, t, y)
+    torch.cuda.synchronize()
+    assert kw.winograd_conv_nhwc.launches == before + n and n > 0
+    assert (out - ref).abs().max() <= 0.05 * ref.abs().max()

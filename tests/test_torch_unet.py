@@ -229,8 +229,22 @@ def test_unported_model_options_raise(option):
         assert list(both.state_dict()) == list(DiffusionModel(**CFG_PLAIN, device="meta")
                                               .state_dict())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
+    # winograd: ported; WinogradConv at JAX's sites (the stem, in_conv,
+    # out_conv, the Upsample conv), Conv2d for the head, the 1x1 skips and the
+    # stride-2 Downsample conv; the state dict unchanged
+    from nicediffusion_tpu_torch.models.unet import Conv2d, WinogradConv
+
+    model = DiffusionModel(**CFG_PLAIN, **{option: True}, device="meta")
+    kinds = {n: type(m) for n, m in model.named_modules() if isinstance(m, Conv2d)}
+    assert kinds["downsampling.0.0"] is WinogradConv and kinds["out.2"] is Conv2d
+    for name, kind in kinds.items():
+        k, stride = model.get_submodule(name).weight.shape[-1], model.get_submodule(name).stride
+        assert (kind is WinogradConv) == (k == 3 and stride == 1 and name != "out.2"), name
+    assert any(n.endswith("in_conv") for n in kinds) and any(
+        n.startswith("upsampling") and n.endswith(".conv") and kinds[n] is WinogradConv
+        for n in kinds)
+    assert list(model.state_dict()) == list(DiffusionModel(**CFG_PLAIN, device="meta")
+                                            .state_dict())
 
 
 def test_device_none_means_the_card():
