@@ -87,7 +87,8 @@ checks every hand-written kernel on the way:
      ``openai_64`` on the same weights, its stride-1 3x3 convs (the stem and
      the 72 residual-block ones) through the Winograd conv (csrc/winograd.cu:
      F(2x2, 3x3), the transforms and 16 bf16 wgmma products fused, one launch
-     a call, a fixed order of sums): the kernel against its plain version
+     a call, the positions split over a cluster of four blocks, a fixed order
+     of sums; each shape's plan logged): the kernel against its plain version
      within BF16_CONV_TOL at every such conv shape at model batch 16 and 128
      and at the EMNIST model's 28, 14 and 7 maps; the f32 Winograd forward
      against the f32 direct model (1e-3); the bf16 forward and a DDIM-10 CFG
@@ -586,7 +587,7 @@ _ENTRY = re.compile(
     r"attention_bwd_dkv_chunked|attention_fwd_wgmma|attention_fwd|attention_bwd_dq_wgmma|"
     r"attention_bwd_dkv_wgmma|attention_bwd_dq|attention_bwd_dkv|gn_silu_conv3x3_wgmma|"
     r"gn_silu_conv3x3|group_stats|group_norm_fwd|group_norm_bwd|int8_conv_halo_wgmma|"
-    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma|winograd_conv_wgmma)"
+    r"int8_conv_row_wgmma|bf16_conv_halo_wgmma|bf16_conv_row_wgmma|winograd_conv_cluster_wgmma)"
     r"_kernel(I\S+|\S*)'")
 _INT8_TYPES = {"0": "f32", "1": "bf16", "2": "s8"}
 
@@ -612,8 +613,9 @@ def build_report(name, nvcc_log):
             if m.group(1).startswith("int8_conv"):  # <x type, 64-filter blocks>
                 entry = (f"{m.group(1)} s8 x={_INT8_TYPES.get(dims[0], dims[0])}"
                          + (f" filters={64 * int(dims[1])}" if len(dims) > 1 else ""))
-            elif m.group(1) == "winograd_conv_wgmma":  # 16 m64n16 accumulators
-                entry = f"{m.group(1)} bf16 16 positions x m64n16"
+            elif m.group(1) == "winograd_conv_cluster_wgmma":  # <filter tile>
+                entry = (f"{m.group(1)} bf16 filters={dims[0]}: 4 positions a block of a "
+                         f"cluster of 4, 2 x m64n{dims[0]} a consumer")
             elif m.group(1).startswith("bf16_conv"):  # <64-filter blocks>
                 entry = f"{m.group(1)} bf16" + (f" filters={64 * int(dims[0])}" if dims else "")
             elif m.group(1) == "gn_silu_conv3x3_wgmma":
@@ -703,6 +705,16 @@ def bf16_sass_by_instance(sass):
                             lambda m: f"{m.group(1)} bf16 filters={64 * int(m.group(2))}")
 
 
+def winograd_sass_by_instance(sass):
+    """Each Winograd conv instance's counts, by filter tile."""
+    return sass_by_instance(sass, r"(winograd_conv_cluster_wgmma)_kernelILi(\d+)E",
+                            lambda m: f"{m.group(1)} bf16 filters={m.group(2)}")
+
+
+# the Winograd conv's instances: a filter tile of 64 and one of 128
+WINOGRAD_INSTANCES = 2
+
+
 # the P-resident attention kernels (head dims above 256): one in each of the
 # attention libraries, each a TMA producer handing its registers over
 RESIDENT_KERNELS = {"attention": "attention_fwd_resident_wgmma",
@@ -766,6 +778,18 @@ def phase_build():
             if len(instances) != 6:
                 raise AssertionError(f"the bf16 conv library holds {len(instances)} kernel "
                                      "instances, not 6 (two routes x three filter tiles)")
+        if name == "winograd":
+            instances = winograd_sass_by_instance(sass)
+            for instance, ops in instances.items():
+                log(f"[build]   {instance}: " + ", ".join(f"{ops[op]} {op}"
+                                                           for op in BF16_CONV_SASS))
+                if not all(ops.values()):
+                    raise AssertionError(f"the Winograd conv's {instance} lacks "
+                                         f"{[op for op in BF16_CONV_SASS if not ops[op]]} in its "
+                                         "machine code: no TMA producer or no register handover")
+            if len(instances) != WINOGRAD_INSTANCES:
+                raise AssertionError(f"the Winograd conv library holds {len(instances)} kernel "
+                                     f"instances, not {WINOGRAD_INSTANCES} (filter tiles 64, 128)")
         if not found:
             raise AssertionError(f"the {name} library holds no {GMMA_SASS[name]} instruction: "
                                  f"{kernels} is off the tensor cores")
@@ -3543,8 +3567,16 @@ def phase_winograd(dev, state):
     n_win = sum(calls.values())
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
 
-    # (a) the kernel against its plain version
+    # each shape's plan (filter tile, cluster, blocks): the batch plays no part
     b16, b128 = WINOGRAD_BATCHES
+    for h, w, c, f in sorted(set(calls) | set(emnist)):
+        plan = kw.winograd_conv_plan(h, w, c, f)
+        log(f"[winograd] plan {(h, w, c, f)}: {plan['filters']} filters x {plan['tiles']} tiles "
+            f"a unit, a cluster of {plan['cluster']} blocks, {plan['steps']} steps; " + ", ".join(
+                f"{kw.winograd_conv_units(b, h, w, c, f)} blocks at model batch {b}"
+                for b in (WINOGRAD_BATCHES if (h, w, c, f) in calls else (b16,))))
+
+    # (a) the kernel against its plain version
     cases = {(b, *shape, True) for b in WINOGRAD_BATCHES for shape in calls}
     cases |= {(b16, *shape, False) for shape in calls}
     cases |= {(b16, *shape, True) for shape in emnist}
@@ -6337,12 +6369,14 @@ def main():
               f"{WINOGRAD_BATCHES[0]}, U made beforehand; the library call is cuDNN's bf16 "
               f"F.conv2d of the same conv",
               {"serve64": win_tallies[WINOGRAD_BATCHES[1]]},
-              {"bfloat16": "wgmma bf16 x bf16 -> f32, one launch a call: a block of two "
-                           "warpgroups owns 64 Winograd tiles x 32 filters, walks C in "
-                           "32-channel steps through two shared-memory stages (V made by "
-                           "each thread's transform of one tile's 8 channels, U by cp.async), "
-                           "16 m64n16 accumulators a warpgroup, A^T M A in registers; a fixed "
-                           "order of sums, no split K"},
+              {"bfloat16": "wgmma bf16 x bf16 -> f32, one launch a call: a cluster of four "
+                           "blocks owns 64 Winograd tiles x 128 (or 64) filters, block r the "
+                           "4 positions of row r of V, two m64n128 accumulators a consumer "
+                           "warpgroup; two producer warpgroups (alternate 32-channel steps) "
+                           "make V from pixel rows loaded by TMA, U by TMA, under full, empty "
+                           "and raw mbarriers; M traded through distributed shared memory, "
+                           "A^T M A in the block that stores the tile; a fixed order of sums, "
+                           "no split K"},
               max_rel_err=win_rel, **win_readings),
     ]
     for k in kernels:

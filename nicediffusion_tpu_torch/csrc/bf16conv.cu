@@ -569,20 +569,6 @@ __global__ void __launch_bounds__(kBlock, 1)
 
 // ---------------------------------------------------------------- launch
 
-// a bf16 tensor map of `rank` dimensions (sizes innermost first, byte
-// strides of dimensions 1 on) in boxes of `box` elements laid out in shared
-// memory in `swizzle`; loads give zeros out of bounds, stores skip them
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box,
-            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
-  const sm90::EncodeTiled fn = sm90::tensor_map_encoder();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
-            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // multiprocessors of the current device, read once per device
 int multiprocessors() {
   static int counts[64] = {0};
@@ -608,18 +594,18 @@ cudaError_t launch_nb(Args& a, int batch, int route, int max_blocks, cudaStream_
     const cuuint64_t wdims[3] = {(cuuint64_t)a.c, (cuuint64_t)a.taps, (cuuint64_t)a.f};
     const cuuint64_t wstrides[2] = {cb, cb * a.taps};
     const cuuint32_t wbox[3] = {kStepC, 1, 64 * NB};
-    bool ok = encode(&a.map_w, a.wt, 3, wdims, wstrides, wbox);
+    bool ok = sm90::encode_bf16_map(&a.map_w, a.wt, 3, wdims, wstrides, wbox);
     if (halo) {
       const cuuint64_t xdims[4] = {(cuuint64_t)a.c, (cuuint64_t)a.w, (cuuint64_t)a.h,
                                    (cuuint64_t)batch};
       const cuuint64_t xstrides[3] = {cb, cb * a.w, cb * a.w * a.h};
       const cuuint32_t xbox[4] = {kStepC, kHSide, kHSide, 1};
-      ok = ok && encode(&a.map_x, a.x, 4, xdims, xstrides, xbox);
+      ok = ok && sm90::encode_bf16_map(&a.map_x, a.x, 4, xdims, xstrides, xbox);
     } else {
       const cuuint64_t xdims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.m};
       const cuuint64_t xstrides[1] = {cb};
       const cuuint32_t xbox[2] = {kStepC, kBM};
-      ok = ok && encode(&a.map_x, a.x, 2, xdims, xstrides, xbox);
+      ok = ok && sm90::encode_bf16_map(&a.map_x, a.x, 2, xdims, xstrides, xbox);
     }
     if (!ok) return cudaErrorInvalidValue;
   }
@@ -631,12 +617,14 @@ cudaError_t launch_nb(Args& a, int batch, int route, int max_blocks, cudaStream_
                                   (cuuint64_t)batch};
       const cuuint64_t strides[3] = {fb, fb * a.wo, fb * a.wo * a.ho};
       const cuuint32_t box[4] = {64, kSide, kSide, 1};
-      ok = encode(&a.map_out, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      ok = sm90::encode_bf16_map(&a.map_out, a.out, 4, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
     } else {
       const cuuint64_t dims[2] = {(cuuint64_t)a.f, (cuuint64_t)a.m};
       const cuuint64_t strides[1] = {fb};
       const cuuint32_t box[2] = {64, 64};
-      ok = encode(&a.map_out, a.out, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      ok = sm90::encode_bf16_map(&a.map_out, a.out, 2, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
     }
     if (!ok) return cudaErrorInvalidValue;
   }

@@ -4,8 +4,9 @@
 // zero fill, ldmatrix, a tile stager, ex2, and for warp specialisation
 // mbarriers, TMA loads and stores and setmaxnreg. The bf16 attention kernels
 // (attention.cu, attention_bwd.cu), the bf16 residual-block kernel
-// (resblock.cu), the int8 conv (int8conv.cu, s8 in, s32 sums) and the bf16
-// conv (bf16conv.cu) are built from them.
+// (resblock.cu), the int8 conv (int8conv.cu, s8 in, s32 sums), the bf16
+// conv (bf16conv.cu) and the Winograd conv (winograd.cu, with clusters and
+// distributed shared memory) are built from them.
 //
 // Layout. A tile of R rows and a multiple of 64 bf16 columns is stored as
 // 64-column blocks one after another, each R x 128 bytes, row r at r * 128
@@ -631,9 +632,55 @@ __device__ __forceinline__ void st_shared_b32(uint32_t dst, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t src) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(src) : "memory");
+  return v;
+}
+
+// Thread-block clusters (the Winograd conv, winograd.cu): this block's rank
+// in its cluster and the cluster's index in the grid; the two halves of a
+// cluster barrier (every thread of every block arrives, releasing its shared
+// writes, and waits, acquiring the others'); and distributed shared memory:
+// the address of shared address `addr` in block `rank`'s shared memory, and
+// a store through it.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float v0, float v1, float v2,
+                                                 float v3) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v0),
+               "f"(v1), "f"(v2), "f"(v3)
+               : "memory");
+}
+
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no
 // -lcuda link); null if the driver has none. Host code: the tensor maps of
-// the bf16 conv and of the attention kernels' P-resident route.
+// the bf16 conv, the Winograd conv and the attention kernels' P-resident
+// route.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -655,6 +702,21 @@ inline EncodeTiled tensor_map_encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// a bf16 tensor map of `rank` dimensions (sizes innermost first, byte
+// strides of dimensions 1 on) in boxes of `box` elements laid out in shared
+// memory in `swizzle`; loads give zeros out of bounds, stores skip them.
+// Host code: the bf16 conv's maps and the Winograd conv's map of U.
+inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+  const EncodeTiled fn = tensor_map_encoder();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // register rebalancing between warpgroups (all four warps of a warpgroup

@@ -5,9 +5,12 @@ nicediffusion_tpu/ops/winograd.py::winograd_conv_3x3 (``:63``) as an XLA
 composition (tile gathers, einsum transforms, 16 batched dot_generals), the
 opt-in path of ``DiffusionModel(winograd=True)``. ``csrc/winograd.cu`` runs
 the whole function in one launch: the input transform into shared memory,
-the 16 products on the tensor cores (wgmma, bf16 in, f32 sums) and the
-output transform in each thread's registers, so neither V nor M touches
-device memory. Its note says what bounds it.
+the 16 products on the tensor cores (wgmma, bf16 in, f32 sums), split over a
+cluster of four blocks (block r the four positions of row r of V, two
+m64nFT products a consumer warpgroup, two producer warpgroups making V into
+an mbarrier ring that TMA feeds), and the output transform after M is traded
+through distributed shared memory, so neither V nor M touches device memory.
+Its note says what bounds it.
 
 Semantics: ops/winograd.py's, operation for operation. V = B^T d B rounded
 to bf16 twice, rows first (the kernel's V is the plain version's, bit for
@@ -19,10 +22,10 @@ version only the order of M's f32 sums differs.
 
 The order of sums is fixed: each element of M sums its channels in 32-channel
 steps in ascending order (two k16 halves a step, each one wgmma), then A^T M A
-in one fixed order; nothing is split across blocks or warps, and a tile's
-row of M never sees the other tiles of its block. :func:`winograd_conv_plan`
-reads (H, W, C, F), never the batch: bf16 serving through it stays
-batch-position independent.
+in one fixed order; nothing splits C, and a tile's row of M never sees the
+other tiles of its unit. :func:`winograd_conv_plan` reads (H, W, C, F), never
+the batch: bf16 serving through it stays batch-position independent, and
+every build since the first gives the same bits.
 
 Dispatch: a CPU tensor goes to :func:`winograd_conv_nhwc_plain`; a CUDA
 tensor launches the kernel or raises. Nothing falls back.
@@ -39,27 +42,40 @@ from . import _build
 from ..winograd import winograd_conv_3x3
 
 __all__ = ["winograd_conv_nhwc", "winograd_conv_nhwc_plain", "winograd_conv_plan",
-           "winograd_conv_units"]
+           "winograd_conv_units", "winograd_filter_tile"]
 
-TILES = 64  # Winograd tiles a block: wgmma's M
-FILTERS = 32  # filters a block, 16 a consumer warpgroup: wgmma's N
+TILES = 64  # Winograd tiles a work unit: wgmma's M
+CLUSTER = 4  # blocks a unit: block r makes positions 4 r to 4 r + 3 (row r of V)
+FILTER_TILES = (64, 128)  # filters a unit: wgmma's N
 CHANNEL_STEP = 32  # channels a K step: one 64-byte bf16 row
+
+
+def winograd_filter_tile(f: int) -> int:
+    """The kernel's filter tile for F filters (csrc/winograd.cu's
+    ``winograd_filter_tile``): of 128 and 64, the one whose shared-memory
+    bytes a step (V's 32 KB and U's FT / 2 KB, written and read) over the
+    padded filters are fewer, 128 on a tie."""
+    return 64 if -(-f // 64) * 64 < -(-f // 128) * 96 else 128
 
 
 def winograd_conv_plan(h: int, w: int, c: int, f: int) -> dict[str, int]:
     """The kernel's plan for a conv over (h, w) maps of c channels into f
-    filters: tiles and filters a block, the channel step and the steps, the
-    tile grid of one map. The batch plays no part."""
-    return {"tiles": TILES, "filters": FILTERS, "channel_step": CHANNEL_STEP,
+    filters: tiles and filters a unit, blocks a unit (the cluster), the
+    channel step and the steps, the tile grid of one map. The batch plays no
+    part."""
+    ft = winograd_filter_tile(f)
+    return {"tiles": TILES, "filters": ft, "cluster": CLUSTER, "channel_step": CHANNEL_STEP,
             "steps": -(-c // CHANNEL_STEP), "tile_rows": -(-h // 2), "tile_cols": -(-w // 2),
-            "filter_tiles": -(-f // FILTERS)}
+            "filter_tiles": -(-f // ft)}
 
 
 def winograd_conv_units(b: int, h: int, w: int, c: int, f: int) -> int:
     """Blocks of the kernel's grid for ``b`` examples: 64-tile groups (tiles
-    of all examples numbered in one sequence) times filter tiles."""
+    of all examples numbered in one sequence) times filter tiles, a cluster
+    of four blocks each."""
     plan = winograd_conv_plan(h, w, c, f)
-    return -(-b * plan["tile_rows"] * plan["tile_cols"] // TILES) * plan["filter_tiles"]
+    return (-(-b * plan["tile_rows"] * plan["tile_cols"] // TILES) * plan["filter_tiles"]
+            * CLUSTER)
 
 
 def winograd_conv_nhwc_plain(x: torch.Tensor, u: torch.Tensor,

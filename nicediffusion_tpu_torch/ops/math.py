@@ -71,17 +71,20 @@ def mean_flat(x):
     return x.mean(dim=tuple(range(1, x.ndim)))
 
 
+def timestep_frequencies(half: int, max_period: int = 10000, device=None) -> torch.Tensor:
+    """The embedding's f32 frequencies exp(-log(max_period) k / half), k < half."""
+    return torch.exp(
+        torch.arange(half, dtype=torch.float32, device=device) * (-math.log(max_period) / half)
+    )
+
+
 def timestep_embedding(timesteps, embedding_dim: int, max_period: int = 10000):
     """Sinusoidal timestep embedding in f32, [cos | sin] channel order.
 
     The original reference concatenates **cos first, then sin**, which
     matters for checkpoint parity. Odd embedding_dim is zero-padded.
     """
-    half = embedding_dim // 2
-    freqs = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=timesteps.device)
-        * (-math.log(max_period) / half)
-    )
+    freqs = timestep_frequencies(embedding_dim // 2, max_period, timesteps.device)
     args = timesteps[:, None].to(torch.float32) * freqs[None]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=1)
     if embedding_dim % 2 == 1:

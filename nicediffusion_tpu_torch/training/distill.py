@@ -153,6 +153,15 @@ def make_student_diffusion(model, diffusion_args: dict, teacher: Diffusion,
     return Diffusion(model=model, **args)
 
 
+def _sqrt_tables(acp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """sqrt(acp) and sqrt(1 - acp) of an f32 schedule table, made once on
+    the host by numpy, whose f32 sqrt is correctly rounded as XLA's is
+    (torch's CPU sqrt is not on every host: it moved JAX's bits by an ulp)."""
+    a = acp.detach().cpu().numpy()
+    return (torch.from_numpy(np.sqrt(a)).to(acp.device),
+            torch.from_numpy(np.sqrt(np.float32(1) - a)).to(acp.device))
+
+
 class _Distiller:
     """What both stages share: the three modules, the optimizer, the draws,
     the step and the loop. A subclass builds ``self.teacher`` and
@@ -278,6 +287,7 @@ class GuidedDistiller(_Distiller):
             # the eps-space target is unchanged
             s_args.update(prediction_type=student_prediction_type)
         self.teacher = Diffusion(model=self.teacher_model, **t_args)
+        self._sqrt_acp, self._sqrt_1macp = _sqrt_tables(self.teacher._acp)
         self.student = Diffusion(model=self.model, **s_args)
         if loss_space is None:
             loss_space = "x0_snr" if self.student.prediction_type == "v" else "eps"
@@ -290,8 +300,8 @@ class GuidedDistiller(_Distiller):
 
     def _losses(self, x0, y, j, noise):
         z = self.student.q_sample(x0, j, noise)
-        a = torch.sqrt(_bcast(self.teacher._acp, j, z.ndim))
-        s = torch.sqrt(1 - _bcast(self.teacher._acp, j, z.ndim))
+        a = _bcast(self._sqrt_acp, j, z.ndim)
+        s = _bcast(self._sqrt_1macp, j, z.ndim)
         want_lv = self.var_weight is not None
         with torch.no_grad():
             eps_t, lv_t = self.teacher._guided_eps(z, j, y, want_log_var=want_lv)
@@ -332,6 +342,8 @@ class ProgressiveDistiller(_Distiller):
         args = dict(diffusion_args, guidance_method=None, guidance_strength=None,
                     use_ddim=True, ddim_eta=0.0)
         self.teacher = Diffusion(model=self.teacher_model, **args)
+        self._sqrt_acp, self._sqrt_1macp = _sqrt_tables(self.teacher._acp)
+        self._sqrt_acp_prev, self._sqrt_1macp_prev = _sqrt_tables(self.teacher._acp_prev)
         self.student = make_student_diffusion(self.model, diffusion_args, self.teacher,
                                               prediction_type=student_prediction_type)
         # the stage-2 default: the halving must be accurate where image
@@ -347,11 +359,10 @@ class ProgressiveDistiller(_Distiller):
         z1, _ = self.teacher.ddim_step(z, t1, y=y, noise=zero)
         z2, _ = self.teacher.ddim_step(z1, t2, y=y, noise=zero)
         nd = z.ndim
-        acp, acp_prev = self.teacher._acp, self.teacher._acp_prev
-        a_t = torch.sqrt(_bcast(acp, t1, nd))
-        s_t = torch.sqrt(1 - _bcast(acp, t1, nd))
-        a_b = torch.sqrt(_bcast(acp_prev, t2, nd))
-        s_b = torch.sqrt(1 - _bcast(acp_prev, t2, nd))
+        a_t = _bcast(self._sqrt_acp, t1, nd)
+        s_t = _bcast(self._sqrt_1macp, t1, nd)
+        a_b = _bcast(self._sqrt_acp_prev, t2, nd)
+        s_b = _bcast(self._sqrt_1macp_prev, t2, nd)
         ratio = s_b / s_t
         return (z2 - ratio * z) / (a_b - ratio * a_t), (a_t, s_t)
 

@@ -314,28 +314,61 @@ def test_build_all_builds_every_source():
     assert set(names) == {p.stem for p in _build.CSRC.glob("*.cu")}
 
 
+def _winograd_mangled(ft):
+    return ("_ZN44_GLOBAL__N__1d2fba03_11_winograd_cu_2b73cc7b34"
+            f"winograd_conv_cluster_wgmma_kernelILi{ft}EEEvNS_4ArgsE")
+
+
 def _ptxas_winograd(spill_bytes):
-    mangled = ("_ZN44_GLOBAL__N__1d2fba03_11_winograd_cu_e607cf43"
-               "26winograd_conv_wgmma_kernelENS_4ArgsE")
-    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
-            f"ptxas info    : Function properties for {mangled}\n"
-            f"    {spill_bytes} bytes stack frame, {spill_bytes} bytes spill stores, "
-            f"{spill_bytes} bytes spill loads\n"
-            "ptxas info    : Used 250 registers, used 1 barriers\n")
+    """nvcc 12.8's ptxas lines for the Winograd conv's two instances (filter
+    tiles 128 and 64), the second spilling ``spill_bytes``."""
+    log = ""
+    for ft, spill in ((128, 0), (64, spill_bytes)):
+        mangled = _winograd_mangled(ft)
+        log += (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {mangled}\n"
+                f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                "ptxas info    : Used 128 registers, used 1 barriers\n")
+    return log
 
 
 def test_build_report_gates_the_winograd_conv():
-    """The Winograd conv's one kernel, named as nvcc 12.8 mangles it: a clean
-    build passes with its line, a spilling one fails, a log naming no wgmma
-    instance fails (its spills would go unchecked)."""
+    """The Winograd conv's instances (filter tiles 128 and 64), named as nvcc
+    12.8 mangles them: a clean build passes with a line each, one spilling
+    instance fails, a log naming no wgmma instance fails (its spills would go
+    unchecked)."""
     from chip_smoke import GMMA_SASS, WGMMA_LIBS, build_report
 
     assert "winograd" in WGMMA_LIBS and GMMA_SASS["winograd"] == "HGMMA"
     lines = build_report("winograd", _ptxas_winograd(0))
     assert [line.split(":")[0] for line in lines] == [
-        "winograd_conv_wgmma bf16 16 positions x m64n16"]
-    assert "Used 250 registers" in lines[0]
-    with pytest.raises(AssertionError, match="spills"):
+        "winograd_conv_cluster_wgmma bf16 filters=128",
+        "winograd_conv_cluster_wgmma bf16 filters=64"]
+    assert "cluster of 4, 2 x m64n128 a consumer" in lines[0]
+    assert all("Used 128 registers" in line for line in lines)
+    with pytest.raises(AssertionError, match="filters=64.* spills"):
         build_report("winograd", _ptxas_winograd(56))
     with pytest.raises(AssertionError, match="names no wgmma"):
         build_report("winograd", "ptxas info    : 0 bytes gmem\n")
+
+
+@pytest.mark.parametrize("lost", [None, "UTMALDG", "USETMAXREG", "HGMMA"])
+def test_the_winograd_sass_gate_counts_each_instance(lost):
+    """The Winograd conv's gate reads each instance's machine code apart:
+    warpgroup multiplies, TMA loads and register handovers by filter tile; an
+    instance that lost one of them shows 0 for it."""
+    from chip_smoke import BF16_CONV_SASS, WINOGRAD_INSTANCES, winograd_sass_by_instance
+
+    body = {"USETMAXREG": "  USETMAXREG.DEALLOC.CTAPOOL 0x48 ;\n",
+            "UTMALDG": "  UTMALDG.4D [UR8], [UR4] ;\n  UTMALDG.3D [UR16], [UR4] ;\n",
+            "HGMMA": "  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;\n"}
+    sass = "".join(f"\t\tFunction : {_winograd_mangled(ft)}\n"
+                   + "".join(text for op, text in body.items() if not (ft == 64 and op == lost))
+                   for ft in (128, 64))
+    counts = winograd_sass_by_instance(sass)
+    assert WINOGRAD_INSTANCES == len(counts) == 2
+    assert counts["winograd_conv_cluster_wgmma bf16 filters=128"] == {
+        "HGMMA": 1, "UTMALDG": 2, "USETMAXREG": 1}
+    small = counts["winograd_conv_cluster_wgmma bf16 filters=64"]
+    assert {op for op in BF16_CONV_SASS if not small[op]} == ({lost} if lost else set())

@@ -1583,6 +1583,30 @@ def test_winograd_conv_row_is_batch_invariant(cuda, shape, f):
         assert torch.equal(kw.winograd_conv_nhwc(x, u, bias)[row], ref[0]), (batch, row, mates)
 
 
+@pytest.mark.parametrize("views", ["x", "u", "x_and_u"])
+@pytest.mark.parametrize("shape,f", [((2, 32, 32, 384), 384), ((2, 9, 10, 72), 80)],
+                         ids=["32x32", "ragged_9x10"])
+def test_winograd_conv_on_a_misaligned_view(cuda, views, shape, f):
+    """x, u or both a contiguous view one element into its storage (no
+    tensor map and no 16-byte copy for that tensor, while the other, aligned,
+    may take its tensor map): the aligned call's bits, within the plain
+    version's gate."""
+    x, u, bias = _winograd_inputs(cuda, shape, f, seed=f)
+
+    def misaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        return view
+
+    xv = misaligned(x) if "x" in views.split("_") else x
+    uv = misaligned(u) if "u" in views.split("_") else u
+    out = kw.winograd_conv_nhwc(xv, uv, bias)
+    assert torch.equal(out, kw.winograd_conv_nhwc(x, u, bias))
+    _bf16_conv_gate(out, kw.winograd_conv_nhwc_plain(x, u, bias))
+
+
 def test_winograd_conv_refuses_what_it_does_not_take(cuda):
     """A CUDA tensor launches or raises: f32 x or u, a u of other channels;
     nothing falls back to the plain version."""

@@ -7,6 +7,7 @@ torch versions, so these tests pin the arithmetic the CUDA kernels are
 compared with on the card.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -198,13 +199,32 @@ def test_mha_attention_refuses_mismatched_inputs():
 
 
 def test_timestep_embedding_matches_jax():
-    """[cos|sin] order. XLA's and torch's f32 exp differ by 1 ulp on some
-    frequencies, which t up to 999 turns into ~4e-6 on the angle: hence 1e-5."""
+    """[cos|sin] order. XLA's f32 exp is not correctly rounded at some
+    frequencies and torch's at others, so the two packages' frequencies may
+    differ by one ulp; t up to 999 turns that into up to about 1e-4 on an
+    angle. Held: the frequencies to 1 ulp of JAX's; cos and sin, given JAX's
+    own angles, to 1e-6; and the whole embedding, element by element, to
+    t * ulp(f) + ulp(t f) + 2e-6: one ulp of the frequency times t, the
+    angle's rounding on both sides (half an ulp each), and cos or sin."""
     t = np.array([0, 1, 17, 500, 643, 999], np.int32)
     for dim in (64, 65, 192):
+        half = dim // 2
+        jf = np.asarray(jnp.exp(jnp.arange(half, dtype=jnp.float32)
+                                * (-math.log(10000) / half)))
+        tf = tmath.timestep_frequencies(half).numpy()
+        assert np.abs(tf.view(np.int32) - jf.view(np.int32)).max() <= 1
+        angles = np.asarray(jnp.asarray(t)[:, None].astype(jnp.float32) * jf[None])
+        np.testing.assert_allclose(torch.cos(_t(angles)).numpy(), np.asarray(jnp.cos(angles)),
+                                   atol=1e-6)
+        np.testing.assert_allclose(torch.sin(_t(angles)).numpy(), np.asarray(jnp.sin(angles)),
+                                   atol=1e-6)
         ref = np.asarray(jmath.timestep_embedding(jnp.asarray(t), dim))
         out = tmath.timestep_embedding(_t(t), dim).numpy()
-        np.testing.assert_allclose(out, ref, atol=1e-5)
+        bound = (t[:, None] * np.spacing(jf)[None] + np.spacing(angles) + 2e-6).astype(np.float32)
+        bound = np.concatenate([bound, bound], axis=1)
+        if dim % 2:
+            bound = np.pad(bound, ((0, 0), (0, 1)))
+        assert np.all(np.abs(out - ref) <= bound), np.max(np.abs(out - ref) - bound)
 
 
 def test_gaussian_helpers_match_jax(rng_np):

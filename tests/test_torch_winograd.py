@@ -271,11 +271,57 @@ def test_state_dict_keys_and_shapes_as_without_winograd(cfg):
 def test_plan_reads_the_map_never_the_batch():
     assert list(inspect.signature(kw.winograd_conv_plan).parameters) == ["h", "w", "c", "f"]
     plan = kw.winograd_conv_plan(7, 10, 3, 192)
-    assert plan == {"tiles": 64, "filters": 32, "channel_step": 32, "steps": 1,
-                    "tile_rows": 4, "tile_cols": 5, "filter_tiles": 6}
-    # the grid grows with the batch; the work of a tile does not
-    assert kw.winograd_conv_units(1, 64, 64, 192, 192) == 16 * 6
-    assert kw.winograd_conv_units(128, 8, 8, 768, 768) == 32 * 24
+    assert plan == {"tiles": 64, "filters": 128, "cluster": 4, "channel_step": 32, "steps": 1,
+                    "tile_rows": 4, "tile_cols": 5, "filter_tiles": 2}
+    # the grid grows with the batch (a cluster of four blocks a unit); the
+    # work of a tile does not
+    assert kw.winograd_conv_units(1, 64, 64, 192, 192) == 16 * 2 * 4
+    assert kw.winograd_conv_units(128, 8, 8, 768, 768) == 32 * 6 * 4
+    assert kw.winograd_conv_units(16, 28, 28, 1, 64) == 49 * 1 * 4
+
+
+def _model_shapes(preset):
+    from chip_smoke import model_config, winograd_calls
+
+    meta = torch.device("meta")
+    cfg = model_config() if preset == "openai_64" else model_config(preset)
+    return sorted(winograd_calls(DiffusionModel(**cfg, winograd=True, kernels=False,
+                                                device=meta).eval(), meta))
+
+
+@pytest.mark.parametrize("preset,tiles", [
+    # openai_64: F of 192, 384, 576, 768 take 128 filters a unit (576 pads to
+    # 640: fewer shared-memory bytes than nine units of 64)
+    ("openai_64", {192: 128, 384: 128, 576: 128, 768: 128}),
+    # EMNIST: 64 filters take 64, 128 and 256 take 128
+    ("EMNIST", {64: 64, 128: 128, 256: 128}),
+])
+def test_plan_of_every_model_shape(preset, tiles):
+    """The cluster and filter tile of every Winograd conv of the two models:
+    a cluster of four (block r the positions of row r of V), the tile from F
+    alone, the same at every batch."""
+    shapes = _model_shapes(preset)
+    assert {f for _, _, _, f in shapes} == set(tiles)
+    for h, w, c, f in shapes:
+        plan = kw.winograd_conv_plan(h, w, c, f)
+        assert plan["cluster"] == 4 and plan["tiles"] == 64
+        assert plan["filters"] == tiles[f] and plan["filter_tiles"] == -(-f // tiles[f])
+        for b in (1, 16, 128):
+            groups = -(-b * plan["tile_rows"] * plan["tile_cols"] // 64)
+            assert kw.winograd_conv_units(b, h, w, c, f) == groups * plan["filter_tiles"] * 4
+
+
+def test_filter_tile_is_the_cuda_sources():
+    """The wrapper's filter tile is csrc/winograd.cu's winograd_filter_tile,
+    read from the source and evaluated with C's integer division."""
+    import re
+
+    src = (kw._build.CSRC / "winograd.cu").read_text()
+    body = re.search(r"int winograd_filter_tile\(int f\) \{\s*return (.+?) \? 64 : 128;", src)
+    assert body, "winograd_filter_tile's rule is not in csrc/winograd.cu"
+    rule = body.group(1).replace("/", "//")
+    for f in range(1, 2049):
+        assert kw.winograd_filter_tile(f) == (64 if eval(rule, {"f": f}) else 128), f
 
 
 def test_bf16_forward_on_the_cpu_takes_the_plain_version():

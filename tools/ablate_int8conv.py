@@ -24,13 +24,13 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import nvcc  # noqa: E402
 from chip_smoke import graph_ms, int8_inputs  # noqa: E402
 from nicediffusion_tpu_torch.ops.kernels import _build  # noqa: E402
 from nicediffusion_tpu_torch.ops.kernels import int8conv as k8  # noqa: E402
@@ -45,12 +45,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def build(variant, out_dir):
     """The library built with the variant's macros."""
     flags = [f"-DINT8CONV_SKIP_{part}" for part in variant.split(",") if part]
-    lib = os.path.join(out_dir, f"libint8conv_skip_{variant.replace(',', '_') or 'none'}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", lib,
-                           str(_build.CSRC / "int8conv.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed for {variant or 'the full build'}:\n{proc.stderr}")
-    lib = ctypes.CDLL(lib)
+    lib, _ = nvcc(_build.CSRC / "int8conv.cu",
+                  os.path.join(out_dir, f"libint8conv_skip_{variant.replace(',', '_') or 'none'}.so"),
+                  *flags)
     lib.nd_int8_conv.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, *[_I] * 10, _P]
     lib.nd_int8_conv.restype = _I
     return lib

@@ -4,17 +4,21 @@
 
 Builds ``nicediffusion_tpu_torch/csrc/winograd.cu`` with the package's nvcc
 flags once as it is and once for each variant below, each made by replacing
-a line of the source with one that leaves a part of the main loop out (the
-pixel loads, the transform, U's staging, both stagings, the products, the
-epilogue's stores). A variant computes wrong sums: it is a diagnostic of
-where the kernel's time goes, never the port's path. A replacement that no
-longer matches the source fails the tool. Each build is called through its
-C interface on chip_smoke.py's ``[winograd]`` inputs at the stride-1 3x3
+lines of the source with ones that leave a part out: in the producer
+warpgroup the pixel rows' TMA, V (the transform and its stores), U's TMA,
+or all three (the barriers kept); in the consumers the products; in the
+epilogue the M trade (each block reads its own shared memory in place of
+the other three blocks'), the output transform with its stores, or the
+stores alone; and last all but the barriers, the M stores and the
+cluster's syncs (the kernel's floor). A variant computes wrong sums: it is a diagnostic of where
+the kernel's time goes, never the port's path. A replacement that no longer
+matches the source fails the tool. Each build is called through its C
+interface on chip_smoke.py's ``[winograd]`` inputs at the stride-1 3x3
 shapes of an ``openai_64`` forward named below, at the given model batch
 (and at 16 for the first), and timed as a CUDA graph of 5 calls replayed
-(chip_smoke.py's ``graph_ms``). Prints each build's ptxas line and its time
-beside the full build's and the bound per shape. Builds land in the
-package's git-ignored ``_build/ablate_winograd/``.
+(chip_smoke.py's ``graph_ms``). Prints each build's ptxas lines and its time
+beside the full build's and the bound per shape, and the card. Builds land in
+the package's git-ignored ``_build/ablate_winograd/``.
 
 Imports torch and the port; needs a card.
 """
@@ -23,33 +27,51 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
+import re
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import card, nvcc, ptxas_lines  # noqa: E402
 from chip_smoke import graph_ms, winograd_bound_ms, winograd_inputs  # noqa: E402
 from nicediffusion_tpu_torch.ops.kernels import _build  # noqa: E402
 
-_LOADS = "  if (!((t.rows >> j) & (t.cols >> k) & 1u) || c >= a.c) return zero;"
-_TRANSFORM = "      transform(nx, a, tile, (s + 1) * kStepC + 8 * q, off);\n"
-_U = "      stage_u(nx + kV, a, f0, s + 1, tid);\n"
-_PRODUCT = ("        sm90::wgmma_ss_m64n16k16_bf16(acc[p], "
-            "sm90::sw64_desc(vb + p * kVPos + kk * 32),\n"
-            "                                      "
-            "sm90::sw64_desc(ub + p * kUPos + kk * 32), 1);")
-_STORE = "          if (yy >= a.h || xx >= a.w) continue;"
-# variant -> (source line, its replacement) pairs
+_ROWS = ("    sm90::mbar_arrive_expect_tx(rawb + 8u * slot, (uint32_t)a.box_tx);\n"
+         "    sm90::tma_load_4d(ring + (uint32_t)(Ring<FT>::kRing + slot * kRawMax + box * "
+         "a.box_bytes),\n"
+         "                      &a.map_x, rawb + 8u * slot, n * kStepC, -1, box_y, box_b);\n")
+_ROWS_OUT = [(_ROWS, "    sm90::mbar_arrive(rawb + 8u * slot);\n")]
+_V = "        store_v(st, off[i], tr);\n      }\n    } else {"
+_V_OUT = "        (void)tr;\n      }\n    } else {"
+_U = ("    sm90::mbar_arrive_expect_tx(bar, 2 * Ring<FT>::kUPos);\n"
+      "    sm90::tma_load_3d(ring + (uint32_t)(slot * Ring<FT>::kStage + kV + wg * 2 * "
+      "Ring<FT>::kUPos),\n"
+      "                      &a.map_u, bar, n * kStepC, f0, kRowPos * rank + 2 * wg);\n")
+_U_OUT = "    sm90::mbar_arrive(bar);\n"
+_PRODUCT = ("        wgmma_ss<FT>(acc[pp], sm90::sw64_desc(vb + pp * kVPos + kk * 32),\n"
+            "                     sm90::sw64_desc(ub + pp * R::kUPos + kk * 32));")
+_NO_PRODUCT = "        { if (vb == 7u) acc[pp][0] += 1.f; }"
+_TRADE = "                          16 * (lane % 4)),\n        warp);"
+_NO_TRADE = "                          16 * (lane % 4)),\n        rank);"
+_EPILOGUE = "    if (dst[it] < 0) continue;"
+_NO_EPILOGUE = "    if (dst[it] < 0 || true) continue;"
+_STORE = "        if (!((edge[it] >> i) & (edge[it] >> (2 + l)) & 1u)) continue;"
+# variant -> (source text, its replacement) pairs
 VARIANTS = {
     "full": [],
-    "no pixel loads": [(_LOADS, "  if (true) return zero;")],
-    "no transform": [(_TRANSFORM, "")],
-    "no U staging": [(_U, "")],
-    "no staging": [(_U, ""), (_TRANSFORM, "")],
-    "no products": [(_PRODUCT, "        { if (vb == 7u) acc[p][0] += 1.f; }")],
-    "no stores": [(_STORE, "          if (yy >= 0) continue;")],
+    "no pixel rows": _ROWS_OUT,
+    "no V": [(_V, _V_OUT)],
+    "no U": [(_U, _U_OUT)],
+    "no producer": [*_ROWS_OUT, (_V, _V_OUT), (_U, _U_OUT)],  # and no loads
+    "no products": [(_PRODUCT, _NO_PRODUCT)],
+    "no M trade": [(_TRADE, _NO_TRADE)],
+    "no output transform": [(_EPILOGUE, _NO_EPILOGUE)],
+    "no stores": [(_STORE, "        if (true) continue;")],
+    "no producer, products or output transform": [
+        *_ROWS_OUT, (_V, _V_OUT), (_U, _U_OUT), (_PRODUCT, _NO_PRODUCT),
+        (_EPILOGUE, _NO_EPILOGUE)],
 }
 # (H, W, C, F) of openai_64's Winograd convs: the most frequent at each map size
 SHAPES = ((64, 64, 192, 192), (32, 32, 384, 384), (16, 16, 576, 576), (8, 8, 768, 768))
@@ -61,25 +83,17 @@ def build(name, subs, out_dir):
     src = (_build.CSRC / "winograd.cu").read_text()
     for line, replacement in subs:
         if src.count(line) != 1:
-            raise SystemExit(f"{name}: the line to replace is not in csrc/winograd.cu once:"
+            raise SystemExit(f"{name}: the text to replace is not in csrc/winograd.cu once:"
                              f"\n{line}")
         src = src.replace(line, replacement)
-    stem = name.replace(" ", "_")
+    stem = re.sub(r"\W+", "_", name)
     path = os.path.join(out_dir, f"{stem}.cu")
     with open(path, "w") as f:
         f.write(src)
-    lib = os.path.join(out_dir, f"lib{stem}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", lib,
-                           path], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed for {name}:\n{proc.stderr}")
-    regs = next((line.split(":", 1)[1].strip() for line in proc.stderr.splitlines()
-                 if "registers" in line), "")
-    spills = next((line.strip() for line in proc.stderr.splitlines() if "spill" in line), "")
-    lib = ctypes.CDLL(lib)
+    lib, log = nvcc(path, os.path.join(out_dir, f"lib{stem}.so"), "-I", str(_build.CSRC))
     lib.nd_winograd_conv.argtypes = [_P, _P, _P, _P, *[_I] * 5, _P]
     lib.nd_winograd_conv.restype = _I
-    return lib, f"{regs}; {spills}"
+    return lib, " | ".join(ptxas_lines(log))
 
 
 def main(argv=None):
@@ -114,7 +128,7 @@ def main(argv=None):
         bound = max(winograd_bound_ms(b, h, w, c, f))
         parts = ", ".join(f"{name} {ms:.4f} ms ({ms / full:.3f})" for name, ms in times.items())
         print(f"[ablate] {(b, h, w, c)} -> {f}: bound {bound:.4f} ms; {parts}", flush=True)
-    print(f"[ablate] {torch.cuda.get_device_name(0)}")
+    print(f"[ablate] {card()}")
 
 
 if __name__ == "__main__":

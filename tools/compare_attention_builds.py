@@ -41,13 +41,13 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import nvcc  # noqa: E402
 from chip_smoke import (  # noqa: E402
     K2_BF16_REL, K2_BF16_TOL, graph_ms, k2_rel_err, time_ms, within)
 from nicediffusion_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -99,12 +99,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build(root, out_dir, tag, name):
-    lib = os.path.join(out_dir, f"lib{name}_{tag}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-                           os.path.join(root, CSRC, f"{name}.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
-    lib = ctypes.CDLL(lib)
+    lib, _ = nvcc(os.path.join(root, CSRC, f"{name}.cu"),
+                  os.path.join(out_dir, f"lib{name}_{tag}.so"))
     strides = [ctypes.POINTER(ctypes.c_longlong)] * 3
     if name == "attention" and hasattr(lib, "nd_fused_qkv_attention_routed"):
         lib.nd_mha_attention_routed.argtypes = [*[_P] * 4, *[_I] * 4, *strides, _I, _F, _I, _I, _P]

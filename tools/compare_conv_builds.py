@@ -31,13 +31,13 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import in_turns, nvcc  # noqa: E402
 from chip_smoke import (  # noqa: E402
     bf16_conv_bound_ms, conv_calls, conv_inputs, graph_ms, model_config, profiled_ms, time_ms)
 from nicediffusion_tpu_torch import DiffusionModel  # noqa: E402
@@ -52,14 +52,9 @@ def build(root, out_dir, tag):
     """The tree's bf16 conv library and whether its interface takes a grid
     cap and a loading way (this design)."""
     src = os.path.join(root, SOURCE)
-    lib = os.path.join(out_dir, f"libbf16conv_{tag}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
+    lib, _ = nvcc(src, os.path.join(out_dir, f"libbf16conv_{tag}.so"))
     with open(src) as f:
         persistent = "int max_blocks, int staging" in f.read()
-    lib = ctypes.CDLL(lib)
     lib.nd_bf16_conv.argtypes = [_P, _P, _P, _P, *[_I] * (11 if persistent else 9), _P]
     lib.nd_bf16_conv.restype = _I
     return lib, persistent
@@ -131,11 +126,8 @@ def main(argv=None):
             out = torch.empty((b, ho, wo, f), dtype=torch.bfloat16, device=dev)
             fns = {tag: (lambda tag=tag: conv_call(*libs[tag], x, wt, bias, out, stride))
                    for tag in roots}
-            best = {}
-            for turn in ("other", "this", "this", "other"):
-                for how, timer in (("graph", graph_ms), ("profiler", profiled_ms),
-                                   ("host", lambda fn: time_ms(fn, iters=10, rounds=3))):
-                    best[turn, how] = min(best.get((turn, how), float("inf")), timer(fns[turn]))
+            best = in_turns(fns, {"graph": graph_ms, "profiler": profiled_ms,
+                                  "host": lambda fn: time_ms(fn, iters=10, rounds=3)})
             ops = 2 * b * ho * wo * f * k * k * c
             ops_total += per * ops
             bound += per * max(bf16_conv_bound_ms(b, h, w, c, f, k, stride))

@@ -26,13 +26,13 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import in_turns, nvcc  # noqa: E402
 from chip_smoke import (  # noqa: E402
     graph_ms, int8_bound_ms, int8_conv_calls, int8_inputs, model_config, time_ms)
 from nicediffusion_tpu_torch import DiffusionModel  # noqa: E402
@@ -47,14 +47,9 @@ def build(root, out_dir, tag):
     """The tree's int8 conv library and whether its interface takes the route
     and tiles (else it takes an int8 scratch for x)."""
     src = os.path.join(root, SOURCE)
-    lib = os.path.join(out_dir, f"libint8conv_{tag}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
+    lib, _ = nvcc(src, os.path.join(out_dir, f"libint8conv_{tag}.so"))
     with open(src) as f:
         planned = "int route, int filter_tile" in f.read()
-    lib = ctypes.CDLL(lib)
     lib.nd_int8_conv.argtypes = ([_P, _I, _P, _P, _P, _P, _P, _I, _P, *[_I] * 10, _P] if planned
                                  else [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, *[_I] * 7, _P])
     lib.nd_int8_conv.restype = _I
@@ -113,11 +108,8 @@ def main(argv=None):
             xq = torch.empty(inputs[0].shape, dtype=torch.int8, device=dev)
             fns = {tag: (lambda tag=tag: conv_call(*libs[tag], inputs, stride, outs[tag],
                                                    raws[tag], xq)) for tag in roots}
-            best = {}
-            for turn in ("other", "this", "this", "other"):
-                for how, timer in (("events", lambda fn: time_ms(fn, iters=5, rounds=3)),
-                                   ("graph", lambda fn: graph_ms(fn, iters=5))):
-                    best[turn, how] = min(best.get((turn, how), float("inf")), timer(fns[turn]))
+            best = in_turns(fns, {"events": lambda fn: time_ms(fn, iters=5, rounds=3),
+                                  "graph": lambda fn: graph_ms(fn, iters=5)})
             torch.cuda.synchronize()
             if not torch.equal(raws["this"], raws["other"]):
                 bad = (raws["this"] != raws["other"]).sum().item()

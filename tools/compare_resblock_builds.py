@@ -23,13 +23,13 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+from _builds import in_turns, nvcc  # noqa: E402
 from chip_smoke import (  # noqa: E402
     K4_BF16_REL, K4_BF16_TOL, PATHS, graph_ms, k4_rel_err, model_config, resblock_halves,
     resblock_inputs, time_ms, within)
@@ -44,14 +44,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def build(root, out_dir, tag):
     """The tree's K4 library and whether its interface takes the (A, B) scratch."""
     src = os.path.join(root, SOURCE)
-    lib = os.path.join(out_dir, f"libresblock_{tag}.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {root}:\n{proc.stderr}")
+    lib, _ = nvcc(src, os.path.join(out_dir, f"libresblock_{tag}.so"))
     with open(src) as f:
         with_ab = "void* rstd, void* ab" in f.read()
-    lib = ctypes.CDLL(lib)
     lib.nd_gn_silu_conv3x3.argtypes = [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P, _P,
                                        _P, _P, *([_P] if with_ab else []), *[_I] * 6,
                                        ctypes.c_float, _I, _I, _P]
@@ -104,11 +99,8 @@ def main(argv=None):
                          torch.empty(b, -(-c // 64) * 64, 2, device=dev)) for tag in roots}
         calls = {tag: (lambda tag=tag: k4_call(*libs[tag], inputs, packed, outs[tag],
                                                scratch[tag])) for tag in roots}
-        best = {}
-        for turn in ("other", "this", "this", "other"):
-            for how, timer in (("events", lambda fn: time_ms(fn, iters=5, rounds=3)),
-                               ("graph", lambda fn: graph_ms(fn, iters=5))):
-                best[turn, how] = min(best.get((turn, how), float("inf")), timer(calls[turn]))
+        best = in_turns(calls, {"events": lambda fn: time_ms(fn, iters=5, rounds=3),
+                                "graph": lambda fn: graph_ms(fn, iters=5)})
         torch.cuda.synchronize()
         gap = (outs["this"].float() - outs["other"].float()).abs().max().item()
         rel = k4_rel_err(outs["this"], outs["other"])
