@@ -256,20 +256,31 @@ checks every hand-written kernel on the way:
      on ``[int8]``'s file, one batch of 8, the int8 conv 25 x 91 a batch, and
      (b)'s position check on that int8 model, bit for bit; (d) samples/s, occupancy and p50/p95
      latency with 8 and 64 closed-loop HTTP clients at serve batch 8 and 64
-     (at 64 three repeats, and first one full batch held bit for bit to
+     (at 64 one repeat, and first one full batch held bit for bit to
      ``Diffusion.denoise``), the counts reset before the clients and read
      after them, beside ``Diffusion.denoise`` in a loop, and the device idle
      share of one served batch and of one library chain at 8; and one served
      f32 batch at serve batch 64 (model batch 128, DDIM-10) within 1e-3 of
      ``kernels=False``;
+ 16b. the chain's CUDA graphs (``[graph]``): ``Diffusion.denoise`` replaying
+     one captured graph a step (the default on the card) against
+     ``cuda_graph=False`` at full-width ``openai_64``, bf16, bit for bit:
+     DDPM-25 CFG chains at batch 8 and 64, the same at 64 on a frozen int8
+     model, DPM++-20 with the encoder cache and the guidance interval, a
+     ``winograd=True`` DDIM-10 chain, and one full served batch at serve
+     batch 8 and 64 against the eager chain on its x_T and step generator;
+     a replayed chain's launches equal the eager chain's (and steps x the
+     calls a forward); samples/s and a step's device idle share of both
+     modes. Every other phase that samples runs graphed, its launch counts
+     exact (a capture's increments taken out, each replay's added);
  17. data parallelism (``[dp]``) at full-width ``openai_64`` on the weights of
      ``64x64_diffusion.pt``: (b) the train entry point through ``python -m
-     torch.distributed.run --nproc_per_node 1`` (NCCL for CUDA tensors, 3
+     torch.distributed.run --nproc_per_node 1`` (NCCL for CUDA tensors, 2
      steps at openai_64 widths, bf16, batch 8); then two ranks sharing the
      card over gloo (NCCL refuses two ranks on one device), started by
      ``parallel/dryrun.py::spawn_ranks`` under one timeout: (a)
      ``Trainer(distributed=True)``, remat, dropout 0, global batch 8 as 4 a
-     rank, 3 steps in f32 and in bf16, each step held on rank 0 to a
+     rank, 2 steps in f32 and in bf16, each step held on rank 0 to a
      single-process Trainer on the whole batch (loss and gradient norm to
      LOSS_TOL, every parameter's reduced gradient to GRAD_TOL; f32 gated, bf16
      read); (c) ``scripts/sample.py --data_parallel`` at batch 16, DDIM-10 and
@@ -285,7 +296,7 @@ checks every hand-written kernel on the way:
      of ``64x64_diffusion.pt``: two gloo ranks sharing the card on a mesh of
      1 x 2 (the Megatron-paired layers' channels halved): (a) the forward at
      model batch 16, f32 held to one process at MODEL_TOL, bf16 read; (b)
-     three ``Trainer(mesh=)`` steps (remat, dropout 0, batch 8) in f32, each
+     two ``Trainer(mesh=)`` steps (remat, dropout 0, batch 8) in f32, each
      held to a one-process Trainer on the same batch and draws (loss and grad
      norm to LOSS_TOL, every gathered gradient to GRAD_TOL), and in bf16
      (read); the replicated parameters and EMA bit-equal across the ranks;
@@ -2661,6 +2672,7 @@ def phase_fast(dev, state, workdir):
     and without the two levers in turns, and an f32 chain with the levers,
     kernels on against ``kernels=False``."""
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.diffusion import graphs
     from nicediffusion_tpu_torch.models.unet import AttentionBlock, GroupNormOp
     from nicediffusion_tpu_torch.scripts.sample import main as sample_main
     from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
@@ -2690,6 +2702,9 @@ def phase_fast(dev, state, workdir):
     os.makedirs(out_dir)
     for name in seen:
         setattr(DiffusionModel, name, recording(name))
+    # a replayed step runs no Python: the graphs add a step's calls at each replay
+    tallies = [(seen, name) for name in seen]
+    graphs.TALLIES.extend(tallies)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -2703,6 +2718,8 @@ def phase_fast(dev, state, workdir):
     finally:
         for name, fn in originals.items():
             setattr(DiffusionModel, name, fn)
+        for t in tallies:
+            graphs.TALLIES.remove(t)
 
     expect_files = sorted(f"{lab}_sample{i}.jpg" for lab in labels_arg for i in range(FAST_BATCH))
     if sorted(os.listdir(out_dir)) != expect_files:
@@ -4239,6 +4256,7 @@ def phase_distill(dev, state, workdir):
     import io
 
     from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.diffusion import graphs
     from nicediffusion_tpu_torch.scripts.distill import main as distill_main
     from nicediffusion_tpu_torch.scripts.sample import main as sample_main
     from nicediffusion_tpu_torch.training.distill import GuidedDistiller, ProgressiveDistiller
@@ -4347,6 +4365,9 @@ def phase_distill(dev, state, workdir):
                         "--guidance_strength", "0.8", "--rescaled_num_steps", str(teacher_steps)]}
     seen = {}
     DiffusionModel.forward, Diffusion.denoise = counting, timing
+    # a replayed step runs no Python: the graphs add a step's forwards at each replay
+    tally = ({"calls": calls}, "calls")
+    graphs.TALLIES.append(tally)
     try:
         for who, flags in runs.items():
             out_dir = os.path.join(workdir, f"distill_{who}") + os.sep
@@ -4368,6 +4389,7 @@ def phase_distill(dev, state, workdir):
                 raise AssertionError(f"{who} sampling gave the wrong files or shapes")
     finally:
         DiffusionModel.forward, Diffusion.denoise = forward, denoise
+        graphs.TALLIES.remove(tally)
     want = {"student": [FAST_BATCH] * 2 * 25, "teacher": [2 * FAST_BATCH] * 2 * teacher_steps}
     for who, (got, secs, chain_s) in seen.items():
         log(f"[distill] sampling entry point, {who} ({' '.join(runs[who][2:])}): 2 requests of "
@@ -4386,7 +4408,7 @@ def phase_distill(dev, state, workdir):
 
 SERVE_STEPS = 25  # the openai_64 preset's DDIM eta=0 chain
 # (serve batch = closed-loop clients, rounds each, repeats, linger ms)
-SERVE_LOAD = ((8, 6, 1, 20.0), (64, 3, 3, 100.0))
+SERVE_LOAD = ((8, 6, 1, 20.0), (64, 3, 1, 100.0))
 
 
 def http_json(url, body=None, timeout=600):
@@ -4631,7 +4653,7 @@ def phase_serve(dev, state, workdir, smi):
     file ``[int8]`` wrote: one batch of 8, the int8 conv 25 x 91 a batch; then
     (b)'s position check on that frozen int8 model, bit for bit. (d) samples/s,
     occupancy, p50/p95 latency with closed-loop HTTP clients at serve batch 8
-    and 64 (three repeats at 64), with the launches counted over the clients'
+    and 64 (one repeat at 64), with the launches counted over the clients'
     requests and held to the structure, beside ``Diffusion.denoise`` in a
     loop; at 64 first one full batch (model batch 128) held bit for bit to
     ``Diffusion.denoise`` on its x_T and step generator ([kernels] holds K1
@@ -4896,11 +4918,218 @@ def phase_serve(dev, state, workdir, smi):
 
 
 # ---------------------------------------------------------------------------
+# [graph]: the chain's CUDA graphs (diffusion/graphs.py) against its eager loop
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 25  # the DDPM CFG chains, as [slice]'s
+GRAPH_BATCHES = (8, 64)  # images a chain: model batch 16 (host-bound) and 128
+GRAPH_PROFILE_STEPS = 5  # the chain under torch.profiler for a step's idle share
+
+
+def phase_graph(dev, state, smi):
+    """``[graph]``: ``Diffusion.denoise`` replaying one CUDA graph a step
+    (the default on the card) against ``cuda_graph=False`` (the eager loop)
+    at full-width ``openai_64`` in bf16. Bit for bit, with the generator
+    left in the same state: DDPM-25 CFG chains at batch 8 and 64, the same
+    at 64 on a frozen int8 model, DPM++-20 with ``encoder_cache=2`` and
+    ``guidance_interval=(0.1, 0.7)`` at 8, a ``winograd=True`` DDIM-10 chain
+    at 8, and one full served batch at serve batch 8 and 64 (DDIM-25) against
+    ``denoise(cuda_graph=False)`` on its x_T and step generator. The launches
+    of a graphed chain whose keys were captured already (every step a
+    replay) equal the eager chain's and, for the DDPM chains, steps x each
+    kernel's calls a forward. samples/s of both modes in turns (graph, eager,
+    eager, graph) and the device idle share a step (a chain of
+    GRAPH_PROFILE_STEPS steps under torch.profiler against its wall with the
+    profiler off) for the bf16 DDPM chains and the served batches. Returns
+    (launches by path, readings)."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel
+    from nicediffusion_tpu_torch.ops.kernels import winograd as kw
+    from nicediffusion_tpu_torch.serving import SamplerService, ServingConfig
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS
+
+    cfg = model_config()
+    ddpm = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=GRAPH_STEPS, use_ddim=False,
+                guidance_method="classifier_free", guidance_strength=0.8)
+    by_path, readings = {}, {}
+
+    def bf16_model(**kw_model):
+        m = DiffusionModel(**cfg, dtype=torch.bfloat16, device=dev, **kw_model).eval()
+        m.load_state_dict(state, strict=True)
+        return m
+
+    def labels(batch):
+        return torch.arange(batch, device=dev) * 97 % 1000 + 1
+
+    def chain(diff, seed, batch, cuda_graph, **levers):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out = diff.denoise(g, y=labels(batch), batch_size=batch, cuda_graph=cuda_graph, **levers)
+        torch.cuda.synchronize()
+        return out, g.get_state()
+
+    def counted(fn):
+        reset_launches()
+        kw.winograd_conv_nhwc.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {**read_launches(), "winograd": kw.winograd_conv_nhwc.launches}
+
+    def same(what, diff, batch, expect=None, **levers):
+        """Graphed (its keys' first steps eager, then captured) against the
+        eager loop, then graphed again (every step a replay): the same bits
+        and generator state, and the replayed chain's launches the eager
+        chain's."""
+        graphed = chain(diff, 1, batch, None, **levers)
+        eager, eager_launches = counted(lambda: chain(diff, 1, batch, False, **levers))
+        again, replayed_launches = counted(lambda: chain(diff, 1, batch, None, **levers))
+        bits = all(torch.equal(a[0], eager[0]) and torch.equal(a[1], eager[1])
+                   for a in (graphed, again))
+        log(f"[graph] {what}, batch {batch}: graph against eager "
+            f"{'bit-equal' if bits else 'DIFFERENT'} (the generator's end state too), "
+            f"{len(diff._graphs.graphs)} keys captured; a replayed chain's launches "
+            f"{replayed_launches}, the eager chain's {eager_launches}"
+            + (f", expected {expect}" if expect else ""))
+        if not bits or not torch.isfinite(eager[0]).all() or not eager[0].abs().max() <= 1.0:
+            raise AssertionError(f"[graph] {what}: graph against eager, or values out of range")
+        if replayed_launches != eager_launches or (expect and replayed_launches != expect):
+            raise AssertionError(f"[graph] {what}: launches {replayed_launches} != "
+                                 f"{eager_launches} (expected {expect})")
+        return replayed_launches
+
+    def speed(what, diff, batch, key):
+        """samples/s of whole chains in turns and a step's idle share, both
+        modes."""
+        rates = {"graph": [], "eager": []}
+        for mode in ("graph", "eager", "eager", "graph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain(diff, 4, batch, None if mode == "graph" else False)
+            rates[mode].append(batch / (time.perf_counter() - t0))
+        idle = {}
+        for mode in ("graph", "eager"):
+            cg = None if mode == "graph" else False
+
+            def short():
+                g = torch.Generator(device=dev).manual_seed(5)
+                diff.denoise(g, y=labels(batch), batch_size=batch, cuda_graph=cg,
+                             steps_to_do=GRAPH_PROFILE_STEPS)
+
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                short()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = statistics.median(walls)
+            busy = profile_steps(short, f"{what} chain of {GRAPH_PROFILE_STEPS} steps, {mode}, "
+                                 f"batch {batch}", wall, steps=1, detail=False)
+            idle[mode] = {"wall_ms_per_step": wall / GRAPH_PROFILE_STEPS,
+                          "busy_ms_per_step": None if busy is None
+                          else busy / GRAPH_PROFILE_STEPS,
+                          "idle_share": None if busy is None else 1 - busy / wall}
+        readings[key] = {"samples_per_s": rates, "per_step": idle}
+        log(f"[graph] {what}, batch {batch} ({smi}): samples/s graph {rates['graph']}, eager "
+            f"{rates['eager']} (whole chains, in turns); a step: graph "
+            f"{json.dumps(idle['graph'])}, eager {json.dumps(idle['eager'])}")
+
+    # DDPM-25 CFG, bf16, at batch 8 and 64
+    model = bf16_model()
+    diff = Diffusion(model=model, **ddpm)
+    for batch in GRAPH_BATCHES:
+        expect = {**serve_expect(model, GRAPH_STEPS), "winograd": 0}
+        by_path[f"graph_openai_64_bf16_b{batch}"] = same(f"bf16 DDPM-{GRAPH_STEPS} CFG", diff,
+                                                          batch, expect)
+        speed(f"bf16 DDPM-{GRAPH_STEPS} CFG", diff, batch, f"bf16_b{batch}")
+    # DPM++-20 with the encoder cache and the guidance interval
+    fast = Diffusion(model=model, **dict(ddpm, rescaled_num_steps=20, sampler="dpm++"))
+    by_path["graph_openai_64_dpmpp_levers"] = same(
+        "bf16 DPM++-20, encoder_cache 2, guidance_interval (0.1, 0.7)", fast, GRAPH_BATCHES[0],
+        encoder_cache=2, guidance_interval=(0.1, 0.7))
+
+    # one full served batch at serve batch 8 and 64 (DDIM-25, the preset's
+    # chain): the daemon's warmup captures; its served rows against the eager
+    # chain on its x_T and step generator; full served batches in both modes
+    serve_cfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free",
+                     guidance_strength=0.8)
+    for batch in GRAPH_BATCHES:
+        d = Diffusion(model=model, **serve_cfg)
+        rows = [int(j * 89 % 1000 + 1) for j in range(batch)]
+        with SamplerService(d, ServingConfig(serve_batch=batch), device=dev) as svc:
+            svc.warmup()
+            served = torch.from_numpy(svc.sample(labels=rows, seed=90 + batch, timeout=600))
+            x, y = svc._draw_x(90 + batch, batch).to(dev), torch.tensor(rows).to(dev)
+            ref = d.denoise(svc._step_generator(0), x=x, y=y, batch_size=batch,
+                            cuda_graph=False).float().cpu()
+            bits = torch.equal(served, ref)
+            secs = {"graph": [], "eager": []}
+            for mode in ("graph", "eager", "eager", "graph"):
+                if mode == "eager":  # the daemon's chain on the eager loop
+                    d.denoise = functools.partial(Diffusion.denoise, d, cuda_graph=False)
+                else:
+                    d.__dict__.pop("denoise", None)
+                before = svc.stats()["sample_seconds"]
+                svc.sample(labels=rows, seed=7, timeout=600)
+                secs[mode].append(svc.stats()["sample_seconds"] - before)
+            idle = {}
+            for mode in ("graph", "eager"):
+                if mode == "eager":
+                    d.denoise = functools.partial(Diffusion.denoise, d, cuda_graph=False)
+                else:
+                    d.__dict__.pop("denoise", None)
+                served_ms = 1e3 * min(secs[mode])
+                busy = profile_steps(lambda: svc.sample(labels=rows, seed=7, timeout=600),
+                                     f"served batch of {batch}, {mode}", served_ms, steps=1,
+                                     detail=False)
+                idle[mode] = {"busy_ms": busy, "served_ms": served_ms,
+                              "idle_share": None if busy is None else 1 - busy / served_ms}
+            d.__dict__.pop("denoise", None)
+        rate = {m: [batch / s for s in v] for m, v in secs.items()}
+        readings[f"serve_b{batch}"] = {"samples_per_s": rate, "served_batch": idle,
+                                       "served_equals_eager_denoise": bits}
+        log(f"[graph] served batch at serve batch {batch} (DDIM-{SERVE_STEPS}, CFG 0.8, bf16; "
+            f"{smi}): against denoise(cuda_graph=False) on its x_T and step generator "
+            f"{'bit-equal' if bits else 'DIFFERENT'}; samples/s over a full served batch's own "
+            f"seconds graph {rate['graph']}, eager {rate['eager']}; one served batch under "
+            f"torch.profiler: graph {json.dumps(idle['graph'])}, eager "
+            f"{json.dumps(idle['eager'])} (busy against the faster unprofiled batch's wall)")
+        if not bits:
+            raise AssertionError(f"[graph] serve batch {batch}: served rows differ from denoise")
+        del d, svc, served, ref, x, y
+    del model, diff, fast
+    torch.cuda.empty_cache()
+
+    # the same DDPM chain at 64 on a frozen int8 model (calibrated here on
+    # three model batches of 16 along the chain)
+    m8 = bf16_model(quantized=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    with torch.no_grad(), m8.calibrating():
+        for ts in (999, 500, 20):
+            m8(torch.randn(16, 64, 64, 3, generator=g, device=dev), torch.full((16,), ts, device=dev),
+               torch.cat([labels(8), torch.zeros_like(labels(8))]))
+    m8.freeze_int8(m8.int8_calibration())
+    d8 = Diffusion(model=m8, **ddpm)
+    batch = GRAPH_BATCHES[1]
+    by_path["graph_openai_64_int8_b64"] = same(
+        f"int8 (frozen) DDPM-{GRAPH_STEPS} CFG", d8, batch,
+        {**serve_expect(m8, GRAPH_STEPS, int8=True), "winograd": 0})
+    del m8, d8
+    torch.cuda.empty_cache()
+
+    # a winograd=True DDIM-10 chain
+    mw = bf16_model(winograd=True)
+    dw = Diffusion(model=mw, **dict(ddpm, rescaled_num_steps=10, use_ddim=True, ddim_eta=0.0))
+    by_path["graph_openai_64_winograd"] = same("winograd=True bf16 DDIM-10 CFG", dw,
+                                               GRAPH_BATCHES[0])
+    del mw, dw
+    torch.cuda.empty_cache()
+    return by_path, readings
+
+# ---------------------------------------------------------------------------
 # [dp]: data parallelism. Two gloo ranks share the one card (NCCL refuses two
 # ranks on one device); one rank goes through torchrun and NCCL.
 # ---------------------------------------------------------------------------
 
-DP_TRAIN_STEPS = 3
+DP_TRAIN_STEPS = 2
 DP_SAMPLE_BATCH = 16  # 8 rows a rank; under CFG a rank's model batch is 16
 DP_SAMPLE_STEPS = 10
 DP_SERVE_CLIENTS = (16, 2)  # closed-loop clients, requests each, at serve batch 16
@@ -5058,6 +5287,8 @@ def dp_sample_part(dev, cfg, state, work, model_flags, r, n):
             samples = sample_main(argv + ["--data_parallel"])
             torch.cuda.synchronize()
             launches.update(read_launches())
+            # the ranks share one card: hand the run's graph pool back to it
+            torch.cuda.empty_cache()
             if r == 0:
                 np.save(os.path.join(work, f"dp_{sampler}_{dtype}.npy"), samples[0][1])
             elif samples:
@@ -5099,6 +5330,8 @@ def dp_serve_part(dev, work, model_flags, cfg, r):
             svc.follow()
             torch.cuda.synchronize()
             out[dtype] = {"launches": read_launches(), "steps": steps}
+            del svc
+            torch.cuda.empty_cache()
             continue
         with svc, http_front(svc) as base:
             images = check_reply(http_json(f"{base}/sample", dp_request(cfg)), DP_SAMPLE_BATCH,
@@ -5111,6 +5344,8 @@ def dp_serve_part(dev, work, model_flags, cfg, r):
         torch.cuda.synchronize()
         out[dtype] = {"launches": read_launches(), "steps": steps, "batches": stats["batches"],
                       **part}
+        del svc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5369,7 +5604,7 @@ def phase_dp(dev, workdir, smi):
 # ---------------------------------------------------------------------------
 
 TP_FORWARD_BATCH = 16  # model batch: 8 requests under CFG
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 2
 TP_TIMEOUT_S = 300.0
 
 
@@ -5674,7 +5909,7 @@ def phase_tp(dev, workdir, smi, n_sharded):
     """``[tp]``: tensor parallelism at full-width ``openai_64``, the weights
     of ``64x64_diffusion.pt``, two gloo ranks sharing the card on a mesh of
     1 x 2 (tp_rank): (a) the forward at model batch 16, f32 held to one
-    process at MODEL_TOL, bf16 read; (b) three ``Trainer(mesh=)`` steps in f32
+    process at MODEL_TOL, bf16 read; (b) two ``Trainer(mesh=)`` steps in f32
     (held to one process at LOSS_TOL and GRAD_TOL) and bf16 (read), the
     replicated parameters and EMA bit-equal across the ranks, the checkpoint
     whole; (c) every rank's K1, K2, K3 and K3-backward launches against the
@@ -6221,6 +6456,10 @@ def main():
         by_path.update(serve_paths)
         log(f"[serve] readings {json.dumps(serve_readings)}")
         phase_done("[serve]")
+        graph_paths, graph_readings = phase_graph(dev, state, smi)
+        by_path.update(graph_paths)
+        log(f"[graph] readings {json.dumps(graph_readings)}")
+        phase_done("[graph]")
         dp_paths, dp_readings = phase_dp(dev, workdir, smi)
         by_path.update(dp_paths)
         log(f"[dp] readings {json.dumps(dp_readings)}")

@@ -5,10 +5,16 @@ tables, the timestep map, the four variance modes, classifier-free guidance
 (CFG) as one doubled-batch model call with null label 0 and the
 log-variance taken from the conditional half, classifier guidance from the
 gradient of a noisy classifier's log p(y | x_t), and the DDPM and DDIM steps.
-``denoise`` runs the chain t = steps_to_do-1 ... 0 as a plain Python loop
-over the steps, drawing its start noise and every step's noise from an
-explicit ``torch.Generator``. Capturing the step in a CUDA graph is later
-work.
+``denoise`` runs the chain t = steps_to_do-1 ... 0, drawing its start noise
+and every step's noise from an explicit ``torch.Generator``. On the CPU it is
+a plain Python loop over the steps. On a CUDA device a chain without
+autograd replays one captured CUDA graph a step instead (diffusion/graphs.py,
+the counterpart of the JAX sampler's ``lax.scan`` under ``jax.jit``): the
+host fills t, draws the step's noise as the loop does and replays, and the
+bits are the loop's. ``cuda_graph=False`` keeps the loop on the card.
+Classifier guidance (a gradient inside the step), a model paired by
+``shard_module_`` (collectives in its forward) and int8 calibration while
+its recorders are live stay on the loop.
 
 Training: ``q_sample``/``diffuse`` (the forward process), ``loss`` with the
 four loss types (SIMPLE, KL, KL_RESCALED, HYBRID with the VLB's epsilon
@@ -49,6 +55,7 @@ from ..ops.math import discretized_gaussian_log_likelihood, kl_div, mean_flat
 from ..ops.schedule import DiffusionSchedule
 from ..parallel.mesh import shard_rows
 from ..utils.device import resolve_device
+from .graphs import ChainGraphs
 
 __all__ = ["Diffusion", "VarType", "LossType"]
 
@@ -101,18 +108,6 @@ class LossType(enum.Enum):
             }[s]
         except KeyError:
             raise NotImplementedError(s) from None
-
-
-def _runs(flags: list) -> list[tuple[int, int, bool]]:
-    """Compress a per-position flag list into contiguous (start, length,
-    flag) runs: the guided and unguided segments of a chain under
-    limited-interval guidance."""
-    runs, start = [], 0
-    for i in range(1, len(flags) + 1):
-        if i == len(flags) or flags[i] != flags[start]:
-            runs.append((start, i - start, flags[start]))
-            start = i
-    return runs
 
 
 def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -266,6 +261,8 @@ class Diffusion:
         # extra keyword arguments of every model call, such as low_res for a
         # SuperResolutionModel (with_model_kwargs)
         self.model_kwargs: dict = {}
+        # the captured step graphs of denoise on a CUDA device
+        self._graphs = ChainGraphs()
 
     def with_model_kwargs(self, **kwargs) -> "Diffusion":
         """Set extra keyword arguments for every model call (e.g.
@@ -567,19 +564,83 @@ class Diffusion:
     # Reverse chain
     # ------------------------------------------------------------------
 
-    def _one_step(self, x, x0_prev, t, first, generator, y, eps_log_var, row_shard=None):
-        """One reverse update of the configured sampler from an (eps,
-        log_var) pair made already; ``first`` marks the chain's first step.
-        DDPM and DDIM draw one noise tensor a step from ``generator`` (the
-        draw at t == 0 is masked), whatever levers made the pair, so every
-        variant of a chain sees one stream; under ``row_shard`` it is drawn
-        at the global shape (``_noise``)."""
+    def _chain_plan(self, steps_to_do: int, encoder_cache: int | None,
+                    gi: tuple[int, int] | None) -> list[tuple[int, bool, str | None]]:
+        """The chain's steps in order, t = steps_to_do - 1 down to 0, as
+        (t, guided, cache): ``guided`` makes the doubled CFG call, ``cache``
+        is None for a plain model call, "refresh" for the first step of an
+        encoder-cache group (it runs the encoder) and "reuse" for the others.
+        The cached head runs in groups of k, the last ``steps % k`` steps
+        plain; a group is guided iff any of its steps lies in ``gi``."""
+        def in_gi(ts):
+            return gi is None or gi[0] <= ts < gi[1]
+
+        chain = list(range(steps_to_do - 1, -1, -1))
+        k = max(1, min(encoder_cache or 1, steps_to_do))
+        head = steps_to_do - steps_to_do % k if k > 1 else 0
+        plan = []
+        for i in range(0, head, k):
+            group = chain[i:i + k]
+            guided = any(map(in_gi, group))
+            plan += [(ts, guided, "reuse" if j else "refresh") for j, ts in enumerate(group)]
+        return plan + [(ts, in_gi(ts), None) for ts in chain[head:]]
+
+    def _chain_step(self, x, x0_prev, t, y, noise, guided: bool, cache_mode: str | None,
+                    cache, first: bool):
+        """One reverse update of the configured sampler: the model call the
+        plan names (``_chain_plan``: guided or not, through the encoder cache
+        or not), then the DDPM, DDIM or DPM++ step; ``first`` marks the
+        chain's first step. DDPM and DDIM take ``noise`` drawn already (one
+        tensor a step, masked at t == 0), DPM++ none. Returns (x, x0_prev,
+        cache). The eager loop of ``denoise`` and every captured step graph
+        (diffusion/graphs.py) run this."""
+        want_lv = self.sampler == "ddpm"
+        if cache_mode is None:
+            eps_lv = self._guided_eps(x, t, y, want_log_var=want_lv, guided=guided)
+        else:
+            eps_lv, cache = self._guided_eps_cached(
+                x, t, y, cache, refresh=cache_mode == "refresh", want_log_var=want_lv,
+                guided=guided)
         if self.sampler == "dpm++":
-            return self.dpmpp_step(x, t, x0_prev, y, first=first, eps_log_var=eps_log_var)
-        step = self.ddim_step if self.sampler == "ddim" else self.ddpm_step
-        noise = self._noise(x, generator, row_shard)
-        x, _ = step(x, t, generator, y, noise=noise, eps_log_var=eps_log_var)
-        return x, x0_prev
+            x, x0_prev = self.dpmpp_step(x, t, x0_prev, y, first=first, eps_log_var=eps_lv)
+        else:
+            step = self.ddim_step if self.sampler == "ddim" else self.ddpm_step
+            x, _ = step(x, t, None, y, noise=noise, eps_log_var=eps_lv)
+        return x, x0_prev, cache
+
+    def _graph_refusal(self) -> str | None:
+        """Why this Diffusion's chain cannot be captured, or None."""
+        if self.guidance == "classifier":
+            return "classifier guidance takes a gradient inside the step"
+        mesh = getattr(self.model, "tp_mesh", None)
+        if mesh is not None and mesh.num_model > 1:
+            return "a model paired by shard_module_ runs collectives in its forward"
+        layers = getattr(self.model, "int8_layers", dict)()
+        if any(m.recording for m in layers.values()):
+            return "int8 calibration is recording inside the forward"
+        return None
+
+    def _use_graphs(self, cuda_graph: bool | None) -> bool:
+        """``denoise``'s ``cuda_graph``: None graphs a chain on a CUDA device
+        unless ``_graph_refusal`` names a reason; True demands the graphs
+        and raises where they cannot be had; False runs the eager loop."""
+        if cuda_graph is False:
+            return False
+        refusal = self._graph_refusal()
+        if cuda_graph is None:
+            return self.device.type == "cuda" and refusal is None
+        if refusal is not None:
+            raise NotImplementedError(
+                f"cuda_graph=True: {refusal}; the graphs of the autograd paths are the next "
+                "slice of ROADMAP.md queue A")
+        if self.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs a CUDA device, the chain is on {self.device}")
+        return True
+
+    def reset_graphs(self) -> None:
+        """Free the captured step graphs, their memory pool and their static
+        buffers; the next graphed chain captures anew."""
+        self._graphs.reset()
 
     @torch.inference_mode()
     def denoise(
@@ -593,12 +654,23 @@ class Diffusion:
         encoder_cache: int | None = None,
         guidance_interval: tuple[float, float] | None = None,
         row_shard: tuple[int, int] | None = None,
+        cuda_graph: bool | None = None,
     ) -> torch.Tensor:
         """Run the reverse chain (reference diffusion.py:155-226) -> f32 NHWC.
 
         Starts from N(0, I) drawn from `generator` when `x` is None; every
         step's noise comes from the same generator, which must live on the
         tables' device.
+
+        ``cuda_graph``: None (the default) replays one captured CUDA graph a
+        step on a CUDA device (diffusion/graphs.py; the first step of a key
+        runs eagerly, then the key is captured) and runs the eager loop on
+        the CPU; False runs the eager loop on the card too; True demands the
+        graphs and raises on the CPU, under classifier guidance, on a model
+        paired by ``shard_module_`` and while int8 calibration records
+        (``NotImplementedError``), where None runs the loop. Both give the
+        same bits and draw the same stream. A capture or replay that raises
+        surfaces here: nothing reruns the loop.
 
         ``row_shard=(rank, world)`` runs this rank's rows of a data-parallel
         chain (the counterpart of a ``P('data')``-sharded batch): ``x`` and
@@ -659,6 +731,7 @@ class Diffusion:
             gi = (round(lo * steps_to_do), round(hi * steps_to_do))
             if gi == (0, steps_to_do):  # covers everything: the plain chain
                 gi = None
+        graphed = self._use_graphs(cuda_graph)
 
         if x is None:
             assert start_step == self.rescaled_num_steps, (
@@ -674,35 +747,17 @@ class Diffusion:
         if y is not None:
             assert y.shape[0] == x.shape[0], "len(labels) != batch size"
 
-        def in_gi(ts):
-            return gi is None or gi[0] <= ts < gi[1]
-
-        def at(ts):
-            return torch.full((x.shape[0],), ts, dtype=torch.long, device=x.device)
-
-        want_lv = self.sampler == "ddpm"
+        plan = self._chain_plan(steps_to_do, encoder_cache, gi)
+        if graphed and plan:
+            return self._graphs.run(self, plan, x, y, generator, row_shard)
         x0_prev = torch.zeros_like(x) if self.sampler == "dpm++" else None
-        chain = list(range(steps_to_do - 1, -1, -1))
-        # the cached head of the chain, in groups of k; the rest runs plain
-        k = max(1, min(encoder_cache or 1, steps_to_do))
-        head = steps_to_do - steps_to_do % k if k > 1 else 0
-        groups = [chain[i:i + k] for i in range(0, head, k)]
-        for start, length, guided in _runs([any(map(in_gi, g)) for g in groups]):
-            for group in groups[start:start + length]:
-                cache = None
-                for j, ts in enumerate(group):
-                    t = at(ts)
-                    eps_lv, cache = self._guided_eps_cached(
-                        x, t, y, cache, refresh=j == 0, want_log_var=want_lv, guided=guided)
-                    x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y,
-                                                eps_lv, row_shard)
-        plain = chain[head:]
-        for start, length, guided in _runs([in_gi(ts) for ts in plain]):
-            for ts in plain[start:start + length]:
-                t = at(ts)
-                eps_lv = self._guided_eps(x, t, y, want_log_var=want_lv, guided=guided)
-                x, x0_prev = self._one_step(x, x0_prev, t, ts == chain[0], generator, y,
-                                            eps_lv, row_shard)
+        cache = None
+        for i, (ts, guided, cache_mode) in enumerate(plan):
+            t = torch.full((x.shape[0],), ts, dtype=torch.long, device=x.device)
+            # drawn before the model call: the generator feeds nothing else
+            noise = None if self.sampler == "dpm++" else self._noise(x, generator, row_shard)
+            x, x0_prev, cache = self._chain_step(x, x0_prev, t, y, noise, guided, cache_mode,
+                                                 cache, i == 0)
         return x
 
     # ------------------------------------------------------------------

@@ -33,7 +33,8 @@ def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     by the downsampling factor, each column renormalised over the taps inside
     the image, zero where the centre falls outside."""
     f32 = torch.float32
-    inv = 1.0 / torch.tensor(n_out / n_in, dtype=f32, device=device)
+    # made on the device (no host copy, so a CUDA graph can capture it)
+    inv = 1.0 / torch.full((), n_out / n_in, dtype=f32, device=device)
     sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * inv - 0.5
     taps = torch.arange(n_in, dtype=f32, device=device)[:, None]
     w = (1.0 - (sample[None, :] - taps).abs() / torch.clamp(inv, min=1.0)).clamp(min=0.0)

@@ -19,7 +19,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from nicediffusion_tpu.diffusion.process import Diffusion as JaxDiffusion  # noqa: E402
 from nicediffusion_tpu_torch import Diffusion  # noqa: E402
-from nicediffusion_tpu_torch.diffusion.process import _runs  # noqa: E402
 from test_torch_unet import port_model, random_jax_params  # noqa: E402
 
 CFG = dict(
@@ -129,12 +128,6 @@ def test_dpmpp_step_matches_jax(pair, t_index, first):
             other, _ = td.dpmpp_step(_t(x), _t(t).long(), _t(x0_prev), y=_t(y).long(),
                                      first=not first)
         assert not torch.allclose(other, out_x, atol=1e-3)
-
-
-def test_runs_compresses_flags():
-    assert _runs([]) == []
-    assert _runs([True, True, False, True]) == [(0, 2, True), (2, 1, False), (3, 1, True)]
-    assert _runs([False] * 3) == [(0, 3, False)]
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,8 @@ and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
 ``-k head_dim`` K1 and K2 at head dims between two builds, ``-k above_256``
 K1, K2 and K5 at head dims above 256 (the chunked build: the P-resident
 route and the walk), ``-k resident`` the resident route's splits,
-``-k winograd`` the Winograd conv's (bf16 on the tensor cores).
+``-k winograd`` the Winograd conv's (bf16 on the tensor cores), ``-k graph``
+the chain's CUDA graphs (diffusion/graphs.py) against its eager loop.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -1646,3 +1647,68 @@ def test_winograd_model_launches_once_per_conv(cuda):
     torch.cuda.synchronize()
     assert kw.winograd_conv_nhwc.launches == before + n and n > 0
     assert (out - ref).abs().max() <= 0.05 * ref.abs().max()
+
+
+# ----------------------------------------------------------------------
+# the chain's CUDA graphs (diffusion/graphs.py) against the eager loop
+# ----------------------------------------------------------------------
+
+GRAPH_CFG = dict(resolution=16, in_channels=3, model_channels=64, out_channels=6,
+                 num_res_blocks=1, attention_resolutions=(8,), channel_mult=(1, 2),
+                 num_heads=2, resblock_updown=True, use_adaptive_gn=True, num_classes=5)
+GRAPH_DIFF = dict(original_num_steps=1000, rescaled_num_steps=6, beta_schedule="linear",
+                  sampling_var_type="learned_interpolation", loss_type="hybrid",
+                  guidance_method="classifier_free", guidance_strength=0.8)
+
+
+@pytest.mark.parametrize("case", [
+    "ddpm", "ddim", "dpm++-cache2-interval", "f32-ddpm", "int8-ddpm", "winograd-ddim",
+])
+def test_graph_chain_equals_the_eager_chain(cuda, case):
+    """A bf16 (or f32) chain at a narrow width: graphed (the default on the
+    card) against ``cuda_graph=False`` bit for bit, the generator left in
+    the same state; a second graphed chain replays every step, and its
+    launches are the eager chain's (the replays' counts added, the capture's
+    taken out). Tolerance: none."""
+    from nicediffusion_tpu_torch import Diffusion
+    from nicediffusion_tpu_torch.diffusion import graphs
+
+    kw = dict(quantized=case.startswith("int8"), winograd=case.startswith("winograd"))
+    dtype = None if case.startswith("f32") else torch.bfloat16
+    torch.manual_seed(0)
+    model = DiffusionModel(**GRAPH_CFG, dtype=dtype, device=cuda, **kw).eval()
+    with torch.no_grad():  # the zero-initialised output convs take part
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    y = torch.tensor([1, 2, 3, 4], device=cuda)
+    if kw["quantized"]:
+        with torch.no_grad(), model.calibrating():
+            model(torch.randn(8, 16, 16, 3, device=cuda), torch.tensor([999, 500] * 4, device=cuda),
+                  torch.cat([y, torch.zeros_like(y)]))
+        model.freeze_int8(model.int8_calibration())
+    dkw = dict(GRAPH_DIFF)
+    levers = {}
+    if "ddim" in case:
+        dkw.update(sampler="ddim", ddim_eta=0.5)
+    if "dpm++" in case:
+        dkw.update(sampler="dpm++")
+        levers = dict(encoder_cache=2, guidance_interval=(0.1, 0.7))
+    d = Diffusion(model=model, **dkw)
+
+    def chain(seed, cuda_graph):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        out = d.denoise(g, y=y, batch_size=4, cuda_graph=cuda_graph, **levers)
+        torch.cuda.synchronize()
+        return out, g.get_state()
+
+    graphed, eager = chain(1, None), chain(1, False)
+    assert torch.isfinite(eager[0]).all() and d._graphs.graphs
+    assert torch.equal(graphed[0], eager[0]) and torch.equal(graphed[1], eager[1])
+    before = graphs.read_tallies(graphs.TALLIES)
+    eager2 = chain(2, False)
+    eager_counts = graphs.tallies_since(graphs.TALLIES, before)
+    before = graphs.read_tallies(graphs.TALLIES)
+    graphed2 = chain(2, None)
+    assert graphs.tallies_since(graphs.TALLIES, before) == eager_counts
+    assert torch.equal(graphed2[0], eager2[0])
+    assert any(n for n in eager_counts if isinstance(n, int))
