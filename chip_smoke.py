@@ -271,16 +271,32 @@ checks every hand-written kernel on the way:
      batch 8 and 64 against the eager chain on its x_T and step generator;
      a replayed chain's launches equal the eager chain's (and steps x the
      calls a forward); samples/s and a step's device idle share of both
-     modes. Every other phase that samples runs graphed, its launch counts
+     modes (of the DDPM chains the one at batch 8 alone, and the served
+     batches). Every other phase that samples runs graphed, its launch counts
      exact (a capture's increments taken out, each replay's added);
+ 16c. the autograd paths' CUDA graphs (``[train-graph]``, after
+     ``[guided]``; training/graphs.py): each graphed path against its eager
+     run (``cuda_graph=False``) in one call, bit for bit in every step's
+     outputs and the end state (parameters, EMA, AdamW's state, the
+     accumulators, the generator), the replayed steps' launches equal to the
+     eager steps': ``Trainer`` at ``openai_64`` bf16, remat, dropout 0.05,
+     HYBRID under CFG, batch 8, k = 1 and 2; a ``winograd=True`` Trainer whose
+     model samples the eager-trained model's bits after replayed steps (U made
+     anew); a guided and a progressive distillation step, bf16, batch 8; the
+     classifier-guided DDIM-25 chain at ``openai_128`` batch 4. Steps/s (or
+     samples/s) in turns, a step's device idle share in both modes, and the
+     graphs' pool. Every other training or distillation phase runs graphed
+     on the card, its launch counts exact; ``[dp]``'s and ``[tp]``'s
+     one-process references stay eager (their reduce is wrapped in host
+     syncs);
  17. data parallelism (``[dp]``) at full-width ``openai_64`` on the weights of
      ``64x64_diffusion.pt``: (b) the train entry point through ``python -m
-     torch.distributed.run --nproc_per_node 1`` (NCCL for CUDA tensors, 2
-     steps at openai_64 widths, bf16, batch 8); then two ranks sharing the
+     torch.distributed.run --nproc_per_node 1`` (NCCL for CUDA tensors, 1
+     step at openai_64 widths, bf16, batch 8); then two ranks sharing the
      card over gloo (NCCL refuses two ranks on one device), started by
      ``parallel/dryrun.py::spawn_ranks`` under one timeout: (a)
      ``Trainer(distributed=True)``, remat, dropout 0, global batch 8 as 4 a
-     rank, 2 steps in f32 and in bf16, each step held on rank 0 to a
+     rank, 1 step in f32 and in bf16, held on rank 0 to a
      single-process Trainer on the whole batch (loss and gradient norm to
      LOSS_TOL, every parameter's reduced gradient to GRAD_TOL; f32 gated, bf16
      read); (c) ``scripts/sample.py --data_parallel`` at batch 16, DDIM-10 and
@@ -296,8 +312,7 @@ checks every hand-written kernel on the way:
      of ``64x64_diffusion.pt``: two gloo ranks sharing the card on a mesh of
      1 x 2 (the Megatron-paired layers' channels halved): (a) the forward at
      model batch 16, f32 held to one process at MODEL_TOL, bf16 read; (b)
-     two ``Trainer(mesh=)`` steps (remat, dropout 0, batch 8) in f32, each
-     held to a one-process Trainer on the same batch and draws (loss and grad
+     one ``Trainer(mesh=)`` step (remat, dropout 0, batch 8) in f32, held to a one-process Trainer on the same batch and draws (loss and grad
      norm to LOSS_TOL, every gathered gradient to GRAD_TOL), and in bf16
      (read); the replicated parameters and EMA bit-equal across the ranks;
      the checkpoint gathered whole, loaded strict into one process; (c) each
@@ -463,18 +478,21 @@ def time_ms(fn, iters=20, rounds=5):
     return statistics.median(per_call)
 
 
-def graph_ms(fn, iters=10, rounds=3):
+def graph_ms(fn, iters=10, rounds=3, stream=None):
     """Device time of one call: a CUDA graph of ``iters`` calls, captured
     after a warm-up on a side stream and replayed between CUDA events,
     divided by ``iters``; the median of ``rounds`` replays. Free of the
-    host's launch cost, which sets ``time_ms`` for calls under about 40 us."""
-    side = torch.cuda.Stream()
+    host's launch cost, which sets ``time_ms`` for calls under about 40 us.
+    An autograd backward of a forward made outside ``fn`` runs on the stream
+    that forward ran on: give that stream as ``stream``, the side stream the
+    capture runs on (``library_backward``)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -492,12 +510,25 @@ def graph_ms(fn, iters=10, rounds=3):
     return statistics.median(per_call)
 
 
+def library_backward(forward, inputs, cot):
+    """The library's autograd backward of ``forward(*inputs)`` against
+    ``cot`` as a callable that reruns it on one recorded graph, and the side
+    stream the forward ran on, which ``graph_ms`` captures the backward on
+    (autograd runs each backward node on its forward's stream)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward(*inputs)
+    torch.cuda.current_stream().wait_stream(stream)
+    return (lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)), stream
+
+
 def profiled_ms(fn, iters=10, by_name=False):
     """Device time of one call by torch.profiler: the summed device time of
     the kernels that ``iters`` calls ran, divided by ``iters``. Unlike a CUDA
     graph replay it leaves out the gaps between launches, and it can read the
-    library's autograd backward, which runs on autograd's own thread and
-    which a graph cannot hold. With ``by_name`` also returns a dict of each
+    library's autograd backward, which runs on autograd's own thread (a
+    graph holds it too). With ``by_name`` also returns a dict of each
     kernel's share, by the profiler's kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -877,9 +908,10 @@ def groupnorm_bound_ms(b, h, w, c, dtype=torch.bfloat16):
 class Tally:
     """Times summed over the calls of one forward or one step: host-timed
     (``time_ms``, back-to-back calls) and in device time read two ways: a CUDA
-    graph replay (``graph_ms``; for the library's autograd backward, which a
-    graph cannot hold, ``profiled_ms``) and torch.profiler (``profiled_ms``)
-    for the kernel and its library call."""
+    graph replay (``graph_ms``; the library's autograd backward on the
+    training step's path, by torch.profiler on the others) and
+    torch.profiler (``profiled_ms``) for the kernel and its library
+    call."""
 
     def __init__(self):
         self.ms = self.plain_ms = self.library_ms = 0.0
@@ -1822,13 +1854,12 @@ def phase_kernels_bwd(dev, paths):
                 o = k1.fused_qkv_attention(qkv, heads, split_first, lse=lse)
                 q, k, v = (t.detach().requires_grad_(True)
                            for t in k1.split_qkv(qkv, heads, split_first))
-                lib_out = F.scaled_dot_product_attention(q, k, v)
                 lib_cot = cot.reshape(b, n, heads, c // heads).transpose(1, 2)
                 fns = (lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads, split_first,
                                                           lse=lse),
                        lambda: k1.fused_qkv_attention_bwd_plain(qkv, cot, o, heads, split_first))
-                library = lambda: torch.autograd.grad(  # noqa: E731
-                    lib_out, (q, k, v), lib_cot, retain_graph=True)
+                library, lib_stream = library_backward(F.scaled_dot_product_attention,
+                                                       (q, k, v), lib_cot)
 
                 def library_forward():
                     with torch.no_grad():
@@ -1836,23 +1867,29 @@ def phase_kernels_bwd(dev, paths):
 
                 depth = dict(iters=10, rounds=3)
                 ms, plain, lib = (time_ms(fn, **depth) for fn in (*fns, library))
-                device = (graph_ms(fns[0]), graph_ms(fns[1]), profiled_ms(library))
+                # the library's backward by graph on the training step's path (a
+                # capture a shape costs ~0.15 s), by torch.profiler on the others
+                lib_prof = profiled_ms(library)
+                device = (graph_ms(fns[0]), graph_ms(fns[1]),
+                          graph_ms(library, stream=lib_stream) if where == "train" else lib_prof)
                 own = graph_ms(lambda: k1.fused_qkv_attention_bwd(qkv, cot, o, heads,
                                                                   split_first))
                 no_lse[where] += per_step * own
                 read = {"k2_graph": device[0], "k2_profiler": profiled_ms(fns[0]),
-                        "library_profiler": device[2], "forward_graph": graph_ms(library_forward),
+                        "library_graph": device[2], "library_profiler": lib_prof,
+                        "forward_graph": graph_ms(library_forward),
                         "forward_profiler": profiled_ms(library_forward)}
                 yard[where].update({key: per_step * v for key, v in read.items()})
                 bound = attention_bound_ms(b, n, c, tensors=8, products=5, dtype=dtype)
                 tallies[where].add(per_step, ms, plain, lib, bound, device,
-                                   (read["k2_profiler"], device[2]))
+                                   (read["k2_profiler"], read["library_profiler"]))
                 log(f"[k2] {name} {dtype}, {per_step} per step: {ms:.4f} ms, plain "
                     f"{plain:.4f} ms, library {lib:.4f} ms; device time {device[0]:.4f} ms "
                     f"({5 * 2 * b * n * n * c / device[0] / 1e9:.2f} TFLOP/s of the five "
                     f"products), without the lse handed over {own:.4f} ms, plain "
                     f"{device[1]:.4f} ms, library {device[2]:.4f} ms; bound "
                     f"{max(bound):.4f} ms; torch.profiler: K2 {read['k2_profiler']:.4f} ms, "
+                    f"library {read['library_profiler']:.4f} ms, "
                     f"the library's forward {read['forward_profiler']:.4f} ms "
                     f"(graph {read['forward_graph']:.4f})")
                 hd = c // heads
@@ -1887,7 +1924,8 @@ def phase_kernels_bwd(dev, paths):
             f"{y['forward_graph']:.4f} and {y['forward_profiler']:.4f} "
             f"({y['forward_graph'] / y['forward_profiler']:.3f}); K2 over the library's "
             f"backward, both by torch.profiler, {y['k2_profiler'] / y['library_profiler']:.2f}x"
-            f" (K2 by graph: {y['k2_graph'] / y['library_profiler']:.2f}x)")
+            + (f", both by graph {y['k2_graph'] / y['library_graph']:.2f}x (the library's "
+               f"backward {y['library_graph']:.4f} by graph)" if where == "train" else ""))
     return errs, tallies, dict(yard["train"])
 
 
@@ -1903,12 +1941,13 @@ def groupnorm_bwd_bound_ms(b, h, w, c, dtype=torch.bfloat16):
 def library_group_norm_grad(x, sc, bi, es, esh, mode, cot, groups=32):
     """The library's autograd backward of ``library_group_norm`` in x's dtype
     (F.group_norm, the modulation, F.silu), for every input, as a callable
-    that reruns it on one recorded graph."""
+    that reruns it on one recorded graph, and its forward's stream
+    (``library_backward``)."""
     leaves = [t.detach().to(x.dtype).requires_grad_(True) for t in (x, sc, bi)]
     leaves += [t.detach().clone().requires_grad_(True) for t in (es, esh)] if mode == "ada" else []
-    out = library_group_norm(*leaves[:3], *(leaves[3:] or (None, None)), mode, groups)
-    lib_cot = cot.permute(0, 3, 1, 2)
-    return lambda: torch.autograd.grad(out, leaves, lib_cot, retain_graph=True)
+    return library_backward(
+        lambda *t: library_group_norm(*t[:3], *(t[3:] or (None, None)), mode, groups),
+        tuple(leaves), cot.permute(0, 3, 1, 2))
 
 
 # unet128: openai_128 training
@@ -1995,11 +2034,14 @@ def phase_k3_bwd(dev, paths):
                     continue
                 fns = (lambda: k3.group_norm_fused_bwd(*args, mean, rstd, **gk),
                        lambda: k3.group_norm_fused_bwd_plain(*args, **gk))
-                library = library_group_norm_grad(*args[:5], mode, cot, groups)
+                library, lib_stream = library_group_norm_grad(*args[:5], mode, cot, groups)
                 depth = dict(iters=10, rounds=3)
                 ms, plain, lib = (time_ms(fn, **depth) for fn in (*fns, library))
-                device = (graph_ms(fns[0]), graph_ms(fns[1]), profiled_ms(library))
-                prof = (profiled_ms(fns[0]), device[2])
+                # the library's backward by graph on the training step's path, by
+                # torch.profiler on the others, as in [k2]
+                prof = (profiled_ms(fns[0]), profiled_ms(library))
+                device = (graph_ms(fns[0]), graph_ms(fns[1]),
+                          graph_ms(library, stream=lib_stream) if where == "train" else prof[1])
                 bound = groupnorm_bwd_bound_ms(b, h, w, c, dtype)
                 tallies[where].add(per_step, ms, plain, lib, bound, device, prof)
                 plan = k3.group_norm_plan((b, h, w, c), dtype, num_groups=groups, backward=True)
@@ -2007,7 +2049,8 @@ def phase_k3_bwd(dev, paths):
                 log(f"[k3-bwd] {name} {dtype}, {per_step} per step: device time "
                     f"{device[0]:.4f} ms by graph, {prof[0]:.4f} by torch.profiler, host-timed "
                     f"{ms:.4f}; plain {device[1]:.4f} (host {plain:.4f}); library backward "
-                    f"{device[2]:.4f} by torch.profiler (host {lib:.4f}); bound "
+                    f"{device[2]:.4f} by {'graph' if where == 'train' else 'torch.profiler'}, "
+                    f"{prof[1]:.4f} by torch.profiler (host {lib:.4f}); bound "
                     f"{max(bound):.4f} ms; route {plan['route']}, HBM "
                     f"{plan['hbm_bytes'] / 1e6:.3f} MB (x, dy and dx once: "
                     f"{3 * x.numel() * x.element_size() / 1e6:.3f}); "
@@ -2347,8 +2390,9 @@ def phase_train(dev, state, workdir):
         rates[kernels].append(timed_steps(tr))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train] steps/s, 2 steps a reading: kernels on {rates[True]}, kernels off "
-        f"{rates[False]} (openai_64, bf16, remat, batch {TRAIN_BATCH}); peak device memory "
-        f"{peak:.2f} GiB")
+        f"{rates[False]} (openai_64, bf16, remat, batch {TRAIN_BATCH}, each step a replay of "
+        f"its CUDA graph); peak device memory {peak:.2f} GiB, the step graphs' pool "
+        f"{pool_gib(trainer._graphs)} GiB")
     profile_steps(lambda: trainer.train_step(*next(trainer.loader)), "training step",
                   unprofiled_ms=1e3 / max(rates[True]))
     del trainer, off
@@ -2374,7 +2418,9 @@ def phase_train(dev, state, workdir):
     log(f"[train] entry point, EMNIST recipe at batch {emnist.batch_size} on {emnist.device}, "
         f"f32 (TF32 in cuDNN {torch.backends.cudnn.allow_tf32}, in cuBLAS "
         f"{torch.backends.cuda.matmul.allow_tf32}): 3 steps and the save in {seconds:.2f} s, "
-        f"losses {[round(r['loss'], 5) for r in rows]}; launches {launches_b}, expected {expect}")
+        f"losses {[round(r['loss'], 5) for r in rows]}; launches {launches_b}, expected {expect}; "
+        f"the step graphs' pool {pool_gib(emnist._graphs)} GiB ({len(emnist._graphs.graphs)} "
+        f"key)")
     if (launches_b != expect or emnist.device.type != "cuda"
             or emnist.batch_size != EMNIST_BATCH):
         raise AssertionError("the entry point's launch counts, device or batch are off")
@@ -5039,7 +5085,10 @@ def phase_graph(dev, state, smi):
         expect = {**serve_expect(model, GRAPH_STEPS), "winograd": 0}
         by_path[f"graph_openai_64_bf16_b{batch}"] = same(f"bf16 DDPM-{GRAPH_STEPS} CFG", diff,
                                                           batch, expect)
-        speed(f"bf16 DDPM-{GRAPH_STEPS} CFG", diff, batch, f"bf16_b{batch}")
+        # the speed reading at model batch 16 alone: at 128 graph and eager
+        # agree within 1.3% (PERF.md §6); the time goes to [train-graph]
+        if batch == GRAPH_BATCHES[0]:
+            speed(f"bf16 DDPM-{GRAPH_STEPS} CFG", diff, batch, f"bf16_b{batch}")
     # DPM++-20 with the encoder cache and the guidance interval
     fast = Diffusion(model=model, **dict(ddpm, rescaled_num_steps=20, sampler="dpm++"))
     by_path["graph_openai_64_dpmpp_levers"] = same(
@@ -5124,12 +5173,271 @@ def phase_graph(dev, state, smi):
     torch.cuda.empty_cache()
     return by_path, readings
 
+TRAIN_GRAPH_STEPS = 4  # [train-graph]'s steps a run for the bits (k = 2: 6; guided chains: 3)
+TRAIN_GRAPH_TIMED = 4  # steps a speed reading, two rounds at k = 2 (chains: 1)
+TRAIN_GRAPH_WINOGRAD_BATCH = 2
+
+
+def pool_gib(cache):
+    """GiB in a graph cache's private pool (``memory_snapshot``'s segments
+    of its pool id); None where the snapshot names no pools."""
+    if cache.pool is None:
+        return 0.0
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(cache.pool)) / 2**30
+
+
+def graph_against_eager(what, make, step, state, steps, smi, readings, key, expect=None,
+                        profile=None, eager_idle=True, chains=False):
+    """``[train-graph]``'s reading of one path: ``make(cuda_graph)`` builds
+    the graphed (None) and the eager (False) runner from the same weights
+    and seed; ``step(runner)`` takes one step and returns its metrics (a
+    dict of tensors), ``state(runner)`` every tensor a step updates (and the
+    generator's state). Both take ``steps`` steps: every step's metrics and
+    the end state bit for bit, the launches of the steps after the first
+    two (replays in the graphed run) equal to the eager run's. Then speed in
+    turns (graph, eager, eager, graph), a step's idle share under
+    torch.profiler (``profile``: (a call of the runner, the steps it takes),
+    by default one step; the eager mode's too with ``eager_idle``: its
+    profile is the costly one) against a step's wall over all the speed
+    readings' steps (with ``chains``, where ``step`` is a whole chain,
+    against the profiled call's own wall) and against the profiled call's
+    own wall (the mean of two), and the graphs' pool. Returns the graphed
+    run's launches over those steps."""
+    from nicediffusion_tpu_torch.diffusion import graphs
+
+    runners, runs = {}, {}
+    for mode, cg in (("graph", None), ("eager", False)):
+        r = runners[mode] = make(cg)
+        metrics = [step(r) for _ in range(2)]
+        torch.cuda.synchronize()
+        reset_launches()
+        before = graphs.read_tallies(graphs.TALLIES)
+        metrics += [step(r) for _ in range(steps - 2)]
+        torch.cuda.synchronize()
+        runs[mode] = (metrics, read_launches(), graphs.tallies_since(graphs.TALLIES, before),
+                      state(r))
+    (g_m, g_l, g_t, g_s), (e_m, e_l, e_t, e_s) = runs["graph"], runs["eager"]
+    bits = (all(torch.equal(a[n], b[n]) for a, b in zip(g_m, e_m) for n in a)
+            and len(g_s) == len(e_s) and all(torch.equal(a, b) for a, b in zip(g_s, e_s)))
+    keys = len(runners["graph"]._graphs.graphs)
+    losses = [round(m["loss"].item(), 5) for m in e_m if "loss" in m]
+    log(f"[train-graph] {what}: graph against eager over {steps} steps "
+        f"{'bit-equal' if bits else 'DIFFERENT'} (every step's outputs; {len(e_s)} state "
+        f"tensors at the end, the generator's among them), {keys} keys captured"
+        + (f"; losses {losses}" if losses else "") + f"; launches of steps 3 to {steps}: graph "
+        f"{g_l}, eager {e_l}" + (f", expected {expect}" if expect else ""))
+    if not bits or not keys:
+        raise AssertionError(f"[train-graph] {what}: graph against eager differs")
+    if g_t != e_t or (expect and g_l != expect):
+        raise AssertionError(f"[train-graph] {what}: launches {g_l} != {e_l} (expected {expect})")
+
+    def timed(r, n=1 if chains else TRAIN_GRAPH_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(r)
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    rates = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        rates[mode].append(timed(runners[mode]))
+    call, per = profile or (step, 1)
+    idle = {}
+    for mode, r in runners.items():
+        if mode == "eager" and not eager_idle:
+            continue
+        own = []  # the profiled call's own wall, twice
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(r)
+            torch.cuda.synchronize()
+            own.append((time.perf_counter() - t0) * 1e3)
+        own = statistics.mean(own)
+        if chains:  # the speed readings time whole chains
+            wall = own
+        else:  # the steady state: all the speed readings' time over their steps (a run
+            # of steps overlaps the host's staging, which one step's own wall adds)
+            wall = per * 1e3 * statistics.mean(1 / x for x in rates[mode])
+        busy = profile_steps(lambda: call(r), f"{what}: {per} step(s), {mode}", wall, steps=1,
+                             detail=False)
+        idle[mode] = {"wall_ms_per_step": wall / per,
+                      "busy_ms_per_step": None if busy is None else busy / per,
+                      "idle_share": None if busy is None else 1 - busy / wall,
+                      "own_wall_ms_per_step": own / per,
+                      "idle_share_own_wall": None if busy is None else 1 - busy / own}
+    pool = pool_gib(runners["graph"]._graphs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    readings[key] = {"per_s": rates, "step": idle, "pool_gib": pool, "keys": keys}
+    log(f"[train-graph] {what} ({smi}): per second, graph {rates['graph']}, eager "
+        f"{rates['eager']} (in turns); a step: graph {json.dumps(idle['graph'])}, eager "
+        f"{json.dumps(idle.get('eager'))}; the graphs' pool {pool} GiB, peak device memory "
+        f"{peak:.2f} GiB")
+    del runners
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return g_l
+
+
+def phase_train_graph(dev, state, unet128_state, cls128_state, smi):
+    """``[train-graph]``: the autograd paths' CUDA graphs (training/graphs.py,
+    and the classifier-guided chain's in diffusion/graphs.py) against their
+    eager steps in one call, by ``graph_against_eager``: (a) ``Trainer`` at
+    ``openai_64`` bf16, remat, dropout 0.05, HYBRID under CFG, batch 8, k = 1
+    and k = 2; (b) a ``winograd=True`` Trainer at batch 2 whose live model
+    samples a DDIM-10 chain after two steps and again after two replayed
+    ones, the graphed and eager trainers' images bit for bit (the replays'
+    version bumps make U anew); (c) a guided and a progressive distillation step,
+    bf16, batch 8, var_weight 1.0, the warmup-cosine rate; (d) the
+    classifier-guided DDIM-25 chain at ``openai_128`` batch 4 (samples/s
+    over whole chains). Returns (launches by path, readings)."""
+    from nicediffusion_tpu_torch import Diffusion, DiffusionModel, EncoderUNet, Trainer
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+    from nicediffusion_tpu_torch.training.distill import GuidedDistiller, ProgressiveDistiller
+    from nicediffusion_tpu_torch.utils.config import DIFFUSION_PRESETS, MODEL_PRESETS
+
+    cfg = model_config()
+    dcfg = dict(DIFFUSION_PRESETS["openai_64"], guidance_method="classifier_free")
+    by_path, readings = {}, {}
+
+    def trainer_state(tr):
+        out = [p.detach() for p in tr.model.parameters()] + list(tr.ema_model.parameters())
+        out += [v for s in tr.optimizer.state.values() for v in s.values()]
+        out += list(tr._grad_accum or ())
+        return [t.clone() for t in out] + [tr.generator.get_state()]
+
+    def make_trainer(cuda_graph, k=1, batch=TRAIN_BATCH, lr=1e-4, **model_kw):
+        model = DiffusionModel(**cfg, dtype=torch.bfloat16, use_remat=True, device=dev,
+                               **model_kw)
+        model.load_state_dict(state, strict=True)
+        loader = synthetic_batches(batch, cfg["resolution"], cfg["in_channels"],
+                                   cfg["num_classes"], seed=SEED)
+        return Trainer(model, dcfg, loader, iterations=1, batch_size=batch, lr=lr,
+                       weight_decay=1e-3, ema_rate=0.99, seed=SEED, grad_accumulation=k,
+                       cuda_graph=cuda_graph, checkpoint_dir="unused")
+
+    def trainer_step(tr):
+        return tr.train_step(*next(tr.loader))
+
+    shape = DiffusionModel(**cfg, dtype=torch.bfloat16, use_remat=True,
+                           device=torch.device("meta"))
+    for k in (1, 2):
+        steps = TRAIN_GRAPH_STEPS + 2 * (k - 1)
+        expect = expect_train_launches(shape, steps - 2)
+        # a step's idle share over a whole round of k micro-steps (their graphs
+        # differ); the eager step's device work is k = 1's: its costly profile once
+        by_path[f"train_graph_openai_64_k{k}"] = graph_against_eager(
+            f"Trainer openai_64 bf16 remat dropout 0.05 batch {TRAIN_BATCH}, k = {k}",
+            functools.partial(make_trainer, k=k), trainer_step, trainer_state, steps, smi,
+            readings, f"train_k{k}", expect,
+            profile=(lambda r, k=k: [trainer_step(r) for _ in range(k)], k), eager_idle=k == 1)
+
+    # (b) a winograd=True model: graphed training, then sampling through U
+    images = {}
+    for mode, cg in (("graph", None), ("eager", False)):
+        tr = make_trainer(cg, batch=TRAIN_GRAPH_WINOGRAD_BATCH, lr=1e-3, winograd=True)
+        sampler = Diffusion(model=tr.model, **dict(dcfg, rescaled_num_steps=10))
+        y = torch.arange(4, device=dev) * 97 % 1000 + 1
+        outs = []
+        for _ in range(2):
+            for _ in range(2):
+                trainer_step(tr)
+            tr.model.eval()  # the next step sets train() again
+            g = torch.Generator(device=dev).manual_seed(SEED + 30)
+            outs.append(sampler.denoise(g, y=y, batch_size=4))
+        torch.cuda.synchronize()
+        images[mode] = (outs, trainer_state(tr))
+        del tr, sampler
+    bits = all(torch.equal(a, b) for a, b in zip(images["graph"][0], images["eager"][0]))
+    bits_state = all(torch.equal(a, b)
+                     for a, b in zip(images["graph"][1], images["eager"][1]))
+    moved = not torch.equal(images["eager"][0][0], images["eager"][0][1])
+    readings["winograd_u"] = {"samples_bit_equal": bits, "state_bit_equal": bits_state,
+                              "samples_moved_between": moved}
+    log(f"[train-graph] winograd=True openai_64 bf16 Trainer, batch "
+        f"{TRAIN_GRAPH_WINOGRAD_BATCH}, lr 1e-3: the live model's DDIM-10 CFG samples "
+        f"(batch 4, the Winograd kernel, U kept by each layer) after steps 2 and 4 (steps 2 "
+        f"to 4 replays in the graphed run), graph-trained against eager-trained "
+        f"{'bit-equal' if bits else 'DIFFERENT'}, the training state "
+        f"{'bit-equal' if bits_state else 'DIFFERENT'}; the samples moved between the two "
+        f"readings: {moved}")
+    if not (bits and bits_state and moved):
+        raise AssertionError("[train-graph] the Winograd U check failed")
+    del images
+    torch.cuda.empty_cache()
+
+    # (c) both distillers
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x0 = torch.rand(TRAIN_BATCH, 64, 64, 3, generator=g, device=dev) * 2 - 1
+    labels = torch.randint(1, cfg["num_classes"], (TRAIN_BATCH,), generator=g, device=dev)
+    ddcfg = dict(DIFFUSION_PRESETS["openai_64"], rescaled_num_steps=50)
+    for stage in ("guided", "progressive"):
+        def make_distiller(cuda_graph):
+            m = DiffusionModel(**cfg, dtype=torch.bfloat16, device=dev)
+            kw = dict(model=m, teacher_params=state, diffusion_args=ddcfg, dataloader=iter(()),
+                      iterations=100, var_weight=1.0, seed=SEED, lr_schedule="warmup_cosine",
+                      cuda_graph=cuda_graph)
+            if stage == "guided":
+                return GuidedDistiller(**kw, guidance_strength=0.8)
+            return ProgressiveDistiller(**kw)
+
+        def distiller_state(d):
+            out = [p.detach() for p in d.model.parameters()] + list(d.ema_model.parameters())
+            out += [v for s in d.optimizer.adamw.state.values() for v in s.values()]
+            return [t.clone() for t in out] + [d.generator.get_state()]
+
+        by_path[f"distill_graph_{stage}"] = graph_against_eager(
+            f"{stage} distillation openai_64 bf16 batch {TRAIN_BATCH}", make_distiller,
+            lambda d: d.train_step(x0, labels), distiller_state, TRAIN_GRAPH_STEPS, smi,
+            readings, f"distill_{stage}", eager_idle=stage == "guided")
+
+    # (d) the classifier-guided DDIM-25 chain at openai_128, batch 4
+    m = DiffusionModel(**MODEL_PRESETS["openai_128"], dtype=torch.bfloat16, device=dev).eval()
+    m.load_state_dict(unet128_state, strict=True)
+    c = EncoderUNet(**classifier_config(), dtype=torch.bfloat16, device=dev)
+    c.load_state_dict(cls128_state, strict=True)
+    diff = Diffusion(model=m, **guided_diffusion_config(c))
+    y = torch.full((GUIDED_BATCH,), 3, dtype=torch.long, device=dev)
+
+    class Chain:
+        """A runner of whole guided chains for ``graph_against_eager``."""
+
+        def __init__(self, cuda_graph):
+            self.cuda_graph, self.seed = cuda_graph, 0
+            self._graphs = diff._graphs
+            self.generator = torch.Generator(device=dev)
+
+        def step(self, steps_to_do=None):
+            self.seed += 1
+            self.generator.manual_seed(self.seed)
+            out = diff.denoise(self.generator, y=y, batch_size=GUIDED_BATCH,
+                               steps_to_do=steps_to_do, cuda_graph=self.cuda_graph)
+            return {"x": out}
+
+    steps = diff.rescaled_num_steps
+    # a step's idle share from a chain of GRAPH_PROFILE_STEPS: a profile of a
+    # whole eager chain's ~40,000 launches costs more than the chain
+    by_path["guided_graph_openai_128"] = graph_against_eager(
+        f"classifier-guided DDIM-{steps} chain openai_128 bf16 batch {GUIDED_BATCH} (here "
+        f"a step is a whole chain)", Chain, Chain.step,
+        lambda r: [r.generator.get_state()], 3, smi, readings, "guided_128",
+        profile=(lambda r: r.step(GRAPH_PROFILE_STEPS), GRAPH_PROFILE_STEPS), chains=True)
+    del m, c, diff
+    torch.cuda.empty_cache()
+    return by_path, readings
+
+
 # ---------------------------------------------------------------------------
 # [dp]: data parallelism. Two gloo ranks share the one card (NCCL refuses two
 # ranks on one device); one rank goes through torchrun and NCCL.
 # ---------------------------------------------------------------------------
 
-DP_TRAIN_STEPS = 2
+DP_TRAIN_STEPS = 1  # one step: the time goes to [train-graph]
 DP_SAMPLE_BATCH = 16  # 8 rows a rank; under CFG a rank's model batch is 16
 DP_SAMPLE_STEPS = 10
 DP_SERVE_CLIENTS = (16, 2)  # closed-loop clients, requests each, at serve batch 16
@@ -5202,8 +5510,10 @@ def dp_train_part(dev, cfg, state, r, n):
             model = DiffusionModel(**dict(cfg, dropout=0.0), use_remat=True, device=dev,
                                    dtype=None if dtype == torch.float32 else dtype)
             model.load_state_dict(state, strict=True)
+            # eager: the one-process reference's reduce is wrapped in host syncs below
             tr = Trainer(model, dcfg, iter(()), iterations=0, batch_size=TRAIN_BATCH, lr=1e-4,
-                         weight_decay=1e-3, ema_rate=0.99, seed=SEED, distributed=distributed)
+                         weight_decay=1e-3, ema_rate=0.99, seed=SEED, distributed=distributed,
+                         cuda_graph=False)
             reduce = tr._reduce
             tr.reduce_s = []
 
@@ -5604,7 +5914,7 @@ def phase_dp(dev, workdir, smi):
 # ---------------------------------------------------------------------------
 
 TP_FORWARD_BATCH = 16  # model batch: 8 requests under CFG
-TP_TRAIN_STEPS = 2
+TP_TRAIN_STEPS = 1  # one step: the time goes to [train-graph]
 TP_TIMEOUT_S = 300.0
 
 
@@ -5746,9 +6056,10 @@ def tp_train_part(dev, cfg, state, mesh, r, work):
             model = DiffusionModel(**dict(cfg, dropout=0.0), use_remat=True, device=dev,
                                    dtype=None if dtype == torch.float32 else dtype)
             model.load_state_dict(state, strict=True)
+            # eager: the one-process reference's reduce is wrapped in host syncs below
             tr = Trainer(model, dcfg, iter(()), iterations=0, batch_size=TRAIN_BATCH, lr=1e-4,
                          weight_decay=1e-3, ema_rate=0.99, seed=SEED, mesh=m,
-                         checkpoint_dir=os.path.join(work, f"tp_ckpt_{name}"))
+                         checkpoint_dir=os.path.join(work, f"tp_ckpt_{name}"), cuda_graph=False)
             reduce, tr.record, tr.pre_reduce, tr.reduce_s = tr._reduce, True, None, []
 
             def record(grads, loss):  # the gradients the update sees, gathered whole
@@ -6438,9 +6749,13 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         by_path["sample_cli_openai_128_guided"] = phase_sample_cli(
             dev, unet128_state, cls128_state, workdir)
+        phase_done("[guided]")
+        tg_paths, tg_readings = phase_train_graph(dev, state, unet128_state, cls128_state, smi)
+        by_path.update(tg_paths)
+        log(f"[train-graph] readings {json.dumps(tg_readings)}")
         del unet128_state, cls128_state
         torch.cuda.empty_cache()
-        phase_done("[guided]")
+        phase_done("[train-graph]")
         by_path["sample_cli_openai_64_fast"] = phase_fast(dev, state, workdir)
         phase_done("[fast]")
         by_path["sample_cli_openai_64_int8"], int8_rates = phase_int8(
@@ -6623,8 +6938,7 @@ def main():
             raise AssertionError(f"{k['name']} was never launched on the main paths")
     # rule 2: the kernel slowest against its library call first, in device
     # time read by torch.profiler on both sides (every row has it); the CUDA
-    # graph's factor beside it (K2's library backward, which a graph cannot
-    # hold, by the profiler there too)
+    # graph's factor beside it (the library's backwards by graph too)
     def factor(k):
         return k["device_profiler_ms"] / k["device_profiler_library_ms"]
 

@@ -17,8 +17,9 @@ One graph serves every t of a chain: t is an input. A graph is kept per key:
 
 The sampler and its settings, the model's mode, the TF32 flags and a
 signature of the model's weights (``data_ptr()`` and ``_version`` of every
-parameter and buffer, read once a chain) are held for all of a cache's
-graphs: when any of them changes, every graph is freed and captured anew.
+parameter and buffer, read once a chain; a guiding classifier's too) are
+held for all of a cache's graphs: when any of them changes, every graph is
+freed and captured anew.
 So an in-place ``load_state_dict``, ``freeze_int8`` or a replaced module
 never replays stale weights or a stale Winograd U (models/unet.py
 ``WinogradConv``).
@@ -43,10 +44,18 @@ convs, against the eager forward's 16.9 GiB peak). ``reset_graphs()`` then
 ``torch.cuda.empty_cache()`` returns it; ``cuda_graph=False`` keeps the
 eager loop where memory is short.
 
+Under classifier guidance the step's body takes the classifier's gradient
+(its forward, then ``torch.autograd.grad``, K1, K2 and K3's backward among
+its launches): autograd's engine runs the backward on the capture's stream,
+so the whole guided step is one graph like any other.
+
 The first step of a key runs its body eagerly on the static buffers (that
 builds the kernels, makes U, initialises cuBLAS and cuDNN's plans), then the
 key is captured, and its later steps replay. A capture, instantiation or
 replay that raises surfaces from ``denoise``: nothing falls back.
+``KeyedGraphs`` (keys, pool, first step, capture) and ``use_graphs`` (the
+``cuda_graph`` argument's rule) are shared with the training steps'
+graphs (training/graphs.py).
 
 The launch counters (each kernel wrapper's ``.launches``,
 ``attention.route_launches``) count in Python: a capture runs their
@@ -71,7 +80,8 @@ import torch
 
 from ..ops.kernels import attention, conv, groupnorm, int8conv, resblock, winograd
 
-__all__ = ["ChainGraphs", "StepGraph", "TALLIES", "weight_signature"]
+__all__ = ["ChainGraphs", "KeyedGraphs", "StepGraph", "TALLIES", "int8_recording",
+           "use_graphs", "weight_signature"]
 
 # (owner, name): the Python-side counts a step's kernels change, each an int,
 # a Counter or an append-only list, read as ``owner[name]`` on a dict and
@@ -179,10 +189,12 @@ def weight_signature(model: torch.nn.Module) -> tuple:
 def _settings(diffusion) -> tuple:
     """What a capture bakes in besides the weights: the sampler's settings
     (host floats become kernel arguments), the model's mode and identity,
-    and the TF32 flags (cuBLAS's and cuDNN's choice of algorithm)."""
+    the classifier's identity, and the TF32 flags (cuBLAS's and cuDNN's
+    choice of algorithm)."""
     d = diffusion
     return (d.sampler, d.guidance, d.strength, d.ddim_eta, d.clip_x, d.dynamic_threshold,
             d.prediction_type, d.sampling_var_type, id(d.model), d.model.training,
+            id(d.classifier),
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
 
@@ -232,16 +244,40 @@ class _Buffers:
             self.x0_prev.zero_()
 
 
-class ChainGraphs:
-    """A Diffusion's captured step graphs (``Diffusion._graphs``): one
-    ``StepGraph`` a key, one memory pool for all, the static buffers they
-    read and write. ``capture=False`` keeps the body run eagerly in place of
-    each graph, so the graphed path's buffers, plan and counts run on the
-    CPU."""
+def use_graphs(cuda_graph: bool | None, device: torch.device, refusal: str | None) -> bool:
+    """The rule of every ``cuda_graph`` argument: None graphs on a CUDA
+    device unless ``refusal`` names a reason; True demands the graphs and
+    raises where they cannot be had (``NotImplementedError`` with the
+    refusal, ``ValueError`` off the card); False keeps the eager step."""
+    if cuda_graph is False:
+        return False
+    if cuda_graph is None:
+        return device.type == "cuda" and refusal is None
+    if refusal is not None:
+        raise NotImplementedError(
+            f"cuda_graph=True: {refusal}, so this step stays eager (ROADMAP.md queue A item 2)")
+    if device.type != "cuda":
+        raise ValueError(f"cuda_graph=True needs a CUDA device, the step is on {device}")
+    return True
+
+
+def int8_recording(model) -> bool:
+    """Whether an int8 model's calibration recorders are live: they keep a
+    running max on the host side of the forward, which a capture cannot."""
+    layers = getattr(model, "int8_layers", dict)()
+    return any(m.recording for m in layers.values())
+
+
+class KeyedGraphs:
+    """Captured steps by key: one ``StepGraph`` a key, one memory pool for
+    all. A key's first step runs its body eagerly (on the static buffers the
+    caller keeps outside the pool), then the key is captured; its later steps
+    replay. ``capture=False`` keeps the body, run eagerly, in place of each
+    graph, so a graphed path's buffers, keys and counts run on the CPU."""
 
     def __init__(self, capture: bool = True):
         self.capture = capture
-        # one chain at a time: the graphs share their static buffers and pool
+        # one step at a time: the graphs share their static buffers and pool
         self._lock = threading.RLock()
         self.reset()
 
@@ -252,6 +288,13 @@ class ChainGraphs:
             self.graphs: dict = {}
             self.buffers: dict = {}
             self.pool = None
+
+    def check(self, signature) -> None:
+        """Drop every graph when ``signature`` (what the captures baked in)
+        moved since the last step."""
+        if signature != self.signature:
+            self.reset()
+            self.signature = signature
 
     def _record(self, body):
         if not self.capture:  # a replay runs the body eagerly
@@ -273,6 +316,14 @@ class ChainGraphs:
         body()  # the key's first step: eagerly, on the static buffers
         self.graphs[key] = StepGraph(body, self._record)
 
+
+class ChainGraphs(KeyedGraphs):
+    """A Diffusion's captured step graphs (``Diffusion._graphs``): one
+    ``StepGraph`` a key, one memory pool for all, the static buffers they
+    read and write. ``capture=False`` keeps the body run eagerly in place of
+    each graph, so the graphed path's buffers, plan and counts run on the
+    CPU."""
+
     def run(self, diffusion, plan, x, y, generator, row_shard) -> torch.Tensor:
         """The chain of ``plan`` (``Diffusion._chain_plan``) from ``x``: a
         replay a step (the key's first step eager, then captured). Returns
@@ -281,10 +332,10 @@ class ChainGraphs:
             return self._run(diffusion, plan, x, y, generator, row_shard)
 
     def _run(self, diffusion, plan, x, y, generator, row_shard) -> torch.Tensor:
-        signature = (weight_signature(diffusion.model), _settings(diffusion))
-        if signature != self.signature:
-            self.reset()
-            self.signature = signature
+        classifier = diffusion.classifier
+        self.check((weight_signature(diffusion.model), _settings(diffusion),
+                    weight_signature(classifier) if isinstance(classifier, torch.nn.Module)
+                    else None))
         kwargs = diffusion.model_kwargs
         dpmpp = diffusion.sampler == "dpm++"
         shapes = (_spec(x), _spec(y), tuple(sorted((k, _spec(v)) for k, v in kwargs.items())))

@@ -11,10 +11,10 @@ a plain Python loop over the steps. On a CUDA device a chain without
 autograd replays one captured CUDA graph a step instead (diffusion/graphs.py,
 the counterpart of the JAX sampler's ``lax.scan`` under ``jax.jit``): the
 host fills t, draws the step's noise as the loop does and replays, and the
-bits are the loop's. ``cuda_graph=False`` keeps the loop on the card.
-Classifier guidance (a gradient inside the step), a model paired by
-``shard_module_`` (collectives in its forward) and int8 calibration while
-its recorders are live stay on the loop.
+bits are the loop's; under classifier guidance the classifier's gradient is
+part of the graph. ``cuda_graph=False`` keeps the loop on the card. A model
+paired by ``shard_module_`` (collectives in its forward) and int8
+calibration while its recorders are live stay on the loop.
 
 Training: ``q_sample``/``diffuse`` (the forward process), ``loss`` with the
 four loss types (SIMPLE, KL, KL_RESCALED, HYBRID with the VLB's epsilon
@@ -55,7 +55,7 @@ from ..ops.math import discretized_gaussian_log_likelihood, kl_div, mean_flat
 from ..ops.schedule import DiffusionSchedule
 from ..parallel.mesh import shard_rows
 from ..utils.device import resolve_device
-from .graphs import ChainGraphs
+from .graphs import ChainGraphs, int8_recording, use_graphs
 
 __all__ = ["Diffusion", "VarType", "LossType"]
 
@@ -609,33 +609,23 @@ class Diffusion:
         return x, x0_prev, cache
 
     def _graph_refusal(self) -> str | None:
-        """Why this Diffusion's chain cannot be captured, or None."""
-        if self.guidance == "classifier":
-            return "classifier guidance takes a gradient inside the step"
+        """Why this Diffusion's chain cannot be captured, or None: a model
+        paired by ``shard_module_`` (its collectives need NCCL capture on a
+        host with several GPUs) and live int8 calibration (ROADMAP.md queue A
+        item 2)."""
         mesh = getattr(self.model, "tp_mesh", None)
         if mesh is not None and mesh.num_model > 1:
             return "a model paired by shard_module_ runs collectives in its forward"
-        layers = getattr(self.model, "int8_layers", dict)()
-        if any(m.recording for m in layers.values()):
+        if int8_recording(self.model):
             return "int8 calibration is recording inside the forward"
         return None
 
     def _use_graphs(self, cuda_graph: bool | None) -> bool:
         """``denoise``'s ``cuda_graph``: None graphs a chain on a CUDA device
         unless ``_graph_refusal`` names a reason; True demands the graphs
-        and raises where they cannot be had; False runs the eager loop."""
-        if cuda_graph is False:
-            return False
-        refusal = self._graph_refusal()
-        if cuda_graph is None:
-            return self.device.type == "cuda" and refusal is None
-        if refusal is not None:
-            raise NotImplementedError(
-                f"cuda_graph=True: {refusal}; the graphs of the autograd paths are the next "
-                "slice of ROADMAP.md queue A")
-        if self.device.type != "cuda":
-            raise ValueError(f"cuda_graph=True needs a CUDA device, the chain is on {self.device}")
-        return True
+        and raises where they cannot be had; False runs the eager loop
+        (diffusion/graphs.py ``use_graphs``)."""
+        return use_graphs(cuda_graph, self.device, self._graph_refusal())
 
     def reset_graphs(self) -> None:
         """Free the captured step graphs, their memory pool and their static
@@ -665,9 +655,10 @@ class Diffusion:
         ``cuda_graph``: None (the default) replays one captured CUDA graph a
         step on a CUDA device (diffusion/graphs.py; the first step of a key
         runs eagerly, then the key is captured) and runs the eager loop on
-        the CPU; False runs the eager loop on the card too; True demands the
-        graphs and raises on the CPU, under classifier guidance, on a model
-        paired by ``shard_module_`` and while int8 calibration records
+        the CPU; classifier guidance is graphed too, its gradient inside the
+        step's graph. False runs the eager loop on the card too; True demands
+        the graphs and raises on the CPU, on a model paired by
+        ``shard_module_`` and while int8 calibration records
         (``NotImplementedError``), where None runs the loop. Both give the
         same bits and draw the same stream. A capture or replay that raises
         surfaces here: nothing reruns the loop.

@@ -37,7 +37,10 @@ the ``torch.Generator`` the caller hands to ``forward`` (no global RNG).
 the recompute replays the generator from the state it had when the block
 first ran, so the dropout mask is the same, and puts the generator back
 afterwards. Parameters are f32 and cast per call, so bf16 compute gives f32
-gradients.
+gradients. A ``DropoutDraws`` may stand in for the generator: it hands out
+the step's uniform draws made ahead, in the forward's order (what a
+captured training step reads, training/graphs.py), and its cursor is the
+state the recompute replays.
 
 Static int8 serving (``quantized=True``; ``quantized_attention=True`` also
 quantizes the attention projections). The residual blocks' convs, the
@@ -110,8 +113,8 @@ from ..parallel.sharding import shard_params, shard_tensor, unet_param_shard_dim
 from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model, scatter_to_model
 from ..utils.device import resolve_device
 
-__all__ = ["DiffusionModel", "SuperResolutionModel", "Int8Conv", "Int8Dense", "WinogradConv",
-           "shard_module_"]
+__all__ = ["DiffusionModel", "DropoutDraws", "SuperResolutionModel", "Int8Conv", "Int8Dense",
+           "WinogradConv", "shard_module_"]
 
 
 class Conv2d(nn.Module):
@@ -397,8 +400,8 @@ class ResidualBlock(nn.Module):
             if generator is None:
                 raise ValueError("dropout in train() mode needs the caller's torch.Generator")
             # drawn at the whole channel count, the rank's channels kept
-            keep = torch.rand((*h.shape[:-1], self.out_channels), generator=generator,
-                              device=h.device) >= self.dropout
+            keep = _uniform(generator, (*h.shape[:-1], self.out_channels),
+                            h.device) >= self.dropout
             keep = shard_tensor(keep, -1 if tp else None, tp)
             h = h * keep / (1.0 - self.dropout)
         if tp is None:
@@ -451,6 +454,58 @@ class AttentionBlock(nn.Module):
         else:
             h = self.proj_out(h)
         return x + h.reshape(b, hh, ww, c)
+
+
+class DropoutDraws:
+    """Stands in for the dropout generator of a model in ``train()`` mode:
+    the uniform draws of one step's masks, made ahead of the forward in the
+    order the forward takes them, so no generator is read inside it.
+
+    The first step records: each draw is made from ``generator`` where the
+    forward asks for it (the eager stream, bit for bit) and kept as a buffer.
+    Each later step calls ``refill()`` first, which draws every buffer anew
+    from ``generator`` in the same order, then the forward reads them. Since
+    nothing else draws between a step's masks, the stream is the eager one.
+    ``get_state()``/``set_state()`` read and set the cursor: the remat
+    recompute (``_replay_generator``) takes the masks its block's first run
+    took. (A CUDA capture can neither read nor set a generator's host-side
+    offset; the cursor is host state alone.)"""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.buffers: list[torch.Tensor] = []
+        self.cursor = 0
+
+    def refill(self) -> None:
+        """A new step: every buffer drawn anew, in the forward's order."""
+        for u in self.buffers:
+            torch.rand(u.shape, generator=self.generator, device=u.device, out=u)
+        self.cursor = 0
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        """The step's next draw of ``shape``: recorded on the first step,
+        the buffer after."""
+        if self.cursor == len(self.buffers):
+            self.buffers.append(torch.rand(shape, generator=self.generator, device=device))
+        u = self.buffers[self.cursor]
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"dropout draw {self.cursor} has shape {tuple(u.shape)}, the "
+                             f"forward asks for {tuple(shape)}")
+        self.cursor += 1
+        return u
+
+    def get_state(self) -> int:
+        return self.cursor
+
+    def set_state(self, cursor: int) -> None:
+        self.cursor = cursor
+
+
+def _uniform(generator, shape, device) -> torch.Tensor:
+    """U[0, 1) of ``shape`` from a ``torch.Generator`` or a ``DropoutDraws``."""
+    if isinstance(generator, DropoutDraws):
+        return generator.uniform(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def _replay_generator(generator):

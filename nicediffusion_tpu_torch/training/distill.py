@@ -41,6 +41,15 @@ What differs from the JAX package, by design:
     on the device seeded from ``seed``; ``train_step`` also takes them
     injected, so a test can feed the port the JAX run's draws. Metrics stay
     on the device and are read only at log boundaries.
+
+CUDA graphs (``cuda_graph=None``, the default; the counterpart of the JAX
+distillers' jitted steps): on a CUDA device ``train_step`` replays one
+captured graph a step (training/graphs.py): j and the noise are drawn before
+the replay, the schedule's rate is a device tensor filled before it, and the
+graph holds the teacher's forwards, the student's forward and backward, the
+clip, AdamW and the EMA, with the eager step's bits. ``cuda_graph=False``
+keeps the eager step; ``True`` raises on the CPU and while int8 calibration
+records.
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ from typing import Iterator, Mapping
 import numpy as np
 import torch
 
+from ..diffusion.graphs import int8_recording, use_graphs, weight_signature
 from ..diffusion.process import Diffusion, _bcast
+from .graphs import TrainGraphs, hyperparameters, make_adamw, pointers, to_device
 
 __all__ = ["GuidedDistiller", "ProgressiveDistiller", "make_student_diffusion"]
 
@@ -78,7 +89,10 @@ class _Optimizer:
     b2=0.999, eps=1e-8, weight_decay))`` over ``params``, on
     ``torch.optim.AdamW`` (decoupled weight decay, optax's update term for
     term). ``step(grads)`` applies one update and returns the gradients'
-    global norm before clipping, on the device."""
+    global norm before clipping, on the device: ``set_rate()`` (the host's
+    part: the schedule's rate, a device tensor on the card, filled before a
+    graph's replay), then ``apply(grads)`` (the device's, which a graph
+    captures)."""
 
     def __init__(self, params, lr, weight_decay, iterations, grad_clip, lr_schedule):
         if lr_schedule == "warmup_cosine":
@@ -89,24 +103,37 @@ class _Optimizer:
             raise ValueError(f"unknown lr_schedule {lr_schedule!r} (constant | warmup_cosine)")
         self.params = list(params)
         self.grad_clip = grad_clip
-        self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
+        self.adamw = make_adamw(self.params, lr, weight_decay, tensor_lr=True)
         self.count = 0  # updates so far: the schedule's argument
 
-    def step(self, grads) -> torch.Tensor:
+    def set_rate(self) -> None:
+        """The rate of update ``count`` into the param groups."""
+        rate = self.rate(self.count)
+        for group in self.adamw.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(rate)
+            else:
+                group["lr"] = rate
+
+    def apply(self, grads) -> torch.Tensor:
+        """The clip and the AdamW update at the rate set; the norm before
+        clipping."""
         grads = list(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.grad_clip is not None:
             # optax: g where norm < c, else g / norm * c; no epsilon
-            clip = torch.as_tensor(self.grad_clip, dtype=norm.dtype, device=norm.device)
+            clip = norm.new_full((), self.grad_clip)
             scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
             grads = torch._foreach_mul(grads, scale)
-        for group in self.adamw.param_groups:
-            group["lr"] = self.rate(self.count)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
+        return norm
+
+    def step(self, grads) -> torch.Tensor:
+        self.set_rate()
+        norm = self.apply(grads)
         self.count += 1
         return norm
 
@@ -171,7 +198,7 @@ class _Distiller:
     _label = "distill"
 
     def _init_state(self, model, teacher_params, dataloader, iterations, lr, weight_decay,
-                    ema_rate, seed, grad_clip, lr_schedule, var_weight):
+                    ema_rate, seed, grad_clip, lr_schedule, var_weight, cuda_graph):
         if teacher_params is not None:
             model.load_state_dict(
                 {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
@@ -191,6 +218,9 @@ class _Distiller:
         self.ema_rate = ema_rate
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
+        self.cuda_graph = cuda_graph
+        self._graphs = TrainGraphs()
+        self._use_graphs()  # cuda_graph=True raises here where it cannot be had
 
     def train_step(self, batch, labels=None, *, j=None, noise=None):
         """One update of the student and its EMA. ``j`` (B,) student steps
@@ -198,29 +228,81 @@ class _Distiller:
         the generator (j first). Returns ``{"loss", "loss_eps", "loss_var",
         "grad_norm"}`` as scalars on the device; ``grad_norm`` is the norm
         before clipping."""
-        x0 = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+        x0 = to_device(batch, torch.float32, self.device)
         b = x0.shape[0]
         if j is None:
             j = torch.randint(0, self.student.rescaled_num_steps, (b,),
                               generator=self.generator, device=self.device)
-        j = torch.as_tensor(j, dtype=torch.long, device=self.device)
+        j = to_device(j, torch.long, self.device)
         if noise is None:
             noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+        noise = to_device(noise, torch.float32, self.device)
         y = None
         if self.model.conditional and labels is not None:
-            y = torch.as_tensor(labels, dtype=torch.long, device=self.device)
+            y = to_device(labels, torch.long, self.device)
 
-        loss_eps, loss_var = self._losses(x0, y, j, noise)
+        inputs = {"x0": x0, "y": y, "j": j, "noise": noise}
+        if self._use_graphs():
+            # the rate is set on the host before the replay, the update in the graph
+            opt = self.optimizer
+            opt.set_rate()
+            out = self._graphs.run(self._graph_signature, self._graph_written(), inputs,
+                                   self.generator, None,
+                                   lambda inputs, draws: self._update(inputs, opt.apply))
+            opt.count += 1
+        else:
+            out = self._update(inputs, self.optimizer.step)
+        self.step += 1
+        return out
+
+    def _update(self, inputs: dict, update) -> dict:
+        """The step past its draws: the losses, the student's gradients,
+        ``update`` (the clipped AdamW update) and the EMA (no dropout: every
+        model is in eval mode). What a graph captures; eager, it is the step
+        itself."""
+        loss_eps, loss_var = self._losses(inputs["x0"], inputs["y"], inputs["j"],
+                                          inputs["noise"])
         loss = loss_eps + loss_var
         grads = torch.autograd.grad(loss, self._params)
-        grad_norm = self.optimizer.step(grads)
+        grad_norm = update(grads)
         with torch.no_grad():
             torch._foreach_mul_(self._ema_params, self.ema_rate)
             torch._foreach_add_(self._ema_params, self._params, alpha=1.0 - self.ema_rate)
-        self.step += 1
         return {"loss": loss.detach(), "loss_eps": loss_eps.detach(),
                 "loss_var": loss_var.detach(), "grad_norm": grad_norm}
+
+    def _use_graphs(self) -> bool:
+        """``cuda_graph``'s rule (diffusion/graphs.py ``use_graphs``) for
+        this step."""
+        return use_graphs(self.cuda_graph, self.device, self._graph_refusal())
+
+    def _graph_refusal(self) -> str | None:
+        """Why this distiller's step cannot be captured, or None."""
+        if int8_recording(self.model) or int8_recording(self.teacher_model):
+            return "int8 calibration is recording inside the forward"
+        return None
+
+    def _graph_written(self) -> list:
+        """What a graphed step writes in place outside the pool: the
+        student's parameters, the EMA and AdamW's state."""
+        state = [v for s in self.optimizer.adamw.state.values() for v in s.values()
+                 if isinstance(v, torch.Tensor)]
+        return [*self._params, *self._ema_params, *state]
+
+    def _graph_signature(self) -> tuple:
+        """What the captures baked in: the pointers of what they write, the
+        frozen teacher's weights (their versions too: a Winograd U made from
+        them is read by the graph), the settings."""
+        return (pointers(self._graph_written()), pointers(self.model.buffers()),
+                weight_signature(self.teacher_model), hyperparameters(self.optimizer.adamw),
+                self.optimizer.grad_clip, self.ema_rate, self.loss_space, self.var_weight,
+                id(self.model), id(self.teacher), id(self.student),
+                self.model.training, self.teacher_model.training,
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    def reset_graphs(self) -> None:
+        """Free the captured step graphs, their pool and static buffers."""
+        self._graphs.reset()
 
     def _next_batch(self):
         return next(self.loader)
@@ -272,13 +354,14 @@ class GuidedDistiller(_Distiller):
         lr_schedule: str = "constant",
         student_prediction_type: str | None = None,
         var_weight: float | None = None,
+        cuda_graph: bool | None = None,
     ):
         assert model.conditional, (
             "guided distillation needs a class-conditional model "
             "(the CFG teacher calls the null class internally)"
         )
         self._init_state(model, teacher_params, dataloader, iterations, lr, weight_decay,
-                         ema_rate, seed, grad_clip, lr_schedule, var_weight)
+                         ema_rate, seed, grad_clip, lr_schedule, var_weight, cuda_graph)
         t_args = dict(diffusion_args, guidance_method="classifier_free",
                       guidance_strength=guidance_strength)
         s_args = dict(diffusion_args, guidance_method=None, guidance_strength=None)
@@ -336,9 +419,10 @@ class ProgressiveDistiller(_Distiller):
         lr_schedule: str = "constant",
         student_prediction_type: str | None = None,
         var_weight: float | None = None,
+        cuda_graph: bool | None = None,
     ):
         self._init_state(model, teacher_params, dataloader, iterations, lr, weight_decay,
-                         ema_rate, seed, grad_clip, lr_schedule, var_weight)
+                         ema_rate, seed, grad_clip, lr_schedule, var_weight, cuda_graph)
         args = dict(diffusion_args, guidance_method=None, guidance_strength=None,
                     use_ddim=True, ddim_eta=0.0)
         self.teacher = Diffusion(model=self.teacher_model, **args)

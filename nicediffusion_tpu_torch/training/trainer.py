@@ -26,9 +26,20 @@ deliberate divergences from the original reference trainer:
 Every draw (t, label drop, noise, dropout masks, sampling) comes from one
 ``torch.Generator`` on the trainer's device, seeded from ``seed``;
 ``train_step`` also takes injected draws, so a test can feed this trainer
-and the JAX one the same numbers. Checkpoints are ``checkpoint_dir/step_{N}/
-state.pt`` written with ``torch.save``: model, EMA, optimizer state, pending
-accumulated gradients and step. Reading the JAX trainer's orbax directories
+and the JAX one the same numbers.
+
+CUDA graphs (``cuda_graph=None``, the default; the counterpart of the JAX
+trainer's one jitted step): on a CUDA device ``train_step`` replays one
+captured graph a step (training/graphs.py; a key's first step eager, then
+captured), its draws made before the replay in the eager order, with the
+eager step's bits. AdamW is capturable on the card either way.
+``cuda_graph=False`` keeps the eager step; ``True`` raises on the CPU, on
+the data- and tensor-parallel trainers (their collectives) and while int8
+calibration records, where None runs eagerly.
+
+Checkpoints are ``checkpoint_dir/step_{N}/state.pt`` written with
+``torch.save``: model, EMA, optimizer state, pending accumulated gradients
+and step. Reading the JAX trainer's orbax directories
 is not ported (orbax is built on jax): the JAX package's scripts/export.py
 turns one into a ``.pt``, and utils/convert.py::train_state_to_torch carries
 its optimizer state across.
@@ -99,6 +110,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..diffusion.graphs import int8_recording, use_graphs
 from ..diffusion.process import Diffusion
 from ..models.unet import shard_module_
 from ..parallel.mesh import (
@@ -110,6 +122,7 @@ from ..parallel.mesh import (
 )
 from ..parallel.sharding import gather_tensor, shard_tensor
 from ..utils.device import resolve_device
+from .graphs import TrainGraphs, hyperparameters, make_adamw, pointers, to_device
 
 __all__ = ["Trainer"]
 
@@ -143,6 +156,7 @@ class Trainer:
         device: torch.device | str | None = None,
         distributed: bool = False,
         mesh=None,
+        cuda_graph: bool | None = None,
     ):
         if device is None:
             device = next(model.parameters()).device
@@ -209,11 +223,16 @@ class Trainer:
             and label_drop_prob > 0
         )
 
-        self.optimizer = torch.optim.AdamW(
-            self._params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
-        )
-        # mean of the micro-batch gradients since the last optimizer step
+        # capturable on the card, so the eager step and its graph take the same math
+        self.optimizer = make_adamw(self._params, lr, weight_decay)
+        # the accumulators, one per parameter (static: outside the graphs'
+        # pool), and the pending round's mean of the micro-batch gradients
+        # since the last optimizer step (them, a restored list, or None)
+        self._accum_buffers: list[torch.Tensor] | None = None
         self._grad_accum: list[torch.Tensor] | None = None
+        self.cuda_graph = cuda_graph
+        self._graphs = TrainGraphs()
+        self._use_graphs()  # cuda_graph=True raises here where it cannot be had
         # data coordinate 0 keeps the seed; the others draw their own t,
         # drops, noise and dropout masks (model peers draw the same)
         if self.data_rank:
@@ -244,29 +263,77 @@ class Trainer:
         ``drop`` (B,) bool may be injected; else they are drawn from the
         trainer's generator. Data-parallel, ``batch``, ``labels`` and the
         injected draws are this data coordinate's rows. Returns ``{"loss",
-        "grad_norm"}`` (of the global batch) as scalars on the device."""
-        x0 = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+        "grad_norm"}`` (of the global batch) as scalars on the device, each
+        the caller's own.
+
+        On a CUDA device (``cuda_graph=None``) the step replays one captured
+        graph (training/graphs.py): its draws are made here, in the eager
+        order, and the graph does the rest, with the eager step's bits.
+        ``cuda_graph=False`` keeps the eager step."""
+        x0, t, y, noise = self._draws(batch, labels, t, noise, drop)
+        k = self.grad_accumulation
+        mini = self.step % k
+        if k > 1:
+            self._start_accumulation()
+        self.model.train()
+        if self._use_graphs():
+            out = self._graphed_step(x0, t, y, noise, mini)
+        else:
+            out = self._update({"x0": x0, "t": t, "y": y, "noise": noise}, self.generator,
+                               mini)
+        if k > 1 and mini == k - 1:
+            self._grad_accum = None  # applied
+        self.step += 1
+        return out
+
+    def _start_accumulation(self) -> None:
+        """Point ``_grad_accum`` at the accumulators, made once a parameter
+        layout: zeroed when a round starts, a restored round copied in.
+        Eager and graphed steps alike, so a graph and the eager step read and
+        write the same buffers."""
+        acc = self._accum_buffers
+        if acc is None or any(a.shape != p.shape or a.device != p.device
+                              for a, p in zip(acc, self._params)):
+            acc = self._accum_buffers = [torch.zeros_like(p) for p in self._params]
+        if self._grad_accum is None:  # a new round
+            torch._foreach_zero_(acc)
+        elif self._grad_accum is not acc:  # restored: carried into the buffers
+            torch._foreach_copy_(acc, self._grad_accum)
+        self._grad_accum = acc
+
+    def _draws(self, batch, labels, t, noise, drop):
+        """The step's inputs on the device, every draw not injected made from
+        the generator in the eager order: t, the CFG label drop, the loss
+        noise (then, in the forward, the dropout masks)."""
+        x0 = to_device(batch, torch.float32, self.device)
         b = x0.shape[0]
         diffusion = self.train_diffusion
         if t is None:
             # fixed t-range: sample over the *training* chain
             t = torch.randint(0, diffusion.rescaled_num_steps, (b,),
                               generator=self.generator, device=self.device)
-        t = torch.as_tensor(t, dtype=torch.long, device=self.device)
+        t = to_device(t, torch.long, self.device)
         y = None
         if self.model.conditional:
-            y = torch.as_tensor(labels, dtype=torch.long, device=self.device)
+            y = to_device(labels, torch.long, self.device)
             if self._use_cfg_drop:
                 if drop is None:
                     drop = torch.rand((b,), generator=self.generator,
                                       device=self.device) < self.label_drop_prob
-                drop = torch.as_tensor(drop, dtype=torch.bool, device=self.device)
+                drop = to_device(drop, torch.bool, self.device)
                 y = torch.where(drop, torch.zeros_like(y), y)
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+        if noise is None:
+            noise = diffusion._noise(x0, self.generator)
+        noise = to_device(noise, torch.float32, self.device)
+        return x0, t, y, noise
 
-        self.model.train()
-        loss = diffusion.loss(x0, t, generator=self.generator, y=y, noise=noise).mean()
+    def _update(self, inputs: dict, dropout, mini: int) -> dict:
+        """The step past its draws: loss, gradients, their mean over the
+        group, the accumulation, AdamW and the EMA; ``dropout`` (the
+        generator, or a graph's ``DropoutDraws``) feeds the masks. What a
+        graph captures; eager, it is the step itself."""
+        loss = self.train_diffusion.loss(inputs["x0"], inputs["t"], generator=dropout,
+                                         y=inputs["y"], noise=inputs["noise"]).mean()
         grads = torch.autograd.grad(loss, self._params)
         grads, loss = self._reduce(grads, loss.detach())
         grad_norm = self._grad_norm(grads)
@@ -275,24 +342,64 @@ class Trainer:
         if k > 1:
             # running mean over the micro-batches, in optax.MultiSteps' form:
             # acc += (g - acc) / (micro-batches so far)
-            mini = self.step % k
-            if self._grad_accum is None:
-                self._grad_accum = [torch.zeros_like(g) for g in grads]
-            torch._foreach_add_(self._grad_accum, torch._foreach_sub(grads, self._grad_accum),
-                                alpha=1.0 / (mini + 1))
-            grads = self._grad_accum if mini == k - 1 else None
+            acc = self._grad_accum
+            torch._foreach_add_(acc, torch._foreach_sub(grads, acc), alpha=1.0 / (mini + 1))
+            grads = acc if mini == k - 1 else None
         if grads is not None:
             for p, g in zip(self._params, grads):
                 p.grad = g
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
-            self._grad_accum = None
 
         with torch.no_grad():
             torch._foreach_mul_(self._ema_params, self.ema_rate)
             torch._foreach_add_(self._ema_params, self._params, alpha=1.0 - self.ema_rate)
-        self.step += 1
         return {"loss": loss, "grad_norm": grad_norm}
+
+    def _use_graphs(self) -> bool:
+        """``cuda_graph``'s rule (diffusion/graphs.py ``use_graphs``) for
+        this step."""
+        return use_graphs(self.cuda_graph, self.device, self._graph_refusal())
+
+    def _graph_refusal(self) -> str | None:
+        """Why this trainer's step cannot be captured, or None (ROADMAP.md
+        queue A item 2: the collectives need NCCL capture on a host with
+        several GPUs)."""
+        if self.tp is not None:
+            return "a tensor-parallel trainer runs collectives over its model group"
+        if self.distributed:
+            return "a data-parallel trainer all-reduces its gradients over the process group"
+        if int8_recording(self.model):
+            return "int8 calibration is recording inside the forward"
+        return None
+
+    def _graph_written(self) -> list:
+        """What a graphed step writes in place outside the pool: parameters,
+        EMA, AdamW's state and the accumulators."""
+        state = [v for s in self.optimizer.state.values() for v in s.values()
+                 if isinstance(v, torch.Tensor)]
+        return [*self._params, *self._ema_params, *state, *(self._accum_buffers or ())]
+
+    def _graph_signature(self) -> tuple:
+        """What the captures baked in: the pointers of what they read and
+        write outside the pool, and the settings."""
+        d = self.train_diffusion
+        return (pointers(self._graph_written()), pointers(self.model.buffers()),
+                hyperparameters(self.optimizer), self.ema_rate, self.grad_accumulation,
+                id(self.model), id(d), d.loss_type, d.prediction_type, d.sampling_var_type,
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    def _graphed_step(self, x0, t, y, noise, mini: int) -> dict:
+        """``_update`` through one captured graph a key (the input shapes
+        and, with accumulation, the micro-step's position)."""
+        return self._graphs.run(
+            self._graph_signature, self._graph_written(),
+            {"x0": x0, "t": t, "y": y, "noise": noise}, self.generator, mini,
+            lambda inputs, draws: self._update(inputs, draws, mini))
+
+    def reset_graphs(self) -> None:
+        """Free the captured step graphs, their pool and static buffers."""
+        self._graphs.reset()
 
     def _reduce(self, grads, loss):
         """This micro-batch's gradients and loss averaged over the data
@@ -527,8 +634,8 @@ class Trainer:
                 if k in s and s[k].shape != shape:
                     raise ValueError(f"AdamW's {k} of {self._names[int(i)]} has shape "
                                      f"{tuple(s[k].shape)}, the parameter {tuple(shape)}")
-            # AdamW reads its step count on the host at every update; a count
-            # on the card would make each parameter's update wait for it
+            # on the host as a plain AdamW reads it; a capturable one (on the
+            # card) moves it to the device as f32 in load_state_dict
             s["step"] = s["step"].cpu()
         self.optimizer.load_state_dict({
             "state": state,
@@ -536,3 +643,6 @@ class Trainer:
         })
         self._grad_accum = None
         self.step = int(step)
+        # AdamW's state tensors are new: a graph captured before would write
+        # freed memory
+        self._graphs.reset()

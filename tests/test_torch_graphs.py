@@ -16,8 +16,10 @@ can be captured:
   ``freeze_int8`` and a replaced parameter, and a moved signature drops the
   graphs;
 - (e) a capture's tallies are taken out and each replay adds them again;
-- (f) ``cuda_graph=True`` raises on the CPU, under classifier guidance, on a
-  model paired by ``shard_module_`` and while int8 calibration records.
+- (f) ``cuda_graph=True`` raises on the CPU, on a model paired by
+  ``shard_module_`` and while int8 calibration records; a classifier-guided
+  chain (the classifier's gradient inside the step) is graphed and equals
+  the eager loop bit for bit.
 
 The card holds real graphs against the eager loop bit for bit in
 tests/test_torch_kernels.py (``-k graph``) and chip_smoke.py's ``[graph]``.
@@ -375,6 +377,9 @@ def _classifier(xx, t):
 
 @pytest.mark.parametrize("case", ["cpu", "classifier", "tensor_parallel", "calibrating"])
 def test_cuda_graph_true_raises_where_the_chain_stays_eager(case):
+    """The refusals, and since the training steps' graphs classifier
+    guidance is no longer one: its chain raises only off the card, and its
+    graphed path is the eager chain bit for bit."""
     model = randomize(DiffusionModel(**CFG, quantized=case == "calibrating", device="cpu"), 5)
     kw = dict(DIFF)
     if case == "classifier":
@@ -384,8 +389,8 @@ def test_cuda_graph_true_raises_where_the_chain_stays_eager(case):
     d = Diffusion(model=model, **kw)
     denoise = functools.partial(d.denoise, torch.Generator().manual_seed(0),
                                 y=torch.tensor([1, 2]), batch_size=2, steps_to_do=1)
-    error = ValueError if case == "cpu" else NotImplementedError
-    match = "CUDA device" if case == "cpu" else "next slice of ROADMAP.md queue A"
+    error = ValueError if case in ("cpu", "classifier") else NotImplementedError
+    match = "CUDA device" if case in ("cpu", "classifier") else "ROADMAP.md queue A item 2"
     with pytest.raises(error, match=match):
         if case == "calibrating":
             with model.calibrating():
@@ -396,3 +401,37 @@ def test_cuda_graph_true_raises_where_the_chain_stays_eager(case):
         assert d._use_graphs(None) is False  # the default: the eager loop
         assert torch.isfinite(denoise()).all()
     assert d._use_graphs(False) is False
+    if case == "classifier":
+        e = Diffusion(model=model, **kw)
+        [(got, g_state)], [(want, e_state)] = chains(graphed(d), e, [3], y=torch.tensor([1, 2]),
+                                                     batch_size=2)
+        assert torch.equal(got, want) and torch.equal(g_state, e_state)
+
+
+@pytest.mark.parametrize("sampler", list(SAMPLERS))
+def test_graphed_classifier_guided_chain_equals_the_eager_chain(sampler):
+    """Classifier guidance on the graphed path: the classifier's gradient
+    (an EncoderUNet's forward and backward, K1's and K3's autograd
+    Functions) inside each step's body, two chains on one cache against the
+    eager loop bit for bit, the generators too; each step one key."""
+    from nicediffusion_tpu_torch import EncoderUNet
+
+    torch.manual_seed(4)
+    cls = EncoderUNet(resolution=8, in_channels=2, model_channels=32, out_channels=5,
+                      num_res_blocks=1, attention_resolutions=(4,), channel_mult=(1, 2),
+                      num_head_channels=16, resblock_updown=True, use_adaptive_gn=True,
+                      device="cpu")
+    randomize(cls, 6)
+    kw = dict(DIFF, guidance_method="classifier", guidance_strength=2.0, classifier=cls,
+              **SAMPLERS[sampler])
+    model = randomize(DiffusionModel(**CFG, device="cpu"), 5)
+    d, e = graphed(Diffusion(model=model, **kw)), Diffusion(model=model, **kw)
+    y = torch.tensor([1, 2, 4])
+    got, want = chains(d, e, [1, 2], y=y, batch_size=3)
+    for (a, ga), (b, gb) in zip(got, want):
+        assert torch.equal(a, b) and torch.equal(ga, gb)
+    assert len(d._graphs.graphs) == (2 if sampler == "dpm++" else 1)
+    # the guidance moved the chain
+    plain = Diffusion(model=model, **dict(kw, guidance_method=None, classifier=None))
+    g = torch.Generator().manual_seed(1)
+    assert not torch.equal(plain.denoise(g, y=y, batch_size=3), got[0][0])

@@ -11,7 +11,10 @@ and backward, ``-k int8`` the int8 conv's, ``-k bf16_conv`` the bf16 conv's,
 K1, K2 and K5 at head dims above 256 (the chunked build: the P-resident
 route and the walk), ``-k resident`` the resident route's splits,
 ``-k winograd`` the Winograd conv's (bf16 on the tensor cores), ``-k graph``
-the chain's CUDA graphs (diffusion/graphs.py) against its eager loop.
+the chain's CUDA graphs (diffusion/graphs.py) against its eager loop, the
+classifier-guided chain's among them, and the training steps' graphs
+(training/graphs.py: the Trainer's and both distillers') against the eager
+step.
 
 Every test here needs an NVIDIA card and is marked ``cuda``; without one it
 skips. On a machine with a card run:
@@ -23,6 +26,8 @@ This file imports no JAX, so it runs where only torch is installed;
 """
 
 import functools
+
+import numpy as np
 
 import pytest
 import torch
@@ -1712,3 +1717,230 @@ def test_graph_chain_equals_the_eager_chain(cuda, case):
     assert graphs.tallies_since(graphs.TALLIES, before) == eager_counts
     assert torch.equal(graphed2[0], eager2[0])
     assert any(n for n in eager_counts if isinstance(n, int))
+
+
+# ----------------------------------------------------------------------
+# the training steps' CUDA graphs (training/graphs.py) against the eager step
+# ----------------------------------------------------------------------
+
+GRAPH_TRAIN_DIFF = dict(original_num_steps=40, rescaled_num_steps=40, beta_schedule="cosine",
+                        sampling_var_type="learned_interpolation", loss_type="hybrid",
+                        guidance_method="classifier_free", guidance_strength=0.8)
+
+
+def _graph_model(cuda, seed, dtype=torch.bfloat16, **kw):
+    """A narrow UNet with every weight off zero, the same for a given seed."""
+    torch.manual_seed(seed)
+    model = DiffusionModel(**GRAPH_CFG, dtype=dtype, device=cuda, **kw)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    return model
+
+
+def _train_state(tr):
+    """Everything a step updates: parameters, EMA, AdamW's state, the
+    accumulated gradients, the generator."""
+    out = [p.detach().clone() for p in tr.model.parameters()]
+    out += [p.clone() for p in tr.ema_model.parameters()]
+    out += [v.clone() for s in tr.optimizer.state.values() for v in s.values()]
+    out += [a.clone() for a in (tr._grad_accum or ())]
+    return out + [tr.generator.get_state()]
+
+
+@pytest.mark.parametrize("case", ["k1", "k2", "f32-k1", "winograd-k1"])
+def test_graph_train_step_equals_the_eager_step(cuda, monkeypatch, case):
+    """``Trainer.train_step`` graphed (the default on the card) against
+    ``cuda_graph=False``, from the same weights and seed: bf16 (or f32),
+    dropout 0.05 with remat, HYBRID loss under CFG (label drop 0.3), k = 1
+    over 5 steps or k = 2 over 6 (the keys' eager first steps, their
+    captures and replays). Bit for bit: every step's loss and gradient norm (each
+    returned tensor kept), then the parameters, EMA, AdamW's state, the
+    accumulators and the generator; the replayed steps' launches equal the
+    eager steps'. A ``winograd=True`` model samples the same bits from both
+    trainers before and after replayed steps (its U made anew from the
+    bumped versions). Tolerance: none."""
+    from nicediffusion_tpu_torch import Trainer
+    from nicediffusion_tpu_torch.diffusion import graphs
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+
+    k = 2 if case.endswith("k2") else 1
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    # in f32 cuDNN's default weight-gradient algorithms do not repeat their
+    # bits from run to run (eager against eager differs): graph and eager are
+    # held to each other on its deterministic algorithms there
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", dtype == torch.float32)
+
+    def trainer(cuda_graph):
+        model = _graph_model(cuda, 3, dtype, dropout=0.05, use_remat=True,
+                             winograd=case.startswith("winograd"))
+        loader = synthetic_batches(4, 16, 3, 5, seed=1)
+        return Trainer(model, GRAPH_TRAIN_DIFF, loader, iterations=5, batch_size=4, lr=1e-3,
+                       weight_decay=1e-3, ema_rate=0.9, grad_accumulation=k,
+                       label_drop_prob=0.3, seed=7, device=cuda, cuda_graph=cuda_graph,
+                       checkpoint_dir="unused")
+
+    def steps(tr, n):
+        out = [tr.train_step(*next(tr.loader)) for _ in range(n)]
+        torch.cuda.synchronize()
+        return out
+
+    graphed, eager = trainer(None), trainer(False)
+    runs = {}
+    for name, tr in (("graph", graphed), ("eager", eager)):
+        first = steps(tr, 2 * k)
+        samples = [tr.sample(2)] if case.startswith("winograd") else []
+        before = graphs.read_tallies(graphs.TALLIES)
+        rest = steps(tr, 3 if k == 1 else 2)
+        counts = graphs.tallies_since(graphs.TALLIES, before)
+        if samples:
+            samples.append(tr.sample(2))
+        runs[name] = (first + rest, counts, samples, _train_state(tr))
+    assert graphed._graphs.graphs and not eager._graphs.graphs
+    (g_metrics, g_counts, g_samples, g_state), (e_metrics, e_counts, e_samples, e_state) = (
+        runs["graph"], runs["eager"])
+    for a, b in zip(g_metrics, e_metrics):
+        assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["grad_norm"], b["grad_norm"])
+    assert len({m["loss"].item() for m in g_metrics}) == len(g_metrics)  # each step's own
+    assert all(torch.equal(a, b) for a, b in zip(g_state, e_state))
+    assert g_counts == e_counts and any(n for n in e_counts if isinstance(n, int))
+    for a, b in zip(g_samples, e_samples):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("rate", ["host", "tensor"])
+def test_graph_capturable_adamw_matches_the_plain_adamw(cuda, rate):
+    """``make_adamw`` on the card (capturable: the step counts on the card,
+    the bias corrections and the decay computed there in f32), which the
+    graphed and the eager steps both take, against ``torch.optim.AdamW``
+    with ``capturable=False`` (the optimizer the CPU tests hold to optax):
+    5 updates from the same f32 parameters (0.05 N(0, 1)) and gradients
+    (four shapes, four scales), weight decay 0.1, the rate moving each
+    update, written as a host float or filled into the device tensor as the
+    distillers' schedule fills it. Tolerance: the moments to 1e-6 of their
+    largest element; each parameter's change from its start to 5e-5 of its
+    largest change (f32's rounding of 1 - 0.999 ** step moves the update by
+    about 1e-5 of itself; a decay left out moves it by 5e-3)."""
+    from nicediffusion_tpu_torch.training.graphs import make_adamw
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shapes = [(64, 3, 3, 32), (256,), (512, 128), (7,)]
+    start = [0.05 * torch.randn(s, generator=g, device=cuda) for s in shapes]
+    grads = [[torch.randn(s, generator=g, device=cuda) * 10.0 ** -i
+              for i, s in enumerate(shapes)] for _ in range(5)]
+    rates = [1e-2 * (0.5 + 0.25 * i) for i in range(5)]
+    ours = [p.clone().requires_grad_() for p in start]
+    plain = [p.clone().requires_grad_() for p in start]
+    opt = make_adamw(ours, rates[0], 0.1, tensor_lr=rate == "tensor")
+    ref = torch.optim.AdamW(plain, lr=rates[0], betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1,
+                            capturable=False)
+    assert opt.defaults["capturable"]
+    for gs, r in zip(grads, rates):
+        if rate == "tensor":
+            opt.param_groups[0]["lr"].fill_(r)
+        else:
+            opt.param_groups[0]["lr"] = r
+        ref.param_groups[0]["lr"] = r
+        for p, q, grad in zip(ours, plain, gs):
+            p.grad, q.grad = grad.clone(), grad.clone()
+        opt.step()
+        ref.step()
+    torch.cuda.synchronize()
+    for p, q, s in zip(ours, plain, start):
+        assert opt.state[p]["step"].device.type == "cuda" and float(opt.state[p]["step"]) == 5
+        for k in ("exp_avg", "exp_avg_sq"):
+            a, b = opt.state[p][k], ref.state[q][k]
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+        ours_d, plain_d = (p - s).detach(), (q - s).detach()
+        assert (ours_d - plain_d).abs().max() <= 5e-5 * plain_d.abs().max()
+
+
+@pytest.mark.parametrize("case", ["guided", "progressive"])
+def test_graph_distill_step_equals_the_eager_step(cuda, case):
+    """Both distillers' ``train_step`` graphed against ``cuda_graph=False``
+    over 4 steps, bf16, the warmup-cosine rate (a device tensor filled each
+    step), the clip, the variance term: every step's metrics, the student,
+    EMA, AdamW's state and the generator bit for bit; the replays' launches
+    the eager steps'. Tolerance: none."""
+    from nicediffusion_tpu_torch.diffusion import graphs
+    from nicediffusion_tpu_torch.training import distill
+    from nicediffusion_tpu_torch.training.data import synthetic_batches
+
+    dargs = dict(GRAPH_TRAIN_DIFF, rescaled_num_steps=20)
+    teacher = _graph_model(cuda, 4).state_dict()
+
+    def distiller(cuda_graph):
+        model = _graph_model(cuda, 5)
+        loader = synthetic_batches(4, 16, 3, 5, seed=2)
+        kw = dict(model=model, teacher_params=teacher, diffusion_args=dargs,
+                  dataloader=loader, iterations=8, lr=1e-3, ema_rate=0.9, seed=9,
+                  lr_schedule="warmup_cosine", var_weight=1.0, cuda_graph=cuda_graph)
+        if case == "guided":
+            return distill.GuidedDistiller(guidance_strength=0.8, **kw)
+        return distill.ProgressiveDistiller(**kw)
+
+    runs = {}
+    for name, cuda_graph in (("graph", None), ("eager", False)):
+        d = distiller(cuda_graph)
+        metrics = [d.train_step(*next(d.loader)) for _ in range(2)]
+        torch.cuda.synchronize()
+        before = graphs.read_tallies(graphs.TALLIES)
+        metrics += [d.train_step(*next(d.loader)) for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = graphs.tallies_since(graphs.TALLIES, before)
+        state = [p.detach().clone() for p in d.model.parameters()]
+        state += [p.clone() for p in d.ema_model.parameters()]
+        state += [v.clone() for s in d.optimizer.adamw.state.values() for v in s.values()]
+        runs[name] = (metrics, counts, state + [d.generator.get_state()], d)
+    (g_metrics, g_counts, g_state, g), (e_metrics, e_counts, e_state, _) = (
+        runs["graph"], runs["eager"])
+    assert g._graphs.graphs
+    for a, b in zip(g_metrics, e_metrics):
+        assert all(torch.equal(a[n], b[n]) for n in ("loss", "loss_eps", "loss_var", "grad_norm"))
+    assert all(torch.equal(a, b) for a, b in zip(g_state, e_state))
+    assert g_counts == e_counts and any(n for n in e_counts if isinstance(n, int))
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "ddpm"])
+def test_graph_classifier_guided_chain_equals_the_eager_chain(cuda, sampler):
+    """A classifier-guided chain (a narrow bf16 UNet and noisy classifier):
+    graphed, the classifier's gradient inside each step's graph, against
+    ``cuda_graph=False`` bit for bit, the generator too; a second graphed
+    chain replays every step with the eager chain's launches (K2 and K3's
+    backward among them). Tolerance: none."""
+    from nicediffusion_tpu_torch import Diffusion, EncoderUNet
+    from nicediffusion_tpu_torch.diffusion import graphs
+
+    model = _graph_model(cuda, 6).eval()
+    torch.manual_seed(8)
+    cls = EncoderUNet(resolution=16, in_channels=3, model_channels=32, out_channels=5,
+                      num_res_blocks=1, attention_resolutions=(8,), channel_mult=(1, 2),
+                      num_head_channels=32, resblock_updown=True, use_adaptive_gn=True,
+                      dtype=torch.bfloat16, device=cuda)
+    with torch.no_grad():
+        for p in cls.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    dkw = dict(GRAPH_DIFF, rescaled_num_steps=6, guidance_method="classifier",
+               guidance_strength=1.0, classifier=cls)
+    if sampler == "ddim":
+        dkw.update(use_ddim=True, ddim_eta=0.5)
+    d = Diffusion(model=model, **dkw)
+    y = torch.tensor([1, 2, 3, 4], device=cuda)
+
+    def chain(seed, cuda_graph):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        out = d.denoise(g, y=y, batch_size=4, cuda_graph=cuda_graph)
+        torch.cuda.synchronize()
+        return out, g.get_state()
+
+    graphed, eager = chain(1, None), chain(1, False)
+    assert torch.isfinite(eager[0]).all() and d._graphs.graphs
+    assert torch.equal(graphed[0], eager[0]) and torch.equal(graphed[1], eager[1])
+    before = graphs.read_tallies(graphs.TALLIES)
+    eager2 = chain(2, False)
+    eager_counts = graphs.tallies_since(graphs.TALLIES, before)
+    before = graphs.read_tallies(graphs.TALLIES)
+    graphed2 = chain(2, None)
+    assert graphs.tallies_since(graphs.TALLIES, before) == eager_counts
+    assert torch.equal(graphed2[0], eager2[0])
+    assert eager_counts[1] > 0  # K2 launched in the classifier's backward
